@@ -1,0 +1,16 @@
+"""qwen3-1.7b [dense] — qk_norm, GQA. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    num_layers=28,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=6144,
+    vocab_size=151936,
+    head_dim=128,
+    qk_norm=True,
+    notes="qk_norm (RMSNorm on per-head q/k), GQA kv=8",
+)

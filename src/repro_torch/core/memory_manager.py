@@ -1,0 +1,403 @@
+"""MSched memory manager: central coordinator + per-process helpers (Fig. 4).
+
+The helper lives in each task's process: it intercepts launched commands,
+annotates them with predicted pages (online predictor) and profiled latency,
+and maintains the task-local future command queue. The coordinator, invoked by
+the scheduler's context switcher, pulls each helper's future, reconstructs the
+global access sequence with the timeline (the Rosetta Stone), madvises in
+reverse timeline order to realize Belady-OPT in the driver's eviction list,
+and finally migrates the next task's working set (pipelined, first-access
+ordered) — completing the *extended context switch*.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from bisect import bisect_left
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
+
+from repro_torch.core.commands import Command
+from repro_torch.core.hardware import Platform
+from repro_torch.core.hbm import HBMPool
+from repro_torch.core.migration import (
+    MigrationResult,
+    RunMigration,
+    plan_population,
+    plan_population_runs,
+)
+from repro_torch.core.opt import OptPlan, PlannedAccess, build_plan
+from repro_torch.core.pages import AddressSpace, merge_runs, run_page_count
+from repro_torch.core.planner import compute_cuts, first_access_runs, run_groups
+from repro_torch.core.predictor import Predictor
+from repro_torch.core.timeline import TaskTimeline
+
+# control-plane calibration (paper Fig. 11: <1 ms for tens of tasks)
+MADVISE_CALL_US = 30.0  # per-task ioctl round trip
+MADVISE_PER_PAGE_US = 0.02
+
+
+@dataclasses.dataclass
+class SwitchReport:
+    madvise_us: float
+    # RunMigration on the incremental path, MigrationResult on legacy; both
+    # expose total_us / populated_runs / ready_view(base)
+    migration: "RunMigration | MigrationResult"
+    populated_pages: int
+    evicted_pages: int
+    wall_clock_coordinator_s: float  # real measured Python time (Fig. 11)
+    # the template-predicted cut for the quantum (the populate plan before
+    # residency filtering) — read only by the telemetry prediction auditor;
+    # empty on the legacy path, which plans from page lists, not runs
+    predicted_runs: "Tuple[PageRun, ...] | List[PageRun]" = ()
+
+
+class TaskHelper:
+    """Per-process predictor + local future command queue.
+
+    The ``PlannedAccess`` future is maintained *incrementally*: ``launch()``
+    appends one entry (with the annotate-time page-run cache attached) and
+    ``pop()`` advances the head, so a context switch never rebuilds the plan
+    from the command queue. A cumulative-latency prefix array rides along so
+    the planner can bisect a timeslice's command range in O(log queue).
+    ``future_rebuild()`` preserves the original from-scratch derivation as the
+    equivalence reference (and the ``--legacy`` benchmark path).
+    """
+
+    def __init__(
+        self,
+        task_id: int,
+        space: AddressSpace,
+        predictor: Predictor,
+        latency_fn=None,
+    ):
+        self.task_id = task_id
+        self.space = space
+        self.predictor = predictor
+        self.latency_fn = latency_fn  # kernel name -> profiled latency (us)
+        self.queue: Deque[Command] = deque()
+        # incremental future state; _future/_prefix share the head offset.
+        # _prefix[k] is the cumulative latency of the first k entries of
+        # _future (len == len(_future) + 1); compaction slices both without
+        # renormalizing, so prefix *differences* are stable across pops.
+        self._future: List[PlannedAccess] = []
+        self._prefix: List[float] = [0.0]
+        self._head = 0
+        self._launched = 0
+
+    def launch(self, cmd: Command) -> None:
+        """Intercept an async command launch: predict + enqueue."""
+        cmd.task_id = self.task_id
+        self.predictor.annotate(cmd, self.space)
+        lat = cmd.latency_us
+        if self.latency_fn is not None:
+            lat = self.latency_fn(cmd.name) or lat
+        self._future.append(
+            PlannedAccess(
+                self.task_id, self._launched, None, lat,
+                runs=cmd.predicted_page_runs or (),
+            )
+        )
+        self._prefix.append(self._prefix[-1] + lat)
+        self._launched += 1
+        self.queue.append(cmd)
+
+    def future(self, max_commands: Optional[int] = None) -> List[PlannedAccess]:
+        """Current future as a list (no page decoding — entries are live)."""
+        end = len(self._future)
+        if max_commands is not None:
+            end = min(end, self._head + max_commands)
+        return self._future[self._head : end]
+
+    def future_rebuild(
+        self, max_commands: Optional[int] = None
+    ) -> List[PlannedAccess]:
+        """From-scratch future derivation (the pre-incremental hot path):
+        re-decodes every queued command's predicted extents per call."""
+        out: List[PlannedAccess] = []
+        base = self._launched - len(self.queue)
+        for i, cmd in enumerate(self.queue):
+            if max_commands is not None and i >= max_commands:
+                break
+            pages = _page_order(self.space, cmd.predicted_extents or [])
+            lat = cmd.latency_us
+            if self.latency_fn is not None:
+                lat = self.latency_fn(cmd.name) or lat
+            out.append(PlannedAccess(self.task_id, base + i, pages, lat))
+        return out
+
+    def pop(self) -> Command:
+        cmd = self.queue.popleft()  # raises cleanly on empty, state untouched
+        self._head += 1
+        if self._head >= 1024 and self._head * 2 >= len(self._future):
+            del self._future[: self._head]
+            del self._prefix[: self._head]
+            self._head = 0
+        return cmd
+
+    def __len__(self):
+        return len(self.queue)
+
+    # -- incremental planner hooks ------------------------------------------
+    def head_index(self) -> int:
+        return self._head
+
+    def future_slice(self, start: int, end: int) -> List[PlannedAccess]:
+        return self._future[start:end]
+
+    def consume_cut(self, start: int, budget_us: float) -> int:
+        """Index one past the last command a ``budget_us`` timeslice consumes
+        starting at ``start`` (build_plan's rule: consume while budget > 0)."""
+        target = self._prefix[start] + budget_us
+        return min(bisect_left(self._prefix, target, lo=start), len(self._future))
+
+
+def predicted_working_set_pages(
+    helper: TaskHelper, quantum_us: float
+) -> int:
+    """Pages the planner predicts the task touches in one scheduling quantum
+    (the same cut ``compute_cuts`` takes at a context switch). Shared by the
+    serving admission controller and the cluster placement bin-packer."""
+    head = helper.head_index()
+    end = helper.consume_cut(head, quantum_us)
+    runs = [
+        run
+        for acc in helper.future_slice(head, end)
+        for run in acc.page_runs()
+    ]
+    return run_page_count(merge_runs(runs))
+
+
+def _page_order(space: AddressSpace, extents) -> List[int]:
+    """Pages in first-access order (dedup, stable)."""
+    seen: Set[int] = set()
+    order: List[int] = []
+    for ext in extents:
+        for p in space.pages_of_extent(ext):
+            if p not in seen:
+                seen.add(p)
+                order.append(p)
+    return order
+
+
+class Coordinator:
+    """Centralized daemon enforcing scheduling-aligned OPT placement.
+
+    The default engine plans each switch incrementally from the helpers' live
+    futures (see ``repro_torch.core.planner``); ``legacy=True`` selects the original
+    rebuild-everything path, preserved for the sim-throughput benchmark and
+    equivalence tests.
+
+    Two optional *cluster hooks* extend the extended context switch beyond
+    one GPU (both default to ``None``, in which case every code path is
+    byte-identical to the single-GPU coordinator):
+
+      * ``peer_source`` — called with ``(next_task, populated_runs,
+        evicted_pages, now)`` after the pool has admitted the population set;
+        may return a :class:`~repro_torch.core.migration.TieredMigration` that
+        prices some populated runs from a peer GPU's HBM over NVLink instead
+        of host DRAM (the cluster's page-location directory decides which).
+      * ``cluster_view`` — called with ``now``; returns ``(next_use_us,
+        runs)`` pairs for *foreign* runs resident in this pool that the rest
+        of the fleet still needs (a migrated-away task's lingering working
+        set). The madvise walk merges them into the local timeline order by
+        next use, so the eviction list realizes Belady-OPT over the
+        **cluster-wide** timeline: the head holds the page the *fleet* needs
+        last, not merely the page this GPU needs last.
+    """
+
+    def __init__(
+        self,
+        platform: Platform,
+        pool: HBMPool,
+        pipelined: bool = True,
+        page_size: int = 0,
+        legacy: bool = False,
+    ):
+        self.platform = platform
+        self.pool = pool
+        self.pipelined = pipelined
+        self.page_size = page_size or platform.page_size
+        self.legacy = legacy
+        self.helpers: Dict[int, TaskHelper] = {}
+        # cluster hooks (see class docstring); None = single-GPU behavior
+        self.peer_source = None
+        self.cluster_view = None
+        # cumulative stats
+        self.total_madvise_us = 0.0
+        self.total_migration_us = 0.0
+        self.total_populated = 0
+        self.total_evicted = 0
+
+    def register(self, helper: TaskHelper) -> None:
+        self.helpers[helper.task_id] = helper
+
+    def unregister(self, task_id: int) -> None:
+        """Task exit: drop the helper (its future, prefix array, and queue)
+        so retired tasks stop contributing to switch plans."""
+        self.helpers.pop(task_id, None)
+
+    def on_context_switch(
+        self, next_task: int, timeline: TaskTimeline, now: float = 0.0
+    ) -> SwitchReport:
+        """Plan one extended context switch. ``now`` is the simulation clock
+        at the switch — only the cluster hooks consume it (peer-fetch
+        transfers share the link graph's contention bookkeeping, which is
+        keyed by absolute time); single-GPU callers may omit it."""
+        if self.legacy:
+            return self._on_context_switch_legacy(next_task, timeline)
+        wall0 = time.perf_counter()
+        cuts = compute_cuts(timeline, self.helpers)
+        first_runs = first_access_runs(self.helpers, cuts)
+
+        # fast path: no memory pressure — everything needed is resident and
+        # HBM is not full, so neither eviction reordering nor migration can
+        # change anything (this is what keeps MSched's overhead at 0.59%
+        # under 100% subscription, paper §7.1)
+        if self.pool.free_pages() > 0 and self.pool.all_resident_runs(first_runs):
+            return SwitchReport(
+                madvise_us=0.0,
+                migration=plan_population_runs(
+                    self.platform, [], 0, self.pipelined, self.page_size
+                ),
+                populated_pages=0,
+                evicted_pages=0,
+                wall_clock_coordinator_s=time.perf_counter() - wall0,
+                predicted_runs=first_runs,
+            )
+
+        # --- enforce OPT: walk the timeline in REVERSE, madvise to tail ----
+        groups = run_groups(self.helpers, cuts)
+        madvise_us = 0.0
+        for group in self._opt_order(timeline, groups, now):
+            if not group:
+                continue
+            moved = self.pool.madvise_runs(group)
+            madvise_us += MADVISE_CALL_US + MADVISE_PER_PAGE_US * moved
+        # --- migrate: populate next task's immediate working set -----------
+        # runs go straight through the driver: no page-list materialization
+        populated_runs, evicted_runs = self.pool.migrate_runs(first_runs)
+        evicted_pages = run_page_count(evicted_runs)
+        if self.peer_source is not None and populated_runs:
+            tiered = self.peer_source(
+                next_task, populated_runs, evicted_pages, now
+            )
+            if tiered is not None:
+                rep = self._report(
+                    wall0, madvise_us, tiered,
+                    run_page_count(populated_runs), evicted_pages,
+                )
+                rep.predicted_runs = first_runs
+                return rep
+        rep = self._finish_switch_runs(
+            wall0, madvise_us, populated_runs, evicted_pages
+        )
+        rep.predicted_runs = first_runs
+        return rep
+
+    def _opt_order(
+        self, timeline: TaskTimeline, groups, now: float
+    ):
+        """Madvise order realizing OPT over the *cluster-wide* next-use
+        timeline: local timeline groups at their cumulative start offsets,
+        foreign lingering runs (``cluster_view``) at the fleet's next-use
+        estimate, all madvised furthest-future first so the final list tail
+        holds what is needed soonest — anywhere in the fleet. Without a
+        cluster view this degenerates to ``reversed(groups)`` exactly (the
+        per-GPU Belady walk)."""
+        foreign = (
+            self.cluster_view(now) if self.cluster_view is not None else None
+        )
+        if not foreign:
+            return reversed(groups)
+        sched: List[Tuple[float, int, List]] = []
+        off = 0.0
+        for entry, group in zip(timeline, groups):
+            sched.append((off, 0, group))
+            off += entry.timeslice_us
+        for next_use_us, runs in foreign:
+            sched.append((max(0.0, next_use_us - now), 1, runs))
+        sched.sort(key=lambda x: (x[0], x[1]))
+        return [g for _, _, g in reversed(sched)]
+
+    def _on_context_switch_legacy(
+        self, next_task: int, timeline: TaskTimeline
+    ) -> SwitchReport:
+        """Pre-incremental engine: rebuild every helper's future and the full
+        set-based plan on every switch (O(queue depth x footprint))."""
+        wall0 = time.perf_counter()
+        futures = {tid: h.future_rebuild() for tid, h in self.helpers.items()}
+        plan = build_plan(timeline, futures)
+
+        if self.pool.free_pages() > 0 and all(
+            self.pool.resident(p) for p in plan.first_access_order
+        ):
+            return SwitchReport(
+                madvise_us=0.0,
+                migration=plan_population(
+                    self.platform, [], 0, self.pipelined, self.page_size
+                ),
+                populated_pages=0,
+                evicted_pages=0,
+                wall_clock_coordinator_s=time.perf_counter() - wall0,
+            )
+
+        madvise_us = 0.0
+        for group in reversed(plan.timeslice_page_groups):
+            if not group:
+                continue
+            moved = self.pool.madvise(sorted(group))
+            madvise_us += MADVISE_CALL_US + MADVISE_PER_PAGE_US * moved
+        populated, evicted = self.pool.migrate(plan.first_access_order)
+        return self._finish_switch(wall0, madvise_us, populated, evicted)
+
+    def _finish_switch(
+        self,
+        wall0: float,
+        madvise_us: float,
+        populated: List[int],
+        evicted: List[int],
+    ) -> SwitchReport:
+        migration = plan_population(
+            self.platform, populated, len(evicted), self.pipelined, self.page_size
+        )
+        return self._report(
+            wall0, madvise_us, migration, len(populated), len(evicted)
+        )
+
+    def _finish_switch_runs(
+        self,
+        wall0: float,
+        madvise_us: float,
+        populated_runs,
+        evicted_pages: int,
+    ) -> SwitchReport:
+        migration = plan_population_runs(
+            self.platform, populated_runs, evicted_pages, self.pipelined,
+            self.page_size,
+        )
+        return self._report(
+            wall0, madvise_us, migration, run_page_count(populated_runs),
+            evicted_pages,
+        )
+
+    def _report(
+        self,
+        wall0: float,
+        madvise_us: float,
+        migration,
+        populated_pages: int,
+        evicted_pages: int,
+    ) -> SwitchReport:
+        wall = time.perf_counter() - wall0
+        self.total_madvise_us += madvise_us
+        self.total_migration_us += migration.total_us
+        self.total_populated += populated_pages
+        self.total_evicted += evicted_pages
+        return SwitchReport(
+            madvise_us=madvise_us,
+            migration=migration,
+            populated_pages=populated_pages,
+            evicted_pages=evicted_pages,
+            wall_clock_coordinator_s=wall,
+        )
