@@ -34,17 +34,9 @@ from repro_torch.core.profiler import profile_programs
 from repro_torch.core.scheduler import RoundRobinPolicy, SchedTask
 from repro_torch.core.templates import analyze_traces
 from repro_torch.core.timeline import TaskTimeline
+from repro_torch.models.common import resolve_device
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import build_model
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises when it is CUDA and there is
-    no card, so nothing carries on on the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def flatten(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:

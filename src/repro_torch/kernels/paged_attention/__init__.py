@@ -1,0 +1,1 @@
+"""Paged-KV decode attention: CUDA kernel, wrapper and plain version."""

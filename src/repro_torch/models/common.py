@@ -14,6 +14,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it is CUDA and there is
+    no card, so nothing carries on on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     # int8 configs (paper llama.cpp workload) still compute in bf16; int8 is
     # the storage dtype handled by the quantized kernels / workload model.

@@ -23,3 +23,17 @@ def params_from_reference(tree):
     if isinstance(tree, dict):
         return {k: params_from_reference(v) for k, v in tree.items()}
     return to_tensor(tree)
+
+
+def cache_from_reference(cache):
+    """A reference KV cache (``{"k", "v", "index"}`` of numpy arrays) as the
+    port's: k/v tensors of the same shape and dtype, ``index`` a 0-d int32
+    tensor and ``host_index`` its value as an int. On the CPU; move the
+    tensors with ``.to`` where needed."""
+    index = int(np.asarray(cache["index"]))
+    return {
+        "k": to_tensor(cache["k"]),
+        "v": to_tensor(cache["v"]),
+        "index": torch.tensor(index, dtype=torch.int32),
+        "host_index": index,
+    }

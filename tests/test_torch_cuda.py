@@ -8,7 +8,9 @@ with an H100:
 Imports no JAX, so it runs where only PyTorch is installed. Tolerance: rtol = atol = 5e-2,
 the reference's kernel-test tolerance (tests/kernels/test_kernels.py): the
 kernels accumulate in f32 in another order than the plain versions and
-round to bf16 at other places.
+round to bf16 at other places. ``paged_attention`` is also held to a gate
+scaled to its output: over a thousand slots its outputs have an rms near
+0.05, so 5e-2 alone would pass a dropped page.
 """
 import numpy as np
 import pytest
@@ -17,10 +19,16 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.streammm import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.streammm.ref import stream_matmul_ref  # noqa: E402
 
 RTOL = ATOL = 5e-2
+# max |out - ref| <= PA_REL * rms(ref): about 10x the measured bf16 error at
+# the decode shapes (2.4e-4 against an rms of 0.05), while a page dropped or
+# read from a wrong slot moves outputs by a share of their size
+PA_REL = 5e-2
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 FA_CASES = [
     # (B, Sq, Skv, H, Hkv, D, causal, window): the reference's FA_CASES, then
@@ -33,6 +41,24 @@ FA_CASES = [
     (1, 300, 300, 24, 8, 128, True, 100),
     (1, 5, 77, 6, 2, 80, False, 0),
     (2, 70, 40, 4, 2, 64, True, 16),  # Sq > Skv: no tile skipping
+]
+
+PA_CASES = [
+    # (B, H, Hkv, D, page_tokens, max_pages, lengths, permuted table): the
+    # reference's PA_CASES with its lengths, its growing-length case, g = 3,
+    # a permuted table with a row of length 0, the decode shapes of qwen3-1.7b
+    # and llama3.2-3b (B = 4, Smax = 1088 in pages of 64), odd sizes, and a
+    # group wider than one block's 8 heads
+    (2, 4, 2, 32, 16, 4, (1, 8), False),
+    (3, 8, 1, 64, 32, 3, (1, 8, 15), False),
+    (1, 4, 4, 32, 16, 8, (1,), False),
+    (5, 4, 2, 32, 16, 4, (1, 16, 17, 32, 64), False),
+    (2, 6, 2, 32, 16, 4, (37, 9), False),
+    (3, 6, 2, 32, 8, 5, (37, 0, 40), True),
+    (4, 16, 8, 128, 64, 17, (1025, 1046, 1067, 1088), False),
+    (4, 24, 8, 128, 64, 17, (1025, 1046, 1067, 1088), True),
+    (2, 10, 2, 30, 5, 7, (33, 35), True),
+    (2, 20, 1, 80, 3, 9, (27, 14), False),
 ]
 
 
@@ -95,3 +121,71 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 2, 2, 256), device=cuda)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, q, q)  # head dim above 128
+
+
+def _pa_inputs(b, h, hkv, d, pt, mp, lengths, permuted, dt, dev):
+    n_pool = b * mp + 3
+    q = _randn((b, h, d), dt, dev, 5)
+    pool_k = _randn((n_pool, pt, hkv, d), dt, dev, 6)
+    pool_v = _randn((n_pool, pt, hkv, d), dt, dev, 7)
+    ids = np.random.default_rng(8).permutation(n_pool) if permuted else np.arange(n_pool)
+    table = torch.from_numpy(ids[: b * mp].reshape(b, mp).astype(np.int32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, pool_k, pool_v, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,d,pt,mp,lengths,permuted", PA_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_attention_kernel(cuda, b, h, hkv, d, pt, mp, lengths, permuted, dtype):
+    args = _pa_inputs(b, h, hkv, d, pt, mp, lengths, permuted, DTYPES[dtype], cuda)
+    before = pa_ops.paged_attention.launches
+    out = pa_ops.paged_attention(*args)
+    assert pa_ops.paged_attention.launches == before + 1
+    ref = paged_attention_ref(*args)
+    _close(out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= PA_REL * float(ref.float().pow(2).mean().sqrt()), err
+    assert torch.equal(out, pa_ops.paged_attention(*args))  # no atomics
+    for row, length in enumerate(lengths):
+        if length == 0:
+            assert not out[row].any()
+
+
+@pytest.mark.cuda
+def test_paged_attention_raises_on_what_the_kernel_does_not_take(cuda):
+    q, pool_k, pool_v, table, lens = _pa_inputs(2, 4, 2, 32, 16, 4, (5, 9), False, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention(q, pool_k, pool_v, table.cpu(), lens)  # mixed devices
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention(q.cpu(), pool_k, pool_v, table, lens)
+    with pytest.raises(TypeError):
+        pa_ops.paged_attention(q, pool_k, pool_v, table.long(), lens)  # int64 table
+    with pytest.raises(TypeError):
+        pa_ops.paged_attention(q, pool_k, pool_v, table, lens.long())
+    with pytest.raises(TypeError):
+        pa_ops.paged_attention(q.float(), pool_k, pool_v, table, lens)
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention(q, pool_k, pool_v, table[:, ::2], lens)  # not contiguous
+    wide = _pa_inputs(2, 4, 2, 256, 16, 4, (5, 9), False, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention(*wide)  # head dim above 128
+
+
+@pytest.mark.cuda
+def test_decode_past_the_cache_raises_on_the_card(cuda):
+    """At index == Smax decode raises IndexError on the host before it writes,
+    where the reference clamps into the last slot; the card stays usable."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    fns = build_model(get_config("qwen3-1.7b").reduced())
+    params = fns.init(torch.Generator(cuda).manual_seed(0))
+    tokens = torch.ones((1, 4), dtype=torch.long, device=cuda)
+    with torch.inference_mode():
+        _, cache = fns.prefill(params, {"tokens": tokens}, max_seq=4)
+        k = cache["k"].clone()
+        with pytest.raises(IndexError, match="out of bounds"):
+            fns.decode_step(params, cache, {"tokens": tokens[:, :1]})
+        torch.cuda.synchronize()
+        assert torch.equal(cache["k"], k) and int(cache["index"]) == 4
