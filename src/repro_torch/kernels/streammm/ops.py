@@ -1,8 +1,9 @@
-"""Wrapper of the CUDA weight-streaming matmul (``csrc/streammm.cu``).
+"""Wrappers of the CUDA weight-streaming matmuls (``csrc/streammm.cu``,
+``csrc/streammm_int8.cu``).
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel on the current stream or raises. ``stream_matmul.launches`` counts
-the kernel's launches.
+the kernel on the current stream or raises. ``stream_matmul.launches`` and
+``stream_matmul_int8.launches`` count the kernels' launches.
 """
 from __future__ import annotations
 
@@ -12,13 +13,21 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.streammm.ref import stream_matmul_ref
+from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref, stream_matmul_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMV_MAX_M = 8  # rows of x the kernel's gemv path takes (kGemvMaxM)
-GEMV_COLS = 256  # output columns per gemv block (kGemvCols)
+GEMV_COLS = 256  # output columns per gemv block (kGemvCols of both kernels)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _sm_count: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count[dev]
 
 
 def k_splits(m: int, n: int, k: int, sm_count: int) -> int:
@@ -46,10 +55,7 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16) ->
         raise ValueError("stream_matmul: x and w must be contiguous")
     m, k = x.shape
     n = w.shape[1]
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = k_splits(m, n, k, _sm_count[dev])
+    splits = k_splits(m, n, k, _sms(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("streammm", "stream_matmul", _ARGTYPES)
@@ -65,3 +71,65 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16) ->
 
 
 stream_matmul.launches = 0
+
+
+def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:
+    """How many runs of whole k-groups (``block_k`` rows, one scale row) the
+    int8 gemv path cuts a product into: enough blocks for about four per SM,
+    each run at least 64 rows deep, no run empty. 0 selects the tiled path
+    (m > GEMV_MAX_M)."""
+    if m > GEMV_MAX_M:
+        return 0
+    groups = k // block_k
+    col_blocks = -(-n // GEMV_COLS)
+    want = max(1, min(-(-4 * sm_count // col_blocks), groups))
+    per_split = max(-(-groups // want), -(-64 // block_k))
+    return -(-groups // min(per_split, groups))
+
+
+def stream_matmul_int8(
+    x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, block_k: int,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """``x @ (float(w_q) * scale)`` for x (M, K) bf16 or f32, w_q (K, N) int8
+    and scales (K // block_k, N) f32, one scale per (k-group of ``block_k``
+    rows, column); f32 accumulation, result in ``out_dtype`` (bfloat16 or
+    float32). ``block_k`` is the scales' group and part of the contract; the
+    JAX signature's ``block_m``/``block_n`` are TPU tile sizes and are
+    dropped. Any M and N. The checks run on both devices."""
+    tensors = (x, w_q, scales)
+    on_cpu = all(t.device.type == "cpu" for t in tensors)
+    if not on_cpu and not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError("stream_matmul_int8: x, w_q, scales on " + ", ".join(str(t.device) for t in tensors))
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0] or 0 in (*x.shape, w_q.shape[1]):
+        raise ValueError(f"stream_matmul_int8: shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
+    m, k = x.shape
+    n = w_q.shape[1]
+    if block_k <= 0 or k % block_k:
+        raise ValueError(f"stream_matmul_int8: K = {k} is not a multiple of block_k = {block_k}")
+    if tuple(scales.shape) != (k // block_k, n):
+        raise ValueError(f"stream_matmul_int8: scales {tuple(scales.shape)}, need {(k // block_k, n)}")
+    if w_q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"stream_matmul_int8: w_q {w_q.dtype}, scales {scales.dtype}; need int8, float32")
+    if x.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
+        raise TypeError(f"stream_matmul_int8: x {x.dtype} -> {out_dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("stream_matmul_int8: x, w_q and scales must be contiguous")
+    if on_cpu:
+        return stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype)
+    splits = int8_k_splits(m, n, k, block_k, _sms(x.device))
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+    fn = _build.function("streammm_int8", "stream_matmul_int8", _INT8_ARGTYPES)
+    err = fn(
+        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        work.data_ptr() if work is not None else None,
+        m, n, k, block_k, splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "stream_matmul_int8")
+    stream_matmul_int8.launches += 1
+    return out
+
+
+stream_matmul_int8.launches = 0

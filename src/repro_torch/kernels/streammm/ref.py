@@ -1,7 +1,15 @@
-"""Plain PyTorch version of the weight-streaming matmul (copy of the JAX
+"""Plain PyTorch versions of the weight-streaming matmuls (copies of the JAX
 package's ``streammm/ref.py``): f32 product, cast to ``out_dtype``."""
 import torch
 
 
 def stream_matmul_ref(x, w, out_dtype=torch.bfloat16):
     return (x.float() @ w.float()).to(out_dtype)
+
+
+def stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype=torch.bfloat16):
+    """``x @ (w_q * scale)``: int8 (K, N) weights dequantised to f32 by the
+    scale of their (k-group of ``block_k`` rows, column), ``scales`` (K /
+    block_k, N) f32."""
+    wf = w_q.float() * scales.repeat_interleave(block_k, 0)
+    return (x.float() @ wf).to(out_dtype)

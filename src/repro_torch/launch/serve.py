@@ -1,7 +1,7 @@
 """Multi-model serving launcher: MSched-scheduled colocation on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --archs qwen3-1.7b,llama3.2-3b --oversub 1.5 --requests 24
+        --archs qwen3-1.7b,llama3.2-3b,mamba2-1.3b --oversub 1.5 --requests 24
 
 Counterpart of ``python -m repro.launch.serve``. Hosts several models under one
 device-memory budget; the MSched coordinator proactively migrates each
@@ -15,7 +15,7 @@ import time
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--archs", default="qwen3-1.7b,llama3.2-3b")
+    ap.add_argument("--archs", default="qwen3-1.7b,llama3.2-3b,mamba2-1.3b")
     ap.add_argument("--oversub", type=float, default=1.5)
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--wall-budget-s", type=float, default=20.0)

@@ -26,14 +26,13 @@ def params_from_reference(tree):
 
 
 def cache_from_reference(cache):
-    """A reference KV cache (``{"k", "v", "index"}`` of numpy arrays) as the
-    port's: k/v tensors of the same shape and dtype, ``index`` a 0-d int32
+    """A reference decode cache (``{"k", "v", "index"}`` of the dense family
+    or ``{"state", "conv", "index"}`` of the SSM family, numpy arrays) as the
+    port's: tensors of the same shapes and dtypes, ``index`` a 0-d int32
     tensor and ``host_index`` its value as an int. On the CPU; move the
     tensors with ``.to`` where needed."""
     index = int(np.asarray(cache["index"]))
-    return {
-        "k": to_tensor(cache["k"]),
-        "v": to_tensor(cache["v"]),
-        "index": torch.tensor(index, dtype=torch.int32),
-        "host_index": index,
-    }
+    out = {key: to_tensor(val) for key, val in cache.items() if key != "index"}
+    out["index"] = torch.tensor(index, dtype=torch.int32)
+    out["host_index"] = index
+    return out

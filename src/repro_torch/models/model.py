@@ -1,4 +1,4 @@
-"""Model assembly for the dense family, with the reference's contract:
+"""Model assembly for the dense and SSM families, with the reference's contract:
 
   init(generator)                     -> params
   forward(params, batch)              -> logits (B, S, V)
@@ -10,12 +10,13 @@ Counterpart of the JAX package's ``models/model.py``. Params keep the
 reference's tree and stacked-layer layout: ``head`` holds
 ``embed``/``lm_head``/``final_norm`` and every leaf under ``layers`` has a
 leading ``L`` axis, walked by a Python loop over ``[l]`` views (the JAX
-package scans it). The cache is the reference's too: ``{"k", "v"}`` of shape
-(L, B, Smax, Hkv, hd) and a 0-d int32 ``index``; ``prefill`` and
-``decode_step`` write into it in place. It also carries ``host_index``, the
-same position as a Python int, so that a step checks its bounds without
-waiting for the device. ``loss`` and the other families are
-not ported yet (ROADMAP.md §1).
+package scans it). The cache is the reference's too: for the dense family
+``{"k", "v"}`` of shape (L, B, Smax, Hkv, hd), for the SSM family
+``{"state", "conv"}`` of shapes (L, B, H, hd, ns) f32 and (L, B, width-1,
+conv_dim), each with a 0-d int32 ``index``; ``prefill`` and ``decode_step``
+write into it in place. It also carries ``host_index``, the same position as
+a Python int, so that a step checks its bounds without waiting for the
+device. ``loss`` and the other families are not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+from repro_torch.models import common, ssm
 from repro_torch.models.common import resolve_device, rms_norm
 from repro_torch.models.layers import (
     attention_apply,
@@ -160,8 +161,81 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
     return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
 
 
+def _ssm_fns(cfg: ModelConfig) -> ModelFns:
+    """mamba2: the reference's ``_ssm_fns``. Params ``{"head", "layers":
+    {"norm", "mixer"}}`` with the layers stacked on L; a constant-size decode
+    cache."""
+    L = cfg.num_layers
+    width = cfg.ssm.conv_width
+
+    def init(gen: torch.Generator):
+        return {
+            "head": _init_head(gen, cfg),
+            "layers": {
+                "norm": init_norm(cfg, (L,), gen.device),
+                "mixer": ssm.init_ssm(gen, cfg, (L,)),
+            },
+        }
+
+    def _run_layers(params, tokens, cache=None):
+        """The layer stack over the whole sequence; with ``cache``, each
+        layer's final state and conv tail are written into it."""
+        x = params["head"]["embed"][tokens]
+        for l in range(L):
+            lp = _layer_view(params["layers"], l)
+            h = rms_norm(x, lp["norm"], cfg.norm_eps)
+            out, st = ssm.ssm_apply_with_state(lp["mixer"], h, cfg)
+            if cache is not None:
+                cache["state"][l] = st["state"]
+                cache["conv"][l] = st["conv"]
+            x = x + out
+        return x
+
+    def forward(params, batch):
+        return _logits(params["head"], _run_layers(params, batch["tokens"]), cfg)
+
+    def init_cache(batch_size: int, max_seq: int, device="cuda"):
+        """``max_seq`` is not used: the decode state has a constant size."""
+        dev = resolve_device(device)
+        one = ssm.init_ssm_cache(cfg, batch_size, common.dtype_of(cfg), dev)
+        cache = {key: t.new_zeros((L, *t.shape)) for key, t in one.items()}
+        cache.update(index=torch.zeros((), dtype=torch.int32, device=dev), host_index=0)
+        return cache
+
+    def prefill(params, batch, max_seq: Optional[int] = None):
+        """Logits at the last position (B, 1, V) and the decode cache after the
+        prompt. Raises ValueError for a prompt shorter than ``conv_width - 1``
+        tokens: its conv tail would be short, and the reference's decode
+        cannot read the cache the reference builds there."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if s < width - 1:
+            raise ValueError(f"prefill: {cfg.name} needs a prompt of at least {width - 1} tokens, got {s}")
+        cache = init_cache(b, s, tokens.device)
+        x = _run_layers(params, tokens, cache)
+        cache["index"].fill_(s)
+        cache["host_index"] = s
+        return _logits(params["head"], x[:, -1:, :], cfg), cache
+
+    def decode_step(params, cache, batch):
+        """One token per row: logits (B, 1, V) and the cache, whose state and
+        conv history were updated in place (the returned dict shares them with
+        the one passed in) and whose index is one more."""
+        x = params["head"]["embed"][batch["tokens"]]
+        for l in range(L):
+            lp = _layer_view(params["layers"], l)
+            h = rms_norm(x, lp["norm"], cfg.norm_eps)
+            out, _ = ssm.ssm_decode(lp["mixer"], h, {"state": cache["state"][l], "conv": cache["conv"][l]}, cfg)
+            x = x + out
+        logits = _logits(params["head"], x, cfg)
+        return logits, {"state": cache["state"], "conv": cache["conv"], "index": cache["index"] + 1,
+                        "host_index": cache["host_index"] + 1}
+
+    return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
+
+
 def build_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             "(ROADMAP.md §1, 'Modules still to port')"
@@ -170,4 +244,4 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         raise NotImplementedError(
             f"{cfg.name}: tied embeddings are not ported yet (ROADMAP.md §1)"
         )
-    return _transformer_fns(cfg)
+    return _ssm_fns(cfg) if cfg.family == "ssm" else _transformer_fns(cfg)

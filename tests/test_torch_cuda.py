@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and mamba2 at full width on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -22,7 +23,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.streammm import ops as mm_ops  # noqa: E402
-from repro_torch.kernels.streammm.ref import stream_matmul_ref  # noqa: E402
+from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref, stream_matmul_ref  # noqa: E402
 
 RTOL = ATOL = 5e-2
 # max |out - ref| <= PA_REL * rms(ref): about 10x the measured bf16 error at
@@ -95,6 +96,57 @@ def test_stream_matmul_kernel(cuda, m, k, n, dtype):
     assert mm_ops.stream_matmul.launches == before + 1
     _close(out, stream_matmul_ref(x, w, out_dtype=dt))
     assert torch.equal(out, mm_ops.stream_matmul(x, w, out_dtype=dt))  # no atomics
+
+
+INT8_CASES = [
+    # (M, K, N, block_k): the reference's test shapes, the kernel bench's,
+    # paper-llama3-8b's projections at decode (M = 1, 4), and ragged sizes
+    (64, 128, 64, 64), (128, 256, 128, 64), (256, 512, 256, 128),
+    (1, 4096, 4096, 128), (4, 4096, 1024, 128), (4, 14336, 4096, 128),
+    (1, 4096, 128256, 128), (3, 96, 1001, 32), (8, 64, 7, 16), (9, 300, 1001, 100),
+]
+
+
+def _int8_inputs(m, k, n, block_k, dt, dev):
+    rng = np.random.default_rng(9)
+    x = _randn((m, k), dt, dev, 10)
+    w_q = torch.from_numpy(rng.integers(-127, 127, (k, n), dtype=np.int8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(0.005, 0.02, (k // block_k, n)).astype(np.float32)).to(dev)
+    return x, w_q, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,block_k", INT8_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stream_matmul_int8_kernel(cuda, m, k, n, block_k, dtype):
+    x, w_q, scales = _int8_inputs(m, k, n, block_k, DTYPES[dtype], cuda)
+    before = mm_ops.stream_matmul_int8.launches
+    out = mm_ops.stream_matmul_int8(x, w_q, scales, block_k)
+    assert mm_ops.stream_matmul_int8.launches == before + 1
+    ref = stream_matmul_int8_ref(x, w_q, scales, block_k)
+    _close(out, ref)
+    # a dropped or misread scale group moves the output by several % in L2
+    assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
+    assert torch.equal(out, mm_ops.stream_matmul_int8(x, w_q, scales, block_k))  # no atomics
+    f32 = mm_ops.stream_matmul_int8(x, w_q, scales, block_k, out_dtype=torch.float32)
+    _close(f32, stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_stream_matmul_int8_raises_on_what_the_kernel_does_not_take(cuda):
+    x, w_q, scales = _int8_inputs(2, 128, 64, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul_int8(x, w_q, scales.cpu(), 64)  # mixed devices
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul_int8(x, w_q, scales, 48)  # K % block_k
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul_int8(x, w_q, scales[:1], 64)
+    with pytest.raises(TypeError):
+        mm_ops.stream_matmul_int8(x, w_q.float(), scales, 64)
+    with pytest.raises(TypeError):
+        mm_ops.stream_matmul_int8(x, w_q, scales.double(), 64)
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul_int8(x, w_q.t().contiguous().t(), scales, 64)  # not contiguous
 
 
 @pytest.mark.cuda
@@ -189,3 +241,45 @@ def test_decode_past_the_cache_raises_on_the_card(cuda):
             fns.decode_step(params, cache, {"tokens": tokens[:, :1]})
         torch.cuda.synchronize()
         assert torch.equal(cache["k"], k) and int(cache["index"]) == 4
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_mamba2_full_width_card_against_cpu(cuda):
+    """mamba2-1.3b at its published width, 2 layers: forward, and prefill of
+    32 tokens + 4 decode steps, on the card (stream_matmul kernel) against the
+    CPU (its plain version) from the same weights; decode on the card against
+    forward on the card at the reference's decode tolerance (8e-2)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2)
+    fns = build_model(cfg)
+    params = fns.init(torch.Generator(cuda).manual_seed(0))
+    cpu_params = _tree_to(params, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 36)))
+    s, n = 32, 4
+
+    def prefill_decode(p, toks):
+        logits, cache = fns.prefill(p, {"tokens": toks[:, :s]})
+        outs = [logits]
+        for i in range(n):
+            logits, cache = fns.decode_step(p, cache, {"tokens": toks[:, s + i : s + i + 1]})
+            outs.append(logits)
+        return torch.cat(outs, dim=1)
+
+    with torch.inference_mode():
+        fwd_card = fns.forward(params, {"tokens": tokens.to(cuda)})
+        dec_card = prefill_decode(params, tokens.to(cuda))
+        fwd_cpu = fns.forward(cpu_params, {"tokens": tokens})
+        dec_cpu = prefill_decode(cpu_params, tokens)
+    assert torch.isfinite(fwd_card.float()).all() and fwd_card.shape == (2, 36, cfg.vocab_size)
+    _close(fwd_card.cpu(), fwd_cpu)
+    _close(dec_card.cpu(), dec_cpu)
+    torch.testing.assert_close(dec_card.float(), fwd_card[:, s - 1 :].float(), rtol=8e-2, atol=8e-2)
+

@@ -1,6 +1,6 @@
 """The slice as a whole: the port's live runtime and serving loop on the CPU
-against the JAX package's, on the dense pair with the reference's own
-parameters. Segments and MSched's decisions (steps, migrated bytes, demand
+against the JAX package's, on the reference's live set (two dense models and
+mamba2) with the reference's own parameters. Segments and MSched's decisions (steps, migrated bytes, demand
 faults) must be equal exactly; outputs bit-identical to the port's own
 all-resident run and within rtol = atol = 5e-2 of the reference's (bf16
 rounds at other places in the two frameworks)."""
@@ -19,7 +19,8 @@ from repro_torch.core.runtime import LiveModelTask, LiveRuntime  # noqa: E402
 from repro_torch.runtime.serve_loop import MultiModelServer, Request  # noqa: E402
 
 RTOL = ATOL = 5e-2
-ARCHS = ["qwen3-1.7b", "llama3.2-3b"]
+ARCHS = ["qwen3-1.7b", "llama3.2-3b", "mamba2-1.3b"]  # tests/core/test_live_runtime.py
+PAIR = ["qwen3-1.7b", "mamba2-1.3b"]  # tests/core/test_serve_loop.py
 BUDGETS = [
     # (page size, budget as a share of what, share, steps per slice, slices)
     (4096, "footprint", 0.5, 4, 6),  # tests/core/test_live_runtime.py, first case
@@ -81,6 +82,7 @@ def test_segments_match_reference(tasks, page_size):
         assert o.kv_buf.base == r.kv_buf.base
         assert o.footprint_bytes() == r.footprint_bytes()
     assert len(ours[0].segments) == 14  # qwen3: q/k norms on top of llama's 12
+    assert len(ours[2].segments) == 12  # mamba2: head (3), layer norm, 8 mixer leaves
 
 
 @pytest.mark.parametrize("page_size,what,share,sps,slices", BUDGETS)
@@ -135,7 +137,8 @@ def test_outputs_match_reference(tasks):
             np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), rtol=RTOL, atol=ATOL)
 
 
-# -- serving loop: the cases of tests/core/test_serve_loop.py on the dense pair --
+# -- serving loop: the cases of tests/core/test_serve_loop.py, on the live set
+# -- and on the reference's own pair
 
 
 @pytest.fixture(scope="module")
@@ -143,35 +146,54 @@ def servers():
     return RefServer(ARCHS, steps_per_slice=2), MultiModelServer(ARCHS, steps_per_slice=2, device="cpu")
 
 
-def _submit_3_and_3(server):
+@pytest.fixture(scope="module")
+def pair_servers():
+    return RefServer(PAIR, steps_per_slice=2), MultiModelServer(PAIR, steps_per_slice=2, device="cpu")
+
+
+def _submit_3_each(server, n_models):
     for i in range(3):
-        server.submit(Request(model=0, arrival_s=0.1 * i))
-        server.submit(Request(model=1, arrival_s=0.05 + 0.1 * i))
+        for m in range(n_models):
+            server.submit(Request(model=m, arrival_s=0.1 * i + 0.03 * m))
 
 
-def test_server_setup_oversubscribed(servers):
-    ref, ours = servers
+def _check_setup(ref, ours, n_models):
     rt = ours.runtime
     total = sum(t.footprint_bytes() for t in rt.tasks.values())
     assert rt.pool.capacity * rt.page_size < total
     assert rt.pool.capacity == ref.runtime.pool.capacity
-    assert set(ours.queues) == {0, 1}
+    assert set(ours.queues) == set(range(n_models))
 
 
-def test_serve_drains_queues_fifo(servers):
-    ref, ours = servers
-    _submit_3_and_3(ref)
+def _check_drain(ref, ours, n_models):
+    _submit_3_each(ref, n_models)
     want = ref.serve(wall_budget_s=60.0)
-    _submit_3_and_3(ours)
+    _submit_3_each(ours, n_models)
     got = ours.serve(wall_budget_s=60.0)
-    assert got.served == want.served == {0: 3, 1: 3}
+    assert got.served == want.served == {m: 3 for m in range(n_models)}
     assert not any(ours.queues.values())
-    for m in (0, 1):
+    for m in range(n_models):
         assert len(got.latencies_s[m]) == 3
         assert got.p99(m) >= max(0.0, min(got.latencies_s[m]))
     assert got.migrated_in_bytes == want.migrated_in_bytes > 0
     assert got.demand_faults == want.demand_faults
     assert ours.runtime.stats.steps == ref.runtime.stats.steps
+
+
+def test_server_setup_oversubscribed(servers):
+    _check_setup(*servers, len(ARCHS))
+
+
+def test_serve_drains_queues_fifo(servers):
+    _check_drain(*servers, len(ARCHS))
+
+
+def test_pair_server_setup_oversubscribed(pair_servers):
+    _check_setup(*pair_servers, len(PAIR))
+
+
+def test_pair_serve_drains_queues_fifo(pair_servers):
+    _check_drain(*pair_servers, len(PAIR))
 
 
 def test_serve_empty_queue_returns_immediately(servers):
@@ -192,6 +214,6 @@ def test_server_full_configs_and_page_size(monkeypatch):
     server = MultiModelServer(ARCHS, device="cpu", full=True, page_size=1 << 16)
     assert server.runtime.page_size == 1 << 16
     assert all(t.space.page_size == 1 << 16 for t in server.runtime.tasks.values())
-    for i in range(4):
-        server.submit(Request(model=i % 2, arrival_s=float(i)))
-    assert server.serve(wall_budget_s=60.0).served == {0: 2, 1: 2}
+    for i in range(6):
+        server.submit(Request(model=i % 3, arrival_s=float(i)))
+    assert server.serve(wall_budget_s=60.0).served == {0: 2, 1: 2, 2: 2}
