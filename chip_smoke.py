@@ -10,7 +10,12 @@
    (and at the reference's test shapes; ``stream_matmul_int8`` also at the
    projections of paper-llama3-8b, the model it was written for), and times
    kernel, plain version and one library call (a yardstick only: the port
-   never calls it), weighted by each path's calls a step;
+   never calls it), weighted by each path's calls a step; logs each shape's
+   route (``stream_matmul``: gemv / wgmma / simt, ``flash_attention``: wgmma /
+   simt), read from the wrapper's ``wgmma_launches`` and held against the
+   route rule, its share of the bound and its ratio to the library call; gates the
+   prefill path's ``stream_matmul`` sum and each prefill ``flash_attention``
+   call at MAX_LIBRARY_RATIO times the library's;
 4. runs qwen3-1.7b and mamba2-1.3b at full width (2 layers) through the
    kernels and holds their logits against the plain versions of the same
    weights on the CPU, for ``forward`` and for prefill + decode, and holds
@@ -21,12 +26,15 @@
    HBM copy. It checks that every request is served, that bytes moved both
    ways, that each step launched exactly its ``stream_matmul`` and
    ``flash_attention`` kernels and no other, and that the steps' logits are
-   bit-identical to the same steps run all-resident;
+   bit-identical to the same steps run all-resident; no call of this path
+   takes a tensor-core route;
 6. runs the decode path of the three models at their published widths and
    depths: 4 prompts of 1024 tokens through ``make_prefill_step``, then 64
    greedy steps through ``make_serve_step``. It checks the launches of
-   prefill and of every step, that the logits are finite, and that they
-   agree with one ``forward`` over the same 1088 tokens;
+   prefill and of every step (every M = 4096 projection and every attention
+   of a prefill on the wgmma route, none of a decode step), that the logits
+   are finite, and that they agree with one ``forward`` over the same 1088
+   tokens;
 7. runs the port's kernel bench (``repro_torch.kernels.bench``), the only
    path of ``stream_matmul_int8``, as the JAX package's kernel bench is its
    only caller there;
@@ -84,6 +92,16 @@ DECODE_TOL = 8e-2  # rtol = atol, the reference's decode-vs-forward tolerance
 # alone is as large as an output and would pass a dropped page. PA_REL is
 # about 10x the bf16 error measured at those shapes (2.4e-4).
 PA_REL = 5e-2
+# flash_attention is also gated at relative L2 <= FA_REL_L2 against
+# attention_ref: at S = 1024 late rows have outputs of rms ~0.04, so TOL alone
+# would pass a dropped KV tile. The wgmma route rounds P to bf16 before PV,
+# which gives ~2e-3 at the prefill shapes (bf16 output rounding ~1e-3).
+FA_REL_L2 = 1e-2
+# On the prefill path the tensor-core routes must come within this factor of
+# the library call on the same inputs: the stream_matmul sum over a prefill of
+# each model against torch.matmul's, each prefill flash_attention call
+# against scaled_dot_product_attention.
+MAX_LIBRARY_RATIO = 2.0
 PATHS = ("serve", "prefill", "decode", "kernel_bench")
 KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "paged_attention")
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
@@ -166,8 +184,9 @@ def kernels_line(recs, paths):
     for name in KERNELS:
         rec = recs[name]
         by_path = {}
-        for path, (launches, steps) in paths.items():
+        for path, (launches, steps, wgmma) in paths.items():
             by_path[path] = {"launches": launches[name], "launches_per_step": launches[name] / steps,
+                             **({"wgmma_launches": wgmma[name]} if name in wgmma else {}),
                              **rec["by_path"][path]}
         kernels.append({
             "name": name,
@@ -175,6 +194,8 @@ def kernels_line(recs, paths):
             "source": rec["source"],
             "replaces": rec["replaces"],
             "launches": sum(p["launches"] for p in by_path.values()),
+            **({"wgmma_launches": sum(p["wgmma_launches"] for p in by_path.values())}
+               if name in WGMMA_KERNELS else {}),
             "max_abs_err": rec["max_abs_err"],
             **{key: sum_or_none(p[key] for p in by_path.values())
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -279,13 +300,23 @@ def counters():
             "flash_attention": flash_attention, "paged_attention": paged_attention}
 
 
+WGMMA_KERNELS = ("stream_matmul", "flash_attention")  # wrappers with a tensor-core route
+
+
 def zero_launches():
-    for fn in counters().values():
+    for name, fn in counters().items():
         fn.launches = 0
+        if name in WGMMA_KERNELS:
+            fn.wgmma_launches = 0
 
 
 def read_launches():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def read_wgmma():
+    """The launches that took the tensor-core route, by kernel."""
+    return {name: fn.wgmma_launches for name, fn in counters().items() if name in WGMMA_KERNELS}
 
 
 def step_launches(cfg, path):
@@ -303,8 +334,34 @@ def step_launches(cfg, path):
     }
 
 
+def step_wgmma(cfg, path):
+    """The launches of one step of ``path`` that take the tensor-core route:
+    on prefill every M = 4096 projection (7 a dense layer, 2 an SSM layer;
+    the LM head runs on the last position, M = 4) and every attention; none
+    on the live and decode steps (M = 1 and 4, Sq = 1 or paged)."""
+    L = cfg.num_layers
+    dense = cfg.family == "dense"
+    if path != "prefill":
+        return {"stream_matmul": 0, "flash_attention": 0}
+    return {"stream_matmul": (7 if dense else 2) * L, "flash_attention": L if dense else 0}
+
+
+def checked_route(fn, rule, call):
+    """Calls ``call`` once and returns ``(output, route)``, the route read from
+    ``fn.wgmma_launches``: "wgmma" if it rose by one, else ``rule``'s answer
+    (gemv or simt, which the counters do not tell apart). Raises if the
+    tensor-core kernel ran where the route rule says it should not, or the
+    other way round."""
+    before = fn.wgmma_launches
+    out = call()
+    took = fn.wgmma_launches - before
+    if took != (rule == "wgmma"):
+        raise AssertionError(f"{fn.__name__}: route rule says {rule}, wgmma launches rose by {took}")
+    return out, "wgmma" if took else rule
+
+
 def check_stream_matmul(torch, dev, bench):
-    from repro_torch.kernels.streammm.ops import stream_matmul
+    from repro_torch.kernels.streammm.ops import mm_route, stream_matmul
     from repro_torch.kernels.streammm.ref import stream_matmul_ref
 
     gen = torch.Generator(dev).manual_seed(0)
@@ -316,14 +373,15 @@ def check_stream_matmul(torch, dev, bench):
 
     log("stream_matmul against stream_matmul_ref at every shape of each path (ms: CUDA events, cold L2):")
     totals = path_totals()
-    errs, bound_kinds, measured = [], set(), {}
+    errs, bound_kinds, measured, by_shape = [], set(), {}, []
     for path, by_arch in projection_shapes().items():
         for arch, counts in by_arch.items():
             step = dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
             for (m, k, n), calls in counts.items():
                 if (m, k, n) not in measured:
                     x, w = operands(m, k, n, torch.bfloat16)
-                    out = stream_matmul(x, w)
+                    rule = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+                    out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w))
                     err = max_err(torch, out, stream_matmul_ref(x, w))
                     if not torch.equal(out, stream_matmul(x, w)):
                         raise AssertionError(f"stream_matmul ({m},{k},{n}) is not deterministic")
@@ -332,31 +390,48 @@ def check_stream_matmul(torch, dev, bench):
                     t_lib = bench.ms(lambda: torch.matmul(x, w))
                     b, kind = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, torch.bfloat16)
                     measured[(m, k, n)] = dict(ms=t, plain_ms=t_plain, bound_ms=b, library_ms=t_lib)
+                    by_shape.append({"M": m, "K": k, "N": n, "route": route, "ms": t, "bound_ms": b,
+                                     "bound_by": kind, "plain_ms": t_plain, "library_ms": t_lib,
+                                     "max_abs_err": err})
                     errs.append(err)
                     bound_kinds.add(kind)
                     del x, w, out
-                    log(f"  M={m} K={k} N={n}: err {err:.2e} kernel {t:.4f} ms bound {b:.4f} ms "
-                        f"({kind}, {100 * b / t:.0f}%) plain {t_plain:.4f} ms torch.matmul {t_lib:.4f} ms")
+                    log(f"  M={m} K={k} N={n} [{route}]: err {err:.2e} kernel {t:.4f} ms bound {b:.4f} ms "
+                        f"({kind}, {100 * b / t:.0f}%) plain {t_plain:.4f} ms torch.matmul {t_lib:.4f} ms "
+                        f"(kernel {t / t_lib:.2f}x)")
                 for key, val in measured[(m, k, n)].items():
                     totals[path][key] += calls * val
                     if key in step:
                         step[key] += calls * val
             log(f"  one {path} step of {arch} ({sum(counts.values())} calls): kernel {step['ms']:.3f} ms, "
-                f"bound {step['bound_ms']:.3f} ms, torch.matmul {step['library_ms']:.3f} ms")
+                f"bound {step['bound_ms']:.3f} ms, torch.matmul {step['library_ms']:.3f} ms "
+                f"(kernel {step['ms'] / step['library_ms']:.2f}x)")
+    prefill = totals["prefill"]
+    ratio = prefill["ms"] / prefill["library_ms"]
+    log(f"  prefill path: kernel {prefill['ms']:.3f} ms, torch.matmul {prefill['library_ms']:.3f} ms "
+        f"({ratio:.2f}x, gate {MAX_LIBRARY_RATIO}x), bound {prefill['bound_ms']:.3f} ms "
+        f"({100 * prefill['bound_ms'] / prefill['ms']:.0f}%)")
+    if not ratio <= MAX_LIBRARY_RATIO:
+        raise AssertionError(f"stream_matmul prefill sum {ratio:.2f}x torch.matmul > {MAX_LIBRARY_RATIO}x")
     for m, k, n, dtype in ((256, 2048, 2048, torch.bfloat16), (1, 2048, 2048, torch.float32),
-                           (64, 2048, 6144, torch.float32), (3, 1000, 999, torch.bfloat16)):
+                           (64, 2048, 6144, torch.float32), (3, 1000, 999, torch.bfloat16),
+                           (200, 264, 136, torch.bfloat16), (130, 72, 8, torch.bfloat16)):
         x, w = operands(m, k, n, dtype)
-        out = stream_matmul(x, w, out_dtype=dtype)
+        rule = mm_route(m, n, k, dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+        out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, out_dtype=dtype))
         err = max_err(torch, out, stream_matmul_ref(x, w, out_dtype=dtype))
+        if not torch.equal(out, stream_matmul(x, w, out_dtype=dtype)):
+            raise AssertionError(f"stream_matmul ({m},{k},{n}) {dtype} is not deterministic")
         t = bench.ms(lambda: stream_matmul(x, w, out_dtype=dtype))
         errs.append(err)
-        log(f"  off-path M={m} K={k} N={n} {dtype}: err {err:.2e} kernel {t:.4f} ms")
+        log(f"  off-path M={m} K={k} N={n} {dtype} [{route}]: err {err:.2e} kernel {t:.4f} ms")
     return {
         "source": "src/repro_torch/csrc/streammm.cu",
         "replaces": "src/repro/kernels/streammm/kernel.py:50",
         "max_abs_err": max(errs),
         "bound_by": "+".join(sorted(bound_kinds)),
         "by_path": totals,
+        "extra": {"by_shape": by_shape},
     }
 
 
@@ -438,7 +513,7 @@ def check_flash_attention(torch, dev, bench):
     import torch.nn.functional as F
 
     from repro_torch.kernels import bench as kernel_bench
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import fa_route, flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(dev).manual_seed(1)
@@ -460,14 +535,22 @@ def check_flash_attention(torch, dev, bench):
     ]
     log("flash_attention against attention_ref (ms: CUDA events):")
     totals = path_totals()
-    errs, bound_kinds = [], set()
+    errs, bound_kinds, by_shape = [], set(), []
     for label, b, sq, skv, h, hkv, d, causal, window, dtype, calls in cases:
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(dtype)
         kw = dict(causal=causal, window=window)
-        out = flash_attention(q, k, v, **kw)
-        err = max_err(torch, out, attention_ref(q, k, v, **kw))
+        rule = fa_route(b, sq, skv, h, hkv, d, dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+        out, route = checked_route(flash_attention, rule, lambda: flash_attention(q, k, v, **kw))
+        ref = attention_ref(q, k, v, **kw)
+        err = max_err(torch, out, ref)
+        rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+        if not rel <= FA_REL_L2:
+            raise AssertionError(f"flash_attention {label}: relative L2 {rel:.3e} > {FA_REL_L2}")
+        if not torch.equal(out, flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention {label} is not deterministic")
+        del ref
         errs.append(err)
         t = bench.ms(lambda: flash_attention(q, k, v, **kw))
         t_plain = bench.ms(lambda: attention_ref(q, k, v, **kw))
@@ -487,15 +570,23 @@ def check_flash_attention(torch, dev, bench):
             bound_kinds.add(kind)
             for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", bt), ("library_ms", t_lib)):
                 totals[path][key] += n * val
+        by_shape.append({"label": label, "B": b, "Sq": sq, "Skv": skv, "H": h, "Hkv": hkv, "D": d,
+                         "causal": causal, "window": window, "dtype": str(dtype), "route": route,
+                         "ms": t, "bound_ms": bt, "bound_by": kind, "plain_ms": t_plain,
+                         "library_ms": t_lib, "max_abs_err": err, "rel_l2": rel})
         log(f"  {label} B={b} Sq={sq} Skv={skv} H={h} Hkv={hkv} D={d} causal={causal} "
-            f"window={window} {dtype}: err {err:.2e} kernel {t:.4f} ms bound {bt:.5f} ms ({kind}) "
-            f"plain {t_plain:.4f} ms sdpa {t_lib:.4f} ms")
+            f"window={window} {dtype} [{route}]: err {err:.2e} rel L2 {rel:.2e} kernel {t:.4f} ms "
+            f"bound {bt:.5f} ms ({kind}, {100 * bt / t:.0f}%) plain {t_plain:.4f} ms sdpa {t_lib:.4f} ms "
+            f"(kernel {t / t_lib:.2f}x)")
+        if "prefill" in calls and not t <= MAX_LIBRARY_RATIO * t_lib:
+            raise AssertionError(f"flash_attention {label}: {t:.4f} ms > {MAX_LIBRARY_RATIO} x sdpa {t_lib:.4f} ms")
     return {
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
         "max_abs_err": max(errs),
         "bound_by": "+".join(sorted(bound_kinds)),
         "by_path": totals,
+        "extra": {"by_shape": by_shape},
     }
 
 
@@ -811,7 +902,7 @@ def serve_slice(torch, dev):
     t0 = time.perf_counter()
     stats = server.serve(wall_budget_s=600.0)
     serve_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches, wgmma = read_launches(), read_wgmma()
     for t in tasks:
         del t.run_step
     del rt._sync_residency, rt._fault_in
@@ -849,6 +940,8 @@ def serve_slice(torch, dev):
             for name in KERNELS}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
+    if any(wgmma.values()):
+        raise AssertionError(f"live steps took the tensor-core route: {wgmma}")
 
     # the same steps all-resident give the same bits
     for t in tasks:
@@ -862,7 +955,7 @@ def serve_slice(torch, dev):
     log(f"serve: {sum(len(v) for v in outputs.values())} oversubscribed steps bit-identical to all-resident")
     for t in tasks:
         profile_steps(torch, dev, t.cfg.name, t.run_step, statistics.median(step_s[t.task_id]))
-    return launches, steps
+    return launches, steps, wgmma
 
 
 def profile_steps(torch, dev, name: str, step, step_wall_s: float, n: int = 3) -> None:
@@ -890,17 +983,20 @@ def profile_steps(torch, dev, name: str, step, step_wall_s: float, n: int = 3) -
 def decode_slice(torch, dev):
     """Phase 6, the decode path of every model at its published widths and
     depths, random weights from a seed. Returns each path's launches and
-    steps: {"prefill": (launches, prefills), "decode": (launches, steps)}."""
+    steps and tensor-core launches: {"prefill": (launches, prefills, wgmma),
+    "decode": (launches, steps, wgmma)}."""
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import flatten
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model
 
-    paths = {"prefill": ({name: 0 for name in KERNELS}, 0), "decode": ({name: 0 for name in KERNELS}, 0)}
+    paths = {path: ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
+             for path in ("prefill", "decode")}
 
-    def add(path, launches):
-        total, n = paths[path]
-        paths[path] = ({k: total[k] + launches[k] for k in total}, n + 1)
+    def add(path, launches, wgmma):
+        total, n, total_wgmma = paths[path]
+        paths[path] = ({k: total[k] + launches[k] for k in total}, n + 1,
+                       {k: total_wgmma[k] + wgmma[k] for k in total_wgmma})
 
     for seed, arch in enumerate(ARCHS):
         cfg = get_config(arch)
@@ -917,11 +1013,14 @@ def decode_slice(torch, dev):
             logits, cache = prefill_step(params, {"tokens": prompts}, max_seq=DECODE_SMAX)
             torch.cuda.synchronize(dev)
             prefill_s = time.perf_counter() - t0
-            launches = read_launches()
+            prefill_launches, prefill_wgmma = read_launches(), read_wgmma()
             want = step_launches(cfg, "prefill")
-            if launches != want:
-                raise AssertionError(f"{arch} prefill: launches {launches} != {want}")
-            add("prefill", launches)
+            if prefill_launches != want:
+                raise AssertionError(f"{arch} prefill: launches {prefill_launches} != {want}")
+            if prefill_wgmma != step_wgmma(cfg, "prefill"):
+                raise AssertionError(f"{arch} prefill: tensor-core launches {prefill_wgmma} "
+                                     f"!= {step_wgmma(cfg, 'prefill')}")
+            add("prefill", prefill_launches, prefill_wgmma)
 
             want = step_launches(cfg, "decode")
             outs, fed, step_s = [logits], [], []
@@ -932,10 +1031,11 @@ def decode_slice(torch, dev):
                 logits, cache = serve_step(params, cache, {"tokens": tok})
                 torch.cuda.synchronize(dev)
                 step_s.append(time.perf_counter() - t0)
-                launches = read_launches()
-                if launches != want:
-                    raise AssertionError(f"{arch} decode step {i}: launches {launches} != {want}")
-                add("decode", launches)
+                launches, wgmma = read_launches(), read_wgmma()
+                if launches != want or any(wgmma.values()):
+                    raise AssertionError(f"{arch} decode step {i}: launches {launches} != {want} "
+                                         f"or tensor-core launches {wgmma}")
+                add("decode", launches, wgmma)
                 fed.append(tok)
                 outs.append(logits)
                 tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -974,7 +1074,8 @@ def decode_slice(torch, dev):
             step_bytes = weight_bytes + step_cache
             log(f"decode slice {arch}: B={DECODE_B}, prompt {PROMPT}, {DECODE_STEPS} greedy steps, "
                 f"cache {cache_bytes} B" + (f" ({DECODE_SMAX} slots)" if dense else " (constant size)"))
-            log(f"  prefill {1e3 * prefill_s:.3f} ms, {DECODE_B * PROMPT / prefill_s:.1f} tokens/s")
+            log(f"  prefill {1e3 * prefill_s:.3f} ms, {DECODE_B * PROMPT / prefill_s:.1f} tokens/s; "
+                f"launches {prefill_launches}, tensor-core {prefill_wgmma}")
             log(f"  decode step median {1e3 * med:.3f} ms (min {1e3 * min(step_s):.3f}, max "
                 f"{1e3 * max(step_s):.3f}), bound {1e3 * step_bytes / HBM_BYTES_PER_S:.3f} ms "
                 f"({weight_bytes} B weights + {step_cache:.0f} B {what}); "
@@ -1036,24 +1137,24 @@ def ssm_decode_f32(torch, cfg, params, prompts, fed):
 def kernel_bench_path(torch, dev):
     """Phase 7: the port's kernel bench, the path of stream_matmul_int8 (the
     JAX package's kernel bench is its only caller there). Returns its
-    launches, read from zero, and its steps: a step is one call of each row,
-    which the bench makes REPS + 1 times on the card (a warm-up, then the
-    timed launches)."""
+    launches, read from zero, its steps (a step is one call of each row,
+    which the bench makes REPS + 1 times on the card: a warm-up, then the
+    timed launches) and its tensor-core launches."""
     from repro_torch.kernels import bench as kernel_bench
 
     torch.cuda.synchronize(dev)
     zero_launches()
     rows = kernel_bench.run(dev)
     torch.cuda.synchronize(dev)
-    launches = read_launches()
+    launches, wgmma = read_launches(), read_wgmma()
     log("kernel bench (python -m repro_torch.kernels.bench), name,us,derived:")
     for name, us, derived in rows:
         log(f"  {name},{us:.1f},{derived}")
-    log(f"kernel bench: launches {launches}")
+    log(f"kernel bench: launches {launches}, tensor-core {wgmma}")
     missing = [name for name in KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernel bench launched no {missing}")
-    return launches, kernel_bench.REPS + 1
+    return launches, kernel_bench.REPS + 1, wgmma
 
 
 if __name__ == "__main__":

@@ -8,10 +8,12 @@
 // Bound on this card: on the live path every call has M = 1 (one decode token),
 // so the work is a GEMV that reads each weight byte once and does 2 flops per
 // weight: about 1 flop per byte, far below the ~295 flop/byte where the tensor
-// cores become the limit. The time is the weight bytes over the HBM rate.
+// cores become the limit. The time is the weight bytes over the HBM rate. At
+// prefill (M = 4096) the same product does 2 * 4096 flops a weight and is
+// bound by the bf16 tensor-core rate (989 TFLOP/s).
 //
-// Design:
-//  * gemv path (M <= 8): a block owns a slab of 256 output columns and a chunk
+// Three routes, chosen by the wrapper (ops.py, mm_route) from dtype and shape:
+//  * gemv (M <= 8): a block owns a slab of 256 output columns and a chunk
 //    of K rows. Its threads read the slab row by row with 16-byte loads
 //    (neighbouring threads on neighbouring columns), keep one f32 partial sum
 //    per (row of x, column) in registers, and reduce the row groups through
@@ -20,14 +22,27 @@
 //    blocks; each split writes its partial sums to a workspace and a second
 //    kernel adds them in split order. No atomics: the result is the same bits
 //    on every run, which the live runtime's transparency check relies on.
-//  * tiled path (M > 8): plain 64x64 shared-memory tiles with a 4x4 register
-//    micro-tile per thread, f32 throughout. It is only off the live path
-//    (prefill-sized checks); tensor-core (wgmma) tiles are later work.
-// Any M, N, K: ragged edges are masked; 16-byte loads are used only when the
-// weight rows are 16-byte aligned, else the kernel loads element by element.
+//  * wgmma (bf16, M > 8, K and N multiples of 8, 16-byte aligned operands):
+//    tensor cores fed by TMA. A block owns a 128 x kWgmmaBN output tile. One
+//    producer thread streams 128 x 64 tiles of x (K-major) and 64 x kWgmmaBN
+//    tiles of w, as 64-column boxes of its (K, N) row-major layout (MN-major,
+//    the wgmma transpose bit; the weights are used in place, never copied),
+//    through a ring of stages in shared memory with 128-byte swizzle; full and
+//    empty mbarriers hand the stages over. Two consumer warpgroups (setmaxnreg
+//    moves registers to them) each run wgmma m64nNk16 over 64 rows into f32
+//    registers, keeping one k-tile's wgmma group in flight, and store their
+//    rows with masks. TMA zero-fills past M, N and K, so a K tail adds 0 and
+//    ragged M and N are masked at the store. No split-K, no atomics.
+//  * simt (f32, or shapes TMA cannot describe): plain 64x64 shared-memory
+//    tiles with a 4x4 register micro-tile per thread, f32 throughout: f32
+//    products stay exact f32 (never TF32).
+// Any M, N, K on the gemv and simt routes: ragged edges are masked; 16-byte
+// loads are used only when the weight rows are 16-byte aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -197,6 +212,136 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ o
   }
 }
 
+// ---- wgmma route ---------------------------------------------------------------
+
+constexpr int kWgmmaBM = 128;  // rows of a block: two consumer warpgroups of 64
+constexpr int kWgmmaBN = 256;  // columns of a block
+constexpr int kWgmmaBK = 64;   // K rows of a stage: one 128-byte swizzle row of x
+constexpr int kWgmmaThreads = 384;  // producer warpgroup + two consumers
+constexpr int kWgmmaStages = 4;
+constexpr int kBoxBytes = 64 * 64 * 2;                   // one 64 x 64 bf16 box
+constexpr int kABytes = kWgmmaBM * kWgmmaBK * 2;          // x tile
+constexpr int kBBytes = kWgmmaBK * kWgmmaBN * 2;          // w tile: kWgmmaBN / 64 boxes
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kWgmmaSmem = 1024 + kWgmmaStages * kStageBytes + 2 * kWgmmaStages * 8;
+
+template <typename O>
+__device__ __forceinline__ void store2(O* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16x2(a, b);
+}
+
+// grid = (ceil(M / 128), ceil(N / kWgmmaBN)): consecutive blocks share a
+// column of weight tiles. tx: x as (K, M) innermost first, boxes 64 x 128;
+// tw: w as (N, K), boxes 64 x 64.
+template <typename O>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+             O* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  uint8_t* a_s = smem_raw + pad;
+  uint8_t* b_s = a_s + kWgmmaStages * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kWgmmaStages * kBBytes);
+  uint64_t* empty = full + kWgmmaStages;
+
+  const int m0 = blockIdx.x * kWgmmaBM;
+  const int n0 = blockIdx.y * kWgmmaBN;
+  const int ktiles = (K + kWgmmaBK - 1) / kWgmmaBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgmmaStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kWgmmaStages;
+        if (kt >= kWgmmaStages) hopper::mbar_wait(&empty[s], ((kt / kWgmmaStages) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        hopper::tma_load_2d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0);
+#pragma unroll
+        for (int j = 0; j < kWgmmaBN / 64; ++j)
+          hopper::tma_load_2d(b_s + s * kBBytes + j * kBoxBytes, &tw, &full[s], n0 + 64 * j,
+                              kt * kWgmmaBK);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    float acc[kWgmmaBN / 2];
+#pragma unroll
+    for (int i = 0; i < kWgmmaBN / 2; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kWgmmaStages;
+      hopper::mbar_wait(&full[s], (kt / kWgmmaStages) & 1);
+      const uint32_t a_addr = hopper::smem_u32(a_s + s * kABytes) + c * 64 * 128;
+      const uint32_t b_addr = hopper::smem_u32(b_s + s * kBBytes);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgmmaBK / 16; ++kk) {
+        // x: K-major, 16 columns = 32 bytes on; w: MN-major, 16 K rows on,
+        // its 64-column boxes kBoxBytes apart
+        hopper::wgmma_ss<kWgmmaBN, 1>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
+                                      hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024),
+                                      1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the previous k-tile's products are done
+      hopper::fence_regs(acc);
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % kWgmmaStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    const int row = m0 + c * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < kWgmmaBN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (col < N) {
+        if (row < M) store2<O>(out + (size_t)row * N + col, acc[4 * j], acc[4 * j + 1]);
+        if (row + 8 < M)
+          store2<O>(out + (size_t)(row + 8) * N + col, acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <typename O>
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, int M, int N, int K,
+                 cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t x_box[2] = {64, kWgmmaBM};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t w_box[2] = {64, kWgmmaBK};
+  int err = hopper::encode_bf16_sw128(&tx, x, 2, x_dims, x_strides, x_box);
+  if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 2, w_dims, w_strides, w_box);
+  static std::atomic<uint32_t> smem_set{0};
+  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O>, kWgmmaSmem, smem_set);
+  if (err != 0) return err;
+  dim3 grid((M + kWgmmaBM - 1) / kWgmmaBM, (N + kWgmmaBN - 1) / kWgmmaBN);
+  wgmma_kernel<O><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename O, int MM>
 void launch_gemv(const T* x, const T* w, O* out, float* work, int M, int N, int K,
                  int splits, cudaStream_t stream) {
@@ -212,14 +357,20 @@ void launch_gemv(const T* x, const T* w, O* out, float* work, int M, int N, int 
   }
 }
 
+enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2 };
+
 template <typename T, typename O>
-int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, int K,
+int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, int K, int route,
         int splits, cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   const T* w = static_cast<const T*>(w_);
   O* out = static_cast<O*>(out_);
   float* ws = static_cast<float*>(work);
-  if (splits == 0) {
+  if (route == kRouteWgmma) {
+    if constexpr (sizeof(T) == 2) return launch_wgmma<O>(x, w, out, M, N, K, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == kRouteSimt) {
     dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
     tiled_kernel<T, O><<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K);
   } else if (M == 1) {
@@ -236,23 +387,30 @@ int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, in
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. splits = 0 selects the tiled path;
-// splits >= 1 the gemv path (M <= 8) with K cut into that many chunks, which
-// needs a float32 workspace of splits * M * N when splits > 1.
+// dtype codes: 0 = float32, 1 = bfloat16. route: 0 = gemv (M <= 8, K cut into
+// `splits` >= 1 chunks, which needs a float32 workspace of splits * M * N when
+// splits > 1), 1 = simt tiles, 2 = wgmma (bfloat16 in, M > 8, K and N
+// multiples of 8, x and w 16-byte aligned); anything else is refused.
 // Returns cudaGetLastError() after the launches.
 extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work, int M,
-                             int N, int K, int splits, int in_dtype, int out_dtype,
+                             int N, int K, int route, int splits, int in_dtype, int out_dtype,
                              void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 0 || (splits > 0 && M > kGemvMaxM))
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteWgmma &&
+      (in_dtype != 1 || M <= kGemvMaxM || K % 8 || N % 8 ||
+       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route < kRouteGemv || route > kRouteWgmma) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 1 && out_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, M, N, K, splits, s);
+    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, s);
   if (in_dtype == 1 && out_dtype == 0)
-    return run<__nv_bfloat16, float>(x, w, out, work, M, N, K, splits, s);
+    return run<__nv_bfloat16, float>(x, w, out, work, M, N, K, route, splits, s);
   if (in_dtype == 0 && out_dtype == 1)
-    return run<float, __nv_bfloat16>(x, w, out, work, M, N, K, splits, s);
+    return run<float, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, s);
   if (in_dtype == 0 && out_dtype == 0)
-    return run<float, float>(x, w, out, work, M, N, K, splits, s);
+    return run<float, float>(x, w, out, work, M, N, K, route, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

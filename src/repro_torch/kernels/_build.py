@@ -2,9 +2,10 @@
 
 Every ``repro_torch/csrc/<name>.cu`` becomes ``build/repro_torch_kernels/
 lib<name>.so`` under the checkout's root (git-ignored). The first call that
-needs any kernel compiles every source that is missing or older than its
-library, one ``nvcc`` process per source, all started together; ptxas's
-register and shared-memory report lands in ``lib<name>.log`` beside it. Each C
+needs any kernel compiles every source whose library is missing or older
+than the source or than any shared header ``csrc/*.cuh``, one ``nvcc``
+process per source, all started together; ptxas's register and
+shared-memory report lands in ``lib<name>.log`` beside it. Each C
 entry point returns ``cudaGetLastError()``; :func:`check` raises on non-zero.
 """
 from __future__ import annotations
@@ -16,7 +17,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -28,6 +31,7 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, Callable[..., int]] = {}
+_sm_counts: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -45,15 +49,22 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def stale_sources(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> List[Path]:
+    """The sources in ``csrc`` whose ``build_dir/lib<name>.so`` is missing or
+    older than the source or than any shared header ``csrc/*.cuh``."""
+    headers = max((h.stat().st_mtime for h in csrc.glob("*.cuh")), default=0.0)
+    stale = []
+    for src in sorted(csrc.glob("*.cu")):
+        lib = build_dir / f"lib{src.stem}.so"
+        if not lib.exists() or lib.stat().st_mtime < max(src.stat().st_mtime, headers):
+            stale.append(src)
+    return stale
+
+
 def build_all() -> float:
     """Compile every stale source in parallel; return the wall seconds spent."""
     t0 = time.perf_counter()
-    sources = sorted(CSRC.glob("*.cu"))
-    stale = [
-        s for s in sources
-        if not _lib_path(s.stem).exists()
-        or _lib_path(s.stem).stat().st_mtime < s.stat().st_mtime
-    ]
+    stale = stale_sources()
     if stale:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -91,6 +102,14 @@ def function(lib: str, name: str, argtypes: Sequence) -> Callable[..., int]:
             fn.restype = ctypes.c_int
             _fns[key] = fn
     return fn
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once a device."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_counts[dev]
 
 
 def check(err: int, what: str) -> None:

@@ -3,12 +3,22 @@
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``stream_matmul.launches`` and
-``stream_matmul_int8.launches`` count the kernels' launches.
+``stream_matmul_int8.launches`` count the kernels' launches;
+``stream_matmul.wgmma_launches`` counts those of them that took the
+tensor-core route.
+
+``stream_matmul`` replaces the JAX package's ``stream_matmul``
+(``src/repro/kernels/streammm/kernel.py:50``) and has three routes, which
+:func:`mm_route` picks from dtype and shape alone (a rule, not a fallback: a
+route that fails raises): ``gemv`` for M <= 8, bound by the weight bytes over
+HBM (the live and decode steps); ``wgmma`` for bf16 with M > 8 where TMA can
+describe both operands, bound by the bf16 tensor-core rate at prefill, which
+it approaches with TMA-fed wgmma tiles; ``simt`` for the rest (f32, which
+stays exact f32, and ragged K or N).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
@@ -18,22 +28,27 @@ from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref, stream_matm
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMV_MAX_M = 8  # rows of x the kernel's gemv path takes (kGemvMaxM)
 GEMV_COLS = 256  # output columns per gemv block (kGemvCols of both kernels)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry point's route argument
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_sm_count: Dict[int, int] = {}
 
 
-def _sms(device: torch.device) -> int:
-    dev = device.index if device.index is not None else torch.cuda.current_device()
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _sm_count[dev]
+def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel route of an (m, k) @ (k, n) product: "gemv" for m <= 8;
+    "wgmma" for bf16 where TMA can describe both operands (k and n multiples
+    of 8, so that every row starts 16 bytes on, and 16-byte aligned base
+    pointers: ``aligned``); "simt" otherwise, which keeps f32 in exact f32."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "simt"
 
 
 def k_splits(m: int, n: int, k: int, sm_count: int) -> int:
     """How many K chunks the gemv path cuts a product into: enough blocks for
-    about four per SM, each chunk at least 64 rows deep. 0 selects the tiled
-    path (m > GEMV_MAX_M)."""
+    about four per SM, each chunk at least 64 rows deep; 0 where m >
+    GEMV_MAX_M, which is not the gemv route's."""
     if m > GEMV_MAX_M:
         return 0
     col_blocks = -(-n // GEMV_COLS)
@@ -55,22 +70,26 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16) ->
         raise ValueError("stream_matmul: x and w must be contiguous")
     m, k = x.shape
     n = w.shape[1]
-    splits = k_splits(m, n, k, _sms(x.device))
+    route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    splits = k_splits(m, n, k, _build.sm_count(x.device)) if route == "gemv" else 0
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("streammm", "stream_matmul", _ARGTYPES)
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
-        m, n, k, splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
+        m, n, k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "stream_matmul")
+    _build.check(err, f"stream_matmul ({route})")
     stream_matmul.launches += 1
+    if route == "wgmma":
+        stream_matmul.wgmma_launches += 1
     return out
 
 
 stream_matmul.launches = 0
+stream_matmul.wgmma_launches = 0
 
 
 def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:
@@ -117,7 +136,7 @@ def stream_matmul_int8(
         raise ValueError("stream_matmul_int8: x, w_q and scales must be contiguous")
     if on_cpu:
         return stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype)
-    splits = int8_k_splits(m, n, k, block_k, _sms(x.device))
+    splits = int8_k_splits(m, n, k, block_k, _build.sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("streammm_int8", "stream_matmul_int8", _INT8_ARGTYPES)

@@ -11,7 +11,10 @@ the reference's kernel-test tolerance (tests/kernels/test_kernels.py): the
 kernels accumulate in f32 in another order than the plain versions and
 round to bf16 at other places. ``paged_attention`` is also held to a gate
 scaled to its output: over a thousand slots its outputs have an rms near
-0.05, so 5e-2 alone would pass a dropped page.
+0.05, so 5e-2 alone would pass a dropped page. ``flash_attention``'s
+tensor-core route is also held to relative L2 <= 1e-2: at S = 1024 late rows
+have outputs of rms ~0.04, so atol 5e-2 alone would pass a dropped KV tile;
+rounding P to bf16 gives ~2e-3.
 """
 import numpy as np
 import pytest
@@ -98,6 +101,28 @@ def test_stream_matmul_kernel(cuda, m, k, n, dtype):
     assert torch.equal(out, mm_ops.stream_matmul(x, w, out_dtype=dt))  # no atomics
 
 
+WGMMA_MM_CASES = [
+    # (M, K, N): mamba2's in_proj at prefill (N not a multiple of 128), the
+    # decode-vs-forward check's 4 x 1088 rows, ragged M, N and K tails
+    (4096, 2048, 8512), (4352, 2048, 2048), (200, 264, 136), (130, 72, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", WGMMA_MM_CASES)
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+def test_stream_matmul_wgmma_route(cuda, m, k, n, out_dtype):
+    x = _randn((m, k), torch.bfloat16, cuda, 0)
+    w = _randn((k, n), torch.bfloat16, cuda, 1, scale=k ** -0.5)
+    odt = DTYPES[out_dtype]
+    assert mm_ops.mm_route(m, n, k, x.dtype, True) == "wgmma"
+    before = mm_ops.stream_matmul.wgmma_launches
+    out = mm_ops.stream_matmul(x, w, out_dtype=odt)
+    assert mm_ops.stream_matmul.wgmma_launches == before + 1
+    _close(out, stream_matmul_ref(x, w, out_dtype=odt))
+    assert torch.equal(out, mm_ops.stream_matmul(x, w, out_dtype=odt))  # no split-K, no atomics
+
+
 INT8_CASES = [
     # (M, K, N, block_k): the reference's test shapes, the kernel bench's,
     # paper-llama3-8b's projections at decode (M = 1, 4), and ragged sizes
@@ -161,6 +186,35 @@ def test_flash_attention_kernel(cuda, b, sq, skv, h, hkv, d, causal, window, dty
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     assert fa_ops.flash_attention.launches == before + 1
     _close(out, attention_ref(q, k, v, causal=causal, window=window))
+
+
+WGMMA_FA_CASES = [
+    # (B, Sq, Skv, H, Hkv, D, causal, window): the dense prefill calls of
+    # qwen3-1.7b and llama3.2-3b, the decode-vs-forward check's forward of
+    # llama3.2-3b (g = 3, a partial last row block), the reference's GQA case
+    # and a window that skips tiles, with a partial last KV tile
+    (4, 1024, 1024, 16, 8, 128, True, 0),
+    (4, 1024, 1024, 24, 8, 128, True, 0),
+    (1, 1088, 1088, 24, 8, 128, True, 0),
+    (2, 256, 256, 8, 2, 64, True, 0),
+    (1, 300, 300, 24, 8, 128, True, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", WGMMA_FA_CASES)
+def test_flash_attention_wgmma_route(cuda, b, sq, skv, h, hkv, d, causal, window):
+    q = _randn((b, sq, h, d), torch.bfloat16, cuda, 2)
+    k = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 3)
+    v = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 4)
+    assert fa_ops.fa_route(b, sq, skv, h, hkv, d, q.dtype) == "wgmma"
+    before = fa_ops.flash_attention.wgmma_launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_ops.flash_attention.wgmma_launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    _close(out, ref)
+    assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal, window=window))
 
 
 @pytest.mark.cuda

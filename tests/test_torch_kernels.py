@@ -4,6 +4,8 @@ inputs, and the wrappers' CPU dispatch. Tolerance: rtol = atol = 5e-2, the
 reference's own (tests/kernels/test_kernels.py), since bf16 rounds at other
 places in the two frameworks. The CUDA kernels themselves are held against
 these plain versions on the card by ``test_torch_cuda.py``."""
+import os
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,7 @@ from repro.kernels.flash_attention.kernel import flash_attention as jax_flash  #
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.streammm.kernel import stream_matmul as jax_stream_matmul  # noqa: E402
 from repro.kernels.streammm.ref import stream_matmul_ref as jax_stream_matmul_ref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.streammm import ops as mm_ops  # noqa: E402
@@ -100,6 +103,94 @@ def test_k_splits(m, k, n, splits):
     assert got == splits
     chunk = -(-k // max(got, 1))  # the kernel's K rows per split
     assert (got - 1) * chunk < k  # no split is empty
+
+
+# The routes: a pure rule of dtype and shape, decided in the wrapper.
+BF16, F32 = torch.bfloat16, torch.float32
+MM_ROUTES = [
+    # (M, K, N, dtype, aligned, route): every bf16 projection of a prefill of
+    # 4 x 1024 tokens (qwen3-1.7b, llama3.2-3b, mamba2-1.3b) and of the
+    # decode-vs-forward check's 4 x 1088 tokens, the kernel bench's product;
+    # M <= 8; f32, ragged K or N, misaligned operands
+    (4096, 2048, 2048, BF16, True, "wgmma"),
+    (4096, 2048, 1024, BF16, True, "wgmma"),
+    (4096, 2048, 6144, BF16, True, "wgmma"),
+    (4096, 6144, 2048, BF16, True, "wgmma"),
+    (4096, 3072, 3072, BF16, True, "wgmma"),
+    (4096, 3072, 1024, BF16, True, "wgmma"),
+    (4096, 3072, 8192, BF16, True, "wgmma"),
+    (4096, 8192, 3072, BF16, True, "wgmma"),
+    (4096, 2048, 8512, BF16, True, "wgmma"),  # mamba2 in_proj: N not a multiple of 128
+    (4096, 4096, 2048, BF16, True, "wgmma"),
+    (4352, 2048, 2048, BF16, True, "wgmma"),
+    (256, 512, 256, BF16, True, "wgmma"),  # kernel bench
+    (9, 64, 64, BF16, True, "wgmma"),
+    (1, 2048, 2048, BF16, True, "gemv"),
+    (4, 2048, 151936, BF16, True, "gemv"),  # prefill's LM head on the last position
+    (8, 300, 1001, BF16, False, "gemv"),
+    (4096, 2048, 2048, F32, True, "simt"),
+    (9, 300, 1001, BF16, True, "simt"),
+    (64, 2048, 6144, F32, True, "simt"),
+    (4096, 2048, 2048, BF16, False, "simt"),
+    (16, 2048, 1004, BF16, True, "simt"),
+    (16, 1004, 2048, BF16, True, "simt"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,aligned,route", MM_ROUTES)
+def test_mm_route(m, k, n, dtype, aligned, route):
+    assert mm_ops.mm_route(m, n, k, dtype, aligned) == route
+
+
+FA_ROUTES = [
+    # (B, Sq, Skv, H, Hkv, D, dtype, aligned, route): the dense prefill calls
+    # of qwen3-1.7b and llama3.2-3b, the decode-vs-forward check's, the kernel
+    # bench's, the reference's test shapes in bf16; the live call (Sq = 1),
+    # f32, D = 80, Sq > Skv, too few folded rows, misaligned
+    (4, 1024, 1024, 16, 8, 128, BF16, True, "wgmma"),
+    (4, 1024, 1024, 24, 8, 128, BF16, True, "wgmma"),
+    (4, 1088, 1088, 24, 8, 128, BF16, True, "wgmma"),
+    (1, 512, 512, 8, 2, 64, BF16, True, "wgmma"),
+    (2, 256, 256, 8, 2, 64, BF16, True, "wgmma"),
+    (1, 300, 300, 24, 8, 128, BF16, True, "wgmma"),
+    (1, 32, 32, 4, 2, 64, BF16, True, "wgmma"),  # 64 folded rows
+    (1, 1, 1, 16, 8, 128, BF16, True, "simt"),
+    (1, 1, 1, 24, 8, 128, BF16, True, "simt"),
+    (4, 1024, 1024, 16, 8, 128, F32, True, "simt"),
+    (1, 5, 77, 6, 2, 80, BF16, True, "simt"),
+    (1, 128, 128, 4, 4, 32, BF16, True, "simt"),
+    (2, 70, 40, 4, 2, 64, BF16, True, "simt"),
+    (1, 31, 31, 4, 2, 64, BF16, True, "simt"),
+    (4, 1024, 1024, 16, 8, 128, BF16, False, "simt"),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,dtype,aligned,route", FA_ROUTES)
+def test_fa_route(b, sq, skv, h, hkv, d, dtype, aligned, route):
+    assert fa_ops.fa_route(b, sq, skv, h, hkv, d, dtype, aligned) == route
+
+
+STALE_CASES = [
+    # (mtime of each file, sources that must be rebuilt)
+    ({"a.cu": 1, "b.cu": 1, "h.cuh": 1, "liba.so": 2, "libb.so": 2}, []),
+    ({"a.cu": 3, "b.cu": 1, "h.cuh": 1, "liba.so": 2, "libb.so": 2}, ["a.cu"]),
+    ({"a.cu": 1, "b.cu": 1, "h.cuh": 3, "liba.so": 2, "libb.so": 2}, ["a.cu", "b.cu"]),
+    ({"a.cu": 1, "b.cu": 1, "liba.so": 2}, ["b.cu"]),
+]
+
+
+@pytest.mark.parametrize("mtimes,stale", STALE_CASES)
+def test_stale_sources(tmp_path, mtimes, stale):
+    """A library is rebuilt when it is missing or older than its source or
+    than any shared header."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    for name, t in mtimes.items():
+        path = (build if name.endswith(".so") else csrc) / name
+        path.write_text("")
+        os.utime(path, (1e9 + t, 1e9 + t))
+    assert [p.name for p in _build.stale_sources(csrc, build)] == stale
 
 
 # -- flash attention ------------------------------------------------------------
