@@ -8,14 +8,18 @@
 3. holds each kernel against its plain PyTorch version on the card at every
    shape the live step, prefill, a decode step and the kernel bench give it
    (and at the reference's test shapes; ``stream_matmul_int8`` also at the
-   projections of paper-llama3-8b, the model it was written for), and times
-   kernel, plain version and one library call (a yardstick only: the port
-   never calls it), weighted by each path's calls a step; logs each shape's
-   route (``stream_matmul``: gemv / wgmma / simt, ``flash_attention``: wgmma /
-   simt), read from the wrapper's ``wgmma_launches`` and held against the
-   route rule, its share of the bound and its ratio to the library call; gates the
-   prefill path's ``stream_matmul`` sum and each prefill ``flash_attention``
-   call at MAX_LIBRARY_RATIO times the library's;
+   projections of paper-llama3-8b, the model it was written for, at M = 1,
+   4 and 4096; ``paged_attention`` also at the edges of its split rule), and
+   times kernel, plain version and one library call (a yardstick only: the
+   port never calls it), weighted by each path's calls a step; logs each
+   shape's route (``stream_matmul`` and ``stream_matmul_int8``: gemv /
+   wgmma / simt, ``flash_attention``: wgmma / simt), read from the wrapper's
+   ``wgmma_launches`` and held against the route rule, its share of the
+   bound, its ratio to the library call and its registers and spills from
+   ``-Xptxas -v``; gates the prefill path's ``stream_matmul`` sum, each
+   prefill ``flash_attention`` call, each dense decode ``paged_attention``
+   call and the int8 kernel's M = 4096 sum at MAX_LIBRARY_RATIO times the
+   library's (for int8, ``torch.matmul`` with bf16 weights);
 4. runs qwen3-1.7b and mamba2-1.3b at full width (2 layers) through the
    kernels and holds their logits against the plain versions of the same
    weights on the CPU, for ``forward`` and for prefill + decode, and holds
@@ -37,7 +41,8 @@
    tokens;
 7. runs the port's kernel bench (``repro_torch.kernels.bench``), the only
    path of ``stream_matmul_int8``, as the JAX package's kernel bench is its
-   only caller there;
+   only caller there; every bench call of the three kernels with a
+   tensor-core route takes it;
 8. prints the kernels line and, last, the device line.
 
 Any failure raises, so the exit code is not 0; so is a run without a card or
@@ -60,6 +65,7 @@ REQUESTS_PER_MODEL = 6
 # The decode path (phase 6): prompts, prompt length, greedy steps, cache slots.
 DECODE_B, PROMPT, DECODE_STEPS = 4, 1024, 64
 DECODE_SMAX = PROMPT + DECODE_STEPS
+PREFILL_M = DECODE_B * PROMPT  # rows of x of a prefill's projections
 # Decode logits against one forward over the same tokens, relative L2 over
 # all of them. Both paths round to bf16 after every projection, norm and
 # attention (about 10 places a layer) but at other places and after sums in
@@ -97,10 +103,20 @@ PA_REL = 5e-2
 # would pass a dropped KV tile. The wgmma route rounds P to bf16 before PV,
 # which gives ~2e-3 at the prefill shapes (bf16 output rounding ~1e-3).
 FA_REL_L2 = 1e-2
-# On the prefill path the tensor-core routes must come within this factor of
-# the library call on the same inputs: the stream_matmul sum over a prefill of
-# each model against torch.matmul's, each prefill flash_attention call
-# against scaled_dot_product_attention.
+# stream_matmul_int8 with bf16 x and f32 output is also gated at relative L2
+# <= INT8_EXACT_REL_L2: every route keeps the int8 products exact (the wgmma
+# route multiplies bf16 x by the unscaled weight and scales each group's f32
+# sum), so only the order of f32 sums differs from the reference (~1e-6 at
+# K = 14336); a scale applied to the wrong group or a weight rounded to bf16
+# with its scale (up to 2^-9 relative) shows far above it.
+INT8_EXACT_REL_L2 = 1e-5
+# The tensor-core routes and the redesigned decode attention must come within
+# this factor of the library call on the same inputs: the stream_matmul sum
+# over a prefill of each model against torch.matmul's, each prefill
+# flash_attention call against scaled_dot_product_attention, each dense
+# decode paged_attention call against SDPA over the contiguous cache, and the
+# stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
+# against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
 PATHS = ("serve", "prefill", "decode", "kernel_bench")
 KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "paged_attention")
@@ -148,11 +164,12 @@ def main() -> None:
                 log(f"  {log_file.stem}: {line.strip()}")
 
     bench = Bench(torch, dev)
+    usage = ptxas_usage()
     recs = {
         "stream_matmul": check_stream_matmul(torch, dev, bench),
-        "stream_matmul_int8": check_stream_matmul_int8(torch, dev, bench),
+        "stream_matmul_int8": check_stream_matmul_int8(torch, dev, bench, usage),
         "flash_attention": check_flash_attention(torch, dev, bench),
-        "paged_attention": check_paged_attention(torch, dev, bench),
+        "paged_attention": check_paged_attention(torch, dev, bench, usage),
     }
     check_model_against_cpu(torch, dev)
     check_decode_against_cpu(torch, dev)
@@ -248,6 +265,35 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_usage():
+    """{mangled kernel name: (registers, spilled bytes)} from the ``-Xptxas
+    -v`` report of every library in the build directory."""
+    from repro_torch.kernels import _build
+
+    usage, entry, spill = {}, None, 0
+    for log_file in sorted(_build.BUILD_DIR.glob("*.log")):
+        for line in log_file.read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill stores" in line:
+                spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+            elif "Used" in line and "registers" in line and entry is not None:
+                usage[entry] = (int(line.split("Used")[1].split("registers")[0]), spill)
+                entry = None
+    return usage
+
+
+def kernel_usage(usage, *fragments) -> str:
+    """Registers and spilled bytes of the kernel instances whose mangled names
+    hold every fragment (a range where several instances match)."""
+    found = [v for k, v in usage.items() if all(f in k for f in fragments)]
+    if not found:
+        return "ptxas: not reported"
+    regs = sorted({r for r, _ in found})
+    span = f"{regs[0]}" if len(regs) == 1 else f"{regs[0]}-{regs[-1]}"
+    return f"{span} regs, {max(sp for _, sp in found)} B spilled"
+
+
 def max_err(torch, out, ref) -> float:
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL, atol=TOL)
     return float((out.float() - ref.float()).abs().max())
@@ -300,7 +346,8 @@ def counters():
             "flash_attention": flash_attention, "paged_attention": paged_attention}
 
 
-WGMMA_KERNELS = ("stream_matmul", "flash_attention")  # wrappers with a tensor-core route
+# wrappers with a tensor-core route
+WGMMA_KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention")
 
 
 def zero_launches():
@@ -338,12 +385,14 @@ def step_wgmma(cfg, path):
     """The launches of one step of ``path`` that take the tensor-core route:
     on prefill every M = 4096 projection (7 a dense layer, 2 an SSM layer;
     the LM head runs on the last position, M = 4) and every attention; none
-    on the live and decode steps (M = 1 and 4, Sq = 1 or paged)."""
+    on the live and decode steps (M = 1 and 4, Sq = 1 or paged). The int8
+    kernel is on no model's path."""
     L = cfg.num_layers
     dense = cfg.family == "dense"
     if path != "prefill":
-        return {"stream_matmul": 0, "flash_attention": 0}
-    return {"stream_matmul": (7 if dense else 2) * L, "flash_attention": L if dense else 0}
+        return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0}
+    return {"stream_matmul": (7 if dense else 2) * L, "stream_matmul_int8": 0,
+            "flash_attention": L if dense else 0}
 
 
 def checked_route(fn, rule, call):
@@ -435,42 +484,63 @@ def check_stream_matmul(torch, dev, bench):
     }
 
 
-def check_stream_matmul_int8(torch, dev, bench):
+def check_stream_matmul_int8(torch, dev, bench, usage):
     """The int8 kernel against ``stream_matmul_int8_ref`` at the reference's
-    test shapes, the kernel bench's and paper-llama3-8b's projections at
-    M = 1 and 4. Beside each: ``torch.matmul`` of x with bf16 weights of the
-    same (K, N), the time an int8 kernel reading half the bytes should beat
-    at M <= 8; no single PyTorch call computes the int8 function itself."""
+    test shapes, the kernel bench's, and paper-llama3-8b's projections at
+    M = 1 and 4 (the gemv route) and, with bf16 x, at M = 4096 (the wgmma
+    route), each call's route read from ``wgmma_launches`` and held against
+    ``int8_route``. Gated: relative L2 in bf16 output, in f32 output for bf16
+    x (INT8_EXACT_REL_L2), the same bits on a second call, and the M = 4096
+    sum at MAX_LIBRARY_RATIO times that of ``torch.matmul`` of x with bf16
+    weights of the same (K, N): the same operations, the time an int8 kernel
+    reading half the weight bytes should beat at M <= 8 and approach at
+    M = 4096. No single PyTorch call computes the int8 function itself."""
     from repro_torch.kernels import bench as kernel_bench
-    from repro_torch.kernels.streammm.ops import stream_matmul_int8
+    from repro_torch.kernels.streammm.ops import int8_route, stream_matmul_int8
     from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref
 
     gen = torch.Generator(dev).manual_seed(3)
     bm, bk_, bn = kernel_bench.MM_SHAPE
     cases = [
-        # (label, M, K, N, block_k, kernel-bench calls)
-        ("test 1", 64, 128, 64, 64, 0),
-        ("test 2", 128, 256, 128, 64, 0),
-        ("bench", bm, bk_, bn, kernel_bench.INT8_BLOCK_K, 1),
-    ] + [(f"llama3-8b M={m}", m, k, n, 128, 0) for m in (1, 4) for k, n in LLAMA3_8B_KN]
+        # (label, M, K, N, block_k, x dtypes, kernel-bench calls)
+        ("test 1", 64, 128, 64, 64, (torch.bfloat16, torch.float32), 0),
+        ("test 2", 128, 256, 128, 64, (torch.bfloat16, torch.float32), 0),
+        ("bench", bm, bk_, bn, kernel_bench.INT8_BLOCK_K, (torch.bfloat16, torch.float32), 1),
+        ("ragged", 130, 256, 144, 64, (torch.bfloat16,), 0),
+        ("block_k 100", 9, 300, 1008, 100, (torch.bfloat16,), 0),
+    ] + [("llama3-8b", m, k, n, 128, (torch.bfloat16, torch.float32), 0)
+         for m in (1, 4) for k, n in LLAMA3_8B_KN] + [
+        ("llama3-8b prefill", PREFILL_M, k, n, 128, (torch.bfloat16,), 0) for k, n in LLAMA3_8B_KN]
     log("stream_matmul_int8 against stream_matmul_int8_ref (ms: CUDA events, cold L2; "
         "bf16 matmul: torch.matmul with bf16 weights of the same (K, N), a yardstick, not the same function):")
     totals = path_totals(library=None)
     errs, bound_kinds, by_shape = [], set(), []
-    for label, m, k, n, block_k, calls in cases:
+    big = dict(ms=0.0, bf16_matmul_ms=0.0, bound_ms=0.0)
+    for label, m, k, n, block_k, dtypes, calls in cases:
         w_q = torch.randint(-127, 127, (k, n), generator=gen, device=dev, dtype=torch.int8)
         scales = 0.005 + 0.015 * torch.rand((k // block_k, n), generator=gen, device=dev)
         w_bf16 = (w_q.float() * scales.repeat_interleave(block_k, 0)).to(torch.bfloat16)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-            out = stream_matmul_int8(x, w_q, scales, block_k)
+            aligned = all(t.data_ptr() % 16 == 0 for t in (x, w_q, scales))
+            rule = int8_route(m, n, k, block_k, dtype, aligned)
+            out, route = checked_route(stream_matmul_int8, rule,
+                                       lambda: stream_matmul_int8(x, w_q, scales, block_k))
             ref = stream_matmul_int8_ref(x, w_q, scales, block_k)
             err = max_err(torch, out, ref)
             rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+            del ref
             if not rel <= INT8_REL_L2:
                 raise AssertionError(f"stream_matmul_int8 {label} {dtype}: relative L2 {rel:.3e} > {INT8_REL_L2}")
             if not torch.equal(out, stream_matmul_int8(x, w_q, scales, block_k)):
                 raise AssertionError(f"stream_matmul_int8 {label} is not deterministic")
+            out32 = stream_matmul_int8(x, w_q, scales, block_k, out_dtype=torch.float32)
+            ref32 = stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype=torch.float32)
+            rel32 = float((out32 - ref32).norm() / ref32.norm())
+            del out32, ref32
+            if not rel32 <= INT8_EXACT_REL_L2:
+                raise AssertionError(f"stream_matmul_int8 {label} {dtype}: f32 output relative L2 "
+                                     f"{rel32:.3e} > {INT8_EXACT_REL_L2}")
             t = bench.ms(lambda: stream_matmul_int8(x, w_q, scales, block_k))
             t_plain = bench.ms(lambda: stream_matmul_int8_ref(x, w_q, scales, block_k))
             x16 = x.to(torch.bfloat16)
@@ -478,24 +548,39 @@ def check_stream_matmul_int8(torch, dev, bench):
             nbytes = x.element_size() * m * k + k * n + 4 * scales.numel() + 2 * m * n
             b, kind = bound(nbytes, 2 * m * k * n, dtype)
             errs.append(err)
+            kernel = {"wgmma": "wgmma_kernelI13__nv_bfloat16E", "simt": "tiled_kernel", "gemv": "gemv_kernel"}[route]
+            regs = kernel_usage(usage, "streammm_int8_cu", kernel)
             by_shape.append({"label": label, "M": m, "K": k, "N": n, "block_k": block_k, "x": str(dtype),
-                             "ms": t, "bound_ms": b, "bound_by": kind, "plain_ms": t_plain,
-                             "bf16_matmul_ms": t_bf16, "max_abs_err": err, "rel_l2": rel})
+                             "route": route, "ms": t, "bound_ms": b, "bound_by": kind, "plain_ms": t_plain,
+                             "bf16_matmul_ms": t_bf16, "max_abs_err": err, "rel_l2": rel, "rel_l2_f32": rel32,
+                             "ptxas": regs})
             if calls and dtype == torch.bfloat16:
                 bound_kinds.add(kind)
                 for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", b)):
                     totals["kernel_bench"][key] += calls * val
-            log(f"  {label} M={m} K={k} N={n} block_k={block_k} x {dtype}: err {err:.2e} rel L2 {rel:.2e} "
-                f"kernel {t:.4f} ms bound {b:.4f} ms ({kind}, {100 * b / t:.0f}%) plain {t_plain:.4f} ms "
-                f"bf16 matmul {t_bf16:.4f} ms")
-        del w_q, scales, w_bf16, x, out, ref
+            if label == "llama3-8b prefill":
+                for key, val in (("ms", t), ("bf16_matmul_ms", t_bf16), ("bound_ms", b)):
+                    big[key] += val
+            log(f"  {label} M={m} K={k} N={n} block_k={block_k} x {dtype} [{route}; {regs}]: err {err:.2e} "
+                f"rel L2 {rel:.2e} (f32 out {rel32:.2e}) kernel {t:.4f} ms bound {b:.4f} ms ({kind}, "
+                f"{100 * b / t:.0f}%) plain {t_plain:.4f} ms bf16 matmul {t_bf16:.4f} ms "
+                f"(kernel {t / t_bf16:.2f}x)")
+            del x, x16, out
+        del w_q, scales, w_bf16
+    ratio = big["ms"] / big["bf16_matmul_ms"]
+    log(f"  llama3-8b projections at M={PREFILL_M}: kernel {big['ms']:.3f} ms, bf16 matmul "
+        f"{big['bf16_matmul_ms']:.3f} ms ({ratio:.2f}x, gate {MAX_LIBRARY_RATIO}x), bound {big['bound_ms']:.3f} ms "
+        f"({100 * big['bound_ms'] / big['ms']:.0f}%)")
+    if not ratio <= MAX_LIBRARY_RATIO:
+        raise AssertionError(f"stream_matmul_int8 M={PREFILL_M} sum {ratio:.2f}x bf16 torch.matmul "
+                             f"> {MAX_LIBRARY_RATIO}x")
     return {
         "source": "src/repro_torch/csrc/streammm_int8.cu",
         "replaces": "src/repro/kernels/streammm/kernel.py:101",
         "max_abs_err": max(errs),
         "bound_by": "+".join(sorted(bound_kinds)),
         "by_path": totals,
-        "extra": {"by_shape": by_shape},
+        "extra": {"by_shape": by_shape, "llama3_8b_m4096": {**big, "ratio": ratio}},
     }
 
 
@@ -590,11 +675,20 @@ def check_flash_attention(torch, dev, bench):
     }
 
 
-def check_paged_attention(torch, dev, bench):
+def check_paged_attention(torch, dev, bench, usage):
+    """The split-KV decode kernel against ``paged_attention_ref`` at the
+    decode shapes of both dense models, the reference's test shapes, the
+    kernel bench's, and the edges of the split rule (``pa_splits``): a row
+    that ends inside the first run of pages, lengths on run boundaries, a
+    table whose width is no multiple of the run, g = 16, a row of length 0.
+    Gated: max error against rms(ref), the same bits on a second call, exact
+    zeros for length 0, and each dense decode call in bf16 at
+    MAX_LIBRARY_RATIO times SDPA over the contiguous cache."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import bench as kernel_bench
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import pa_splits, paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.models.layers import kv_page_tokens
 
@@ -604,15 +698,21 @@ def check_paged_attention(torch, dev, bench):
     decode_lengths = tuple(PROMPT + 1 + (DECODE_STEPS - 1) * i // (DECODE_B - 1) for i in range(DECODE_B))
     decode_pt = kv_page_tokens(DECODE_SMAX)
     mp = DECODE_SMAX // decode_pt
+    sms = _build.sm_count(dev)
+    run = -(-mp // pa_splits(DECODE_B, 8, mp, sms)) * decode_pt  # tokens of a run at the decode shapes
     cases = [
         # (label, B, H, Hkv, D, page_tokens, max_pages, lengths, permuted table,
-        #  calls a step by path): the decode shapes of both dense models, then
-        #  the reference's PA_CASES with its lengths, its growing-length case
-        #  (one length a row), g = 3 with a permuted table and a row of length
-        #  0, and the kernel bench's shape
+        #  calls a step by path): the decode shapes of both dense models, the
+        #  split rule's edges at those shapes, then the reference's PA_CASES
+        #  with its lengths, its growing-length case (one length a row), g = 3
+        #  with a permuted table and a row of length 0, and the kernel bench's
         ("qwen3 decode", DECODE_B, 16, 8, 128, decode_pt, mp, decode_lengths, False, {"decode": 28}),
         ("llama3.2 decode", DECODE_B, 24, 8, 128, decode_pt, mp, decode_lengths, False, {"decode": 28}),
         ("llama3.2 permuted", DECODE_B, 24, 8, 128, decode_pt, mp, decode_lengths, True, {}),
+        ("inside the first run", DECODE_B, 24, 8, 128, decode_pt, mp, (1, run // 2, run - 1, 0), True, {}),
+        ("run boundaries", DECODE_B, 16, 8, 128, decode_pt, mp, (run, 2 * run, 5 * run, mp * decode_pt), False, {}),
+        ("long row, ragged runs", 1, 16, 8, 128, 64, 205, (12000,), True, {}),
+        ("g=16", 2, 32, 2, 128, 64, mp, (1088, 700), True, {}),
         ("test 1", 2, 4, 2, 32, 16, 4, (1, 8), False, {}),
         ("test 2", 3, 8, 1, 64, 32, 3, (1, 8, 15), False, {}),
         ("test 3", 1, 4, 4, 32, 16, 8, (1,), False, {}),
@@ -620,10 +720,15 @@ def check_paged_attention(torch, dev, bench):
         ("g=3 length 0", 3, 6, 2, 32, 8, 5, (37, 0, 40), True, {}),
         ("bench", pb, ph, 2, pd, ppt, pmp, (kernel_bench.PA_LENGTH,) * pb, False, {"kernel_bench": 1}),
     ]
-    log("paged_attention against paged_attention_ref (ms: CUDA events, cold L2):")
+    log(f"paged_attention against paged_attention_ref (ms: CUDA events, cold L2; runs of pages from pa_splits, "
+        f"{sms} SMs):")
     totals = path_totals()
-    errs, bound_kinds = [], set()
+    errs, bound_kinds, by_shape = [], set(), []
     for label, b, h, hkv, d, pt, max_pages, lengths, permuted, calls in cases:
+        splits = pa_splits(b, hkv, max_pages, sms)
+        g = h // hkv
+        regs = kernel_usage(usage, "paged_attention_cu", "pa_split_kernelI13__nv_bfloat16Li"
+                            f"{g if g <= 4 else 8}ELb{int(d % 8 == 0)}E")
         for dtype in (torch.bfloat16, torch.float32):
             n_pool = b * max_pages + 3
             q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
@@ -666,15 +771,25 @@ def check_paged_attention(torch, dev, bench):
                     bound_kinds.add(kind)
                     for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", bt), ("library_ms", t_lib)):
                         totals[path][key] += n * val
+            if dtype == torch.bfloat16:
+                by_shape.append({"label": label, "B": b, "H": h, "Hkv": hkv, "D": d, "page_tokens": pt,
+                                 "max_pages": max_pages, "lengths": list(lengths), "splits": splits, "ms": t,
+                                 "bound_ms": bt, "bound_by": kind, "plain_ms": t_plain, "library_ms": t_lib,
+                                 "max_abs_err": err, "ptxas": regs})
             log(f"  {label} B={b} H={h} Hkv={hkv} D={d} pt={pt} pages={max_pages} lengths={list(lengths)} "
-                f"{'permuted ' if permuted else ''}{dtype}: err {err:.2e} (rms {rms:.2e}) kernel {t:.4f} ms "
-                f"bound {bt:.5f} ms ({kind}, {100 * bt / t:.0f}%) plain {t_plain:.4f} ms sdpa {t_lib:.4f} ms")
+                f"{'permuted ' if permuted else ''}{dtype} [{splits} runs; {regs if dtype == torch.bfloat16 else 'f32'}]: "
+                f"err {err:.2e} (rms {rms:.2e}) kernel {t:.4f} ms bound {bt:.5f} ms ({kind}, {100 * bt / t:.0f}%) "
+                f"plain {t_plain:.4f} ms sdpa {t_lib:.4f} ms (kernel {t / t_lib:.2f}x)")
+            if "decode" in calls and dtype == torch.bfloat16 and not t <= MAX_LIBRARY_RATIO * t_lib:
+                raise AssertionError(f"paged_attention {label}: {t:.4f} ms > {MAX_LIBRARY_RATIO} x sdpa {t_lib:.4f} ms")
+            del q, pool_k, pool_v, k_seq, v_seq, out, ref
     return {
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:69",
         "max_abs_err": max(errs),
         "bound_by": "+".join(sorted(bound_kinds)),
         "by_path": totals,
+        "extra": {"by_shape": by_shape},
     }
 
 
@@ -1139,7 +1254,8 @@ def kernel_bench_path(torch, dev):
     JAX package's kernel bench is its only caller there). Returns its
     launches, read from zero, its steps (a step is one call of each row,
     which the bench makes REPS + 1 times on the card: a warm-up, then the
-    timed launches) and its tensor-core launches."""
+    timed launches) and its tensor-core launches, every one of which must
+    be a tensor-core launch for the three kernels that have that route."""
     from repro_torch.kernels import bench as kernel_bench
 
     torch.cuda.synchronize(dev)
@@ -1154,6 +1270,10 @@ def kernel_bench_path(torch, dev):
     missing = [name for name in KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernel bench launched no {missing}")
+    # the bench's shapes (M = 256 products, S = 512 attention) are all on the
+    # tensor-core routes
+    if any(wgmma[name] != launches[name] for name in WGMMA_KERNELS):
+        raise AssertionError(f"kernel bench: tensor-core launches {wgmma} != launches {launches}")
     return launches, kernel_bench.REPS + 1, wgmma
 
 

@@ -1,7 +1,7 @@
 // Shared Hopper (sm_90a) device helpers of the port's tensor-core kernels
-// (streammm.cu, flash_attention.cu): mbarriers, TMA tile loads, wgmma shared-
-// memory descriptors and instructions, register hand-over between warpgroups,
-// and the host-side encoding of TMA tensor maps.
+// (streammm.cu, streammm_int8.cu, flash_attention.cu): mbarriers, TMA tile
+// loads, ldmatrix, wgmma shared-memory descriptors and instructions, register
+// hand-over between warpgroups, and the host-side encoding of TMA tensor maps.
 //
 // Conventions both kernels rely on:
 //  * every tile lives in dynamic shared memory at a 1024-byte aligned address,
@@ -100,6 +100,16 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Four 8 x 8 matrices of 16-bit elements, transposed: thread t gives the
+// address of row t % 8 of matrix t / 8 and receives, in d[j], elements
+// (2 (t % 4), t / 4) and (2 (t % 4) + 1, t / 4) of matrix j.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&d)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // -- register hand-over between warpgroups -----------------------------------------
 
 template <int N>
@@ -153,7 +163,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // D (64 x N, f32 registers) += A (64 x 16) * B (16 x N), bf16. A and B from
-// shared memory (_ss) or A from registers (_rs, B transposed: MN-major).
+// shared memory (_ss) or A from registers (_rs).
 // Accumulator fragment of thread t of the warpgroup (warp w = t / 32, lane l):
 // d[4j + e] is row 16w + l/4 + 8 (e / 2), column 8j + 2 (l % 4) + e % 2. The A
 // register fragment of _rs is the same map over a 64 x 16 tile: a[0] holds
@@ -210,6 +220,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
+template <int TNSP_B>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -217,15 +228,16 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
+template <int TNSP_B>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -235,7 +247,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -245,7 +257,36 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+}
+
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
 // Only the widths the kernels use have wrappers; any other N fails to compile.
@@ -257,12 +298,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
   if constexpr (N == 256) wgmma_m64n256k16_ss<TNSP_B>(d, desc_a, desc_b, scale_d);
 }
 
-template <int N>
+// B is MN-major (transposed) unless TNSP_B = 0, which reads a K-major B.
+template <int N, int TNSP_B = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128, "no m64nNk16 register-A wgmma wrapper for this N");
-  if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
-  if constexpr (N == 128) wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
+  static_assert(N == 64 || N == 128 || N == 192, "no m64nNk16 register-A wgmma wrapper for this N");
+  if constexpr (N == 64) wgmma_m64n64k16_rs<TNSP_B>(d, a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_m64n128k16_rs<TNSP_B>(d, a, desc_b, scale_d);
+  if constexpr (N == 192) wgmma_m64n192k16_rs<TNSP_B>(d, a, desc_b, scale_d);
 }
 
 // -- host: TMA tensor maps ----------------------------------------------------------
@@ -290,20 +333,27 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first), strides in bytes of dims
-// 1.. , boxes of `box` elements, 128B swizzle, zero fill out of bounds.
-// Returns 0 or a cudaError_t code.
-static inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
-                                    const cuuint64_t* dims, const cuuint64_t* strides,
-                                    const cuuint32_t* box) {
+// A tensor map of `rank` dims (innermost first) of `type`, strides in bytes of
+// dims 1.. , boxes of `box` elements, zero fill out of bounds. Returns 0 or a
+// cudaError_t code.
+static inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                               int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                               const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem_strides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 tensor map with 128B swizzle (the layout the wgmma descriptors read).
+static inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
+                                    const cuuint64_t* dims, const cuuint64_t* strides,
+                                    const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Opts a kernel into `bytes` of dynamic shared memory (above the 48 KB

@@ -2,7 +2,9 @@
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``paged_attention.launches``
-counts the kernel's launches.
+counts the wrapper's calls on the card: a call is one kernel launch when
+:func:`pa_splits` gives one split, else two (the split kernel and the merge
+of the splits).
 """
 from __future__ import annotations
 
@@ -17,7 +19,20 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+PA_BLOCKS_PER_SM = 2  # blocks of (row, KV head, run) the rule aims for on each SM
+PA_MAX_SPLIT_PAGES = 64  # page ids one block holds (kMaxSplitPages)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def pa_splits(b: int, hkv: int, max_pages: int, sm_count: int) -> int:
+    """How many runs of pages the kernel cuts each row's walk into: about
+    PA_BLOCKS_PER_SM blocks of (row, KV head, run) on each SM, at most
+    PA_MAX_SPLIT_PAGES pages a run, no more runs than pages. A rule of
+    shapes only, never of the lengths: reading them would wait on the card,
+    and the split count sets the merge order and with it the bits."""
+    want = max(1, min(max_pages, -(-PA_BLOCKS_PER_SM * sm_count // (b * hkv))))
+    per_split = min(-(-max_pages // want), PA_MAX_SPLIT_PAGES)
+    return -(-max_pages // per_split)
 
 
 def paged_attention(
@@ -57,11 +72,15 @@ def paged_attention(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: every input must be contiguous")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    max_pages = page_table.shape[1]
+    splits = pa_splits(b, hkv, max_pages, _build.sm_count(q.device))
     out = torch.empty_like(q)
+    work = torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     fn = _build.function("paged_attention", "paged_attention", _ARGTYPES)
     err = fn(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, hkv, d, pt, page_table.shape[1], scale,
+        lengths.data_ptr(), out.data_ptr(), work.data_ptr() if work is not None else None,
+        b, h, hkv, d, pt, max_pages, splits, scale,
         DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_attention")

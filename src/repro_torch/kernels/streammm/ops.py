@@ -4,8 +4,8 @@
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``stream_matmul.launches`` and
 ``stream_matmul_int8.launches`` count the kernels' launches;
-``stream_matmul.wgmma_launches`` counts those of them that took the
-tensor-core route.
+``stream_matmul.wgmma_launches`` and ``stream_matmul_int8.wgmma_launches``
+count those of them that took the tensor-core route.
 
 ``stream_matmul`` replaces the JAX package's ``stream_matmul``
 (``src/repro/kernels/streammm/kernel.py:50``) and has three routes, which
@@ -14,7 +14,10 @@ route that fails raises): ``gemv`` for M <= 8, bound by the weight bytes over
 HBM (the live and decode steps); ``wgmma`` for bf16 with M > 8 where TMA can
 describe both operands, bound by the bf16 tensor-core rate at prefill, which
 it approaches with TMA-fed wgmma tiles; ``simt`` for the rest (f32, which
-stays exact f32, and ragged K or N).
+stays exact f32, and ragged K or N). ``stream_matmul_int8`` replaces
+``stream_matmul_int8`` (``kernel.py:101``) with the same three routes, picked
+by :func:`int8_route`; its ``wgmma`` route keeps the int8 products exact (bf16
+x times the unscaled weight, the scale applied to each group's f32 sum).
 """
 from __future__ import annotations
 
@@ -28,9 +31,11 @@ from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref, stream_matm
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMV_MAX_M = 8  # rows of x the kernel's gemv path takes (kGemvMaxM)
 GEMV_COLS = 256  # output columns per gemv block (kGemvCols of both kernels)
-ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry point's route argument
+ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry points' route argument
+INT8_TILE_K = 64  # K rows of a stage of the int8 wgmma route (kI8BK)
+INT8_TILE_M, INT8_TILE_N = 192, 128  # rows and columns of an int8 wgmma output tile (kI8BM, kI8BN)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
@@ -95,8 +100,8 @@ stream_matmul.wgmma_launches = 0
 def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:
     """How many runs of whole k-groups (``block_k`` rows, one scale row) the
     int8 gemv path cuts a product into: enough blocks for about four per SM,
-    each run at least 64 rows deep, no run empty. 0 selects the tiled path
-    (m > GEMV_MAX_M)."""
+    each run at least 64 rows deep, no run empty; 0 where m > GEMV_MAX_M,
+    which is not the gemv route's."""
     if m > GEMV_MAX_M:
         return 0
     groups = k // block_k
@@ -104,6 +109,29 @@ def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:
     want = max(1, min(-(-4 * sm_count // col_blocks), groups))
     per_split = max(-(-groups // want), -(-64 // block_k))
     return -(-groups // min(per_split, groups))
+
+
+def int8_route(m: int, n: int, k: int, block_k: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel route of an int8 (m, k) @ (k, n) product with scale groups of
+    ``block_k`` rows: "gemv" for m <= 8; "wgmma" for bf16 x where TMA can
+    describe the operands (n a multiple of 16, so that an int8 row is a
+    multiple of 16 bytes; k a multiple of 8; ``block_k`` a multiple of the
+    64-row k-tile, so that a scale group holds whole tiles; 16-byte aligned
+    x, w_q and scales: ``aligned``); "simt" otherwise (f32 x, ragged shapes,
+    ``block_k`` such as 100)."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    if dtype == torch.bfloat16 and n % 16 == 0 and k % 8 == 0 and block_k % INT8_TILE_K == 0 and aligned:
+        return "wgmma"
+    return "simt"
+
+
+def int8_wgmma_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:
+    """How many runs of whole scale groups the int8 wgmma route cuts K into:
+    1 where the output tiles fill half the SMs, else enough runs for about
+    that many tiles, at most one a group."""
+    tiles = -(-m // INT8_TILE_M) * -(-n // INT8_TILE_N)
+    return max(1, min(k // block_k, sm_count // (2 * tiles)))
 
 
 def stream_matmul_int8(
@@ -136,19 +164,28 @@ def stream_matmul_int8(
         raise ValueError("stream_matmul_int8: x, w_q and scales must be contiguous")
     if on_cpu:
         return stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype)
-    splits = int8_k_splits(m, n, k, block_k, _build.sm_count(x.device))
+    route = int8_route(m, n, k, block_k, x.dtype, all(t.data_ptr() % 16 == 0 for t in tensors))
+    if route == "gemv":
+        splits = int8_k_splits(m, n, k, block_k, _build.sm_count(x.device))
+    elif route == "wgmma":
+        splits = int8_wgmma_splits(m, n, k, block_k, _build.sm_count(x.device))
+    else:
+        splits = 1
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("streammm_int8", "stream_matmul_int8", _INT8_ARGTYPES)
     err = fn(
         x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
-        m, n, k, block_k, splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
+        m, n, k, block_k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "stream_matmul_int8")
+    _build.check(err, f"stream_matmul_int8 ({route})")
     stream_matmul_int8.launches += 1
+    if route == "wgmma":
+        stream_matmul_int8.wgmma_launches += 1
     return out
 
 
 stream_matmul_int8.launches = 0
+stream_matmul_int8.wgmma_launches = 0

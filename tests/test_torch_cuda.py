@@ -63,6 +63,14 @@ PA_CASES = [
     (4, 24, 8, 128, 64, 17, (1025, 1046, 1067, 1088), True),
     (2, 10, 2, 30, 5, 7, (33, 35), True),
     (2, 20, 1, 80, 3, 9, (27, 14), False),
+    # the split rule's edges (pa_splits: runs of 2 pages of 64 at the decode
+    # shapes): rows that end inside the first run (the other runs empty, one
+    # row of length 0), lengths on run boundaries, a table of 205 pages in
+    # runs of 7 (the last run short), and g = 16 (two blocks of 8 heads)
+    (4, 24, 8, 128, 64, 17, (1, 64, 127, 0), True),
+    (4, 16, 8, 128, 64, 17, (128, 256, 640, 1088), False),
+    (1, 16, 8, 128, 64, 205, (12000,), True),
+    (2, 32, 2, 128, 64, 17, (1088, 700), True),
 ]
 
 
@@ -125,10 +133,13 @@ def test_stream_matmul_wgmma_route(cuda, m, k, n, out_dtype):
 
 INT8_CASES = [
     # (M, K, N, block_k): the reference's test shapes, the kernel bench's,
-    # paper-llama3-8b's projections at decode (M = 1, 4), and ragged sizes
+    # paper-llama3-8b's projections at decode (M = 1, 4) and one at M = 4096,
+    # and ragged sizes: M not a multiple of 128 on the wgmma route, N not a
+    # multiple of 16 and block_k of 100 on the simt route
     (64, 128, 64, 64), (128, 256, 128, 64), (256, 512, 256, 128),
     (1, 4096, 4096, 128), (4, 4096, 1024, 128), (4, 14336, 4096, 128),
     (1, 4096, 128256, 128), (3, 96, 1001, 32), (8, 64, 7, 16), (9, 300, 1001, 100),
+    (4096, 4096, 1024, 128), (130, 256, 144, 64), (200, 512, 1000, 128),
 ]
 
 
@@ -145,16 +156,37 @@ def _int8_inputs(m, k, n, block_k, dt, dev):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_stream_matmul_int8_kernel(cuda, m, k, n, block_k, dtype):
     x, w_q, scales = _int8_inputs(m, k, n, block_k, DTYPES[dtype], cuda)
+    route = mm_ops.int8_route(m, n, k, block_k, x.dtype, True)
     before = mm_ops.stream_matmul_int8.launches
+    before_wgmma = mm_ops.stream_matmul_int8.wgmma_launches
     out = mm_ops.stream_matmul_int8(x, w_q, scales, block_k)
     assert mm_ops.stream_matmul_int8.launches == before + 1
+    assert mm_ops.stream_matmul_int8.wgmma_launches == before_wgmma + (route == "wgmma")
     ref = stream_matmul_int8_ref(x, w_q, scales, block_k)
     _close(out, ref)
     # a dropped or misread scale group moves the output by several % in L2
     assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
     assert torch.equal(out, mm_ops.stream_matmul_int8(x, w_q, scales, block_k))  # no atomics
     f32 = mm_ops.stream_matmul_int8(x, w_q, scales, block_k, out_dtype=torch.float32)
-    _close(f32, stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype=torch.float32))
+    ref32 = stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype=torch.float32)
+    _close(f32, ref32)
+    # every route keeps the products exact: only the order of f32 sums differs
+    assert float((f32 - ref32).norm() / ref32.norm()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_stream_matmul_int8_routes(cuda):
+    """The kernel bench's call takes the wgmma route, f32 x and a block_k of
+    whole k-tiles short of 64 the simt one, M <= 8 the gemv one."""
+    for (m, k, n, block_k, dt), want in (
+        ((256, 512, 256, 128, torch.bfloat16), "wgmma"), ((256, 512, 256, 128, torch.float32), "simt"),
+        ((256, 512, 256, 32, torch.bfloat16), "simt"), ((4, 512, 256, 128, torch.bfloat16), "gemv"),
+    ):
+        x, w_q, scales = _int8_inputs(m, k, n, block_k, dt, cuda)
+        assert mm_ops.int8_route(m, n, k, block_k, dt, True) == want
+        before = mm_ops.stream_matmul_int8.wgmma_launches
+        mm_ops.stream_matmul_int8(x, w_q, scales, block_k)
+        assert mm_ops.stream_matmul_int8.wgmma_launches == before + (want == "wgmma")
 
 
 @pytest.mark.cuda
@@ -172,6 +204,15 @@ def test_stream_matmul_int8_raises_on_what_the_kernel_does_not_take(cuda):
         mm_ops.stream_matmul_int8(x, w_q, scales.double(), 64)
     with pytest.raises(ValueError):
         mm_ops.stream_matmul_int8(x, w_q.t().contiguous().t(), scales, 64)  # not contiguous
+    # a misaligned x (a view one element on) leaves the wgmma route for simt
+    xs, wq, sc = _int8_inputs(130, 257, 144, 257, torch.bfloat16, cuda)
+    x_off = torch.as_strided(xs, (130, 256), (256, 1), storage_offset=1)
+    assert mm_ops.int8_route(130, 144, 256, 64, torch.bfloat16, x_off.data_ptr() % 16 == 0) == "simt"
+    w2, s2 = wq[:256], sc.new_full((4, 144), 0.01)
+    before = mm_ops.stream_matmul_int8.wgmma_launches
+    out = mm_ops.stream_matmul_int8(x_off, w2, s2, 64)
+    assert mm_ops.stream_matmul_int8.wgmma_launches == before
+    _close(out, stream_matmul_int8_ref(x_off, w2, s2, 64))
 
 
 @pytest.mark.cuda

@@ -4,7 +4,12 @@ against the JAX ``paged_attention_ref``, on the same numpy inputs, and the
 wrapper's CPU dispatch. Tolerance: rtol = atol = 5e-2, the reference's own
 (tests/kernels/test_kernels.py), since bf16 rounds at other places in the two
 frameworks. The CUDA kernel itself is held against ``ref.py`` on the card by
-``test_torch_cuda.py``."""
+``test_torch_cuda.py``; here the split rule ``pa_splits`` and a plain
+emulation of the kernel's split-KV algorithm (each run of pages reduced to
+an f32 (m, l, acc), the runs merged in order) are held against both
+references."""
+import math
+
 import numpy as np
 import pytest
 
@@ -111,3 +116,85 @@ def test_cpu_dispatch_takes_plain_path():
     out = pa_ops.paged_attention(q, pk, pv, table, lengths)
     assert pa_ops.paged_attention.launches == before
     assert torch.equal(out, paged_attention_ref(q, pk, pv, table, lengths))
+
+
+def _split_merge(q, pool_k, pool_v, table, lengths, splits):
+    """The CUDA kernel's algorithm in plain f32 PyTorch: each row's pages cut
+    into ``splits`` runs of ceil(max_pages / splits) pages; each run reduced
+    over its tokens below the row's length to (m, l, acc), scores in log2
+    units, an empty run giving (-1e30, 0, 0); the runs merged in run order;
+    the output acc / max(l, 1e-30)."""
+    b, h, d = q.shape
+    _, pt, hkv, _ = pool_k.shape
+    g = h // hkv
+    mp = table.shape[1]
+    pps = -(-mp // splits)
+    neg = torch.tensor(-1e30)
+    k = pool_k[table.long()].reshape(b, mp * pt, hkv, d).float()
+    v = pool_v[table.long()].reshape(b, mp * pt, hkv, d).float()
+    qf = q.float().reshape(b, hkv, g, d) * (math.log2(math.e) / math.sqrt(d))
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k)
+    lens = lengths.long().clamp(0, mp * pt)[:, None, None, None]
+    pos = torch.arange(mp * pt)[None, None, None, :]
+    runs = []
+    for i in range(splits):
+        lo, hi = i * pps * pt, min(mp, (i + 1) * pps) * pt
+        valid = (pos[..., lo:hi] < lens) if lo < hi else torch.zeros((1, 1, 1, 0), dtype=torch.bool)
+        sc = torch.where(valid, s[..., lo:hi], neg)
+        m = sc.amax(-1, keepdim=True) if lo < hi else neg.expand(b, hkv, g, 1)
+        p = torch.where(valid, torch.exp2(sc - m), torch.zeros(()))
+        runs.append((m, p.sum(-1, keepdim=True), torch.einsum("bkgt,btkd->bkgd", p, v[:, lo:hi])))
+    m_all = torch.stack([m for m, _, _ in runs]).amax(0)
+    l_all, acc = torch.zeros_like(m_all), torch.zeros((b, hkv, g, d))
+    for m, l, a in runs:
+        f = torch.exp2(m - m_all)
+        l_all, acc = l_all + l * f, acc + a * f
+    return (acc / l_all.clamp_min(1e-30)).reshape(b, h, d)
+
+
+@pytest.mark.parametrize(
+    "b,hkv,max_pages,sm_count,want",
+    [
+        (4, 8, 17, 132, 9),  # the dense decode shapes: runs of 2 pages, the last of 1
+        (4, 2, 8, 132, 8),  # the kernel bench's shape: one page a run
+        (1, 1, 1, 132, 1),  # one page: nothing to split
+        (128, 8, 17, 132, 1),  # B * Hkv already >= 4 * SMs
+        (32, 8, 17, 132, 2),
+        (1, 8, 1000, 132, 33),
+        (600, 1, 1000, 132, 16),  # runs capped at 64 pages
+    ],
+)
+def test_pa_splits(b, hkv, max_pages, sm_count, want):
+    splits = pa_ops.pa_splits(b, hkv, max_pages, sm_count)
+    assert splits == want
+    per = -(-max_pages // splits)
+    assert 1 <= splits <= max_pages and per <= pa_ops.PA_MAX_SPLIT_PAGES
+    assert (splits - 1) * per < max_pages  # no run lies past the table
+
+
+SPLIT_CASES = [
+    # (B, H, Hkv, D, page_tokens, max_pages, lengths): g = 3 with a row that
+    # ends inside the first run (the other runs empty), a row of length 0
+    # (every run empty) and a row on a run boundary (3 pages of 8 at 2 pages
+    # a run ends the second run); max_pages not a multiple of the run
+    (3, 6, 2, 32, 8, 5, (5, 0, 24)),
+    (2, 4, 2, 32, 16, 4, (16, 64)),
+    (2, 4, 4, 16, 3, 7, (21, 2)),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,d,pt,mp,lengths", SPLIT_CASES)
+@pytest.mark.parametrize("splits", [1, 2, 3, "pages", "rule"])
+def test_split_merge_matches_both_references(b, h, hkv, d, pt, mp, lengths, splits):
+    splits = {"pages": mp, "rule": pa_ops.pa_splits(b, hkv, mp, 132)}.get(splits, splits)
+    jx, tx = _inputs(b, h, hkv, d, pt, b * mp + 2, "float32", seed=11)
+    table = np.random.default_rng(12).permutation(b * mp + 2)[: b * mp].reshape(b, mp).astype(np.int32)
+    tt, lt = torch.from_numpy(table), torch.tensor(lengths, dtype=torch.int32)
+    ours = _split_merge(*tx, tt, lt, splits)
+    ref = paged_attention_ref(*tx, tt, lt)
+    # the same f32 function up to the order of sums and exp2 against exp
+    torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-6)
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert not ours[row].any()
+    _close(ours, jax_paged(*jx, jnp.asarray(table), jnp.asarray(np.asarray(lengths, np.int32)), interpret=True))

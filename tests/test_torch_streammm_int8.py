@@ -3,7 +3,9 @@ port's kernel bench against the JAX bench's rows. ``stream_matmul_int8_ref``
 and the wrapper's CPU dispatch against the Pallas kernel in interpret mode,
 on the same numpy inputs, at rtol = atol = 5e-2, the reference's own
 tolerance (tests/kernels/test_kernels.py). The CUDA kernel is held against
-``ref.py`` on the card by ``test_torch_cuda.py``."""
+``ref.py`` on the card by ``test_torch_cuda.py``; here the route rule, the
+wgmma route's split rule, and a plain emulation of that route's arithmetic
+(exact products a scale group, the scale applied to the group's f32 sum)."""
 import numpy as np
 import pytest
 
@@ -108,6 +110,61 @@ def test_int8_k_splits_fall_on_whole_groups(m, n, k, block_k, want):
         groups = k // block_k
         per = -(-groups // splits)
         assert (splits - 1) * per < groups  # no split is empty
+
+
+@pytest.mark.parametrize(
+    "m,n,k,block_k,dtype,aligned,want",
+    [
+        (256, 256, 512, 128, torch.bfloat16, True, "wgmma"),  # the kernel bench
+        (4096, 128256, 4096, 128, torch.bfloat16, True, "wgmma"),  # llama3-8b's LM head at M = 4096
+        (4096, 1024, 4096, 128, torch.bfloat16, True, "wgmma"),
+        (130, 144, 256, 64, torch.bfloat16, True, "wgmma"),  # ragged M, one k-tile a group
+        (1, 4096, 4096, 128, torch.bfloat16, True, "gemv"),
+        (8, 64, 7 * 16, 16, torch.float32, True, "gemv"),
+        (256, 256, 512, 128, torch.float32, True, "simt"),  # f32 x stays exact f32
+        (9, 1001, 300, 100, torch.bfloat16, True, "simt"),  # block_k not whole k-tiles
+        (256, 264, 512, 128, torch.bfloat16, True, "simt"),  # int8 rows not a multiple of 16 bytes
+        (256, 256, 512, 32, torch.bfloat16, True, "simt"),
+        (256, 256, 512, 128, torch.bfloat16, False, "simt"),  # misaligned operands
+    ],
+)
+def test_int8_route(m, n, k, block_k, dtype, aligned, want):
+    assert mm_ops.int8_route(m, n, k, block_k, dtype, aligned) == want
+
+
+@pytest.mark.parametrize(
+    "m,n,k,block_k,want",
+    [(256, 256, 512, 128, 4), (4096, 4096, 4096, 128, 1), (4096, 1024, 14336, 128, 1),
+     (130, 144, 256, 64, 4), (128, 128, 64, 64, 1)],
+)
+def test_int8_wgmma_splits_fall_on_whole_groups(m, n, k, block_k, want):
+    splits = mm_ops.int8_wgmma_splits(m, n, k, block_k, 132)
+    assert splits == want and 1 <= splits <= k // block_k
+
+
+def _scale_factored(x, w_q, scales, block_k):
+    """The wgmma route's arithmetic in plain PyTorch: for each scale group,
+    the products of x with the unscaled int8 weights (exact in f32: a bf16 x
+    times |q| <= 127 needs 15 significant bits) summed in f32, then that sum
+    times the group's scale row added to an f32 accumulator."""
+    acc = torch.zeros((x.shape[0], w_q.shape[1]))
+    for g in range(w_q.shape[0] // block_k):
+        rows = slice(g * block_k, (g + 1) * block_k)
+        acc += (x[:, rows].float() @ w_q[rows].float()) * scales[g]
+    return acc
+
+
+@pytest.mark.parametrize("m,k,n,block_k", CASES + [(130, 384, 144, 64)])
+def test_scale_factored_sum_matches_the_refs(m, k, n, block_k):
+    (xj, wj, sj), (xt, wt, st) = _inputs(m, k, n, block_k, "bfloat16", seed=4)
+    ours = _scale_factored(xt, wt, st, block_k)
+    ref = stream_matmul_int8_ref(xt, wt, st, block_k, out_dtype=torch.float32)
+    # only the order of f32 sums and the rounding of q * scale differ
+    assert float((ours - ref).norm() / ref.norm()) <= 1e-6
+    if m % 64 == 0 and n % 64 == 0:  # the Pallas kernel's tiles
+        _close(ours, jax_stream_matmul_int8(xj, wj, sj, block_m=64, block_n=64, block_k=block_k, interpret=True))
+    else:
+        _close(ours, jax_int8_ref(xj, wj, sj, block_k, out_dtype=jnp.float32))
 
 
 def test_kernel_bench_rows_on_the_cpu():
