@@ -6,8 +6,10 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 3. holds each kernel against its plain PyTorch version on the card at every
-   shape the live step, prefill, a decode step and the kernel bench give it
-   (and at the reference's test shapes; ``stream_matmul_int8`` also at the
+   shape the live step, prefill, a decode step, phase 6b and the kernel
+   bench give it (and at the reference's test shapes; ``stream_matmul``'s
+   K-major form, the tied LM head, also at M = 1, 4096 and 4352 of
+   minicpm-2b's table; ``stream_matmul_int8`` also at the
    projections of paper-llama3-8b, the model it was written for, at M = 1,
    4 and 4096; ``paged_attention`` also at the edges of its split rule), and
    times kernel, plain version and one library call (a yardstick only: the
@@ -39,6 +41,17 @@
    of a prefill on the wgmma route, none of a decode step), that the logits
    are finite, and that they agree with one ``forward`` over the same 1088
    tokens;
+6b. runs the attention families that the live set leaves out, each at its
+   published width and depth: minicpm-2b (tied embeddings: the LM head reads
+   the embedding table through ``stream_matmul``'s K-major form) and
+   qwen2-vl-7b (M-RoPE, QKV bias, g = 7; 1/8 of each prompt vision
+   embeddings) prefill 4 x 1024 positions and decode 64 greedy steps, gated
+   against one ``forward`` over the same positions; hubert-xlarge (the
+   bidirectional encoder, D = 80) runs ``forward`` over 4 x 1024 masked
+   frames. Launches are gated exactly (the tied head on the K-major wgmma
+   route in ``forward`` and on the K-major gemv at prefill and decode;
+   hubert's attention on the simt route), and first each of the three runs
+   at 2 layers against the CPU on the same weights;
 7. runs the port's kernel bench (``repro_torch.kernels.bench``), the only
    path of ``stream_matmul_int8``, as the JAX package's kernel bench is its
    only caller there; every bench call of the three kernels with a
@@ -118,7 +131,16 @@ INT8_EXACT_REL_L2 = 1e-5
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
-PATHS = ("serve", "prefill", "decode", "kernel_bench")
+PATHS = ("serve", "prefill", "decode", "families", "kernel_bench")
+# Phase 6b: the attention families beside the live set, at published width
+# and depth: tied embeddings, M-RoPE (VLM), the bidirectional audio encoder.
+# A step of the "families" path is one call of an entry point: a prefill or
+# a decode step of minicpm-2b and qwen2-vl-7b, hubert-xlarge's forward.
+FAMILY_ARCHS = ("minicpm-2b", "qwen2-vl-7b", "hubert-xlarge")
+# the tied head's K-major product (N, K) = (V, d) of minicpm-2b, checked in
+# phase 3 also off the path: the live step's M = 1, a 4096-row product and
+# the decode check's forward over 4 x 1088 positions
+TIED_NK = (122753, 2304)
 KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "paged_attention")
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and operations/s by input type.
@@ -177,8 +199,11 @@ def main() -> None:
     # each path: its launches, read with every count set to 0 just before it
     paths = {"serve": serve_slice(torch, dev)}
     paths.update(decode_slice(torch, dev))
+    check_families_against_cpu(torch, dev)
+    paths["families"], nk_launches = families_slice(torch, dev)
     paths["kernel_bench"] = kernel_bench_path(torch, dev)
 
+    recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
     kernels = kernels_line(recs, paths)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -299,36 +324,53 @@ def max_err(torch, out, ref) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def step_projections(c, m_layer, m_head):
+    """{(M, K, N, w_layout): calls} of one call of a model: every layer's
+    projections at M = m_layer, the LM head at M = m_head ("nk", the
+    embedding table, where the embeddings are tied)."""
+    d, L = c.d_model, c.num_layers
+    if c.family == "ssm":
+        d_inner = c.ssm.expand * d
+        per_layer = [(d, 2 * d_inner + 2 * c.ssm.state_dim + d_inner // c.ssm.head_dim), (d_inner, d)]
+    else:
+        hd = c.resolved_head_dim()
+        per_layer = [
+            (d, c.num_heads * hd), (d, c.num_kv_heads * hd), (d, c.num_kv_heads * hd),
+            (c.num_heads * hd, d), (d, c.d_ff), (d, c.d_ff), (c.d_ff, d),
+        ]
+    counts = {}
+    for k, n in per_layer:
+        counts[(m_layer, k, n, "kn")] = counts.get((m_layer, k, n, "kn"), 0) + L
+    head = (m_head, d, c.vocab_size, "nk" if c.tie_embeddings else "kn")
+    counts[head] = counts.get(head, 0) + 1
+    return counts
+
+
 def projection_shapes():
-    """{path: {label: {(M, K, N): calls a step}}}: every x @ W of one step of
-    each main path: the live step (M = 1), a prefill of DECODE_B prompts
-    (M = DECODE_B * PROMPT for the layers, M = DECODE_B for the LM head on the
-    last position) and a decode step (M = DECODE_B), for each model; and the
-    kernel bench's one product."""
+    """{path: {label: {(M, K, N, w_layout): calls a step}}}: every x @ W of
+    one step of each main path: the live step (M = 1), a prefill of DECODE_B
+    prompts (M = DECODE_B * PROMPT for the layers, M = DECODE_B for the LM
+    head on the last position) and a decode step (M = DECODE_B), for each
+    model; on the families path a prefill and a decode step of each decode
+    model and hubert-xlarge's forward (M = DECODE_B * PROMPT throughout); and
+    the kernel bench's one product."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bench as kernel_bench
 
     shapes = {path: {} for path in PATHS}
     for arch in ARCHS:
         c = get_config(arch)
-        d, L = c.d_model, c.num_layers
-        if c.family == "ssm":
-            d_inner = c.ssm.expand * d
-            per_layer = [(d, 2 * d_inner + 2 * c.ssm.state_dim + d_inner // c.ssm.head_dim), (d_inner, d)]
-        else:
-            hd = c.resolved_head_dim()
-            per_layer = [
-                (d, c.num_heads * hd), (d, c.num_kv_heads * hd), (d, c.num_kv_heads * hd),
-                (c.num_heads * hd, d), (d, c.d_ff), (d, c.d_ff), (c.d_ff, d),
-            ]
         for path, m_layer, m_head in (("serve", 1, 1), ("prefill", DECODE_B * PROMPT, DECODE_B),
                                       ("decode", DECODE_B, DECODE_B)):
-            counts = {}
-            for k, n in per_layer:
-                counts[(m_layer, k, n)] = counts.get((m_layer, k, n), 0) + L
-            counts[(m_head, d, c.vocab_size)] = counts.get((m_head, d, c.vocab_size), 0) + 1
-            shapes[path][arch] = counts
-    shapes["kernel_bench"]["bench"] = {kernel_bench.MM_SHAPE: 1}
+            shapes[path][arch] = step_projections(c, m_layer, m_head)
+    for arch in FAMILY_ARCHS:
+        c = get_config(arch)
+        if c.has_decode:
+            shapes["families"][f"{arch} prefill"] = step_projections(c, DECODE_B * PROMPT, DECODE_B)
+            shapes["families"][f"{arch} decode"] = step_projections(c, DECODE_B, DECODE_B)
+        else:
+            shapes["families"][f"{arch} forward"] = step_projections(c, DECODE_B * PROMPT, DECODE_B * PROMPT)
+    shapes["kernel_bench"]["bench"] = {(*kernel_bench.MM_SHAPE, "kn"): 1}
     return shapes
 
 
@@ -367,32 +409,40 @@ def read_wgmma():
 
 
 def step_launches(cfg, path):
-    """The launches of one step of ``path`` ("serve", "prefill" or "decode")
-    of a model: its projections and LM head through stream_matmul, one
-    attention a layer of the dense family (flash on the live step and
-    prefill, paged on decode), none of the SSM family."""
+    """The launches of one call of ``path`` ("serve", "prefill", "decode" or
+    "forward") of a model: its projections and LM head through stream_matmul,
+    one attention a layer of the attention families (flash on the live step,
+    prefill and forward, paged on decode), none of the SSM family."""
     L = cfg.num_layers
-    dense = cfg.family == "dense"
+    attn = cfg.family != "ssm"
     return {
-        "stream_matmul": (7 if dense else 2) * L + 1,
+        "stream_matmul": (7 if attn else 2) * L + 1,
         "stream_matmul_int8": 0,
-        "flash_attention": L if dense and path != "decode" else 0,
-        "paged_attention": L if dense and path == "decode" else 0,
+        "flash_attention": L if attn and path != "decode" else 0,
+        "paged_attention": L if attn and path == "decode" else 0,
     }
 
 
 def step_wgmma(cfg, path):
-    """The launches of one step of ``path`` that take the tensor-core route:
-    on prefill every M = 4096 projection (7 a dense layer, 2 an SSM layer;
-    the LM head runs on the last position, M = 4) and every attention; none
-    on the live and decode steps (M = 1 and 4, Sq = 1 or paged). The int8
+    """The launches of one call of ``path`` that take the tensor-core route:
+    on prefill and on a forward over DECODE_B x PROMPT positions or more every
+    projection (7 an attention layer, 2 an SSM layer) and, in a forward, the
+    LM head (a prefill's runs on the last position, M = 4: gemv); every
+    attention at head dim 64 or 128 (hubert-xlarge's 80 takes simt); none on
+    the live and decode steps (M = 1 and 4, Sq = 1 or paged). The int8
     kernel is on no model's path."""
     L = cfg.num_layers
-    dense = cfg.family == "dense"
-    if path != "prefill":
+    attn = cfg.family != "ssm"
+    if path not in ("prefill", "forward"):
         return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0}
-    return {"stream_matmul": (7 if dense else 2) * L, "stream_matmul_int8": 0,
-            "flash_attention": L if dense else 0}
+    return {"stream_matmul": (7 if attn else 2) * L + (path == "forward"), "stream_matmul_int8": 0,
+            "flash_attention": L if attn and cfg.resolved_head_dim() in (64, 128) else 0}
+
+
+def step_nk(cfg):
+    """stream_matmul's K-major launches of any call of a model: the tied LM
+    head, once, where the embeddings are tied."""
+    return int(cfg.tie_embeddings)
 
 
 def checked_route(fn, rule, call):
@@ -415,46 +465,55 @@ def check_stream_matmul(torch, dev, bench):
 
     gen = torch.Generator(dev).manual_seed(0)
 
-    def operands(m, k, n, dtype):
+    def operands(m, k, n, dtype, layout="kn"):
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-        w = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5).to(dtype)
+        w = (torch.randn((k, n) if layout == "kn" else (n, k), generator=gen, device=dev) / k ** 0.5).to(dtype)
         return x, w
 
-    log("stream_matmul against stream_matmul_ref at every shape of each path (ms: CUDA events, cold L2):")
+    def library(x, w, layout):
+        return torch.matmul(x, w if layout == "kn" else w.T)
+
+    log("stream_matmul against stream_matmul_ref at every shape of each path (ms: CUDA events, cold L2; "
+        "w_layout nk: x @ w.T for w (N, K), the library call torch.matmul(x, w.T)):")
     totals = path_totals()
     errs, bound_kinds, measured, by_shape = [], set(), {}, []
     for path, by_arch in projection_shapes().items():
         for arch, counts in by_arch.items():
             step = dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
-            for (m, k, n), calls in counts.items():
-                if (m, k, n) not in measured:
-                    x, w = operands(m, k, n, torch.bfloat16)
-                    rule = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-                    out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w))
-                    err = max_err(torch, out, stream_matmul_ref(x, w))
-                    if not torch.equal(out, stream_matmul(x, w)):
-                        raise AssertionError(f"stream_matmul ({m},{k},{n}) is not deterministic")
-                    t = bench.ms(lambda: stream_matmul(x, w))
-                    t_plain = bench.ms(lambda: stream_matmul_ref(x, w))
-                    t_lib = bench.ms(lambda: torch.matmul(x, w))
+            for (m, k, n, layout), calls in counts.items():
+                if (m, k, n, layout) not in measured:
+                    x, w = operands(m, k, n, torch.bfloat16, layout)
+                    kw = dict(w_layout=layout)
+                    rule = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, layout)
+                    out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
+                    err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
+                    if not torch.equal(out, stream_matmul(x, w, **kw)):
+                        raise AssertionError(f"stream_matmul ({m},{k},{n}) {layout} is not deterministic")
+                    t = bench.ms(lambda: stream_matmul(x, w, **kw))
+                    t_plain = bench.ms(lambda: stream_matmul_ref(x, w, **kw))
+                    t_lib = bench.ms(lambda: library(x, w, layout))
                     b, kind = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, torch.bfloat16)
-                    measured[(m, k, n)] = dict(ms=t, plain_ms=t_plain, bound_ms=b, library_ms=t_lib)
-                    by_shape.append({"M": m, "K": k, "N": n, "route": route, "ms": t, "bound_ms": b,
-                                     "bound_by": kind, "plain_ms": t_plain, "library_ms": t_lib,
+                    measured[(m, k, n, layout)] = dict(ms=t, plain_ms=t_plain, bound_ms=b, library_ms=t_lib)
+                    by_shape.append({"M": m, "K": k, "N": n, "w_layout": layout, "route": route, "ms": t,
+                                     "bound_ms": b, "bound_by": kind, "plain_ms": t_plain, "library_ms": t_lib,
                                      "max_abs_err": err})
                     errs.append(err)
                     bound_kinds.add(kind)
                     del x, w, out
-                    log(f"  M={m} K={k} N={n} [{route}]: err {err:.2e} kernel {t:.4f} ms bound {b:.4f} ms "
+                    log(f"  M={m} K={k} N={n} {layout} [{route}]: err {err:.2e} kernel {t:.4f} ms bound {b:.4f} ms "
                         f"({kind}, {100 * b / t:.0f}%) plain {t_plain:.4f} ms torch.matmul {t_lib:.4f} ms "
                         f"(kernel {t / t_lib:.2f}x)")
-                for key, val in measured[(m, k, n)].items():
+                for key, val in measured[(m, k, n, layout)].items():
                     totals[path][key] += calls * val
                     if key in step:
                         step[key] += calls * val
             log(f"  one {path} step of {arch} ({sum(counts.values())} calls): kernel {step['ms']:.3f} ms, "
                 f"bound {step['bound_ms']:.3f} ms, torch.matmul {step['library_ms']:.3f} ms "
                 f"(kernel {step['ms'] / step['library_ms']:.2f}x)")
+    fam = totals["families"]
+    log(f"  families path (a prefill and a decode step of minicpm-2b and qwen2-vl-7b, hubert-xlarge's "
+        f"forward): kernel {fam['ms']:.3f} ms, torch.matmul {fam['library_ms']:.3f} ms "
+        f"({fam['ms'] / fam['library_ms']:.2f}x), bound {fam['bound_ms']:.3f} ms")
     prefill = totals["prefill"]
     ratio = prefill["ms"] / prefill["library_ms"]
     log(f"  prefill path: kernel {prefill['ms']:.3f} ms, torch.matmul {prefill['library_ms']:.3f} ms "
@@ -462,18 +521,37 @@ def check_stream_matmul(torch, dev, bench):
         f"({100 * prefill['bound_ms'] / prefill['ms']:.0f}%)")
     if not ratio <= MAX_LIBRARY_RATIO:
         raise AssertionError(f"stream_matmul prefill sum {ratio:.2f}x torch.matmul > {MAX_LIBRARY_RATIO}x")
-    for m, k, n, dtype in ((256, 2048, 2048, torch.bfloat16), (1, 2048, 2048, torch.float32),
-                           (64, 2048, 6144, torch.float32), (3, 1000, 999, torch.bfloat16),
-                           (200, 264, 136, torch.bfloat16), (130, 72, 8, torch.bfloat16)):
-        x, w = operands(m, k, n, dtype)
-        rule = mm_route(m, n, k, dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-        out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, out_dtype=dtype))
-        err = max_err(torch, out, stream_matmul_ref(x, w, out_dtype=dtype))
-        if not torch.equal(out, stream_matmul(x, w, out_dtype=dtype)):
-            raise AssertionError(f"stream_matmul ({m},{k},{n}) {dtype} is not deterministic")
-        t = bench.ms(lambda: stream_matmul(x, w, out_dtype=dtype))
+    tied_n, tied_k = TIED_NK
+    off_path = [(256, 2048, 2048, torch.bfloat16, "kn"), (1, 2048, 2048, torch.float32, "kn"),
+                (64, 2048, 6144, torch.float32, "kn"), (3, 1000, 999, torch.bfloat16, "kn"),
+                (200, 264, 136, torch.bfloat16, "kn"), (130, 72, 8, torch.bfloat16, "kn")]
+    # the K-major form off the path: the tied head at the live step's M = 1,
+    # at M = 4096 and at the decode check's 4 x 1088 rows; a ragged K on gemv
+    # and simt, f32 on simt, a ragged N on wgmma
+    off_path += [(m, tied_k, tied_n, torch.bfloat16, "nk") for m in (1, PREFILL_M, DECODE_B * DECODE_SMAX)]
+    off_path += [(3, 300, 1001, torch.bfloat16, "nk"), (64, 300, 1001, torch.bfloat16, "nk"),
+                 (64, 2048, 1001, torch.float32, "nk"), (200, 264, 137, torch.bfloat16, "nk")]
+    for m, k, n, dtype, layout in off_path:
+        x, w = operands(m, k, n, dtype, layout)
+        kw = dict(out_dtype=dtype, w_layout=layout)
+        rule = mm_route(m, n, k, dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, layout)
+        out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
+        err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
+        if not torch.equal(out, stream_matmul(x, w, **kw)):
+            raise AssertionError(f"stream_matmul ({m},{k},{n}) {dtype} {layout} is not deterministic")
+        t = bench.ms(lambda: stream_matmul(x, w, **kw))
+        line = f"  off-path M={m} K={k} N={n} {dtype} {layout} [{route}]: err {err:.2e} kernel {t:.4f} ms"
+        if layout == "nk" and n == tied_n:
+            t_lib = bench.ms(lambda: library(x, w, layout))
+            b, kind = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, dtype)
+            by_shape.append({"M": m, "K": k, "N": n, "w_layout": layout, "route": route, "ms": t,
+                             "bound_ms": b, "bound_by": kind, "library_ms": t_lib, "max_abs_err": err,
+                             "off_path": True})
+            line += (f" bound {b:.4f} ms ({kind}, {100 * b / t:.0f}%) torch.matmul {t_lib:.4f} ms "
+                     f"(kernel {t / t_lib:.2f}x)")
         errs.append(err)
-        log(f"  off-path M={m} K={k} N={n} {dtype} [{route}]: err {err:.2e} kernel {t:.4f} ms")
+        del x, w, out
+        log(line)
     return {
         "source": "src/repro_torch/csrc/streammm.cu",
         "replaces": "src/repro/kernels/streammm/kernel.py:50",
@@ -617,6 +695,11 @@ def check_flash_attention(torch, dev, bench):
         ("test 4", 1, 128, 128, 4, 4, 32, False, 0, torch.float32, {}),
         ("S=1 f32", 1, 1, 1, 16, 8, 128, True, 0, torch.float32, {}),
         ("bench", fb, fs, fs, fh, fhkv, fd, True, 0, torch.bfloat16, {"kernel_bench": 1}),
+        # phase 6b: minicpm-2b (MHA, D = 64) and qwen2-vl-7b (g = 7) prefill,
+        # hubert-xlarge's bidirectional forward at D = 80 (the simt route)
+        ("minicpm prefill", DECODE_B, PROMPT, PROMPT, 36, 36, 64, True, 0, torch.bfloat16, {"families": 40}),
+        ("qwen2-vl prefill", DECODE_B, PROMPT, PROMPT, 28, 4, 128, True, 0, torch.bfloat16, {"families": 28}),
+        ("hubert forward", DECODE_B, PROMPT, PROMPT, 16, 16, 80, False, 0, torch.bfloat16, {"families": 48}),
     ]
     log("flash_attention against attention_ref (ms: CUDA events):")
     totals = path_totals()
@@ -713,6 +796,10 @@ def check_paged_attention(torch, dev, bench, usage):
         ("run boundaries", DECODE_B, 16, 8, 128, decode_pt, mp, (run, 2 * run, 5 * run, mp * decode_pt), False, {}),
         ("long row, ragged runs", 1, 16, 8, 128, 64, 205, (12000,), True, {}),
         ("g=16", 2, 32, 2, 128, 64, mp, (1088, 700), True, {}),
+        # phase 6b's decode shapes: minicpm-2b (MHA, D = 64), qwen2-vl-7b (g = 7)
+        ("minicpm decode", DECODE_B, 36, 36, 64, decode_pt, mp, decode_lengths, False, {"families": 40}),
+        ("qwen2-vl decode", DECODE_B, 28, 4, 128, decode_pt, mp, decode_lengths, False, {"families": 28}),
+        ("qwen2-vl permuted", DECODE_B, 28, 4, 128, decode_pt, mp, decode_lengths, True, {}),
         ("test 1", 2, 4, 2, 32, 16, 4, (1, 8), False, {}),
         ("test 2", 3, 8, 1, 64, 32, 3, (1, 8, 15), False, {}),
         ("test 3", 1, 4, 4, 32, 16, 8, (1,), False, {}),
@@ -1247,6 +1334,231 @@ def ssm_decode_f32(torch, cfg, params, prompts, fed):
         f"(gate {SSM_DECODE_REL_L2_F32}; {time.perf_counter() - t0:.1f} s)")
     if not rel <= SSM_DECODE_REL_L2_F32:
         raise AssertionError(f"{cfg.name} f32: decode vs forward relative L2 {rel:.3e} > {SSM_DECODE_REL_L2_F32}")
+
+
+def families_batch(cfg, b, s, seed, device):
+    """The reference's batch of ``b`` x ``s`` positions for the model's family
+    (``make_concrete_batch``): tokens; for the VLM family 1/8 of them vision
+    embeddings ahead of the tokens, positions 0..s-1 on the three M-RoPE
+    axes; for the audio family frames with a 30% frame mask."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import make_concrete_batch
+
+    return make_concrete_batch(cfg, ShapeSpec(f"{cfg.name} {b}x{s}", s, b, "prefill"), seed=seed, device=device)
+
+
+def check_families_against_cpu(torch, dev):
+    """Phase 6b, first part: minicpm-2b, qwen2-vl-7b and hubert-xlarge at
+    full width, 2 layers, from the same weights on the card and on the CPU.
+    Gated at the tolerance, as phase 4 does for qwen3: ``forward`` over 2 x
+    64 positions in bf16 against the CPU taking the kernels' plain versions,
+    and in f32; for the two decode models also a prefill of 64 positions and
+    4 decode steps. Reported: bf16 against the CPU ``forward`` as it runs
+    there (its ``attend`` rounds scores and probabilities to bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    results = {}
+    for seed, arch in enumerate(FAMILY_ARCHS):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        fns = build_model(cfg)
+        params = fns.init(torch.Generator(dev).manual_seed(seed))
+        b, s, n = 2, 64, 4
+        batch = families_batch(cfg, b, s, 200 + seed, "cpu")
+        tokens = torch.randint(1, cfg.vocab_size, (b, n), generator=torch.Generator().manual_seed(seed))
+        t0 = time.perf_counter()
+
+        def to(batch, device):
+            return {k: v.to(device) for k, v in batch.items()}
+
+        def prefill_decode(params, device):
+            logits, cache = fns.prefill(params, to(batch, device), max_seq=s + n)
+            outs = [logits]
+            for i in range(n):
+                logits, cache = fns.decode_step(params, cache, {"tokens": tokens[:, i : i + 1].to(device)})
+                outs.append(logits)
+            if int(cache["index"]) != s + n:
+                raise AssertionError(f"{arch} decode: index {int(cache['index'])} != {s + n}")
+            return torch.cat(outs, dim=1)
+
+        with torch.inference_mode():
+            on_card = fns.forward(params, to(batch, dev)).cpu()
+            cpu_params = tree_map(lambda t: t.cpu(), params)
+            with kernel_plain_attend():
+                kernels_plain = fns.forward(cpu_params, batch)
+                dec_cpu = prefill_decode(cpu_params, "cpu") if cfg.has_decode else None
+            cpu_forward = fns.forward(cpu_params, batch)
+            dec_card = prefill_decode(params, dev).cpu() if cfg.has_decode else None
+            f32_batch = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+            f32_card = fns.forward(tree_map(lambda t: t.float(), params), to(f32_batch, dev)).cpu()
+            f32_cpu = fns.forward(tree_map(lambda t: t.float(), cpu_params), f32_batch)
+            del params, cpu_params
+        for out in (on_card, f32_card):
+            if out.shape != (b, s, cfg.vocab_size) or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"{arch}: logits {tuple(out.shape)} not finite / wrong shape")
+        err = max_err(torch, on_card, kernels_plain)
+        err32 = max_err(torch, f32_card, f32_cpu)
+        diff = (on_card.float() - cpu_forward.float()).abs()
+        beyond = int((diff > TOL + TOL * cpu_forward.float().abs()).sum())
+        log(f"model {arch} full width, 2 layers, B={b}, S={s} ({time.perf_counter() - t0:.1f} s):")
+        log(f"  bf16 card kernels vs CPU plain kernels: max abs err {err:.3e}; f32: {err32:.3e} (rtol=atol={TOL})")
+        results[arch] = {"bf16_err": err, "f32_err": err32, "bf16_vs_attend_err": float(diff.max()),
+                         "bf16_vs_attend_beyond": beyond}
+        if dec_card is not None:
+            err_dec = max_err(torch, dec_card, dec_cpu)
+            results[arch]["decode_err"] = err_dec
+            log(f"  prefill {s} + {n} decode steps, card vs CPU plain kernels: max abs err {err_dec:.3e}")
+        log(f"  bf16 card kernels vs CPU forward (bf16 attend): max abs err {float(diff.max()):.3e}, "
+            f"{beyond} of {diff.numel()} beyond rtol=atol={TOL} (reported, not gated)")
+        torch.cuda.empty_cache()
+    return results
+
+
+def families_slice(torch, dev):
+    """Phase 6b: minicpm-2b, qwen2-vl-7b and hubert-xlarge at their published
+    widths and depths, random weights from a seed, one model at a time. The
+    two decode models prefill DECODE_B x PROMPT positions (qwen2-vl-7b: 1/8
+    vision embeddings) and decode DECODE_STEPS greedy steps, gated against one
+    ``forward`` over the same positions; hubert-xlarge runs ``forward`` over
+    DECODE_B x PROMPT masked frames. Every call's launches are gated exactly,
+    the tied head's K-major ones too. Returns the path's launches, its steps
+    (one a prefill, a decode step or hubert's forward) and its tensor-core
+    launches, and the K-major launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import flatten
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+
+    total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
+    nk_total = [0]
+
+    def gated(what, cfg, path, run):
+        """Runs ``run`` with every count at 0 and gates its launches; returns
+        its output, its launches and its tensor-core launches."""
+        torch.cuda.synchronize(dev)
+        zero_launches()
+        nk0 = counters()["stream_matmul"].nk_launches
+        out = run()
+        torch.cuda.synchronize(dev)
+        launches, wgmma = read_launches(), read_wgmma()
+        nk = counters()["stream_matmul"].nk_launches - nk0
+        want, want_wgmma = step_launches(cfg, path), step_wgmma(cfg, path)
+        if launches != want or wgmma != want_wgmma or nk != step_nk(cfg):
+            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, K-major {nk}; "
+                                 f"want {want}, {want_wgmma}, {step_nk(cfg)}")
+        return out, launches, wgmma, nk
+
+    def add(launches, wgmma, nk):
+        nonlocal total
+        counts, n, counts_wgmma = total
+        total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
+                 {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
+        nk_total[0] += nk
+
+    for seed, arch in enumerate(FAMILY_ARCHS):
+        cfg = get_config(arch)
+        fns = build_model(cfg)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            params = fns.init(torch.Generator(dev).manual_seed(300 + seed))
+            batch = families_batch(cfg, DECODE_B, PROMPT, 400 + seed, dev)
+            torch.cuda.synchronize(dev)
+            leaves = flatten(params)
+            log(f"families {arch}: {cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, "
+                f"{sum(t.nbytes for _, t in leaves)} B of weights, set-up {time.perf_counter() - t0:.1f} s")
+            if not cfg.has_decode:
+                # the encoder: one forward over the masked frames
+                t0 = time.perf_counter()
+                logits, launches, wgmma, nk = gated(f"{arch} forward", cfg, "forward",
+                                                    lambda: fns.forward(params, batch))
+                forward_s = time.perf_counter() - t0
+                add(launches, wgmma, nk)
+                if logits.shape != (DECODE_B, PROMPT, cfg.vocab_size) or not torch.isfinite(logits.float()).all():
+                    raise AssertionError(f"{arch}: forward logits {tuple(logits.shape)} not finite / wrong shape")
+                log(f"  forward over {DECODE_B} x {PROMPT} frames ({int(batch['frame_mask'].sum())} masked): "
+                    f"{1e3 * forward_s:.3f} ms, {DECODE_B * PROMPT / forward_s:.1f} frames/s; launches {launches}, "
+                    f"tensor-core {wgmma} (attention on the simt route)")
+                profile_steps(torch, dev, f"{arch} forward", lambda i: fns.forward(params, batch), forward_s)
+                del params, batch, logits
+                torch.cuda.empty_cache()
+                continue
+
+            prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+            t0 = time.perf_counter()
+            (logits, cache), launches, wgmma, nk = gated(
+                f"{arch} prefill", cfg, "prefill", lambda: prefill_step(params, batch, max_seq=DECODE_SMAX))
+            prefill_s = time.perf_counter() - t0
+            add(launches, wgmma, nk)
+            if cache["host_index"] != PROMPT:
+                raise AssertionError(f"{arch}: prefill index {cache['host_index']} != {PROMPT}")
+            log(f"  prefill {DECODE_B} x {PROMPT} positions"
+                + (f" ({batch['vision_embeds'].shape[1]} vision, {batch['tokens'].shape[1]} text)"
+                   if cfg.family == "vlm" else "")
+                + f": {1e3 * prefill_s:.3f} ms, {DECODE_B * PROMPT / prefill_s:.1f} tokens/s; launches {launches}, "
+                  f"tensor-core {wgmma}, K-major {nk}")
+
+            outs, fed, step_s = [logits], [], []
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            for i in range(DECODE_STEPS):
+                t0 = time.perf_counter()
+                (logits, cache), launches, wgmma, nk = gated(
+                    f"{arch} decode step {i}", cfg, "decode", lambda: serve_step(params, cache, {"tokens": tok}))
+                step_s.append(time.perf_counter() - t0)
+                add(launches, wgmma, nk)
+                fed.append(tok)
+                outs.append(logits)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+            if int(cache["index"]) != DECODE_SMAX or cache["host_index"] != DECODE_SMAX:
+                raise AssertionError(f"{arch}: index {int(cache['index'])} != {DECODE_SMAX}")
+
+            decoded = torch.cat(outs, dim=1).float()  # positions PROMPT-1 .. DECODE_SMAX-1
+            if not torch.isfinite(decoded).all():
+                raise AssertionError(f"{arch}: decode logits not finite")
+            full = dict(batch, tokens=torch.cat([batch["tokens"]] + fed, dim=1))
+            if cfg.family == "vlm":
+                full["positions3"] = torch.arange(DECODE_SMAX, dtype=torch.int32, device=dev).expand(
+                    3, DECODE_B, DECODE_SMAX)
+            t0 = time.perf_counter()
+            ref, _, fwd_wgmma, _ = gated(f"{arch} forward", cfg, "forward", lambda: fns.forward(params, full))
+            forward_s = time.perf_counter() - t0
+            ref = ref[:, PROMPT - 1 :].float()
+            rel = float((decoded - ref).norm() / ref.norm())
+            per_step = ((decoded - ref).norm(dim=(0, 2)) / ref.norm(dim=(0, 2))).tolist()
+            del decoded, ref, full
+
+            embed = params["head"]["embed"]
+            weight_bytes = sum(t.nbytes for p, t in leaves if p != "head/embed")
+            # the tied head reads the whole table a step; else the gather reads DECODE_B rows
+            weight_bytes += embed.nbytes if cfg.tie_embeddings else DECODE_B * cfg.d_model * embed.element_size()
+            kv_row = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim() * cache["k"].element_size()
+            med_len = statistics.median(range(PROMPT + 1, DECODE_SMAX + 1))
+            step_cache = kv_row * DECODE_B * (med_len + 1)
+            med = statistics.median(step_s)
+            log(f"  decode step median {1e3 * med:.3f} ms (min {1e3 * min(step_s):.3f}, max "
+                f"{1e3 * max(step_s):.3f}), bound {1e3 * (weight_bytes + step_cache) / HBM_BYTES_PER_S:.3f} ms "
+                f"({weight_bytes} B weights + {step_cache:.0f} B KV at length {med_len}); "
+                f"{DECODE_B / med:.1f} tokens/s at the median")
+            log(f"  decode vs forward over the same {DECODE_SMAX} positions ({1e3 * forward_s:.0f} ms; "
+                f"tensor-core {fwd_wgmma}): relative L2 {rel:.3e} (gate {DECODE_REL_L2}); per position max "
+                f"{max(per_step):.3e}, first {per_step[0]:.3e}, last {per_step[-1]:.3e}")
+            if not rel <= DECODE_REL_L2:
+                raise AssertionError(f"{arch}: decode vs forward relative L2 {rel:.3e} > {DECODE_REL_L2}")
+
+            # 3 steps under the profiler, the cache rewound by 3 slots (the same
+            # k/v land in the same slots)
+            cache["index"] = torch.tensor(DECODE_SMAX - 3, dtype=torch.int32, device=dev)
+            cache["host_index"] = DECODE_SMAX - 3
+            state = {"cache": cache}
+
+            def step(i):
+                _, state["cache"] = serve_step(params, state["cache"], {"tokens": fed[DECODE_STEPS - 3 + i]})
+
+            profile_steps(torch, dev, f"{arch} decode", step, med)
+            del params, cache, state, outs, fed, logits, batch, leaves, embed
+        torch.cuda.empty_cache()
+    launches, steps, wgmma = total
+    log(f"families path: launches {launches} over {steps} calls, tensor-core {wgmma}, K-major {nk_total[0]}")
+    return (launches, steps, wgmma), nk_total[0]
 
 
 def kernel_bench_path(torch, dev):

@@ -38,6 +38,24 @@
 //    products stay exact f32 (never TF32).
 // Any M, N, K on the gemv and simt routes: ragged edges are masked; 16-byte
 // loads are used only when the weight rows are 16-byte aligned.
+//
+// K-major weights (w_layout = 1, "nk"): out = x @ w^T for w of shape (N, K),
+// the tied LM head x @ embed^T, which reads the (V, d) embedding table in
+// place (a transposed copy would be V * d * 2 bytes that no segment holds):
+//  * gemv (M <= 8): each output column is a dot product over one contiguous
+//    row of w. A warp owns 4 rows and streams them with 16-byte loads (4 in
+//    flight a lane) against x, which the block stages in shared memory in
+//    chunks of 1024 K-columns; a butterfly of shuffles sums each row's
+//    lanes. One launch, no split-K, no atomics: the same bits on every run.
+//    Bound: the weight bytes over HBM, as the (K, N) gemv.
+//  * wgmma (bf16, M > 8, K a multiple of 8, 16-byte aligned operands): the
+//    same pipeline with a K-major B, the form wgmma reads without the
+//    transpose bit: one TMA box of 64 K-columns by kWgmmaBN weight rows a
+//    stage, 128-byte swizzled like the x tile. N may be ragged (minicpm-2b's
+//    V = 122753 is odd): TMA zero-fills the rows past N and the store is
+//    masked; at odd N output rows are not 4-byte aligned, so the epilogue
+//    stores single elements there.
+//  * simt: the f32 tiles indexing w[n, k].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,11 +176,94 @@ __global__ void split_reduce_kernel(const float* __restrict__ work, O* __restric
   out[i] = from_float<O>(s);
 }
 
+constexpr int kNkRowsPerWarp = 4;  // rows of a K-major weight a gemv warp owns
+constexpr int kNkChunk = 1024;     // K-columns of x a gemv block stages at a time
+
+// out[m, n] = sum_k x[m, k] * w[n, k], w (N, K) row-major.
+// grid = ceil(N / (8 warps * kNkRowsPerWarp)); block = 256 threads.
+template <typename T, typename O, int MM>
+__global__ void __launch_bounds__(kThreads)
+gemv_nk_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
+               int M, int N, int K, int vec_ok) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int R = kNkRowsPerWarp;
+  __shared__ __align__(16) float xs[MM][kNkChunk];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = (blockIdx.x * (kThreads / 32) + warp) * R;
+
+  float acc[R][MM];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < MM; ++m) acc[r][m] = 0.f;
+
+  for (int kc = 0; kc < K; kc += kNkChunk) {
+    const int kn = min(kNkChunk, K - kc);
+    __syncthreads();  // the previous chunk's reads are done
+    for (int i = threadIdx.x; i < MM * kNkChunk; i += kThreads) {
+      const int m = i / kNkChunk, kk = i % kNkChunk;
+      xs[m][kk] = (m < M && kk < kn) ? to_float(x[(size_t)m * K + kc + kk]) : 0.f;
+    }
+    __syncthreads();
+    if (vec_ok) {  // K % V == 0 and 16-byte aligned rows, so kn % V == 0
+      for (int kk = lane * V; kk < kn; kk += 32 * V) {
+        float wv[R][V];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (n0 + r < N) {
+            load_vec(w + (size_t)(n0 + r) * K + kc + kk, wv[r]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) wv[r][v] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MM; ++m) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const float xm = xs[m][kk + v];
+#pragma unroll
+            for (int r = 0; r < R; ++r) acc[r][m] = fmaf(xm, wv[r][v], acc[r][m]);
+          }
+        }
+      }
+    } else {
+      for (int kk = lane; kk < kn; kk += 32) {
+        float wr[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          wr[r] = n0 + r < N ? to_float(w[(size_t)(n0 + r) * K + kc + kk]) : 0.f;
+#pragma unroll
+        for (int m = 0; m < MM; ++m)
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][m] = fmaf(xs[m][kk], wr[r], acc[r][m]);
+      }
+    }
+  }
+
+  // Sum each (row, m) over the warp's lanes by a butterfly (a fixed order:
+  // every lane ends with the same bits), then lane r * MM + m stores it.
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        acc[r][m] += __shfl_xor_sync(0xffffffffu, acc[r][m], off);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+      if (lane == r * MM + m && m < M && n0 + r < N)
+        out[(size_t)m * N + n0 + r] = from_float<O>(acc[r][m]);
+}
+
 constexpr int kTile = 64;
 constexpr int kTileK = 16;
 
 // grid = (ceil(N / 64), ceil(M / 64)); block = 256 threads, 4x4 outputs each.
-template <typename T, typename O>
+// kNK: w is (N, K) row-major.
+template <typename T, typename O, bool kNK>
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
              int M, int N, int K) {
@@ -181,9 +282,15 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ o
       const int xm = idx / kTileK, xk = idx % kTileK;
       const int gm = m0 + xm, gk = k0 + xk;
       xs[xk][xm] = (gm < M && gk < K) ? to_float(x[(size_t)gm * K + gk]) : 0.f;
-      const int wk = idx / kTile, wn = idx % kTile;
-      const int hk = k0 + wk, hn = n0 + wn;
-      ws[wk][wn] = (hk < K && hn < N) ? to_float(w[(size_t)hk * N + hn]) : 0.f;
+      if constexpr (kNK) {  // neighbouring threads on neighbouring k of a row
+        const int wn = idx / kTileK, wk = idx % kTileK;
+        const int hk = k0 + wk, hn = n0 + wn;
+        ws[wk][wn] = (hk < K && hn < N) ? to_float(w[(size_t)hn * K + hk]) : 0.f;
+      } else {
+        const int wk = idx / kTile, wn = idx % kTile;
+        const int hk = k0 + wk, hn = n0 + wn;
+        ws[wk][wn] = (hk < K && hn < N) ? to_float(w[(size_t)hk * N + hn]) : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -221,7 +328,7 @@ constexpr int kWgmmaThreads = 384;  // producer warpgroup + two consumers
 constexpr int kWgmmaStages = 4;
 constexpr int kBoxBytes = 64 * 64 * 2;                   // one 64 x 64 bf16 box
 constexpr int kABytes = kWgmmaBM * kWgmmaBK * 2;          // x tile
-constexpr int kBBytes = kWgmmaBK * kWgmmaBN * 2;          // w tile: kWgmmaBN / 64 boxes
+constexpr int kBBytes = kWgmmaBK * kWgmmaBN * 2;          // w tile: kWgmmaBN / 64 boxes, or one K-major box
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kWgmmaSmem = 1024 + kWgmmaStages * kStageBytes + 2 * kWgmmaStages * 8;
 
@@ -236,10 +343,23 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
   *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16x2(a, b);
 }
 
+// Columns col and col + 1 of an output row: one paired store where the pair
+// is inside the row and aligned (even N), else each column that is inside.
+template <typename O>
+__device__ __forceinline__ void store_cols(O* row, int col, int N, float a, float b) {
+  if (col + 1 < N && (N & 1) == 0) {
+    store2<O>(row + col, a, b);
+  } else {
+    if (col < N) row[col] = from_float<O>(a);
+    if (col + 1 < N) row[col + 1] = from_float<O>(b);
+  }
+}
+
 // grid = (ceil(M / 128), ceil(N / kWgmmaBN)): consecutive blocks share a
 // column of weight tiles. tx: x as (K, M) innermost first, boxes 64 x 128;
-// tw: w as (N, K), boxes 64 x 64.
-template <typename O>
+// tw: w as (N, K) innermost first, boxes 64 x 64 (MN-major B), or with kNK
+// w as (K, N) innermost first, boxes 64 x kWgmmaBN (K-major B).
+template <typename O, bool kNK>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
              O* __restrict__ out, int M, int N, int K) {
@@ -272,10 +392,14 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
         if (kt >= kWgmmaStages) hopper::mbar_wait(&empty[s], ((kt / kWgmmaStages) - 1) & 1);
         hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
         hopper::tma_load_2d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0);
+        if constexpr (kNK) {
+          hopper::tma_load_2d(b_s + s * kBBytes, &tw, &full[s], kt * kWgmmaBK, n0);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kWgmmaBN / 64; ++j)
-          hopper::tma_load_2d(b_s + s * kBBytes + j * kBoxBytes, &tw, &full[s], n0 + 64 * j,
-                              kt * kWgmmaBK);
+          for (int j = 0; j < kWgmmaBN / 64; ++j)
+            hopper::tma_load_2d(b_s + s * kBBytes + j * kBoxBytes, &tw, &full[s], n0 + 64 * j,
+                                kt * kWgmmaBK);
+        }
       }
     }
   } else {
@@ -296,10 +420,15 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
 #pragma unroll
       for (int kk = 0; kk < kWgmmaBK / 16; ++kk) {
         // x: K-major, 16 columns = 32 bytes on; w: MN-major, 16 K rows on,
-        // its 64-column boxes kBoxBytes apart
-        hopper::wgmma_ss<kWgmmaBN, 1>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
-                                      hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024),
-                                      1);
+        // its 64-column boxes kBoxBytes apart, or K-major like x
+        if constexpr (kNK) {
+          hopper::wgmma_ss<kWgmmaBN, 0>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
+                                        hopper::desc_sw128(b_addr + kk * 32, 16, 1024), 1);
+        } else {
+          hopper::wgmma_ss<kWgmmaBN, 1>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
+                                        hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024),
+                                        1);
+        }
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // the previous k-tile's products are done
@@ -314,32 +443,41 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
     for (int j = 0; j < kWgmmaBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
       if (col < N) {
-        if (row < M) store2<O>(out + (size_t)row * N + col, acc[4 * j], acc[4 * j + 1]);
+        if (row < M) store_cols<O>(out + (size_t)row * N, col, N, acc[4 * j], acc[4 * j + 1]);
         if (row + 8 < M)
-          store2<O>(out + (size_t)(row + 8) * N + col, acc[4 * j + 2], acc[4 * j + 3]);
+          store_cols<O>(out + (size_t)(row + 8) * N, col, N, acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
 }
 
-template <typename O>
+template <typename O, bool kNK>
 int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, int M, int N, int K,
                  cudaStream_t stream) {
   CUtensorMap tx, tw;
   const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
   const cuuint32_t x_box[2] = {64, kWgmmaBM};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
-  const cuuint32_t w_box[2] = {64, kWgmmaBK};
+  // (N, K) row-major: K innermost, rows of K * 2 bytes; (K, N): N innermost
+  const cuuint64_t w_dims[2] = {(cuuint64_t)(kNK ? K : N), (cuuint64_t)(kNK ? N : K)};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)(kNK ? K : N) * 2};
+  const cuuint32_t w_box[2] = {64, (cuuint32_t)(kNK ? kWgmmaBN : kWgmmaBK)};
   int err = hopper::encode_bf16_sw128(&tx, x, 2, x_dims, x_strides, x_box);
   if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 2, w_dims, w_strides, w_box);
   static std::atomic<uint32_t> smem_set{0};
-  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O>, kWgmmaSmem, smem_set);
+  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O, kNK>, kWgmmaSmem, smem_set);
   if (err != 0) return err;
   dim3 grid((M + kWgmmaBM - 1) / kWgmmaBM, (N + kWgmmaBN - 1) / kWgmmaBN);
-  wgmma_kernel<O><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, M, N, K);
+  wgmma_kernel<O, kNK><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename O, int MM>
+void launch_gemv_nk(const T* x, const T* w, O* out, int M, int N, int K, cudaStream_t stream) {
+  const int vec_ok = (K % (16 / sizeof(T)) == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  const int rows = (kThreads / 32) * kNkRowsPerWarp;
+  gemv_nk_kernel<T, O, MM><<<(N + rows - 1) / rows, kThreads, 0, stream>>>(x, w, out, M, N, K,
+                                                                           vec_ok);
 }
 
 template <typename T, typename O, int MM>
@@ -361,18 +499,33 @@ enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2 };
 
 template <typename T, typename O>
 int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, int K, int route,
-        int splits, cudaStream_t stream) {
+        int splits, int nk, cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   const T* w = static_cast<const T*>(w_);
   O* out = static_cast<O*>(out_);
   float* ws = static_cast<float*>(work);
   if (route == kRouteWgmma) {
-    if constexpr (sizeof(T) == 2) return launch_wgmma<O>(x, w, out, M, N, K, stream);
+    if constexpr (sizeof(T) == 2) {
+      return nk ? launch_wgmma<O, true>(x, w, out, M, N, K, stream)
+                : launch_wgmma<O, false>(x, w, out, M, N, K, stream);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kRouteSimt) {
     dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    tiled_kernel<T, O><<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K);
+    if (nk)
+      tiled_kernel<T, O, true><<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K);
+    else
+      tiled_kernel<T, O, false><<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K);
+  } else if (nk) {
+    if (M == 1)
+      launch_gemv_nk<T, O, 1>(x, w, out, M, N, K, stream);
+    else if (M <= 2)
+      launch_gemv_nk<T, O, 2>(x, w, out, M, N, K, stream);
+    else if (M <= 4)
+      launch_gemv_nk<T, O, 4>(x, w, out, M, N, K, stream);
+    else
+      launch_gemv_nk<T, O, kGemvMaxM>(x, w, out, M, N, K, stream);
   } else if (M == 1) {
     launch_gemv<T, O, 1>(x, w, out, ws, M, N, K, splits, stream);
   } else if (M <= 2) {
@@ -387,30 +540,34 @@ int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, in
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. route: 0 = gemv (M <= 8, K cut into
+// dtype codes: 0 = float32, 1 = bfloat16. w_layout: 0 = w (K, N), 1 = w (N, K)
+// (out = x @ w^T). route: 0 = gemv (M <= 8; for (K, N) weights K cut into
 // `splits` >= 1 chunks, which needs a float32 workspace of splits * M * N when
-// splits > 1), 1 = simt tiles, 2 = wgmma (bfloat16 in, M > 8, K and N
-// multiples of 8, x and w 16-byte aligned); anything else is refused.
-// Returns cudaGetLastError() after the launches.
+// splits > 1; for (N, K) weights splits = 1), 1 = simt tiles, 2 = wgmma
+// (bfloat16 in, M > 8, K a multiple of 8 and, for (K, N) weights, N too, x and
+// w 16-byte aligned); anything else is refused. Returns cudaGetLastError()
+// after the launches.
 extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work, int M,
                              int N, int K, int route, int splits, int in_dtype, int out_dtype,
-                             void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM))
+                             int w_layout, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || w_layout < 0 || w_layout > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM || (w_layout == 1 && splits != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma &&
-      (in_dtype != 1 || M <= kGemvMaxM || K % 8 || N % 8 ||
+      (in_dtype != 1 || M <= kGemvMaxM || K % 8 || (w_layout == 0 && N % 8) ||
        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route < kRouteGemv || route > kRouteWgmma) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nk = w_layout;
   if (in_dtype == 1 && out_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, s);
+    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, nk, s);
   if (in_dtype == 1 && out_dtype == 0)
-    return run<__nv_bfloat16, float>(x, w, out, work, M, N, K, route, splits, s);
+    return run<__nv_bfloat16, float>(x, w, out, work, M, N, K, route, splits, nk, s);
   if (in_dtype == 0 && out_dtype == 1)
-    return run<float, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, s);
+    return run<float, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, nk, s);
   if (in_dtype == 0 && out_dtype == 0)
-    return run<float, float>(x, w, out, work, M, N, K, route, splits, s);
+    return run<float, float>(x, w, out, work, M, N, K, route, splits, nk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

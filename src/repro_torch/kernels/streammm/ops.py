@@ -14,7 +14,10 @@ route that fails raises): ``gemv`` for M <= 8, bound by the weight bytes over
 HBM (the live and decode steps); ``wgmma`` for bf16 with M > 8 where TMA can
 describe both operands, bound by the bf16 tensor-core rate at prefill, which
 it approaches with TMA-fed wgmma tiles; ``simt`` for the rest (f32, which
-stays exact f32, and ragged K or N). ``stream_matmul_int8`` replaces
+stays exact f32, and ragged K or N). With ``w_layout="nk"`` it computes
+``x @ w.T`` for a K-major w of shape (N, K), the tied LM head ``x @
+embed^T``, on the same three routes without copying w (``stream_matmul.
+nk_launches`` counts those launches). ``stream_matmul_int8`` replaces
 ``stream_matmul_int8`` (``kernel.py:101``) with the same three routes, picked
 by :func:`int8_route`; its ``wgmma`` route keeps the int8 products exact (bf16
 x times the unscaled weight, the scale applied to each group's f32 sum).
@@ -34,18 +37,21 @@ GEMV_COLS = 256  # output columns per gemv block (kGemvCols of both kernels)
 ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry points' route argument
 INT8_TILE_K = 64  # K rows of a stage of the int8 wgmma route (kI8BK)
 INT8_TILE_M, INT8_TILE_N = 192, 128  # rows and columns of an int8 wgmma output tile (kI8BM, kI8BN)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+W_LAYOUT_CODES = {"kn": 0, "nk": 1}  # the C entry point's w_layout argument
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
+def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, w_layout: str = "kn") -> str:
     """The kernel route of an (m, k) @ (k, n) product: "gemv" for m <= 8;
-    "wgmma" for bf16 where TMA can describe both operands (k and n multiples
-    of 8, so that every row starts 16 bytes on, and 16-byte aligned base
-    pointers: ``aligned``); "simt" otherwise, which keeps f32 in exact f32."""
+    "wgmma" for bf16 where TMA can describe both operands (16-byte aligned
+    base pointers, ``aligned``, and rows that each start 16 bytes on: k a
+    multiple of 8 and, for a (K, N) weight, n too; a K-major (N, K) weight,
+    ``w_layout="nk"``, takes any n, which TMA zero-fill and the masked store
+    handle); "simt" otherwise, which keeps f32 in exact f32."""
     if m <= GEMV_MAX_M:
         return "gemv"
-    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
+    if dtype == torch.bfloat16 and k % 8 == 0 and (n % 8 == 0 or w_layout == "nk") and aligned:
         return "wgmma"
     return "simt"
 
@@ -60,23 +66,32 @@ def k_splits(m: int, n: int, k: int, sm_count: int) -> int:
     return max(1, min(-(-4 * sm_count // col_blocks), k // 64))
 
 
-def stream_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w`` for x (M, K) and w (K, N) of one dtype, f32 accumulation,
-    result in ``out_dtype`` (bfloat16 or float32)."""
+def stream_matmul(
+    x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16, w_layout: str = "kn"
+) -> torch.Tensor:
+    """``x @ w`` for x (M, K) and w (K, N) of one dtype, or ``x @ w.T`` for w
+    (N, K) with ``w_layout="nk"``; f32 accumulation, result in ``out_dtype``
+    (bfloat16 or float32)."""
+    if w_layout not in W_LAYOUT_CODES:
+        raise ValueError(f"stream_matmul: w_layout {w_layout!r}, need 'kn' or 'nk'")
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return stream_matmul_ref(x, w, out_dtype)
+        return stream_matmul_ref(x, w, out_dtype, w_layout)
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"stream_matmul: x on {x.device}, w on {w.device}")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] or 0 in (*x.shape, w.shape[1]):
-        raise ValueError(f"stream_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    nk = w_layout == "nk"
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1 if nk else 0] or 0 in (*x.shape, *w.shape):
+        raise ValueError(f"stream_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} ({w_layout})")
     if x.dtype != w.dtype or x.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
         raise TypeError(f"stream_matmul: dtypes {x.dtype} @ {w.dtype} -> {out_dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("stream_matmul: x and w must be contiguous")
     m, k = x.shape
-    n = w.shape[1]
-    route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    splits = k_splits(m, n, k, _build.sm_count(x.device)) if route == "gemv" else 0
+    n = w.shape[0 if nk else 1]
+    route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, w_layout)
+    if route != "gemv":
+        splits = 0
+    else:  # a K-major row is one warp's dot product: no split-K
+        splits = 1 if nk else k_splits(m, n, k, _build.sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("streammm", "stream_matmul", _ARGTYPES)
@@ -84,17 +99,20 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16) ->
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
         m, n, k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        W_LAYOUT_CODES[w_layout], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"stream_matmul ({route})")
+    _build.check(err, f"stream_matmul ({route}, {w_layout})")
     stream_matmul.launches += 1
     if route == "wgmma":
         stream_matmul.wgmma_launches += 1
+    if nk:
+        stream_matmul.nk_launches += 1
     return out
 
 
 stream_matmul.launches = 0
 stream_matmul.wgmma_launches = 0
+stream_matmul.nk_launches = 0
 
 
 def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:

@@ -3,8 +3,12 @@ package's ``streammm/ref.py``): f32 product, cast to ``out_dtype``."""
 import torch
 
 
-def stream_matmul_ref(x, w, out_dtype=torch.bfloat16):
-    return (x.float() @ w.float()).to(out_dtype)
+def stream_matmul_ref(x, w, out_dtype=torch.bfloat16, w_layout="kn"):
+    """``x @ w`` for w (K, N), or ``x @ w.T`` for w (N, K) with ``w_layout="nk"``."""
+    if w_layout not in ("kn", "nk"):
+        raise ValueError(f"stream_matmul_ref: w_layout {w_layout!r}")
+    wf = w.float()
+    return (x.float() @ (wf.T if w_layout == "nk" else wf)).to(out_dtype)
 
 
 def stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype=torch.bfloat16):

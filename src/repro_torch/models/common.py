@@ -81,6 +81,30 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL multimodal RoPE.
+
+    x: (B, S, H, D); positions3: (3, B, S) (temporal, height, width) position
+    ids; sections: per-axis rotary section sizes (sum == D // 2). Frequency
+    ``i`` of a section reads that section's position axis.
+    """
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    angle_parts = []
+    start = 0
+    for axis, sec in enumerate(sections):
+        f = freqs[start : start + sec]
+        angle_parts.append(positions3[axis][..., None].float() * f)
+        start += sec
+    angles = torch.cat(angle_parts, dim=-1)  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Attention core (exact, memory-bounded via query-block loop)
 # --------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Attention / MLP layers: init + apply, plain functions over params dicts.
 
-Counterpart of the JAX package's ``models/layers.py`` for the dense family.
-Init functions take a ``lead`` shape prefix so the model can draw every
-layer's leaf at once in the stacked layout (leading ``L`` axis) that the JAX
-package builds with ``vmap``. Every ``x @ W`` is the ``stream_matmul`` kernel
-on a 2-D ``(B*S, K)`` view; one-token decode reads the KV cache through the
-``paged_attention`` kernel. MoE, M-RoPE and the ring/window caches of the
-hybrid family are not ported yet (ROADMAP.md).
+Counterpart of the JAX package's ``models/layers.py`` for the attention
+families (dense, VLM with M-RoPE, the bidirectional audio encoder). Init
+functions take a ``lead`` shape prefix so the model can draw every layer's
+leaf at once in the stacked layout (leading ``L`` axis) that the JAX package
+builds with ``vmap``. Every ``x @ W`` is the ``stream_matmul`` kernel on a 2-D
+``(B*S, K)`` view; one-token decode reads the KV cache through the
+``paged_attention`` kernel. MoE and the ring/window caches of the hybrid
+family are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,13 +20,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.streammm.ops import stream_matmul
 from repro_torch.models import common
-from repro_torch.models.common import apply_rope, attend, dense_init, rms_norm
+from repro_torch.models.common import apply_mrope, apply_rope, attend, dense_init, rms_norm
 
 
-def linear(x, w):
-    """``x @ w`` over the last axis of x: (..., K) @ (K, N) -> (..., N)."""
-    out = stream_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+def linear(x, w, w_layout: str = "kn"):
+    """``x @ w`` over the last axis of x: (..., K) @ (K, N) -> (..., N); with
+    ``w_layout="nk"``, ``x @ w.T`` for w (N, K), read in place (the tied LM
+    head over the (V, d) embedding table)."""
+    out = stream_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype, w_layout=w_layout)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -55,7 +58,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...]
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
+def _project_qkv(p, x, cfg: ModelConfig, positions, positions3=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = linear(x, p["wq"])
@@ -69,18 +72,28 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.causal:  # encoder (hubert) backbone: no rope on bidirectional attn
+    if cfg.mrope_sections is not None:
+        assert positions3 is not None
+        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.causal:  # encoder (hubert) backbone: no rope on bidirectional attn
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attention_apply(p, x, cfg: ModelConfig, *, positions, window: Optional[int] = None):
-    """Full-sequence attention. ``positions`` (B, S) must be 0..S-1 per row,
-    as ``forward`` builds them: RoPE reads them, and ``attend`` masks for
-    those positions. Returns (out, (k, v))."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = attend(q, k, v, causal=cfg.causal, window=window)
+def attention_apply(
+    p, x, cfg: ModelConfig, *, positions, positions3=None, window: Optional[int] = None
+):
+    """Full-sequence attention: RoPE (or M-RoPE, from ``positions3`` (3, B,
+    S)) reads ``positions`` (B, S). On the CPU, ``attend`` masks by
+    ``positions`` as the reference does; on CUDA the flash kernel masks by
+    index, so ``positions`` must be 0..S-1 in every row there (``forward`` and
+    ``prefill`` build or check that). Returns (out, (k, v))."""
+    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
+    mask_positions = None if q.is_cuda else positions
+    out = attend(q, k, v, q_positions=mask_positions, kv_positions=mask_positions,
+                 causal=cfg.causal, window=window)
     b, s, _, _ = out.shape
     return linear(out.reshape(b, s, -1), p["wo"]), (k, v)
 
@@ -115,6 +128,7 @@ def attention_decode(
     v_cache,
     index,
     positions,
+    positions3=None,
     window: Optional[int] = None,
     ring: bool = False,
     pages=None,
@@ -123,7 +137,7 @@ def attention_decode(
 
     k_cache/v_cache: (B, Smax, Hkv, Dh); index: 0-d int32 tensor on their
     device (the current position, the same for every row); positions: (B, 1);
-    pages: :func:`kv_pages` of ``index``, built here when not given.
+    positions3: (3, B, 1) for M-RoPE; pages: :func:`kv_pages` of ``index``, built here when not given.
     The JAX function is pure and returns new caches; this one writes k/v at
     slot ``index`` into ``k_cache``/``v_cache`` themselves, so that a step
     copies no cache, and returns them. Attention then views the cache as a
@@ -139,7 +153,7 @@ def attention_decode(
         raise NotImplementedError(
             "attention_decode: ring and window caches come with the hybrid family (ROADMAP.md §1)"
         )
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     b, smax, hkv, hd = k_cache.shape
     slot, table, lengths = pages if pages is not None else kv_pages(index, b, smax)
     k_cache.index_copy_(1, slot, k)

@@ -1,4 +1,5 @@
-"""Model assembly for the dense and SSM families, with the reference's contract:
+"""Model assembly for the attention families (dense, tied or not; VLM; the
+audio encoder) and the SSM family, with the reference's contract:
 
   init(generator)                     -> params
   forward(params, batch)              -> logits (B, S, V)
@@ -8,15 +9,20 @@
 
 Counterpart of the JAX package's ``models/model.py``. Params keep the
 reference's tree and stacked-layer layout: ``head`` holds
-``embed``/``lm_head``/``final_norm`` and every leaf under ``layers`` has a
-leading ``L`` axis, walked by a Python loop over ``[l]`` views (the JAX
-package scans it). The cache is the reference's too: for the dense family
+``embed``/``lm_head``/``final_norm`` (no ``lm_head`` where the embeddings are
+tied: the logits read ``embed`` as a K-major weight) and every leaf under
+``layers`` has a leading ``L`` axis, walked by a Python loop over ``[l]``
+views (the JAX package scans it). Batches are the reference's: ``tokens``;
+for the VLM family also ``vision_embeds`` (B, S_vis, d), placed before the
+tokens, and ``positions3`` (3, B, S_vis + S_text); for the audio family
+``frames`` (B, S, d) and an optional ``frame_mask`` (B, S), whose frames
+take ``embed[0]``. The cache is the reference's too: for the attention families
 ``{"k", "v"}`` of shape (L, B, Smax, Hkv, hd), for the SSM family
 ``{"state", "conv"}`` of shapes (L, B, H, hd, ns) f32 and (L, B, width-1,
 conv_dim), each with a 0-d int32 ``index``; ``prefill`` and ``decode_step``
 write into it in place. It also carries ``host_index``, the same position as
 a Python int, so that a step checks its bounds without waiting for the
-device. ``loss`` and the other families are not ported yet (ROADMAP.md §1).
+device. ``loss``, MoE and the hybrid family are not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -53,15 +59,17 @@ class ModelFns:
 def _init_head(gen: torch.Generator, cfg: ModelConfig):
     dt = common.dtype_of(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    return {
-        "embed": common.embed_init(gen, (v, d), dt),
-        "lm_head": common.dense_init(gen, (d, v), dt, fan_in=d),
-        "final_norm": init_norm(cfg, device=gen.device),
-    }
+    p = {"embed": common.embed_init(gen, (v, d), dt)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = common.dense_init(gen, (d, v), dt, fan_in=d)
+    p["final_norm"] = init_norm(cfg, device=gen.device)
+    return p
 
 
 def _logits(p, x, cfg: ModelConfig):
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:  # x @ embed^T, embed (V, d) read in place
+        return linear(x, p["embed"], w_layout="nk")
     return linear(x, p["lm_head"])
 
 
@@ -88,16 +96,45 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         return x + mlp_apply(lp["mlp"], h)
 
-    def _run_layers(params, tokens, cache=None):
-        """The layer stack over the whole sequence; with ``cache``, each
-        layer's k/v are written into its slots 0..S-1."""
+    def _embed_inputs(params, batch):
+        """(x, positions, positions3) as the reference's ``_embed_inputs``:
+        audio frames (``embed[0]`` where ``frame_mask``), vision embeddings
+        before the token embeddings with ``positions3[0]`` as positions, or
+        token embeddings at 0..S-1. On CUDA the flash kernel masks by index,
+        so there a VLM batch whose temporal positions are not 0..S-1 in every
+        row raises ValueError (one check, one sync, a call)."""
+        embed = params["head"]["embed"]
+        if cfg.family == "audio":
+            x = batch["frames"].to(common.dtype_of(cfg))
+            if "frame_mask" in batch:
+                x = torch.where(batch["frame_mask"][..., None], embed[0], x)
+            b, s = x.shape[:2]
+            return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s), None
+        tokens = batch["tokens"]
+        x = embed[tokens]
+        if cfg.family == "vlm":
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+            positions3 = batch["positions3"]
+            positions = positions3[0]
+            if x.is_cuda:
+                iota = torch.arange(x.shape[1], dtype=positions.dtype, device=x.device)
+                if not torch.equal(positions, iota.expand_as(positions)):
+                    raise ValueError(
+                        f"{cfg.name}: on CUDA the temporal positions (positions3[0]) must be "
+                        "0..S-1 in every row (ROADMAP.md §3)"
+                    )
+            return x, positions, positions3
         b, s = tokens.shape
-        x = params["head"]["embed"][tokens]
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s), None
+
+    def _run_layers(params, x, positions, positions3, cache=None):
+        """The layer stack over the embedded sequence x (B, S, d); with
+        ``cache``, each layer's k/v are written into its slots 0..S-1."""
+        s = x.shape[1]
         for l in range(L):
             lp = _layer_view(params["layers"], l)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            attn_out, (k, v) = attention_apply(lp["attn"], h, cfg, positions=positions)
+            attn_out, (k, v) = attention_apply(lp["attn"], h, cfg, positions=positions, positions3=positions3)
             if cache is not None:
                 cache["k"][l, :, :s] = k
                 cache["v"][l, :, :s] = v
@@ -105,7 +142,8 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         return x
 
     def forward(params, batch):
-        return _logits(params["head"], _run_layers(params, batch["tokens"]), cfg)
+        x = _run_layers(params, *_embed_inputs(params, batch))
+        return _logits(params["head"], x, cfg)
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
         dev = resolve_device(device)
@@ -120,11 +158,12 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
 
     def prefill(params, batch, max_seq: Optional[int] = None):
         """Logits at the last position (B, 1, V) and a cache of
-        ``max(max_seq, S)`` slots holding the prompt's k/v, zero past S."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        cache = init_cache(b, max(max_seq or s, s), tokens.device)
-        x = _run_layers(params, tokens, cache)
+        ``max(max_seq, S)`` slots holding the prompt's k/v, zero past S; S is
+        the embedded length (vision plus text for the VLM family)."""
+        x, positions, positions3 = _embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        cache = init_cache(b, max(max_seq or s, s), x.device)
+        x = _run_layers(params, x, positions, positions3, cache)
         cache["index"].fill_(s)
         cache["host_index"] = s
         return _logits(params["head"], x[:, -1:, :], cfg), cache
@@ -145,13 +184,15 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         x = params["head"]["embed"][tokens]
         index = cache["index"]
         positions = index.expand(b, 1)
+        # the reference's decode takes position = index on all three M-RoPE axes
+        positions3 = index.expand(3, b, 1) if cfg.family == "vlm" else None
         pages = kv_pages(index, b, smax)
         for l in range(L):
             lp = _layer_view(params["layers"], l)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             attn_out, _ = attention_decode(
                 lp["attn"], h, cfg, k_cache=cache["k"][l], v_cache=cache["v"][l],
-                index=index, positions=positions, pages=pages,
+                index=index, positions=positions, positions3=positions3, pages=pages,
             )
             x = _mlp_block(lp, x + attn_out)
         logits = _logits(params["head"], x, cfg)
@@ -235,13 +276,9 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
 
 
 def build_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "vlm", "audio", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             "(ROADMAP.md §1, 'Modules still to port')"
-        )
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: tied embeddings are not ported yet (ROADMAP.md §1)"
         )
     return _ssm_fns(cfg) if cfg.family == "ssm" else _transformer_fns(cfg)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and mamba2 at full width on the card against the CPU.
+and mamba2 and minicpm-2b at full width on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -45,6 +45,10 @@ FA_CASES = [
     (1, 300, 300, 24, 8, 128, True, 100),
     (1, 5, 77, 6, 2, 80, False, 0),
     (2, 70, 40, 4, 2, 64, True, 16),  # Sq > Skv: no tile skipping
+    # qwen2-vl-7b's g = 7 (H 28 / Hkv 4), and hubert-xlarge's bidirectional
+    # D = 80 over 16 heads (the simt route) at a full 1024-frame sequence
+    (1, 77, 77, 28, 4, 128, True, 0),
+    (1, 1024, 1024, 16, 16, 80, False, 0),
 ]
 
 PA_CASES = [
@@ -71,6 +75,12 @@ PA_CASES = [
     (4, 16, 8, 128, 64, 17, (128, 256, 640, 1088), False),
     (1, 16, 8, 128, 64, 205, (12000,), True),
     (2, 32, 2, 128, 64, 17, (1088, 700), True),
+    # the new families' decode shapes: qwen2-vl-7b (g = 7 in one block of 8
+    # heads), minicpm-2b (MHA, D = 64), hubert-xlarge (D = 80)
+    (4, 28, 4, 128, 64, 17, (1025, 1046, 1067, 1088), True),
+    (3, 28, 4, 128, 16, 5, (37, 0, 80), False),
+    (4, 36, 36, 64, 64, 17, (1025, 1046, 1067, 1088), False),
+    (4, 16, 16, 80, 64, 17, (1025, 1046, 1067, 1088), False),
 ]
 
 
@@ -129,6 +139,56 @@ def test_stream_matmul_wgmma_route(cuda, m, k, n, out_dtype):
     assert mm_ops.stream_matmul.wgmma_launches == before + 1
     _close(out, stream_matmul_ref(x, w, out_dtype=odt))
     assert torch.equal(out, mm_ops.stream_matmul(x, w, out_dtype=odt))  # no split-K, no atomics
+
+
+NK_CASES = [
+    # (M, K, N, dtype, route) of x @ w.T for a K-major w (N, K): minicpm-2b's
+    # tied head (V = 122753, odd) at the live step, decode, a 64-row product
+    # and the decode check's forward (4 x 1088 rows); a ragged K on the gemv
+    # and simt routes, f32 on gemv and simt, a ragged N on wgmma
+    (1, 2304, 122753, torch.bfloat16, "gemv"),
+    (4, 2304, 122753, torch.bfloat16, "gemv"),
+    (64, 2304, 122753, torch.bfloat16, "wgmma"),
+    (4352, 2304, 122753, torch.bfloat16, "wgmma"),
+    (3, 300, 1001, torch.bfloat16, "gemv"),
+    (64, 300, 1001, torch.bfloat16, "simt"),
+    (5, 2048, 4097, torch.float32, "gemv"),
+    (64, 2048, 1001, torch.float32, "simt"),
+    (200, 264, 137, torch.bfloat16, "wgmma"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,dt,route", NK_CASES)
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+def test_stream_matmul_nk_kernel(cuda, m, k, n, dt, route, out_dtype):
+    """The K-major form reads w in place: no copy, one launch, counted in
+    ``nk_launches`` and, on the tensor-core route, ``wgmma_launches``."""
+    x = _randn((m, k), dt, cuda, 0)
+    w = _randn((n, k), dt, cuda, 1, scale=k ** -0.5)
+    odt = DTYPES[out_dtype]
+    assert mm_ops.mm_route(m, n, k, dt, True, "nk") == route
+    fn = mm_ops.stream_matmul
+    before = (fn.launches, fn.wgmma_launches, fn.nk_launches)
+    out = fn(x, w, out_dtype=odt, w_layout="nk")
+    assert (fn.launches, fn.wgmma_launches, fn.nk_launches) == (
+        before[0] + 1, before[1] + (route == "wgmma"), before[2] + 1)
+    assert out.shape == (m, n) and out.dtype == odt
+    ref = stream_matmul_ref(x, w, out_dtype=odt, w_layout="nk")
+    _close(out, ref)
+    assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= 1e-3
+    assert torch.equal(out, fn(x, w, out_dtype=odt, w_layout="nk"))  # one launch, no atomics
+
+
+@pytest.mark.cuda
+def test_stream_matmul_nk_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul(x, torch.zeros((64, 10), device=cuda, dtype=torch.bfloat16), w_layout="nk")
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul(x, torch.zeros((10, 128), device=cuda, dtype=torch.bfloat16)[:, ::2], w_layout="nk")
+    with pytest.raises(ValueError, match="w_layout"):
+        mm_ops.stream_matmul(x, torch.zeros((10, 64), device=cuda, dtype=torch.bfloat16), w_layout="t")
 
 
 INT8_CASES = [
@@ -239,6 +299,12 @@ WGMMA_FA_CASES = [
     (1, 1088, 1088, 24, 8, 128, True, 0),
     (2, 256, 256, 8, 2, 64, True, 0),
     (1, 300, 300, 24, 8, 128, True, 100),
+    # the new families' prefill calls: qwen2-vl-7b at g = 7 (a 128-row tile
+    # straddles positions unevenly), also short and ragged, and minicpm-2b
+    # (MHA, D = 64)
+    (4, 1024, 1024, 28, 4, 128, True, 0),
+    (1, 300, 300, 28, 4, 128, True, 0),
+    (4, 1024, 1024, 36, 36, 64, True, 0),
 ]
 
 
@@ -340,6 +406,79 @@ def test_decode_past_the_cache_raises_on_the_card(cuda):
 
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_minicpm_full_width_card_against_cpu(cuda):
+    """minicpm-2b at its published width (tied head over V = 122753), 2
+    layers: forward, and prefill of 32 tokens + 4 decode steps, on the card
+    against the CPU with the kernels' plain versions (attention in f32, as
+    the kernels keep it) from the same weights; decode on the card against
+    forward on the card at the reference's decode tolerance (8e-2)."""
+    import dataclasses
+
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.streammm.ops import stream_matmul
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)
+    fns = build_model(cfg)
+    params = fns.init(torch.Generator(cuda).manual_seed(0))
+    assert "lm_head" not in params["head"]
+    cpu_params = _tree_to(params, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 36)))
+    s, n = 32, 4
+
+    def prefill_decode(p, toks):
+        logits, cache = fns.prefill(p, {"tokens": toks[:, :s]}, max_seq=s + n)
+        outs = [logits]
+        for i in range(n):
+            logits, cache = fns.decode_step(p, cache, {"tokens": toks[:, s + i : s + i + 1]})
+            outs.append(logits)
+        return torch.cat(outs, dim=1)
+
+    def plain_attend(q, k, v, *, causal, window=None, **_):
+        return attention_ref(q, k, v, causal=causal, window=window or 0)
+
+    with torch.inference_mode():
+        before = stream_matmul.nk_launches
+        fwd_card = fns.forward(params, {"tokens": tokens.to(cuda)})
+        dec_card = prefill_decode(params, tokens.to(cuda))
+        assert stream_matmul.nk_launches == before + 1 + 1 + n  # the tied head, once a call
+        saved, layers.attend = layers.attend, plain_attend
+        try:
+            fwd_cpu = fns.forward(cpu_params, {"tokens": tokens})
+            dec_cpu = prefill_decode(cpu_params, tokens)
+        finally:
+            layers.attend = saved
+    assert torch.isfinite(fwd_card.float()).all() and fwd_card.shape == (2, 36, cfg.vocab_size)
+    _close(fwd_card.cpu(), fwd_cpu)
+    _close(dec_card.cpu(), dec_cpu)
+    torch.testing.assert_close(dec_card.float(), fwd_card[:, s - 1 :].float(), rtol=8e-2, atol=8e-2)
+
+
+@pytest.mark.cuda
+def test_vlm_positions_that_are_not_an_index_raise_on_the_card(cuda):
+    """The flash kernel masks by index, so on the card a VLM batch whose
+    temporal positions are not 0..S-1 raises (the CPU masks by them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import make_concrete_batch
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("qwen2-vl-7b").reduced()
+    fns = build_model(cfg)
+    params = fns.init(torch.Generator(cuda).manual_seed(0))
+    batch = make_concrete_batch(cfg, ShapeSpec("p", 64, 2, "prefill"), device=cuda)
+    with torch.inference_mode():
+        logits = fns.forward(params, batch)
+        assert torch.isfinite(logits.float()).all()
+        batch["positions3"][0, 1, 8:] += 3
+        with pytest.raises(ValueError, match="temporal positions"):
+            fns.forward(params, batch)
+        with pytest.raises(ValueError, match="temporal positions"):
+            fns.prefill(params, batch, max_seq=80)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The port's prefill and KV-cache decode against the JAX package's, on the
-reference's own parameters and the same numpy tokens, for both dense archs
-reduced. Tolerances: rtol = atol = 5e-2 for prefill logits and cache (the
+reference's own parameters and the same numpy tokens, for every dense arch
+reduced (tied or not). Tolerances: rtol = atol = 5e-2 for prefill logits and cache (the
 reference's kernel-test tolerance: bf16 rounds at other places in the two
 frameworks) and 8e-2 for decode logits, the reference's own for decode
 against forward (tests/models/test_cache_consistency.py): the port's decode
@@ -21,7 +21,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.convert import cache_from_reference, params_from_reference  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-DENSE = ["qwen3-1.7b", "llama3.2-3b"]
+DENSE = ["qwen3-1.7b", "llama3.2-3b", "minicpm-2b", "qwen1.5-110b", "paper-llama3-8b"]  # the dense family
 TOL = 5e-2
 DECODE_TOL = 8e-2
 B = 2

@@ -30,7 +30,10 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "repro_torch.launch.specs" in names, names
 import chip_smoke  # noqa: F401  (the module does nothing on import)
+sys.path.insert(0, "examples")
+import port_multitask_oversubscription  # noqa: F401  (runs only as a script)
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
@@ -56,11 +59,16 @@ def test_every_module_imports_with_jax_blocked():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py"] + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("port_*.py")),
 )
 def test_source_imports_no_jax_or_reference(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), f"{path}: {FORBIDDEN.search(text).group(0)!r}"
+
+
+def test_port_examples_exist():
+    assert (ROOT / "examples" / "port_multitask_oversubscription.py").is_file()
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

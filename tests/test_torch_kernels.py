@@ -71,6 +71,45 @@ def test_stream_matmul_ref_ragged_gemv(m, k, n, dtype):
     _close(stream_matmul_ref(xt, wt, out_dtype=DTYPES[dtype][1]), ref)
 
 
+NK_SHAPES = [(64, 64, 64), (128, 256, 192), (1, 128, 300), (4, 96, 257), (9, 72, 1001)]
+
+
+@pytest.mark.parametrize("m,k,n", NK_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stream_matmul_ref_nk_matches_einsum(m, k, n, dtype):
+    """The K-major form is the reference's tied head, einsum("bsd,vd->bsv")."""
+    rng = np.random.default_rng(12)
+    xj, xt = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    wj, wt = _pair(rng.standard_normal((n, k), np.float32), dtype)
+    ref = jnp.einsum("md,nd->mn", xj, wj, preferred_element_type=jnp.float32).astype(DTYPES[dtype][0])
+    _close(stream_matmul_ref(xt, wt, out_dtype=DTYPES[dtype][1], w_layout="nk"), ref)
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stream_matmul_ref_nk_matches_pallas_on_the_transposed_weight(m, k, n, dtype):
+    rng = np.random.default_rng(13)
+    xj, xt = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    wj, wt = _pair(rng.standard_normal((n, k), np.float32), dtype)
+    out = jax_stream_matmul(
+        xj, wj.T, block_m=64, block_n=64, block_k=64, out_dtype=DTYPES[dtype][0], interpret=True,
+    )
+    _close(stream_matmul_ref(xt, wt, out_dtype=DTYPES[dtype][1], w_layout="nk"), out)
+
+
+def test_stream_matmul_nk_cpu_dispatch_takes_plain_path():
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((4, 96), np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((257, 96), np.float32)).bfloat16()
+    before = (mm_ops.stream_matmul.launches, mm_ops.stream_matmul.nk_launches)
+    out = mm_ops.stream_matmul(x, w, w_layout="nk")
+    assert (mm_ops.stream_matmul.launches, mm_ops.stream_matmul.nk_launches) == before
+    assert torch.equal(out, stream_matmul_ref(x, w, w_layout="nk"))
+    assert torch.equal(out, stream_matmul_ref(x, w.T.contiguous()))
+    with pytest.raises(ValueError, match="w_layout"):
+        mm_ops.stream_matmul(x, w, w_layout="kt")
+
+
 def test_stream_matmul_cpu_dispatch_takes_plain_path():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((3, 40), np.float32)).bfloat16()
@@ -140,6 +179,29 @@ MM_ROUTES = [
 @pytest.mark.parametrize("m,k,n,dtype,aligned,route", MM_ROUTES)
 def test_mm_route(m, k, n, dtype, aligned, route):
     assert mm_ops.mm_route(m, n, k, dtype, aligned) == route
+
+
+NK_ROUTES = [
+    # (M, K, N, dtype, aligned, route) of a K-major (N, K) weight: minicpm-2b's
+    # tied head (V = 122753, odd) at prefill-forward, in the kernel check and
+    # at decode; an odd N is no bar to the wgmma route; K not a multiple of
+    # 8, f32 and misaligned operands take simt
+    (4352, 2304, 122753, BF16, True, "wgmma"),
+    (4096, 2304, 122753, BF16, True, "wgmma"),
+    (64, 2304, 122753, BF16, True, "wgmma"),
+    (16, 2048, 1001, BF16, True, "wgmma"),
+    (1, 2304, 122753, BF16, True, "gemv"),
+    (4, 2304, 122753, BF16, True, "gemv"),
+    (8, 300, 1001, F32, False, "gemv"),
+    (64, 300, 1001, BF16, True, "simt"),
+    (64, 2048, 1001, F32, True, "simt"),
+    (16, 2048, 1001, BF16, False, "simt"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,aligned,route", NK_ROUTES)
+def test_mm_route_nk(m, k, n, dtype, aligned, route):
+    assert mm_ops.mm_route(m, n, k, dtype, aligned, "nk") == route
 
 
 FA_ROUTES = [

@@ -1,7 +1,8 @@
-"""The port's dense transformer against the JAX package's, on the same numpy
-inputs and the reference's own initial parameters. Tolerance: rtol = atol =
-5e-2, the reference's kernel-test tolerance, since bf16 rounds at other places
-in the two frameworks."""
+"""The port's attention transformers (dense, tied or not; VLM; the audio
+encoder) against the JAX package's, on the same numpy inputs and the
+reference's own initial parameters. Tolerance: rtol = atol = 5e-2, the
+reference's kernel-test tolerance, since bf16 rounds at other places in the
+two frameworks."""
 import numpy as np
 import pytest
 
@@ -19,7 +20,10 @@ from repro_torch.models.convert import params_from_reference, to_tensor  # noqa:
 from repro_torch.models.model import build_model  # noqa: E402
 
 RTOL = ATOL = 5e-2
-DENSE = ["qwen3-1.7b", "llama3.2-3b"]
+# every arch of the attention families that build_model takes
+ATTENTION = ["qwen3-1.7b", "llama3.2-3b", "minicpm-2b", "qwen1.5-110b", "paper-llama3-8b",
+             "qwen2-vl-7b", "hubert-xlarge"]
+N_VISION = 4  # vision positions before the tokens of a VLM batch
 
 
 def _close(a, b):
@@ -62,6 +66,29 @@ def test_apply_rope(theta):
         common.apply_rope(xt, torch.from_numpy(pos), theta),
         ref_common.apply_rope(xj, jnp.asarray(pos), theta),
     )
+
+
+@pytest.mark.parametrize("hd,sections", [(32, (4, 6, 6)), (128, (16, 24, 24))])
+def test_apply_mrope(hd, sections):
+    """M-RoPE at the reduced sections and at qwen2-vl-7b's published ones,
+    with height and width axes that are not 0..S-1."""
+    rng = np.random.default_rng(6)
+    xj, xt = _bf16_pair(rng.standard_normal((2, 9, 3, hd), np.float32))
+    pos = np.stack([
+        np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9)),
+        rng.integers(0, 40, (2, 9)).astype(np.int32),
+        rng.integers(0, 40, (2, 9)).astype(np.int32),
+    ])
+    _close(
+        common.apply_mrope(xt, torch.from_numpy(pos), 1e6, sections),
+        ref_common.apply_mrope(xj, jnp.asarray(pos), 1e6, sections),
+    )
+
+
+def test_apply_mrope_rejects_sections_of_another_head_dim():
+    x = torch.zeros((1, 2, 1, 32))
+    with pytest.raises(AssertionError):
+        common.apply_mrope(x, torch.zeros((3, 1, 2), dtype=torch.int32), 1e6, (16, 24, 24))
 
 
 def test_masked_softmax():
@@ -113,7 +140,7 @@ def test_attend_default_positions_are_iota():
     )
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ATTENTION)
 def test_params_from_reference_keeps_layout(arch):
     ref = _ref_params(arch)
     ours = flatten(params_from_reference(ref))
@@ -126,32 +153,61 @@ def test_params_from_reference_keeps_layout(arch):
         np.testing.assert_array_equal(t.float().numpy(), leaf.astype(np.float32))
     dtypes = dict((p, t.dtype) for p, t in ours)
     assert dtypes["head/final_norm"] == dtypes["layers/attn_norm"] == torch.float32
-    assert dtypes["layers/mlp/w1"] == dtypes["head/lm_head"] == torch.bfloat16
+    # a tied head has no lm_head: the logits read head/embed
+    assert ("head/lm_head" in dtypes) == (not get_config(arch).tie_embeddings)
+    assert dtypes["layers/mlp/w1"] == dtypes.get("head/lm_head", dtypes["head/embed"]) == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ATTENTION)
 def test_init_matches_reference_layout(arch):
     ours = flatten(build_model(get_config(arch).reduced()).init(torch.Generator().manual_seed(0)))
     ref = flatten(params_from_reference(_ref_params(arch)))
     assert [(p, t.shape, t.dtype) for p, t in ours] == [(p, t.shape, t.dtype) for p, t in ref]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _batch(cfg, seq, rng):
+    """A numpy batch of the family's inputs over ``seq`` positions: tokens;
+    for the VLM family N_VISION vision embeddings before seq - N_VISION
+    tokens, positions 0..seq-1 on all three axes; for the audio family frames
+    and a frame mask."""
+    b, d = 2, cfg.d_model
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal((b, seq, d), np.float32), "frame_mask": rng.random((b, seq)) < 0.3}
+    if cfg.family == "vlm":
+        return {
+            "tokens": rng.integers(0, cfg.vocab_size, (b, seq - N_VISION)).astype(np.int32),
+            "vision_embeds": rng.standard_normal((b, N_VISION, d), np.float32),
+            "positions3": np.broadcast_to(np.arange(seq, dtype=np.int32), (3, b, seq)).copy(),
+        }
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, seq)).astype(np.int32)}
+
+
+def _pair(batch):
+    """The same batch as JAX arrays (embeddings in bf16) and as torch tensors."""
+    ref, ours = {}, {}
+    for key, a in batch.items():
+        if a.dtype == np.float32:
+            ref[key], ours[key] = _bf16_pair(a)
+        else:
+            ref[key], ours[key] = jnp.asarray(a), torch.from_numpy(a)
+    return ref, ours
+
+
+@pytest.mark.parametrize("arch", ATTENTION)
 @pytest.mark.parametrize("seq", [1, 12])
 def test_forward_logits_match_reference(arch, seq):
     cfg = ref_get_config(arch).reduced()
     params = _ref_params(arch, seed=1)
-    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
-    ref = ref_build_model(cfg).forward(params, {"tokens": jnp.asarray(tokens)})
+    seq = seq + (N_VISION if cfg.family == "vlm" else 0)
+    ref_batch, batch = _pair(_batch(cfg, seq, np.random.default_rng(5)))
+    ref = ref_build_model(cfg).forward(params, ref_batch)
     with torch.inference_mode():
-        ours = build_model(get_config(arch).reduced()).forward(
-            params_from_reference(params), {"tokens": torch.from_numpy(tokens).long()}
-        )
-    assert ours.shape == ref.shape and ours.dtype == torch.bfloat16
+        ours = build_model(get_config(arch).reduced()).forward(params_from_reference(params), batch)
+    assert ours.shape == ref.shape == (2, seq, cfg.vocab_size) and ours.dtype == torch.bfloat16
     _close(ours, ref)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "minicpm-2b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "arctic-480b", "grok-1-314b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(arch).reduced())
