@@ -6,8 +6,10 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 3. holds each kernel against its plain PyTorch version on the card at every
-   shape the live step, prefill, a decode step, phase 6b and the kernel
-   bench give it (and at the reference's test shapes; ``stream_matmul``'s
+   shape the live step, prefill, a decode step, phases 6b and 6c and the
+   kernel bench give it (``stream_matmul``'s expert-batched form at the MoE
+   pair's capacities with the rows of a dispatch, beside ``torch.bmm``; and
+   at the reference's test shapes; ``stream_matmul``'s
    K-major form, the tied LM head, also at M = 1, 4096 and 4352 of
    minicpm-2b's table; ``stream_matmul_int8`` also at the
    projections of paper-llama3-8b, the model it was written for, at M = 1,
@@ -52,6 +54,20 @@
    route in ``forward`` and on the K-major gemv at prefill and decode;
    hubert's attention on the simt route), and first each of the three runs
    at 2 layers against the CPU on the same weights;
+6c. runs the MoE family at published width, its depth cut to fit the card:
+   grok-1-314b at 4 of 64 layers and arctic-480b (128 experts, a dense
+   residual) at 2 of 35, one model at a time; each prefills 4 x 1024 tokens
+   at the published capacity factor 1.25 and decodes 64 greedy steps, its
+   three expert products a layer through ``stream_matmul``'s expert-batched
+   form (one launch each, counted in ``batched_launches``; wgmma at prefill,
+   gemv at decode), launches gated exactly per call. It prints prefill
+   ms and tokens/s against an operations-or-bytes bound, the median decode
+   step against the bytes of the experts the step hit, tokens dropped per
+   layer, and the device's idle share. First, at published width, each
+   model's MoE path in f32 (grok 2 layers, arctic 1) is held against the
+   same path on the CPU (equal top-k sets for every token and layer,
+   relative L2 <= 1e-4), and decode against one ``forward`` at a capacity
+   factor where nothing drops; the same in bf16 is reported;
 7. runs the port's kernel bench (``repro_torch.kernels.bench``), the only
    path of ``stream_matmul_int8``, as the JAX package's kernel bench is its
    only caller there; every bench call of the three kernels with a
@@ -63,6 +79,7 @@ without ``src/repro_torch`` beside this file. Needs no network and no JAX.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -131,7 +148,7 @@ INT8_EXACT_REL_L2 = 1e-5
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
-PATHS = ("serve", "prefill", "decode", "families", "kernel_bench")
+PATHS = ("serve", "prefill", "decode", "families", "moe", "kernel_bench")
 # Phase 6b: the attention families beside the live set, at published width
 # and depth: tied embeddings, M-RoPE (VLM), the bidirectional audio encoder.
 # A step of the "families" path is one call of an entry point: a prefill or
@@ -142,6 +159,22 @@ FAMILY_ARCHS = ("minicpm-2b", "qwen2-vl-7b", "hubert-xlarge")
 # the decode check's forward over 4 x 1088 positions
 TIED_NK = (122753, 2304)
 KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "paged_attention")
+# Phase 6c: the MoE family at published width. A step of the "moe" path is a
+# prefill or a decode step of one model. Depth is the only cut: grok-1-314b
+# holds 9.84 GB a layer (64 layers: 630 GB), arctic-480b 27.2 GB (35 layers:
+# 953 GB), so 4 and 2 layers with their heads take 42.6 and 55.4 GB of the
+# card's 80.
+MOE_DEPTHS = {"grok-1-314b": 4, "arctic-480b": 2}
+# The strict check in f32 (twice the bytes): grok 2 layers (45.8 GB), arctic
+# 1 layer (56.3 GB), each also copied to the host for the CPU run.
+MOE_F32_DEPTHS = {"grok-1-314b": 2, "arctic-480b": 1}
+# f32 MoE path on the card against the CPU: the same function in f32 with
+# sums in another order (~1e-6 relative a product), while one token routed
+# to another expert, or dropped, moves its logits by order 1 (a relative L2
+# over 64 tokens of ~1e-1); the gate sits far from both.
+MOE_F32_REL_L2 = 1e-4
+MOE_CHECK_B, MOE_CHECK_S = 2, 32  # the CPU comparison's prompt
+MOE_DEC_B, MOE_DEC_S = 4, 36  # decode vs forward: B x S = 144 positions, the last 4 decoded
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and operations/s by input type.
 HBM_BYTES_PER_S = 3.35e12
@@ -201,9 +234,12 @@ def main() -> None:
     paths.update(decode_slice(torch, dev))
     check_families_against_cpu(torch, dev)
     paths["families"], nk_launches = families_slice(torch, dev)
+    check_moe_against_cpu(torch, dev)
+    paths["moe"], batched_launches, _ = moe_slice(torch, dev)
     paths["kernel_bench"] = kernel_bench_path(torch, dev)
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
+    recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches}
     kernels = kernels_line(recs, paths)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -325,25 +361,49 @@ def max_err(torch, out, ref) -> float:
 
 
 def step_projections(c, m_layer, m_head):
-    """{(M, K, N, w_layout): calls} of one call of a model: every layer's
-    projections at M = m_layer, the LM head at M = m_head ("nk", the
-    embedding table, where the embeddings are tied)."""
+    """{(M, K, N, w_layout, dtype): calls} of one call of a model: every
+    layer's 2-D projections at M = m_layer (bf16; an MoE layer's router in
+    f32; its expert products are :func:`step_experts`'), the LM head at M =
+    m_head ("nk", the embedding table, where the embeddings are tied)."""
     d, L = c.d_model, c.num_layers
+    per_layer = []
     if c.family == "ssm":
         d_inner = c.ssm.expand * d
         per_layer = [(d, 2 * d_inner + 2 * c.ssm.state_dim + d_inner // c.ssm.head_dim), (d_inner, d)]
     else:
         hd = c.resolved_head_dim()
-        per_layer = [
-            (d, c.num_heads * hd), (d, c.num_kv_heads * hd), (d, c.num_kv_heads * hd),
-            (c.num_heads * hd, d), (d, c.d_ff), (d, c.d_ff), (c.d_ff, d),
-        ]
+        per_layer = [(d, c.num_heads * hd), (d, c.num_kv_heads * hd), (d, c.num_kv_heads * hd),
+                     (c.num_heads * hd, d)]
+        f = c.moe.dense_d_ff if c.moe is not None else c.d_ff
+        if c.moe is None or c.moe.dense_residual:
+            per_layer += [(d, f), (d, f), (f, d)]
     counts = {}
     for k, n in per_layer:
-        counts[(m_layer, k, n, "kn")] = counts.get((m_layer, k, n, "kn"), 0) + L
-    head = (m_head, d, c.vocab_size, "nk" if c.tie_embeddings else "kn")
+        counts[(m_layer, k, n, "kn", "bf16")] = counts.get((m_layer, k, n, "kn", "bf16"), 0) + L
+    if c.moe is not None:
+        counts[(m_layer, d, c.moe.num_experts, "kn", "f32")] = L
+    head = (m_head, d, c.vocab_size, "nk" if c.tie_embeddings else "kn", "bf16")
     counts[head] = counts.get(head, 0) + 1
     return counts
+
+
+def step_experts(c, n_tokens):
+    """{(E, C, K, N): calls} of the expert-batched products of one call of an
+    MoE model over ``n_tokens`` tokens: w1 and w3 (E, d, f), w2 (E, f, d)
+    each layer, at C = the capacity for that many tokens."""
+    from repro_torch.models.layers import moe_capacity
+
+    m, d, L = c.moe, c.d_model, c.num_layers
+    cap = moe_capacity(m, n_tokens)
+    return {(m.num_experts, cap, d, m.d_ff): 2 * L, (m.num_experts, cap, m.d_ff, d): L}
+
+
+def moe_config(arch, layers=None):
+    """The published config of an MoE arch at ``layers`` (its phase 6c depth
+    by default)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers or MOE_DEPTHS[arch])
 
 
 def projection_shapes():
@@ -352,8 +412,10 @@ def projection_shapes():
     prompts (M = DECODE_B * PROMPT for the layers, M = DECODE_B for the LM
     head on the last position) and a decode step (M = DECODE_B), for each
     model; on the families path a prefill and a decode step of each decode
-    model and hubert-xlarge's forward (M = DECODE_B * PROMPT throughout); and
-    the kernel bench's one product."""
+    model and hubert-xlarge's forward (M = DECODE_B * PROMPT throughout); on
+    the moe path a prefill and a decode step of each MoE model at its phase
+    6c depth (the expert products apart, :func:`step_experts`); and the
+    kernel bench's one product."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bench as kernel_bench
 
@@ -370,7 +432,11 @@ def projection_shapes():
             shapes["families"][f"{arch} decode"] = step_projections(c, DECODE_B, DECODE_B)
         else:
             shapes["families"][f"{arch} forward"] = step_projections(c, DECODE_B * PROMPT, DECODE_B * PROMPT)
-    shapes["kernel_bench"]["bench"] = {(*kernel_bench.MM_SHAPE, "kn"): 1}
+    for arch in MOE_DEPTHS:
+        c = moe_config(arch)
+        shapes["moe"][f"{arch} prefill"] = step_projections(c, DECODE_B * PROMPT, DECODE_B)
+        shapes["moe"][f"{arch} decode"] = step_projections(c, DECODE_B, DECODE_B)
+    shapes["kernel_bench"]["bench"] = {(*kernel_bench.MM_SHAPE, "kn", "bf16"): 1}
     return shapes
 
 
@@ -408,6 +474,17 @@ def read_wgmma():
     return {name: fn.wgmma_launches for name, fn in counters().items() if name in WGMMA_KERNELS}
 
 
+def layer_matmuls(cfg) -> int:
+    """stream_matmul launches of one layer: 2 an SSM layer; 4 attention
+    projections, then 3 for a dense MLP, or an MoE layer's router, its 3
+    expert-batched products and the dense residual's 3."""
+    if cfg.family == "ssm":
+        return 2
+    if cfg.moe is None:
+        return 7
+    return 4 + 1 + 3 + 3 * cfg.moe.dense_residual
+
+
 def step_launches(cfg, path):
     """The launches of one call of ``path`` ("serve", "prefill", "decode" or
     "forward") of a model: its projections and LM head through stream_matmul,
@@ -416,7 +493,7 @@ def step_launches(cfg, path):
     L = cfg.num_layers
     attn = cfg.family != "ssm"
     return {
-        "stream_matmul": (7 if attn else 2) * L + 1,
+        "stream_matmul": layer_matmuls(cfg) * L + 1,
         "stream_matmul_int8": 0,
         "flash_attention": L if attn and path != "decode" else 0,
         "paged_attention": L if attn and path == "decode" else 0,
@@ -426,17 +503,25 @@ def step_launches(cfg, path):
 def step_wgmma(cfg, path):
     """The launches of one call of ``path`` that take the tensor-core route:
     on prefill and on a forward over DECODE_B x PROMPT positions or more every
-    projection (7 an attention layer, 2 an SSM layer) and, in a forward, the
-    LM head (a prefill's runs on the last position, M = 4: gemv); every
-    attention at head dim 64 or 128 (hubert-xlarge's 80 takes simt); none on
-    the live and decode steps (M = 1 and 4, Sq = 1 or paged). The int8
-    kernel is on no model's path."""
+    bf16 projection (all but an MoE router, which is f32 on simt; the expert
+    products' capacity is above 8 rows there) and, in a forward, the LM head
+    (a prefill's runs on the last position, M = 4: gemv); every attention at
+    head dim 64 or 128 (hubert-xlarge's 80 takes simt); none on the live and
+    decode steps (M = 1 and 4, Sq = 1 or paged; an expert capacity of 2).
+    The int8 kernel is on no model's path."""
     L = cfg.num_layers
     attn = cfg.family != "ssm"
     if path not in ("prefill", "forward"):
         return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0}
-    return {"stream_matmul": (7 if attn else 2) * L + (path == "forward"), "stream_matmul_int8": 0,
+    return {"stream_matmul": (layer_matmuls(cfg) - (cfg.moe is not None)) * L + (path == "forward"),
+            "stream_matmul_int8": 0,
             "flash_attention": L if attn and cfg.resolved_head_dim() in (64, 128) else 0}
+
+
+def step_batched(cfg):
+    """stream_matmul's expert-batched launches of any call of a model: 3 an
+    MoE layer."""
+    return 3 * cfg.num_layers if cfg.moe is not None else 0
 
 
 def step_nk(cfg):
@@ -477,13 +562,15 @@ def check_stream_matmul(torch, dev, bench):
         "w_layout nk: x @ w.T for w (N, K), the library call torch.matmul(x, w.T)):")
     totals = path_totals()
     errs, bound_kinds, measured, by_shape = [], set(), {}, []
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     for path, by_arch in projection_shapes().items():
         for arch, counts in by_arch.items():
             step = dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
-            for (m, k, n, layout), calls in counts.items():
-                if (m, k, n, layout) not in measured:
-                    x, w = operands(m, k, n, torch.bfloat16, layout)
-                    kw = dict(w_layout=layout)
+            for (m, k, n, layout, dt), calls in counts.items():
+                if (m, k, n, layout, dt) not in measured:
+                    dtype = dtypes[dt]
+                    x, w = operands(m, k, n, dtype, layout)
+                    kw = dict(out_dtype=dtype, w_layout=layout)
                     rule = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, layout)
                     out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
                     err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
@@ -492,24 +579,30 @@ def check_stream_matmul(torch, dev, bench):
                     t = bench.ms(lambda: stream_matmul(x, w, **kw))
                     t_plain = bench.ms(lambda: stream_matmul_ref(x, w, **kw))
                     t_lib = bench.ms(lambda: library(x, w, layout))
-                    b, kind = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, torch.bfloat16)
-                    measured[(m, k, n, layout)] = dict(ms=t, plain_ms=t_plain, bound_ms=b, library_ms=t_lib)
-                    by_shape.append({"M": m, "K": k, "N": n, "w_layout": layout, "route": route, "ms": t,
-                                     "bound_ms": b, "bound_by": kind, "plain_ms": t_plain, "library_ms": t_lib,
-                                     "max_abs_err": err})
+                    elem = x.element_size()
+                    b, kind = bound(elem * (m * k + k * n + m * n), 2 * m * k * n, dtype)
+                    measured[(m, k, n, layout, dt)] = dict(ms=t, plain_ms=t_plain, bound_ms=b, library_ms=t_lib)
+                    by_shape.append({"M": m, "K": k, "N": n, "w_layout": layout, "dtype": dt, "route": route,
+                                     "ms": t, "bound_ms": b, "bound_by": kind, "plain_ms": t_plain,
+                                     "library_ms": t_lib, "max_abs_err": err})
                     errs.append(err)
                     bound_kinds.add(kind)
                     del x, w, out
-                    log(f"  M={m} K={k} N={n} {layout} [{route}]: err {err:.2e} kernel {t:.4f} ms bound {b:.4f} ms "
-                        f"({kind}, {100 * b / t:.0f}%) plain {t_plain:.4f} ms torch.matmul {t_lib:.4f} ms "
-                        f"(kernel {t / t_lib:.2f}x)")
-                for key, val in measured[(m, k, n, layout)].items():
+                    log(f"  M={m} K={k} N={n} {layout} {dt} [{route}]: err {err:.2e} kernel {t:.4f} ms bound "
+                        f"{b:.4f} ms ({kind}, {100 * b / t:.0f}%) plain {t_plain:.4f} ms torch.matmul {t_lib:.4f} "
+                        f"ms (kernel {t / t_lib:.2f}x)")
+                for key, val in measured[(m, k, n, layout, dt)].items():
                     totals[path][key] += calls * val
                     if key in step:
                         step[key] += calls * val
             log(f"  one {path} step of {arch} ({sum(counts.values())} calls): kernel {step['ms']:.3f} ms, "
                 f"bound {step['bound_ms']:.3f} ms, torch.matmul {step['library_ms']:.3f} ms "
                 f"(kernel {step['ms'] / step['library_ms']:.2f}x)")
+    check_batched_experts(torch, dev, bench, totals["moe"], by_shape, errs, bound_kinds)
+    moe = totals["moe"]
+    log(f"  moe path (a prefill and a decode step of grok-1-314b at {MOE_DEPTHS['grok-1-314b']} layers and "
+        f"arctic-480b at {MOE_DEPTHS['arctic-480b']}, expert products included): kernel {moe['ms']:.3f} ms, "
+        f"library {moe['library_ms']:.3f} ms ({moe['ms'] / moe['library_ms']:.2f}x), bound {moe['bound_ms']:.3f} ms")
     fam = totals["families"]
     log(f"  families path (a prefill and a decode step of minicpm-2b and qwen2-vl-7b, hubert-xlarge's "
         f"forward): kernel {fam['ms']:.3f} ms, torch.matmul {fam['library_ms']:.3f} ms "
@@ -560,6 +653,63 @@ def check_stream_matmul(torch, dev, bench):
         "by_path": totals,
         "extra": {"by_shape": by_shape},
     }
+
+
+def check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds):
+    """``stream_matmul``'s expert-batched form against ``stream_matmul_ref``
+    at phase 6c's shapes: each MoE model's w1/w3 (E, d, f) and w2 (E, f, d)
+    products at the capacity of a prefill (4 x 1024 tokens) and of a decode
+    step (4 tokens), with the ``rows`` of a dispatch of that many tokens
+    (router logits from a seed) and zeros past them, as ``moe_apply`` builds
+    its buffer. Gated: the tolerance, exact zeros past ``rows``, the same
+    bits on a second call, the route. Timed beside the plain version and
+    ``torch.bmm`` on the same (E, C, K) @ (E, K, N); the bound counts the
+    filled rows' operations, the weights of the experts that hold a row and
+    the whole output. Adds each product's calls a step into ``totals``."""
+    from repro_torch.kernels.streammm.ops import mm_route, stream_matmul
+    from repro_torch.kernels.streammm.ref import stream_matmul_ref
+    from repro_torch.models.common import dense_init
+    from repro_torch.models.layers import moe_dispatch
+
+    gen = torch.Generator(dev).manual_seed(4)
+    log("stream_matmul expert-batched (x (E, C, K) @ w (E, K, N), rows of a dispatch) against "
+        "stream_matmul_ref; library torch.bmm:")
+    for arch in MOE_DEPTHS:
+        c = moe_config(arch)
+        for what, n_tokens in (("prefill", DECODE_B * PROMPT), ("decode", DECODE_B)):
+            route_rows = moe_dispatch(torch.randn((n_tokens, c.moe.num_experts), generator=gen, device=dev),
+                                      c.moe).rows
+            counts = route_rows.tolist()
+            for (e, cap, k, n), calls in step_experts(c, n_tokens).items():
+                live = torch.arange(cap, device=dev) < route_rows[:, None].long()
+                x = torch.randn((e, cap, k), generator=gen, device=dev).to(torch.bfloat16) * live[..., None]
+                w = dense_init(gen, (e, k, n), torch.bfloat16, fan_in=k)  # in pieces: arctic's is 8.9 GB
+                kw = dict(rows=route_rows)
+                rule = mm_route(cap, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+                out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
+                err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
+                if out[~live].any():
+                    raise AssertionError(f"stream_matmul batched {arch} {what}: rows past the count are not 0")
+                if not torch.equal(out, stream_matmul(x, w, **kw)):
+                    raise AssertionError(f"stream_matmul batched {arch} {what} ({e},{cap},{k},{n}) "
+                                         "is not deterministic")
+                t = bench.ms(lambda: stream_matmul(x, w, **kw))
+                t_plain = bench.ms(lambda: stream_matmul_ref(x, w, **kw))
+                t_lib = bench.ms(lambda: torch.bmm(x, w))
+                filled, hit = sum(counts), sum(r > 0 for r in counts)
+                b, kind = bound(2 * (filled * k + hit * k * n + e * cap * n), 2 * filled * k * n, torch.bfloat16)
+                for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", b), ("library_ms", t_lib)):
+                    totals[key] += calls * val
+                by_shape.append({"label": f"{arch} {what}", "E": e, "C": cap, "K": k, "N": n, "rows": filled,
+                                 "experts_hit": hit, "route": route, "ms": t, "bound_ms": b, "bound_by": kind,
+                                 "plain_ms": t_plain, "library_ms": t_lib, "max_abs_err": err})
+                errs.append(err)
+                bound_kinds.add(kind)
+                log(f"  {arch} {what} E={e} C={cap} K={k} N={n} ({filled} rows filled, {hit} experts hit) "
+                    f"[{route}]: err {err:.2e} kernel {t:.4f} ms bound {b:.4f} ms ({kind}, {100 * b / t:.0f}%) "
+                    f"plain {t_plain:.4f} ms torch.bmm {t_lib:.4f} ms (kernel {t / t_lib:.2f}x)")
+                del x, w, out, live
+            torch.cuda.empty_cache()
 
 
 def check_stream_matmul_int8(torch, dev, bench, usage):
@@ -700,6 +850,11 @@ def check_flash_attention(torch, dev, bench):
         ("minicpm prefill", DECODE_B, PROMPT, PROMPT, 36, 36, 64, True, 0, torch.bfloat16, {"families": 40}),
         ("qwen2-vl prefill", DECODE_B, PROMPT, PROMPT, 28, 4, 128, True, 0, torch.bfloat16, {"families": 28}),
         ("hubert forward", DECODE_B, PROMPT, PROMPT, 16, 16, 80, False, 0, torch.bfloat16, {"families": 48}),
+        # phase 6c: grok-1-314b (g = 6) and arctic-480b (g = 7) prefill
+        ("grok prefill", DECODE_B, PROMPT, PROMPT, 48, 8, 128, True, 0, torch.bfloat16,
+         {"moe": MOE_DEPTHS["grok-1-314b"]}),
+        ("arctic prefill", DECODE_B, PROMPT, PROMPT, 56, 8, 128, True, 0, torch.bfloat16,
+         {"moe": MOE_DEPTHS["arctic-480b"]}),
     ]
     log("flash_attention against attention_ref (ms: CUDA events):")
     totals = path_totals()
@@ -800,6 +955,10 @@ def check_paged_attention(torch, dev, bench, usage):
         ("minicpm decode", DECODE_B, 36, 36, 64, decode_pt, mp, decode_lengths, False, {"families": 40}),
         ("qwen2-vl decode", DECODE_B, 28, 4, 128, decode_pt, mp, decode_lengths, False, {"families": 28}),
         ("qwen2-vl permuted", DECODE_B, 28, 4, 128, decode_pt, mp, decode_lengths, True, {}),
+        # phase 6c's decode shapes: grok-1-314b (g = 6), arctic-480b (g = 7)
+        ("grok decode", DECODE_B, 48, 8, 128, decode_pt, mp, decode_lengths, False, {"moe": MOE_DEPTHS["grok-1-314b"]}),
+        ("arctic decode", DECODE_B, 56, 8, 128, decode_pt, mp, decode_lengths, False,
+         {"moe": MOE_DEPTHS["arctic-480b"]}),
         ("test 1", 2, 4, 2, 32, 16, 4, (1, 8), False, {}),
         ("test 2", 3, 8, 1, 64, 32, 3, (1, 8, 15), False, {}),
         ("test 3", 1, 4, 4, 32, 16, 8, (1,), False, {}),
@@ -1559,6 +1718,304 @@ def families_slice(torch, dev):
     launches, steps, wgmma = total
     log(f"families path: launches {launches} over {steps} calls, tensor-core {wgmma}, K-major {nk_total[0]}")
     return (launches, steps, wgmma), nk_total[0]
+
+
+@contextlib.contextmanager
+def moe_routing(calls):
+    """Records the router logits (n, E) f32 of every MoE layer the model runs
+    into ``calls``, in call order; adds no launch and no sync."""
+    import repro_torch.models.model as model_mod
+
+    real = model_mod.moe_apply
+
+    def record(p, h, cfg):
+        out, logits = real(p, h, cfg)
+        calls.append(logits)
+        return out, logits
+
+    model_mod.moe_apply = record
+    try:
+        yield calls
+    finally:
+        model_mod.moe_apply = real
+
+
+def top_k_sets(torch, logits, k):
+    """Each token's top-k experts as a sorted set (n, k)."""
+    return torch.sort(torch.topk(logits.float(), k, dim=-1).indices, dim=-1).values
+
+
+def to_f32_in_place(torch, tree):
+    """Every floating leaf of ``tree`` in f32, one leaf at a time, each bf16
+    leaf dropped as its copy lands: peak memory is the f32 tree plus one leaf."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            to_f32_in_place(torch, val)
+        elif val.is_floating_point():
+            tree[key] = val.float()
+            del val
+
+
+def moe_decode_vs_forward(torch, fns, params, tokens):
+    """Prefill of all but the last 4 tokens, then 4 decode steps, against one
+    ``forward`` over all of them: relative L2 over the 5 positions."""
+    s = tokens.shape[1]
+    logits, cache = fns.prefill(params, {"tokens": tokens[:, : s - 4]}, max_seq=s)
+    outs = [logits]
+    for i in range(4):
+        logits, cache = fns.decode_step(params, cache, {"tokens": tokens[:, s - 4 + i : s - 3 + i]})
+        outs.append(logits)
+    got = torch.cat(outs, dim=1).float()
+    ref = fns.forward(params, {"tokens": tokens})[:, s - 5 :].float()
+    return float((got - ref).norm() / ref.norm())
+
+
+def check_moe_against_cpu(torch, dev):
+    """Phase 6c, first part: each MoE model at published width, at
+    MOE_F32_DEPTHS layers, from one set of weights. In f32 (gated): the card
+    against the CPU taking the kernels' plain versions, ``forward`` over
+    MOE_CHECK_B x MOE_CHECK_S tokens at the published capacity factor: every
+    token's top-k set equal in every layer, relative L2 <= MOE_F32_REL_L2; and
+    on the card, decode against ``forward`` over MOE_DEC_B x MOE_DEC_S tokens
+    at a capacity factor of E / k, where no path drops a token (at the
+    published 1.25 the capacity follows the token count, so a prefill, a
+    decode step and a forward drop different tokens, in the reference too),
+    at the same relative L2. In bf16 (reported): the card's ``forward``
+    against its f32 one (relative L2, share of (token, layer) routings that
+    differ) and decode against ``forward``. A bf16 rounding of 2^-9 in the
+    router's input flips a token's top-k where its k-th and (k+1)-th gates
+    are that close, and a flipped expert moves the token by order 1, so bf16
+    has no gate here."""
+    from repro_torch.kernels.streammm.ops import stream_matmul
+    from repro_torch.models.model import build_model
+
+    gc.collect()  # the served slice's pinned host copies: the host copy of arctic's layer takes 56 GB
+    results = {}
+    for seed, arch in enumerate(MOE_DEPTHS):
+        cfg = moe_config(arch, MOE_F32_DEPTHS[arch])
+        m = cfg.moe
+        no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k))
+        t0 = time.perf_counter()
+        tokens = torch.randint(1, cfg.vocab_size, (MOE_CHECK_B, MOE_CHECK_S),
+                               generator=torch.Generator().manual_seed(600 + seed))
+        dec_tokens = torch.randint(1, cfg.vocab_size, (MOE_DEC_B, MOE_DEC_S),
+                                   generator=torch.Generator().manual_seed(700 + seed)).to(dev)
+        with torch.inference_mode():
+            fns = build_model(cfg)
+            params = fns.init(torch.Generator(dev).manual_seed(500 + seed))
+            with moe_routing([]) as calls16:
+                logits16 = fns.forward(params, {"tokens": tokens.to(dev)}).float()
+            dec16 = moe_decode_vs_forward(torch, build_model(no_drop), params, dec_tokens)
+            to_f32_in_place(torch, params)
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            batched0 = stream_matmul.batched_launches
+            with moe_routing([]) as calls32:
+                logits32 = build_model(cfg32).forward(params, {"tokens": tokens.to(dev)})
+            if stream_matmul.batched_launches - batched0 != 3 * cfg.num_layers:
+                raise AssertionError(f"{arch} f32: batched launches {stream_matmul.batched_launches - batched0}")
+            no_drop32 = dataclasses.replace(no_drop, dtype="float32")
+            dec32 = moe_decode_vs_forward(torch, build_model(no_drop32), params, dec_tokens)
+            card_s = time.perf_counter() - t0
+            cpu_params = {}
+            for path in list(params):  # move to the host leaf by leaf, freeing the card
+                cpu_params[path] = tree_map(lambda t: t.cpu(), params.pop(path))
+            torch.cuda.empty_cache()
+            with kernel_plain_attend(), moe_routing([]) as calls_cpu:
+                logits_cpu = build_model(cfg32).forward(cpu_params, {"tokens": tokens})
+            del cpu_params
+        logits32 = logits32.cpu()
+        if not (torch.isfinite(logits32).all() and torch.isfinite(logits16).all()):
+            raise AssertionError(f"{arch}: MoE logits not finite")
+        rel32 = float((logits32 - logits_cpu).norm() / logits_cpu.norm())
+        n_tok = MOE_CHECK_B * MOE_CHECK_S
+        sets_card = [top_k_sets(torch, c.cpu(), m.top_k) for c in calls32]
+        sets_cpu = [top_k_sets(torch, c, m.top_k) for c in calls_cpu]
+        sets16 = [top_k_sets(torch, c.cpu(), m.top_k) for c in calls16]
+        routing_diff = sum(int((a != b).any(-1).sum()) for a, b in zip(sets_card, sets_cpu))
+        flips16 = sum(int((a != b).any(-1).sum()) for a, b in zip(sets16, sets_card))
+        rel16 = float((logits16.cpu() - logits32).norm() / logits32.norm())
+        log(f"moe {arch} published width, {cfg.num_layers} layer(s), {m.num_experts} experts top-{m.top_k} "
+            f"(card {card_s:.1f} s, total {time.perf_counter() - t0:.1f} s):")
+        log(f"  f32 card vs CPU plain kernels, forward over {MOE_CHECK_B} x {MOE_CHECK_S} tokens at capacity "
+            f"factor {m.capacity_factor}: relative L2 {rel32:.3e} (gate {MOE_F32_REL_L2}), top-k sets differing in "
+            f"{routing_diff} of {n_tok * cfg.num_layers} (token, layer) (gate 0)")
+        log(f"  f32 decode vs forward over {MOE_DEC_B} x {MOE_DEC_S} tokens, capacity factor "
+            f"{no_drop.moe.capacity_factor} (no drops): relative L2 {dec32:.3e} (gate {MOE_F32_REL_L2})")
+        log(f"  bf16 (reported): forward vs the f32 forward relative L2 {rel16:.3e}, routings differing in "
+            f"{flips16} of {n_tok * cfg.num_layers} (token, layer); decode vs forward relative L2 {dec16:.3e}")
+        if routing_diff or not rel32 <= MOE_F32_REL_L2:
+            raise AssertionError(f"{arch} f32 card vs CPU: {routing_diff} routings differ, rel L2 {rel32:.3e}")
+        if not dec32 <= MOE_F32_REL_L2:
+            raise AssertionError(f"{arch} f32 decode vs forward: relative L2 {dec32:.3e} > {MOE_F32_REL_L2}")
+        results[arch] = {"f32_rel_l2": rel32, "f32_decode_rel_l2": dec32, "bf16_rel_l2": rel16,
+                         "bf16_routing_flips": flips16, "token_layers": n_tok * cfg.num_layers,
+                         "bf16_decode_rel_l2": dec16}
+        del params, logits16, logits32, logits_cpu
+        torch.cuda.empty_cache()
+    return results
+
+
+def moe_slice(torch, dev):
+    """Phase 6c: grok-1-314b and arctic-480b at published width and
+    MOE_DEPTHS layers, random weights from a seed, one model at a time: a
+    prefill of DECODE_B x PROMPT tokens and DECODE_STEPS greedy decode steps
+    at the published capacity factor, each call's launches gated exactly
+    (the expert-batched ones too), logits finite. Reported: prefill time
+    against its bound (operations or weight bytes, the larger), tokens
+    dropped per layer, each decode step's time against the bytes of the
+    weights it reads (the experts its tokens hit, counted from the router's
+    logits) and the valid K/V, the device's idle share, and decode against
+    one ``forward`` over the same tokens (not gated: at capacity factor 1.25
+    they drop different tokens). Returns the path's launches, its steps and
+    tensor-core launches, and the expert-batched launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import flatten
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.layers import moe_dispatch
+    from repro_torch.models.model import build_model
+
+    stream_matmul = counters()["stream_matmul"]
+    total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
+    batched_total = 0
+    results = {}
+
+    def gated(what, cfg, path, run):
+        nonlocal total, batched_total
+        torch.cuda.synchronize(dev)
+        zero_launches()
+        b0 = stream_matmul.batched_launches
+        out = run()
+        torch.cuda.synchronize(dev)
+        launches, wgmma = read_launches(), read_wgmma()
+        batched = stream_matmul.batched_launches - b0
+        want, want_wgmma = step_launches(cfg, path), step_wgmma(cfg, path)
+        if launches != want or wgmma != want_wgmma or batched != step_batched(cfg):
+            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, batched {batched}; "
+                                 f"want {want}, {want_wgmma}, {step_batched(cfg)}")
+        if path != "forward":
+            counts, n, counts_wgmma = total
+            total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
+                     {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
+            batched_total += batched
+        return out, launches, wgmma, batched
+
+    for seed, arch in enumerate(MOE_DEPTHS):
+        cfg = moe_config(arch)
+        m, d, L = cfg.moe, cfg.d_model, cfg.num_layers
+        fns = build_model(cfg)
+        prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            params = fns.init(torch.Generator(dev).manual_seed(800 + seed))
+            prompts = torch.randint(1, cfg.vocab_size, (DECODE_B, PROMPT), device=dev,
+                                    generator=torch.Generator(dev).manual_seed(900 + seed))
+            torch.cuda.synchronize(dev)
+            leaves = flatten(params)
+            weight_bytes = sum(t.nbytes for _, t in leaves)
+            log(f"moe {arch}: {L} of {get_config(arch).num_layers} layers, d {d}, {m.num_experts} experts x "
+                f"(d_ff {m.d_ff}), top-{m.top_k}, capacity factor {m.capacity_factor}"
+                + (f", dense residual d_ff {m.dense_d_ff}" if m.dense_residual else "")
+                + f"; {weight_bytes} B of weights, set-up {time.perf_counter() - t0:.1f} s, "
+                  f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card")
+
+            t0 = time.perf_counter()
+            with moe_routing([]) as prefill_calls:
+                (logits, cache), launches, wgmma, batched = gated(
+                    f"{arch} prefill", cfg, "prefill", lambda: prefill_step(params, {"tokens": prompts},
+                                                                             max_seq=DECODE_SMAX))
+            prefill_s = time.perf_counter() - t0
+            n = DECODE_B * PROMPT
+            dropped = [int((~moe_dispatch(c, m).keep).sum()) for c in prefill_calls]
+            kept = [m.top_k * n - x for x in dropped]
+            # the prefill's least time: its operations at the bf16 rate, or
+            # its weight bytes (every leaf but the embedding table) at the HBM
+            # rate, the larger; the attention at causal pairs, the experts
+            # over the kept assignments, the router in f32
+            hd = cfg.resolved_head_dim()
+            attn_ops = 2 * n * d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + 2 * n * cfg.num_heads * hd * d
+            attn_ops += 4 * DECODE_B * cfg.num_heads * hd * attention_pairs(PROMPT, PROMPT, True, 0)
+            dense_ops = 2 * n * 3 * d * m.dense_d_ff if m.dense_residual else 0
+            ops = L * (attn_ops + dense_ops) + sum(2 * k_ * 3 * d * m.d_ff for k_ in kept)
+            ops += 2 * DECODE_B * d * cfg.vocab_size
+            f32_ops = L * 2 * n * d * m.num_experts
+            read_bytes = weight_bytes - params["head"]["embed"].nbytes
+            t_ops = ops / PEAK_OPS["torch.bfloat16"] * 1e3 + f32_ops / PEAK_OPS["torch.float32"] * 1e3
+            t_bytes = read_bytes / HBM_BYTES_PER_S * 1e3
+            prefill_bound, prefill_kind = max((t_ops, "operations"), (t_bytes, "bytes"))
+            log(f"  prefill {DECODE_B} x {PROMPT} tokens: {1e3 * prefill_s:.3f} ms, {n / prefill_s:.1f} tokens/s, "
+                f"bound {prefill_bound:.3f} ms ({prefill_kind}; operations {t_ops:.3f} ms, weight bytes "
+                f"{t_bytes:.3f} ms); launches {launches}, tensor-core {wgmma}, expert-batched {batched}")
+            log(f"  tokens dropped per layer at prefill (capacity {moe_dispatch(prefill_calls[0], m).cap} of "
+                f"{m.top_k * n} assignments over {m.num_experts} experts): {dropped} (reported, not gated)")
+
+            outs, fed, step_s, step_calls = [logits], [], [], []
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            for i in range(DECODE_STEPS):
+                t0 = time.perf_counter()
+                with moe_routing([]) as calls:
+                    (logits, cache), _, _, _ = gated(f"{arch} decode step {i}", cfg, "decode",
+                                                     lambda: serve_step(params, cache, {"tokens": tok}))
+                step_s.append(time.perf_counter() - t0)
+                step_calls.append(calls)
+                fed.append(tok)
+                outs.append(logits)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+            if int(cache["index"]) != DECODE_SMAX or cache["host_index"] != DECODE_SMAX:
+                raise AssertionError(f"{arch}: index {int(cache['index'])} != {DECODE_SMAX}")
+            decoded = torch.cat(outs, dim=1).float()
+            if not torch.isfinite(decoded).all():
+                raise AssertionError(f"{arch}: decode logits not finite")
+
+            # a step reads every weight but the experts no token hit, DECODE_B
+            # rows of the embedding table, and the valid K/V
+            expert_bytes = 3 * d * m.d_ff * params["layers"]["moe"]["w1"].element_size()
+            all_experts = L * m.num_experts * expert_bytes
+            fixed = weight_bytes - params["head"]["embed"].nbytes - all_experts
+            fixed += DECODE_B * d * params["head"]["embed"].element_size()
+            kv_row = 2 * L * cfg.num_kv_heads * hd * cache["k"].element_size()
+            hits, bounds = [], []
+            for i, calls in enumerate(step_calls):
+                hit = sum(int((moe_dispatch(c, m).rows > 0).sum()) for c in calls)
+                kv = kv_row * DECODE_B * (PROMPT + i + 2)  # reads index + 1 slots, writes one
+                hits.append(hit)
+                bounds.append((fixed + hit * expert_bytes + kv) / HBM_BYTES_PER_S * 1e3)
+            med = statistics.median(step_s)
+            med_bound = statistics.median(bounds)
+            log(f"  decode step median {1e3 * med:.3f} ms (min {1e3 * min(step_s):.3f}, max {1e3 * max(step_s):.3f}), "
+                f"bound median {med_bound:.3f} ms (experts hit a step over {L} layers: min {min(hits)}, median "
+                f"{statistics.median(hits)}, max {max(hits)} of {L * m.num_experts}; every expert read: "
+                f"{(fixed + all_experts) / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+                f"{DECODE_B / med:.1f} tokens/s at the median")
+
+            full = torch.cat([prompts] + fed, dim=1)
+            t0 = time.perf_counter()
+            ref, _, fwd_wgmma, _ = gated(f"{arch} forward", cfg, "forward",
+                                         lambda: fns.forward(params, {"tokens": full}))
+            forward_s = time.perf_counter() - t0
+            ref = ref[:, PROMPT - 1 :].float()
+            rel = float((decoded - ref).norm() / ref.norm())
+            del decoded, ref
+            log(f"  decode vs one forward over the same {DECODE_SMAX} tokens ({1e3 * forward_s:.0f} ms; tensor-core "
+                f"{fwd_wgmma}): relative L2 {rel:.3e} (reported, not gated: at capacity factor "
+                f"{m.capacity_factor} the capacity follows the token count, so they drop different tokens)")
+
+            cache["index"] = torch.tensor(DECODE_SMAX - 3, dtype=torch.int32, device=dev)
+            cache["host_index"] = DECODE_SMAX - 3
+            state = {"cache": cache}
+
+            def step(i):
+                _, state["cache"] = serve_step(params, state["cache"], {"tokens": fed[DECODE_STEPS - 3 + i]})
+
+            profile_steps(torch, dev, f"{arch} decode", step, med)
+            results[arch] = {"prefill_ms": 1e3 * prefill_s, "prefill_bound_ms": prefill_bound,
+                             "prefill_bound_by": prefill_kind, "dropped_per_layer": dropped,
+                             "decode_median_ms": 1e3 * med, "decode_bound_median_ms": med_bound,
+                             "experts_hit_median": statistics.median(hits), "decode_vs_forward_rel_l2": rel}
+            del params, cache, state, outs, fed, logits, leaves, prompts, full, step_calls, prefill_calls
+        torch.cuda.empty_cache()
+    launches, steps, wgmma = total
+    log(f"moe path: launches {launches} over {steps} calls, tensor-core {wgmma}, expert-batched {batched_total}")
+    return (launches, steps, wgmma), batched_total, results
 
 
 def kernel_bench_path(torch, dev):

@@ -56,6 +56,32 @@
 //    masked; at odd N output rows are not 4-byte aligned, so the epilogue
 //    stores single elements there.
 //  * simt: the f32 tiles indexing w[n, k].
+//
+// Expert-batched form (E > 1, (K, N) weights only): out[e] = x[e] @ w[e] for
+// x (E, M, K), w (E, K, N), out (E, M, N), in one launch with the expert on
+// the grid's z axis. It computes the MoE layer's expert products, the
+// einsum("ecd,edf->ecf") of src/repro/models/layers.py:241-243, which the
+// reference leaves to XLA; the kernel extends the TPU stream_matmul
+// (src/repro/kernels/streammm/kernel.py:50). An optional int32 `rows` (E,)
+// gives each expert's filled slots (the dispatch's count, clamped to M):
+// rows at or past rows[e] are written as zeros and their x values never reach
+// the output, and an expert whose rows[e] is 0 reads none of its weight.
+// Bound: at decode (M = the capacity, <= 8) the weight bytes of the experts
+// that hold a row; at prefill the operations over the filled rows, or, where
+// the capacity is small beside K and N (arctic's 80 rows against 7168 x
+// 4864 weights), again the weight bytes. The same three routes:
+//  * gemv: grid (column slabs, K splits, E); the split-K workspace is
+//    (splits, E, M, N), added in split order as before;
+//  * wgmma: 3-D tensor maps, x as (K, M, E) and w as (N, K, E), so that a
+//    64-deep K tile never straddles two experts and TMA zero-fills rows past
+//    M and K inside each expert; a 128-row tile at or past rows[e] loads
+//    nothing and stores zeros; the epilogue stores zeros for rows past
+//    rows[e] in a partly filled tile (each output row depends only on its
+//    own row of x, so the rows it loaded there reach nothing);
+//  * simt: x rows at or past rows[e] load as 0, and a 64-row tile past them
+//    stores zeros without loading.
+// Tuning (persistent tiles across experts, splits sized to the experts hit)
+// is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,16 +122,43 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// grid = (ceil(N / 256), splits); block = 256 threads.
+// The rows of expert e that hold data: min(rows[e], M), or M without `rows`.
+__device__ __forceinline__ int expert_rows(const int* rows, int e, int M) {
+  return rows == nullptr ? M : max(0, min(__ldg(rows + e), M));
+}
+
+// grid = (ceil(N / 256), splits, E); block = 256 threads. Expert e =
+// blockIdx.z reads x[e] (M, K) and w[e] (K, N) and writes out[e] (M, N), or
+// with splits its slice work[split, e] of the (splits, E, M, N) workspace.
 // MM is M rounded up to 1, 2, 4 or 8 (register arrays need a fixed size).
 template <typename T, typename O, int MM>
 __global__ void __launch_bounds__(kThreads)
 gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
-            float* __restrict__ work, int M, int N, int K, int k_chunk, int vec_ok) {
+            float* __restrict__ work, const int* __restrict__ rows, int M, int N, int K,
+            int k_chunk, int vec_ok) {
   constexpr int V = 16 / sizeof(T);         // elements in one 16-byte load
   constexpr int TPR = kGemvCols / V;        // threads across one row of the slab
   constexpr int RPI = kThreads / TPR;       // rows read per iteration
   __shared__ float red[RPI][kGemvCols];
+
+  const int e = blockIdx.z;
+  const int me = expert_rows(rows, e, M);
+  x += (size_t)e * M * K;
+  w += (size_t)e * K * N;
+  out += (size_t)e * M * N;
+  if (work != nullptr) work += ((size_t)blockIdx.y * gridDim.z + e) * M * N;
+  const int col = blockIdx.x * kGemvCols + threadIdx.x;
+  if (me == 0) {  // an empty expert: zeros, and none of its weight is read
+    if (col < N) {
+      for (int m = 0; m < M; ++m) {
+        if (work != nullptr)
+          work[(size_t)m * N + col] = 0.f;
+        else
+          out[(size_t)m * N + col] = from_float<O>(0.f);
+      }
+    }
+    return;
+  }
 
   const int c = threadIdx.x % TPR;
   const int r = threadIdx.x / TPR;
@@ -136,7 +189,7 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
     }
 #pragma unroll
     for (int m = 0; m < MM; ++m) {
-      if (m < M) {
+      if (m < me) {
         const float xm = to_float(x[(size_t)m * K + k]);
 #pragma unroll
         for (int v = 0; v < V; ++v) acc[m][v] = fmaf(xm, wv[v], acc[m][v]);
@@ -144,8 +197,8 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
     }
   }
 
-  // Reduce the RPI row groups in a fixed order, one row of x at a time.
-  const int col = blockIdx.x * kGemvCols + threadIdx.x;
+  // Reduce the RPI row groups in a fixed order, one row of x at a time; rows
+  // at or past `me` kept their zero sums.
 #pragma unroll
   for (int m = 0; m < MM; ++m) {
     if (m >= M) break;
@@ -157,7 +210,7 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
     for (int i = 0; i < RPI; ++i) s += red[i][threadIdx.x];
     if (col < N) {
       if (work != nullptr)
-        work[((size_t)blockIdx.y * M + m) * N + col] = s;
+        work[(size_t)m * N + col] = s;
       else
         out[(size_t)m * N + col] = from_float<O>(s);
     }
@@ -165,7 +218,8 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
   }
 }
 
-// out[m, n] = sum over splits s, in order, of work[s, m, n].
+// out[i] = sum over splits s, in order, of work[s, i], i over the E * M * N
+// outputs.
 template <typename O>
 __global__ void split_reduce_kernel(const float* __restrict__ work, O* __restrict__ out,
                                     int MN, int splits) {
@@ -261,27 +315,32 @@ gemv_nk_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__
 constexpr int kTile = 64;
 constexpr int kTileK = 16;
 
-// grid = (ceil(N / 64), ceil(M / 64)); block = 256 threads, 4x4 outputs each.
-// kNK: w is (N, K) row-major.
+// grid = (ceil(N / 64), ceil(M / 64), E); block = 256 threads, 4x4 outputs
+// each; expert blockIdx.z as in gemv_kernel. kNK: w is (N, K) row-major.
 template <typename T, typename O, bool kNK>
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
-             int M, int N, int K) {
+             const int* __restrict__ rows, int M, int N, int K) {
   __shared__ float xs[kTileK][kTile + 4];  // x tile, transposed: xs[k][m]
   __shared__ float ws[kTileK][kTile + 4];  // w tile: ws[k][n]
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * kTile;
   const int n0 = blockIdx.x * kTile;
+  const int me = expert_rows(rows, blockIdx.z, M);
+  x += (size_t)blockIdx.z * M * K;
+  w += (size_t)blockIdx.z * K * N;
+  out += (size_t)blockIdx.z * M * N;
   float acc[4][4] = {};
 
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
+  // a tile at or past the expert's filled rows loads nothing and stores zeros
+  for (int k0 = 0; m0 < me && k0 < K; k0 += kTileK) {
 #pragma unroll
     for (int e = 0; e < (kTile * kTileK) / kThreads; ++e) {
       const int idx = threadIdx.x + e * kThreads;
       const int xm = idx / kTileK, xk = idx % kTileK;
       const int gm = m0 + xm, gk = k0 + xk;
-      xs[xk][xm] = (gm < M && gk < K) ? to_float(x[(size_t)gm * K + gk]) : 0.f;
+      xs[xk][xm] = (gm < me && gk < K) ? to_float(x[(size_t)gm * K + gk]) : 0.f;
       if constexpr (kNK) {  // neighbouring threads on neighbouring k of a row
         const int wn = idx / kTileK, wk = idx % kTileK;
         const int hk = k0 + wk, hn = n0 + wn;
@@ -355,14 +414,27 @@ __device__ __forceinline__ void store_cols(O* row, int col, int N, float a, floa
   }
 }
 
-// grid = (ceil(M / 128), ceil(N / kWgmmaBN)): consecutive blocks share a
-// column of weight tiles. tx: x as (K, M) innermost first, boxes 64 x 128;
-// tw: w as (N, K) innermost first, boxes 64 x 64 (MN-major B), or with kNK
-// w as (K, N) innermost first, boxes 64 x kWgmmaBN (K-major B).
+// grid = (ceil(M / 128), ceil(N / kWgmmaBN), E): consecutive blocks share a
+// column of weight tiles; blockIdx.z is the expert. tx: x as (K, M, E)
+// innermost first, boxes 64 x 128 x 1; tw: w as (N, K, E) innermost first,
+// boxes 64 x 64 x 1 (MN-major B), or with kNK w as (K, N, 1), boxes 64 x
+// kWgmmaBN x 1 (K-major B).
 template <typename O, bool kNK>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-             O* __restrict__ out, int M, int N, int K) {
+             O* __restrict__ out, const int* __restrict__ rows, int M, int N, int K) {
+  const int m0 = blockIdx.x * kWgmmaBM;
+  const int n0 = blockIdx.y * kWgmmaBN;
+  const int e = blockIdx.z;
+  const int me = expert_rows(rows, e, M);
+  out += (size_t)e * M * N;
+  if (m0 >= me) {  // a tile past the expert's filled rows: zeros, no loads
+    for (int i = threadIdx.x; i < kWgmmaBM * kWgmmaBN; i += kWgmmaThreads) {
+      const int r = m0 + i / kWgmmaBN, c = n0 + i % kWgmmaBN;
+      if (r < M && c < N) out[(size_t)r * N + c] = from_float<O>(0.f);
+    }
+    return;
+  }
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
   uint8_t* a_s = smem_raw + pad;
@@ -370,8 +442,6 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
   uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kWgmmaStages * kBBytes);
   uint64_t* empty = full + kWgmmaStages;
 
-  const int m0 = blockIdx.x * kWgmmaBM;
-  const int n0 = blockIdx.y * kWgmmaBN;
   const int ktiles = (K + kWgmmaBK - 1) / kWgmmaBK;
   const int wg = threadIdx.x / 128;
 
@@ -391,14 +461,14 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
         const int s = kt % kWgmmaStages;
         if (kt >= kWgmmaStages) hopper::mbar_wait(&empty[s], ((kt / kWgmmaStages) - 1) & 1);
         hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
-        hopper::tma_load_2d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0);
+        hopper::tma_load_3d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0, e);
         if constexpr (kNK) {
-          hopper::tma_load_2d(b_s + s * kBBytes, &tw, &full[s], kt * kWgmmaBK, n0);
+          hopper::tma_load_3d(b_s + s * kBBytes, &tw, &full[s], kt * kWgmmaBK, n0, 0);
         } else {
 #pragma unroll
           for (int j = 0; j < kWgmmaBN / 64; ++j)
-            hopper::tma_load_2d(b_s + s * kBBytes + j * kBoxBytes, &tw, &full[s], n0 + 64 * j,
-                                kt * kWgmmaBK);
+            hopper::tma_load_3d(b_s + s * kBBytes + j * kBoxBytes, &tw, &full[s], n0 + 64 * j,
+                                kt * kWgmmaBK, e);
         }
       }
     }
@@ -438,37 +508,45 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
 
+    // rows at or past `me` (loaded, but they reach only their own output
+    // rows) are stored as zeros
     const int row = m0 + c * 64 + warp * 16 + lane / 4;
+    const bool live0 = row < me, live8 = row + 8 < me;
 #pragma unroll
     for (int j = 0; j < kWgmmaBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
       if (col < N) {
-        if (row < M) store_cols<O>(out + (size_t)row * N, col, N, acc[4 * j], acc[4 * j + 1]);
+        if (row < M)
+          store_cols<O>(out + (size_t)row * N, col, N, live0 ? acc[4 * j] : 0.f,
+                        live0 ? acc[4 * j + 1] : 0.f);
         if (row + 8 < M)
-          store_cols<O>(out + (size_t)(row + 8) * N, col, N, acc[4 * j + 2], acc[4 * j + 3]);
+          store_cols<O>(out + (size_t)(row + 8) * N, col, N, live8 ? acc[4 * j + 2] : 0.f,
+                        live8 ? acc[4 * j + 3] : 0.f);
       }
     }
   }
 }
 
 template <typename O, bool kNK>
-int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, int M, int N, int K,
-                 cudaStream_t stream) {
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, const int* rows, int E,
+                 int M, int N, int K, cudaStream_t stream) {
   CUtensorMap tx, tw;
-  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t x_box[2] = {64, kWgmmaBM};
+  // each expert's matrix is one slice of the outermost dim, so boxes stay
+  // inside it and zero-fill past its own M and K
+  const cuuint64_t x_dims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)M * K * 2};
+  const cuuint32_t x_box[3] = {64, kWgmmaBM, 1};
   // (N, K) row-major: K innermost, rows of K * 2 bytes; (K, N): N innermost
-  const cuuint64_t w_dims[2] = {(cuuint64_t)(kNK ? K : N), (cuuint64_t)(kNK ? N : K)};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)(kNK ? K : N) * 2};
-  const cuuint32_t w_box[2] = {64, (cuuint32_t)(kNK ? kWgmmaBN : kWgmmaBK)};
-  int err = hopper::encode_bf16_sw128(&tx, x, 2, x_dims, x_strides, x_box);
-  if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 2, w_dims, w_strides, w_box);
+  const cuuint64_t w_dims[3] = {(cuuint64_t)(kNK ? K : N), (cuuint64_t)(kNK ? N : K), (cuuint64_t)E};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)(kNK ? K : N) * 2, (cuuint64_t)K * N * 2};
+  const cuuint32_t w_box[3] = {64, (cuuint32_t)(kNK ? kWgmmaBN : kWgmmaBK), 1};
+  int err = hopper::encode_bf16_sw128(&tx, x, 3, x_dims, x_strides, x_box);
+  if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 3, w_dims, w_strides, w_box);
   static std::atomic<uint32_t> smem_set{0};
   if (err == 0) err = hopper::allow_smem(wgmma_kernel<O, kNK>, kWgmmaSmem, smem_set);
   if (err != 0) return err;
-  dim3 grid((M + kWgmmaBM - 1) / kWgmmaBM, (N + kWgmmaBN - 1) / kWgmmaBN);
-  wgmma_kernel<O, kNK><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, M, N, K);
+  dim3 grid((M + kWgmmaBM - 1) / kWgmmaBM, (N + kWgmmaBN - 1) / kWgmmaBN, E);
+  wgmma_kernel<O, kNK><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, rows, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -481,15 +559,16 @@ void launch_gemv_nk(const T* x, const T* w, O* out, int M, int N, int K, cudaStr
 }
 
 template <typename T, typename O, int MM>
-void launch_gemv(const T* x, const T* w, O* out, float* work, int M, int N, int K,
-                 int splits, cudaStream_t stream) {
+void launch_gemv(const T* x, const T* w, O* out, float* work, const int* rows, int E, int M,
+                 int N, int K, int splits, cudaStream_t stream) {
   const int k_chunk = (K + splits - 1) / splits;
+  // an expert's (K, N) slice starts K * N elements on: 16-byte aligned with w when N is
   const int vec_ok = (N % (16 / sizeof(T)) == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, splits);
+  dim3 grid((N + kGemvCols - 1) / kGemvCols, splits, E);
   gemv_kernel<T, O, MM><<<grid, kThreads, 0, stream>>>(
-      x, w, out, splits > 1 ? work : nullptr, M, N, K, k_chunk, vec_ok);
+      x, w, out, splits > 1 ? work : nullptr, rows, M, N, K, k_chunk, vec_ok);
   if (splits > 1) {
-    const int mn = M * N;
+    const int mn = E * M * N;
     split_reduce_kernel<O><<<(mn + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         work, out, mn, splits);
   }
@@ -498,25 +577,25 @@ void launch_gemv(const T* x, const T* w, O* out, float* work, int M, int N, int 
 enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2 };
 
 template <typename T, typename O>
-int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, int K, int route,
-        int splits, int nk, cudaStream_t stream) {
+int run(const void* x_, const void* w_, void* out_, void* work, const int* rows, int E, int M,
+        int N, int K, int route, int splits, int nk, cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   const T* w = static_cast<const T*>(w_);
   O* out = static_cast<O*>(out_);
   float* ws = static_cast<float*>(work);
   if (route == kRouteWgmma) {
     if constexpr (sizeof(T) == 2) {
-      return nk ? launch_wgmma<O, true>(x, w, out, M, N, K, stream)
-                : launch_wgmma<O, false>(x, w, out, M, N, K, stream);
+      return nk ? launch_wgmma<O, true>(x, w, out, rows, E, M, N, K, stream)
+                : launch_wgmma<O, false>(x, w, out, rows, E, M, N, K, stream);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kRouteSimt) {
-    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, E);
     if (nk)
-      tiled_kernel<T, O, true><<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K);
+      tiled_kernel<T, O, true><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
     else
-      tiled_kernel<T, O, false><<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K);
+      tiled_kernel<T, O, false><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
   } else if (nk) {
     if (M == 1)
       launch_gemv_nk<T, O, 1>(x, w, out, M, N, K, stream);
@@ -527,13 +606,13 @@ int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, in
     else
       launch_gemv_nk<T, O, kGemvMaxM>(x, w, out, M, N, K, stream);
   } else if (M == 1) {
-    launch_gemv<T, O, 1>(x, w, out, ws, M, N, K, splits, stream);
+    launch_gemv<T, O, 1>(x, w, out, ws, rows, E, M, N, K, splits, stream);
   } else if (M <= 2) {
-    launch_gemv<T, O, 2>(x, w, out, ws, M, N, K, splits, stream);
+    launch_gemv<T, O, 2>(x, w, out, ws, rows, E, M, N, K, splits, stream);
   } else if (M <= 4) {
-    launch_gemv<T, O, 4>(x, w, out, ws, M, N, K, splits, stream);
+    launch_gemv<T, O, 4>(x, w, out, ws, rows, E, M, N, K, splits, stream);
   } else {
-    launch_gemv<T, O, kGemvMaxM>(x, w, out, ws, M, N, K, splits, stream);
+    launch_gemv<T, O, kGemvMaxM>(x, w, out, ws, rows, E, M, N, K, splits, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -541,16 +620,19 @@ int run(const void* x_, const void* w_, void* out_, void* work, int M, int N, in
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. w_layout: 0 = w (K, N), 1 = w (N, K)
-// (out = x @ w^T). route: 0 = gemv (M <= 8; for (K, N) weights K cut into
-// `splits` >= 1 chunks, which needs a float32 workspace of splits * M * N when
+// (out = x @ w^T). E >= 1 experts: x (E, M, K), w (E, K, N), out (E, M, N),
+// contiguous; E > 1 or `rows` (int32 (E,) on the device, or null) only with
+// w_layout 0. route: 0 = gemv (M <= 8; for (K, N) weights K cut into `splits`
+// >= 1 chunks, which needs a float32 workspace of splits * E * M * N when
 // splits > 1; for (N, K) weights splits = 1), 1 = simt tiles, 2 = wgmma
 // (bfloat16 in, M > 8, K a multiple of 8 and, for (K, N) weights, N too, x and
 // w 16-byte aligned); anything else is refused. Returns cudaGetLastError()
 // after the launches.
-extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work, int M,
-                             int N, int K, int route, int splits, int in_dtype, int out_dtype,
-                             int w_layout, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || w_layout < 0 || w_layout > 1)
+extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work,
+                             const int* rows, int E, int M, int N, int K, int route, int splits,
+                             int in_dtype, int out_dtype, int w_layout, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || E <= 0 || E > 65535 || w_layout < 0 || w_layout > 1 ||
+      (w_layout == 1 && (E != 1 || rows != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM || (w_layout == 1 && splits != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -562,12 +644,12 @@ extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = w_layout;
   if (in_dtype == 1 && out_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, nk, s);
+    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
   if (in_dtype == 1 && out_dtype == 0)
-    return run<__nv_bfloat16, float>(x, w, out, work, M, N, K, route, splits, nk, s);
+    return run<__nv_bfloat16, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
   if (in_dtype == 0 && out_dtype == 1)
-    return run<float, __nv_bfloat16>(x, w, out, work, M, N, K, route, splits, nk, s);
+    return run<float, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
   if (in_dtype == 0 && out_dtype == 0)
-    return run<float, float>(x, w, out, work, M, N, K, route, splits, nk, s);
+    return run<float, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,10 +21,20 @@ nk_launches`` counts those launches). ``stream_matmul_int8`` replaces
 ``stream_matmul_int8`` (``kernel.py:101``) with the same three routes, picked
 by :func:`int8_route`; its ``wgmma`` route keeps the int8 products exact (bf16
 x times the unscaled weight, the scale applied to each group's f32 sum).
+
+With x (E, C, K) and w (E, K, N), ``stream_matmul`` is the expert-batched
+form that the MoE layer's expert products take (the reference's
+``einsum("ecd,edf->ecf")``, ``src/repro/models/layers.py:241-243``): one
+launch, the experts on the grid's z axis, the route picked by
+:func:`mm_route` from each expert's (C, K, N). An optional int32 ``rows``
+(E,) gives each expert's filled slots: rows at or past ``rows[e]`` come out
+0, and an expert with none reads no weight. ``stream_matmul.
+batched_launches`` counts those launches; their checks run on both devices.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -38,7 +48,7 @@ ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry points' route ar
 INT8_TILE_K = 64  # K rows of a stage of the int8 wgmma route (kI8BK)
 INT8_TILE_M, INT8_TILE_N = 192, 128  # rows and columns of an int8 wgmma output tile (kI8BM, kI8BN)
 W_LAYOUT_CODES = {"kn": 0, "nk": 1}  # the C entry point's w_layout argument
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
@@ -56,24 +66,30 @@ def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, w_layout
     return "simt"
 
 
-def k_splits(m: int, n: int, k: int, sm_count: int) -> int:
+def k_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1) -> int:
     """How many K chunks the gemv path cuts a product into: enough blocks for
-    about four per SM, each chunk at least 64 rows deep; 0 where m >
-    GEMV_MAX_M, which is not the gemv route's."""
+    about four per SM, counting every expert's column slabs, each chunk at
+    least 64 rows deep; 0 where m > GEMV_MAX_M, which is not the gemv
+    route's. A rule of shapes: the experts a call finds empty exit at once,
+    so a batched call that hits few of many experts fills fewer SMs."""
     if m > GEMV_MAX_M:
         return 0
-    col_blocks = -(-n // GEMV_COLS)
+    col_blocks = -(-n // GEMV_COLS) * experts
     return max(1, min(-(-4 * sm_count // col_blocks), k // 64))
 
 
 def stream_matmul(
-    x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16, w_layout: str = "kn"
+    x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16, w_layout: str = "kn",
+    rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x @ w`` for x (M, K) and w (K, N) of one dtype, or ``x @ w.T`` for w
     (N, K) with ``w_layout="nk"``; f32 accumulation, result in ``out_dtype``
-    (bfloat16 or float32)."""
+    (bfloat16 or float32). For x (E, C, K) and w (E, K, N), the
+    expert-batched form (module docstring), with ``rows`` optional."""
     if w_layout not in W_LAYOUT_CODES:
         raise ValueError(f"stream_matmul: w_layout {w_layout!r}, need 'kn' or 'nk'")
+    if x.dim() == 3 or w.dim() == 3 or rows is not None:
+        return _stream_matmul_batched(x, w, out_dtype, w_layout, rows)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return stream_matmul_ref(x, w, out_dtype, w_layout)
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
@@ -93,26 +109,67 @@ def stream_matmul(
     else:  # a K-major row is one warp's dot product: no split-K
         splits = 1 if nk else k_splits(m, n, k, _build.sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+    _launch(x, w, out, None, 1, m, n, k, route, splits, w_layout)
+    return out
+
+
+def _stream_matmul_batched(x, w, out_dtype, w_layout, rows):
+    """The expert-batched form: checks on both devices, the plain version on
+    the CPU, one launch on CUDA."""
+    tensors = (x, w) if rows is None else (x, w, rows)
+    on_cpu = all(t.device.type == "cpu" for t in tensors)
+    if not on_cpu and not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError("stream_matmul: x, w, rows on " + ", ".join(str(t.device) for t in tensors))
+    if w_layout != "kn":
+        raise ValueError("stream_matmul: the expert-batched form takes (E, K, N) weights only")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1] \
+            or 0 in (*x.shape, w.shape[2]):
+        raise ValueError(f"stream_matmul: expert shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
+        raise TypeError(f"stream_matmul: dtypes {x.dtype} @ {w.dtype} -> {out_dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("stream_matmul: x and w must be contiguous (a whole expert stack)")
+    e, c, k = x.shape
+    n = w.shape[2]
+    if rows is not None:
+        if rows.dtype != torch.int32:
+            raise TypeError(f"stream_matmul: rows {rows.dtype}, need int32")
+        if tuple(rows.shape) != (e,) or not rows.is_contiguous():
+            raise ValueError(f"stream_matmul: rows {tuple(rows.shape)}, need a contiguous ({e},)")
+    if on_cpu:
+        return stream_matmul_ref(x, w, out_dtype, rows=rows)
+    route = mm_route(c, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    splits = k_splits(c, n, k, _build.sm_count(x.device), experts=e) if route == "gemv" else 0
+    out = torch.empty((e, c, n), dtype=out_dtype, device=x.device)
+    _launch(x, w, out, rows, e, c, n, k, route, splits, w_layout)
+    stream_matmul.batched_launches += 1
+    return out
+
+
+def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout):
+    """One call of the C entry point, with a split-K workspace where the gemv
+    route cuts K; raises on a CUDA error; counts the launch."""
+    work = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("streammm", "stream_matmul", _ARGTYPES)
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
-        m, n, k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
+        rows.data_ptr() if rows is not None else None,
+        e, m, n, k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype],
         W_LAYOUT_CODES[w_layout], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"stream_matmul ({route}, {w_layout})")
+    _build.check(err, f"stream_matmul ({route}, {w_layout}, {e} experts)")
     stream_matmul.launches += 1
     if route == "wgmma":
         stream_matmul.wgmma_launches += 1
-    if nk:
+    if w_layout == "nk":
         stream_matmul.nk_launches += 1
-    return out
 
 
 stream_matmul.launches = 0
 stream_matmul.wgmma_launches = 0
 stream_matmul.nk_launches = 0
+stream_matmul.batched_launches = 0
 
 
 def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:

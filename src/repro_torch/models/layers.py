@@ -6,17 +6,20 @@ functions take a ``lead`` shape prefix so the model can draw every layer's
 leaf at once in the stacked layout (leading ``L`` axis) that the JAX package
 builds with ``vmap``. Every ``x @ W`` is the ``stream_matmul`` kernel on a 2-D
 ``(B*S, K)`` view; one-token decode reads the KV cache through the
-``paged_attention`` kernel. MoE and the ring/window caches of the hybrid
-family are not ported yet (ROADMAP.md).
+``paged_attention`` kernel. The MoE layer (grok-1-314b, arctic-480b with its
+dense residual) dispatches tokens into expert slots as the reference does and
+runs the expert products through ``stream_matmul``'s expert-batched form. The
+ring/window caches of the hybrid family are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.streammm.ops import stream_matmul
 from repro_torch.models import common
@@ -174,8 +177,9 @@ def attention_decode(
 # --------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = (), d_ff: Optional[int] = None):
+    d = cfg.d_model
+    f = d_ff if d_ff is not None else cfg.d_ff
     dt = common.dtype_of(cfg)
     return {
         "w1": dense_init(gen, (*lead, d, f), dt, fan_in=d),
@@ -188,6 +192,117 @@ def mlp_apply(p, x):
     h = F.silu(linear(x, p["w1"]))
     h = h * linear(x, p["w3"])
     return linear(h, p["w2"])
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (capacity-based, scatter/gather dispatch)
+# --------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()):
+    """The reference's leaves: ``router`` f32 (d, E), ``w1``/``w3`` (E, d, f),
+    ``w2`` (E, f, d), and arctic's ``dense`` MLP of ``dense_d_ff``, under
+    ``lead``. The reference scales an expert leaf by its leading axis (E);
+    here each expert matrix is scaled by its own fan-in, so that activations
+    stay O(1) at published width. The tests take the reference's values
+    through ``convert.py``, so only the shapes and dtypes are shared."""
+    m: MoEConfig = cfg.moe
+    d, e, f = cfg.d_model, m.num_experts, m.d_ff
+    dt = common.dtype_of(cfg)
+    p = {
+        "router": dense_init(gen, (*lead, d, e), torch.float32, fan_in=d),
+        "w1": dense_init(gen, (*lead, e, d, f), dt, fan_in=d),
+        "w3": dense_init(gen, (*lead, e, d, f), dt, fan_in=d),
+        "w2": dense_init(gen, (*lead, e, f, d), dt, fan_in=f),
+    }
+    if m.dense_residual:
+        p["dense"] = init_mlp(gen, cfg, lead, d_ff=m.dense_d_ff)
+    return p
+
+
+def moe_capacity(m: MoEConfig, n_tokens: int) -> int:
+    c = int(math.ceil(m.top_k * n_tokens / m.num_experts * m.capacity_factor))
+    return max(c, m.top_k)
+
+
+class Dispatch(NamedTuple):
+    """Where the reference's ``moe_apply`` sends each of the k * n
+    assignments, choice-major (every token's first choice before any second
+    one): ``idx`` (n, k) experts, best first; ``gates`` (k * n,) renormalised
+    f32 gates; ``posn`` its position in its expert; ``keep`` whether that is
+    below ``cap``; ``slot`` ``e * cap + posn`` (``e * cap`` where dropped);
+    ``rows`` (E,) int32, each expert's filled slots, clamped to ``cap``."""
+
+    idx: torch.Tensor
+    gates: torch.Tensor
+    posn: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    rows: torch.Tensor
+    cap: int
+
+
+def moe_dispatch(router_logits, m: MoEConfig) -> Dispatch:
+    """The reference's routing of (n, E) f32 router logits: softmax, top-k,
+    gates renormalised with ``+ 1e-9``, a choice-major capacity sort. Integer
+    work on the device and no host sync: no boolean indexing, no
+    ``bincount``; the counts are the last row of the one-hot cumsum."""
+    n, e = router_logits.shape
+    probs = torch.softmax(router_logits, dim=-1)
+    # jax.lax.top_k puts the lower index first on an exact tie: a stable sort
+    # descending keeps that order (torch.topk gives no order among ties)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, : m.top_k], idx[:, : m.top_k]
+    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    cap = moe_capacity(m, n)
+    flat_e = idx.T.reshape(-1)
+    one_hot = (flat_e[:, None] == torch.arange(e, device=flat_e.device)).to(torch.int32)
+    seen = torch.cumsum(one_hot, dim=0, dtype=torch.int32)  # (k n, E), inclusive
+    posn = seen.gather(1, flat_e[:, None]).squeeze(1) - 1  # the reference's exclusive cumsum
+    keep = posn < cap
+    slot = flat_e * cap + torch.where(keep, posn, 0)
+    rows = seen[-1].clamp(max=cap).to(torch.int32)
+    return Dispatch(idx, gates.T.reshape(-1), posn, keep, slot, rows, cap)
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Capacity-based top-k MoE, the reference's ``moe_apply``: returns
+    (out (B, S, d), router_logits (B*S, E) f32). The router is
+    ``stream_matmul`` in f32 (exact f32 on every route, never TF32); the
+    three expert products are ``stream_matmul``'s expert-batched form over
+    the (E, cap, d) dispatch buffer, each expert's filled slots given as
+    ``rows``. Slots past them hold zeros, ``silu(0) * 0 = 0``, so the kernel's
+    zero rows are the reference's ``expert_out`` bit for bit. Nothing here
+    waits for the device: ``cap`` is a function of the shape. The
+    reference's sharding constraints do nothing on one card and are
+    dropped."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    tokens = x.reshape(n, d)
+    router_logits = stream_matmul(tokens.float(), p["router"], out_dtype=torch.float32)
+    route = moe_dispatch(router_logits, m)
+    cap, e = route.cap, m.num_experts
+
+    # Scatter the k copies of each token into its slot. A kept assignment owns
+    # its slot; a dropped one adds an exact zero row into slot e * cap. So each
+    # slot receives at most one non-zero row, every sum is exact, and the
+    # index_add_ (atomics on CUDA) gives the same bits in any order.
+    token_rep = tokens.repeat(m.top_k, 1)  # (k n, d), jnp.tile
+    buf = torch.zeros((e * cap, d), dtype=tokens.dtype, device=tokens.device)
+    buf.index_add_(0, route.slot, torch.where(route.keep[:, None], token_rep, 0))
+    expert_in = buf.view(e, cap, d)
+
+    h = F.silu(stream_matmul(expert_in, p["w1"], out_dtype=x.dtype, rows=route.rows))
+    h = h * stream_matmul(expert_in, p["w3"], out_dtype=x.dtype, rows=route.rows)
+    expert_out = stream_matmul(h, p["w2"], out_dtype=x.dtype, rows=route.rows)  # (E, cap, d)
+
+    out_rep = expert_out.view(e * cap, d).index_select(0, route.slot)
+    out_rep = torch.where(route.keep[:, None], out_rep, 0) * route.gates[:, None].to(out_rep.dtype)
+    out = out_rep.view(m.top_k, n, d).sum(dim=0)
+    if m.dense_residual:
+        out = out + mlp_apply(p["dense"], x).reshape(n, d)
+    return out.reshape(b, s, d), router_logits
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Model assembly for the attention families (dense, tied or not; VLM; the
-audio encoder) and the SSM family, with the reference's contract:
+"""Model assembly for the attention families (dense, tied or not; MoE; VLM;
+the audio encoder) and the SSM family, with the reference's contract:
 
   init(generator)                     -> params
   forward(params, batch)              -> logits (B, S, V)
@@ -22,7 +22,9 @@ take ``embed[0]``. The cache is the reference's too: for the attention families
 conv_dim), each with a 0-d int32 ``index``; ``prefill`` and ``decode_step``
 write into it in place. It also carries ``host_index``, the same position as
 a Python int, so that a step checks its bounds without waiting for the
-device. ``loss``, MoE and the hybrid family are not ported yet (ROADMAP.md §1).
+device. An MoE layer (``cfg.moe``) holds ``moe`` where a dense one holds
+``mlp``. ``loss`` (and with it MoE's load-balance term) and the hybrid family
+are not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -39,10 +41,12 @@ from repro_torch.models.layers import (
     attention_decode,
     init_attention,
     init_mlp,
+    init_moe,
     init_norm,
     kv_pages,
     linear,
     mlp_apply,
+    moe_apply,
 )
 
 
@@ -82,18 +86,24 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
     hd = cfg.resolved_head_dim()
 
     def init(gen: torch.Generator):
-        return {
-            "head": _init_head(gen, cfg),
-            "layers": {
-                "attn_norm": init_norm(cfg, (L,), gen.device),
-                "attn": init_attention(gen, cfg, (L,)),
-                "mlp_norm": init_norm(cfg, (L,), gen.device),
-                "mlp": init_mlp(gen, cfg, (L,)),
-            },
+        layers = {
+            "attn_norm": init_norm(cfg, (L,), gen.device),
+            "attn": init_attention(gen, cfg, (L,)),
+            "mlp_norm": init_norm(cfg, (L,), gen.device),
         }
+        if cfg.moe is not None:
+            layers["moe"] = init_moe(gen, cfg, (L,))
+        else:
+            layers["mlp"] = init_mlp(gen, cfg, (L,))
+        return {"head": _init_head(gen, cfg), "layers": layers}
 
     def _mlp_block(lp, x):
+        """The reference's ``_mix_mlp`` without its auxiliary loss, which
+        only ``loss`` reads."""
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        if cfg.moe is not None:
+            out, _ = moe_apply(lp["moe"], h, cfg)
+            return x + out
         return x + mlp_apply(lp["mlp"], h)
 
     def _embed_inputs(params, batch):
@@ -276,7 +286,7 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
 
 
 def build_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family not in ("dense", "vlm", "audio", "ssm"):
+    if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             "(ROADMAP.md §1, 'Modules still to port')"

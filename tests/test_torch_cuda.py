@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-and mamba2 and minicpm-2b at full width on the card against the CPU.
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(``stream_matmul``'s expert-batched form too), the MoE layer on the card
+against the CPU and without a host sync, and mamba2 and minicpm-2b at full
+width on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -517,3 +519,149 @@ def test_mamba2_full_width_card_against_cpu(cuda):
     _close(dec_card.cpu(), dec_cpu)
     torch.testing.assert_close(dec_card.float(), fwd_card[:, s - 1 :].float(), rtol=8e-2, atol=8e-2)
 
+
+
+# -- the expert-batched stream_matmul and the MoE layer ----------------------------
+
+BATCHED_CASES = [
+    # (E, C, K, N, dtype, route): the decode and live step's capacity of 2
+    # (gemv; N = 1024 still splits K across 8 experts), grok's shape at
+    # prefill cut in K and N (C = 1280, wgmma), arctic's prefill capacity of
+    # 80 over 16 experts (wgmma), a ragged C, K and N on wgmma, f32 on simt
+    # and gemv, and a K that TMA cannot describe (simt in bf16)
+    (8, 2, 1024, 4096, torch.bfloat16, "gemv"),
+    (8, 2, 2048, 1024, torch.bfloat16, "gemv"),
+    (2, 1280, 512, 1024, torch.bfloat16, "wgmma"),
+    (16, 80, 512, 768, torch.bfloat16, "wgmma"),
+    (3, 200, 264, 136, torch.bfloat16, "wgmma"),
+    (4, 80, 300, 200, torch.float32, "simt"),
+    (4, 3, 96, 100, torch.float32, "gemv"),
+    (3, 20, 30, 50, torch.bfloat16, "simt"),
+]
+
+
+def _batched_rows(e, c, case):
+    """Each expert's filled rows: all of them (None), or empty, partial and
+    full experts in turn, one count past the capacity (clamped to it)."""
+    if case == "none":
+        return None
+    counts = [(0, c // 3 + 1, c, c + 5)[i % 4] for i in range(e)]
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,k,n,dt,route", BATCHED_CASES)
+@pytest.mark.parametrize("rows_case", ["none", "mixed"])
+def test_stream_matmul_batched_kernel(cuda, e, c, k, n, dt, route, rows_case):
+    """One launch over every expert, on the route of each expert's shape,
+    counted in ``batched_launches``; rows past an expert's count come out
+    exactly 0 whatever x holds there (NaN here); the same bits on a second
+    call."""
+    x = _randn((e, c, k), dt, cuda, 20)
+    w = _randn((e, k, n), dt, cuda, 21, scale=k ** -0.5)
+    counts = _batched_rows(e, c, rows_case)
+    rows = None
+    if counts is not None:
+        rows = torch.tensor(counts, dtype=torch.int32, device=cuda)
+        for i, r in enumerate(counts):
+            x[i, min(r, c):] = float("nan")
+    assert mm_ops.mm_route(c, n, k, dt, True) == route
+    fn = mm_ops.stream_matmul
+    before = (fn.launches, fn.wgmma_launches, fn.batched_launches)
+    out = fn(x, w, out_dtype=dt, rows=rows)
+    assert (fn.launches, fn.wgmma_launches, fn.batched_launches) == (
+        before[0] + 1, before[1] + (route == "wgmma"), before[2] + 1)
+    assert out.shape == (e, c, n) and out.dtype == dt
+    ref = stream_matmul_ref(x, w, out_dtype=dt, rows=rows)
+    _close(out, ref)
+    live = torch.ones((e, c), dtype=torch.bool, device=cuda) if counts is None else (
+        torch.arange(c, device=cuda) < rows[:, None].long())
+    assert not out[~live].any() and torch.isfinite(out.float()).all()
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-2
+    assert torch.equal(out, fn(x, w, out_dtype=dt, rows=rows))
+
+
+@pytest.mark.cuda
+def test_stream_matmul_batched_empty_experts_read_no_weight(cuda):
+    """An expert with no rows reads none of its weight: NaN weights there
+    reach nothing, and every output of it is 0."""
+    for c in (2, 80):
+        x = _randn((4, c, 256), torch.bfloat16, cuda, 22)
+        w = _randn((4, 256, 512), torch.bfloat16, cuda, 23, scale=1 / 16)
+        w[1] = float("nan")
+        w[3] = float("nan")
+        rows = torch.tensor([c, 0, 1, 0], dtype=torch.int32, device=cuda)
+        out = mm_ops.stream_matmul(x, w, rows=rows)
+        assert torch.isfinite(out.float()).all() and not out[1].any() and not out[3].any() and not out[2, 1:].any()
+        _close(out[0], stream_matmul_ref(x[0], w[0]))
+
+
+@pytest.mark.cuda
+def test_stream_matmul_batched_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 3, 64), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((4, 64, 32), device=cuda, dtype=torch.bfloat16)
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # mismatched experts
+        mm_ops.stream_matmul(x, w[:3])
+    with pytest.raises(ValueError):  # a non-contiguous expert slice
+        mm_ops.stream_matmul(x, torch.zeros((8, 64, 32), device=cuda, dtype=torch.bfloat16)[::2])
+    with pytest.raises(ValueError):  # rows on the host
+        mm_ops.stream_matmul(x, w, rows=rows.cpu())
+    with pytest.raises(TypeError):  # rows of another dtype
+        mm_ops.stream_matmul(x, w, rows=rows.long())
+    with pytest.raises(ValueError):  # x on the host
+        mm_ops.stream_matmul(x.cpu(), w)
+
+
+def _moe_cfg(dtype, d=1024, experts=8, d_ff=2048, dense_residual=False):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("grok-1-314b")
+    moe = dataclasses.replace(cfg.moe, num_experts=experts, d_ff=d_ff, dense_residual=dense_residual,
+                              dense_d_ff=d_ff if dense_residual else 0)
+    return dataclasses.replace(cfg, d_model=d, dtype=dtype, moe=moe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_residual", [False, True])
+@pytest.mark.parametrize("n_tokens", [4, 256])
+def test_moe_apply_card_against_cpu_f32(cuda, dense_residual, n_tokens):
+    """The MoE layer in f32 on the card (router and experts through the
+    kernel: gemv at a decode's 4 tokens, simt at 256) against its CPU run:
+    the same routing, outputs within 1e-4 (f32 sums in another order)."""
+    from repro_torch.models import layers
+
+    cfg = _moe_cfg("float32", dense_residual=dense_residual)
+    p = layers.init_moe(torch.Generator(cuda).manual_seed(0), cfg)
+    x = _randn((2, n_tokens // 2, cfg.d_model), torch.float32, cuda, 24)
+    before = mm_ops.stream_matmul.batched_launches
+    with torch.inference_mode():
+        out, logits = layers.moe_apply(p, x, cfg)
+        out_cpu, logits_cpu = layers.moe_apply(_tree_to(p, "cpu"), x.cpu(), cfg)
+    assert mm_ops.stream_matmul.batched_launches == before + 3
+    assert torch.equal(layers.moe_dispatch(logits.cpu(), cfg.moe).idx, layers.moe_dispatch(logits_cpu, cfg.moe).idx)
+    torch.testing.assert_close(out.cpu(), out_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_apply_has_no_host_sync(cuda):
+    """The layer waits for the device nowhere: under CUDA's sync debug mode
+    set to "error" a synchronising call raises."""
+    from repro_torch.models import layers
+
+    cfg = _moe_cfg("bfloat16", dense_residual=True)
+    p = layers.init_moe(torch.Generator(cuda).manual_seed(1), cfg)
+    x = _randn((4, 64, cfg.d_model), torch.bfloat16, cuda, 25)
+    with torch.inference_mode():
+        layers.moe_apply(p, x, cfg)  # builds the kernels first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = layers.moe_apply(p, x, cfg)
+            out_step, _ = layers.moe_apply(p, x[:, :1].contiguous(), cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.float()).all() and torch.isfinite(out_step.float()).all()

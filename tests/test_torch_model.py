@@ -1,5 +1,5 @@
 """The port's attention transformers (dense, tied or not; VLM; the audio
-encoder) against the JAX package's, on the same numpy inputs and the
+encoder; the MoE family's layout) against the JAX package's, on the same numpy inputs and the
 reference's own initial parameters. Tolerance: rtol = atol = 5e-2, the
 reference's kernel-test tolerance, since bf16 rounds at other places in the
 two frameworks."""
@@ -23,6 +23,9 @@ RTOL = ATOL = 5e-2
 # every arch of the attention families that build_model takes
 ATTENTION = ["qwen3-1.7b", "llama3.2-3b", "minicpm-2b", "qwen1.5-110b", "paper-llama3-8b",
              "qwen2-vl-7b", "hubert-xlarge"]
+# the MoE family: its layout here; its numerics in f32 (tests/test_torch_archs.py)
+# and layer by layer in bf16 (tests/test_torch_moe.py)
+MOE = ["grok-1-314b", "arctic-480b"]
 N_VISION = 4  # vision positions before the tokens of a VLM batch
 
 
@@ -140,7 +143,7 @@ def test_attend_default_positions_are_iota():
     )
 
 
-@pytest.mark.parametrize("arch", ATTENTION)
+@pytest.mark.parametrize("arch", ATTENTION + MOE)
 def test_params_from_reference_keeps_layout(arch):
     ref = _ref_params(arch)
     ours = flatten(params_from_reference(ref))
@@ -155,10 +158,11 @@ def test_params_from_reference_keeps_layout(arch):
     assert dtypes["head/final_norm"] == dtypes["layers/attn_norm"] == torch.float32
     # a tied head has no lm_head: the logits read head/embed
     assert ("head/lm_head" in dtypes) == (not get_config(arch).tie_embeddings)
-    assert dtypes["layers/mlp/w1"] == dtypes.get("head/lm_head", dtypes["head/embed"]) == torch.bfloat16
+    w1 = "layers/moe/w1" if get_config(arch).moe is not None else "layers/mlp/w1"
+    assert dtypes[w1] == dtypes.get("head/lm_head", dtypes["head/embed"]) == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ATTENTION)
+@pytest.mark.parametrize("arch", ATTENTION + MOE)
 def test_init_matches_reference_layout(arch):
     ours = flatten(build_model(get_config(arch).reduced()).init(torch.Generator().manual_seed(0)))
     ref = flatten(params_from_reference(_ref_params(arch)))
@@ -207,7 +211,7 @@ def test_forward_logits_match_reference(arch, seq):
     _close(ours, ref)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "arctic-480b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(arch).reduced())
