@@ -13,7 +13,8 @@
    K-major form, the tied LM head, also at M = 1, 4096 and 4352 of
    minicpm-2b's table; ``stream_matmul_int8`` also at the
    projections of paper-llama3-8b, the model it was written for, at M = 1,
-   4 and 4096; ``paged_attention`` also at the edges of its split rule), and
+   4 and 4096; ``paged_attention`` also at the edges of its split rule;
+   both attention kernels also at head dim 256, recurrentgemma-9b's), and
    times kernel, plain version and one library call (a yardstick only: the
    port never calls it), weighted by each path's calls a step; logs each
    shape's route (``stream_matmul`` and ``stream_matmul_int8``: gemv /
@@ -68,6 +69,18 @@
    same path on the CPU (equal top-k sets for every token and layer,
    relative L2 <= 1e-4), and decode against one ``forward`` at a capacity
    factor where nothing drops; the same in bf16 is reported;
+6d. runs the hybrid family, recurrentgemma-9b (RG-LRU recurrent layers and
+   local attention at head dim 256, MQA), at published width and depth (38
+   layers): first at 5 layers (one (rec, rec, attn) group and the two
+   trailing recurrent layers) against the CPU on the same weights (f32 and
+   bf16, ``forward`` and prefill + decode), and decode against ``forward``
+   after a prefill of ``window`` tokens, where the ring of slots drops what
+   the window drops; then a prefill of 4 x 1024 tokens and 64 greedy decode
+   steps, launches gated exactly per call (attention on the simt flash route
+   at prefill, ``paged_attention`` over the ring at decode), against their
+   bounds with the device's idle share; then the hybrid beside the live set
+   served at 150% oversubscription, oversubscribed logits bit-identical to
+   all-resident ones;
 7. runs the port's kernel bench (``repro_torch.kernels.bench``), the only
    path of ``stream_matmul_int8``, as the JAX package's kernel bench is its
    only caller there; every bench call of the three kernels with a
@@ -148,7 +161,7 @@ INT8_EXACT_REL_L2 = 1e-5
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
-PATHS = ("serve", "prefill", "decode", "families", "moe", "kernel_bench")
+PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench")
 # Phase 6b: the attention families beside the live set, at published width
 # and depth: tied embeddings, M-RoPE (VLM), the bidirectional audio encoder.
 # A step of the "families" path is one call of an entry point: a prefill or
@@ -175,6 +188,26 @@ MOE_F32_DEPTHS = {"grok-1-314b": 2, "arctic-480b": 1}
 MOE_F32_REL_L2 = 1e-4
 MOE_CHECK_B, MOE_CHECK_S = 2, 32  # the CPU comparison's prompt
 MOE_DEC_B, MOE_DEC_S = 4, 36  # decode vs forward: B x S = 144 positions, the last 4 decoded
+# Phase 6d: the hybrid family (RG-LRU recurrent layers and local attention at
+# head dim 256) at published width and depth, 38 layers (20.9 GB in bf16, no
+# cut). A step of the "hybrid" path is a prefill, a decode step or a live step
+# of it. First, at HYBRID_CHECK_LAYERS layers (one (rec, rec, attn) group and
+# the two trailing recurrent layers), the card against the CPU on one set of
+# weights.
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_CHECK_LAYERS = 5
+HYBRID_CHECK_B, HYBRID_CHECK_S = 2, 64  # the CPU comparison's prompt, then 4 decode steps
+# f32 card against the CPU, and decode against forward where the ring holds
+# the window: the same f32 function with sums in another order (~1e-6),
+# while a wrong slot, state or conv tail moves the logits by order 1.
+HYBRID_F32_REL_L2 = 1e-4
+# bf16 card against the CPU, relative L2 over every logit: at 5 layers bf16
+# rounding at other places (CUDA's exp and the CPU's differ in the last f32
+# bit) sends the recurrence down another bf16 path, as it does between the
+# two packages on the CPU (2.1e-2 there at the reduced width; the reference's
+# own bf16 forward is 2.4e-2 from its f32 one), so no elementwise gate holds;
+# a fault is of order 1.
+HYBRID_BF16_REL_L2 = 5e-2
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and operations/s by input type.
 HBM_BYTES_PER_S = 3.35e12
@@ -236,6 +269,8 @@ def main() -> None:
     paths["families"], nk_launches = families_slice(torch, dev)
     check_moe_against_cpu(torch, dev)
     paths["moe"], batched_launches, _ = moe_slice(torch, dev)
+    check_hybrid_against_cpu(torch, dev)
+    paths["hybrid"], _ = hybrid_slice(torch, dev)
     paths["kernel_bench"] = kernel_bench_path(torch, dev)
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
@@ -366,20 +401,23 @@ def step_projections(c, m_layer, m_head):
     f32; its expert products are :func:`step_experts`'), the LM head at M =
     m_head ("nk", the embedding table, where the embeddings are tied)."""
     d, L = c.d_model, c.num_layers
-    per_layer = []
+    n_rec, n_attn = layer_counts(c)
+    mats = []  # (K, N, calls)
     if c.family == "ssm":
         d_inner = c.ssm.expand * d
-        per_layer = [(d, 2 * d_inner + 2 * c.ssm.state_dim + d_inner // c.ssm.head_dim), (d_inner, d)]
+        mats = [(d, 2 * d_inner + 2 * c.ssm.state_dim + d_inner // c.ssm.head_dim, L), (d_inner, d, L)]
     else:
         hd = c.resolved_head_dim()
-        per_layer = [(d, c.num_heads * hd), (d, c.num_kv_heads * hd), (d, c.num_kv_heads * hd),
-                     (c.num_heads * hd, d)]
+        mats = [(d, c.num_heads * hd, n_attn), (d, c.num_kv_heads * hd, 2 * n_attn), (c.num_heads * hd, d, n_attn)]
+        # the hybrid's recurrent layers: w_in, w_gate_branch, w_a, w_x, w_out
+        mats += [(d, d, 5 * n_rec)]
         f = c.moe.dense_d_ff if c.moe is not None else c.d_ff
         if c.moe is None or c.moe.dense_residual:
-            per_layer += [(d, f), (d, f), (f, d)]
+            mats += [(d, f, 2 * L), (f, d, L)]
     counts = {}
-    for k, n in per_layer:
-        counts[(m_layer, k, n, "kn", "bf16")] = counts.get((m_layer, k, n, "kn", "bf16"), 0) + L
+    for k, n, calls in mats:
+        if calls:
+            counts[(m_layer, k, n, "kn", "bf16")] = counts.get((m_layer, k, n, "kn", "bf16"), 0) + calls
     if c.moe is not None:
         counts[(m_layer, d, c.moe.num_experts, "kn", "f32")] = L
     head = (m_head, d, c.vocab_size, "nk" if c.tie_embeddings else "kn", "bf16")
@@ -398,6 +436,21 @@ def step_experts(c, n_tokens):
     return {(m.num_experts, cap, d, m.d_ff): 2 * L, (m.num_experts, cap, m.d_ff, d): L}
 
 
+def layer_counts(cfg):
+    """(recurrent layers, attention layers) of a model: the hybrid's from its
+    (rec, rec, attn) pattern; an SSM's layers count as neither."""
+    kinds = cfg.layer_kinds()
+    return kinds.count("rec"), kinds.count("attn")
+
+
+def hybrid_config(layers=None):
+    """recurrentgemma-9b's published config, at ``layers`` layers if given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
 def moe_config(arch, layers=None):
     """The published config of an MoE arch at ``layers`` (its phase 6c depth
     by default)."""
@@ -414,8 +467,9 @@ def projection_shapes():
     model; on the families path a prefill and a decode step of each decode
     model and hubert-xlarge's forward (M = DECODE_B * PROMPT throughout); on
     the moe path a prefill and a decode step of each MoE model at its phase
-    6c depth (the expert products apart, :func:`step_experts`); and the
-    kernel bench's one product."""
+    6c depth (the expert products apart, :func:`step_experts`); on the
+    hybrid path a prefill, a decode step and a live step of recurrentgemma-9b;
+    and the kernel bench's one product."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bench as kernel_bench
 
@@ -436,6 +490,10 @@ def projection_shapes():
         c = moe_config(arch)
         shapes["moe"][f"{arch} prefill"] = step_projections(c, DECODE_B * PROMPT, DECODE_B)
         shapes["moe"][f"{arch} decode"] = step_projections(c, DECODE_B, DECODE_B)
+    c = hybrid_config()
+    shapes["hybrid"][f"{HYBRID_ARCH} prefill"] = step_projections(c, DECODE_B * PROMPT, DECODE_B)
+    shapes["hybrid"][f"{HYBRID_ARCH} decode"] = step_projections(c, DECODE_B, DECODE_B)
+    shapes["hybrid"][f"{HYBRID_ARCH} live"] = step_projections(c, 1, 1)
     shapes["kernel_bench"]["bench"] = {(*kernel_bench.MM_SHAPE, "kn", "bf16"): 1}
     return shapes
 
@@ -474,29 +532,30 @@ def read_wgmma():
     return {name: fn.wgmma_launches for name, fn in counters().items() if name in WGMMA_KERNELS}
 
 
-def layer_matmuls(cfg) -> int:
-    """stream_matmul launches of one layer: 2 an SSM layer; 4 attention
+def model_matmuls(cfg) -> int:
+    """stream_matmul launches of the layer stack: 2 an SSM layer; 4 attention
     projections, then 3 for a dense MLP, or an MoE layer's router, its 3
-    expert-batched products and the dense residual's 3."""
+    expert-batched products and the dense residual's 3; 5 projections of the
+    RG-LRU block and 3 for the MLP a hybrid recurrent layer."""
     if cfg.family == "ssm":
-        return 2
+        return 2 * cfg.num_layers
+    n_rec, n_attn = layer_counts(cfg)
     if cfg.moe is None:
-        return 7
-    return 4 + 1 + 3 + 3 * cfg.moe.dense_residual
+        return 7 * n_attn + 8 * n_rec
+    return (4 + 1 + 3 + 3 * cfg.moe.dense_residual) * n_attn
 
 
 def step_launches(cfg, path):
     """The launches of one call of ``path`` ("serve", "prefill", "decode" or
     "forward") of a model: its projections and LM head through stream_matmul,
-    one attention a layer of the attention families (flash on the live step,
-    prefill and forward, paged on decode), none of the SSM family."""
-    L = cfg.num_layers
-    attn = cfg.family != "ssm"
+    one attention an attention layer (flash on the live step, prefill and
+    forward, paged on decode), none of the SSM family."""
+    _, n_attn = layer_counts(cfg)
     return {
-        "stream_matmul": layer_matmuls(cfg) * L + 1,
+        "stream_matmul": model_matmuls(cfg) + 1,
         "stream_matmul_int8": 0,
-        "flash_attention": L if attn and path != "decode" else 0,
-        "paged_attention": L if attn and path == "decode" else 0,
+        "flash_attention": n_attn if path != "decode" else 0,
+        "paged_attention": n_attn if path == "decode" else 0,
     }
 
 
@@ -506,16 +565,16 @@ def step_wgmma(cfg, path):
     bf16 projection (all but an MoE router, which is f32 on simt; the expert
     products' capacity is above 8 rows there) and, in a forward, the LM head
     (a prefill's runs on the last position, M = 4: gemv); every attention at
-    head dim 64 or 128 (hubert-xlarge's 80 takes simt); none on the live and
-    decode steps (M = 1 and 4, Sq = 1 or paged; an expert capacity of 2).
-    The int8 kernel is on no model's path."""
-    L = cfg.num_layers
-    attn = cfg.family != "ssm"
+    head dim 64 or 128 (hubert-xlarge's 80 and recurrentgemma-9b's 256 take
+    simt); none on the live and decode steps (M = 1 and 4, Sq = 1 or paged;
+    an expert capacity of 2). The int8 kernel is on no model's path."""
+    _, n_attn = layer_counts(cfg)
     if path not in ("prefill", "forward"):
         return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0}
-    return {"stream_matmul": (layer_matmuls(cfg) - (cfg.moe is not None)) * L + (path == "forward"),
+    routers = cfg.num_layers if cfg.moe is not None else 0
+    return {"stream_matmul": model_matmuls(cfg) - routers + (path == "forward"),
             "stream_matmul_int8": 0,
-            "flash_attention": L if attn and cfg.resolved_head_dim() in (64, 128) else 0}
+            "flash_attention": n_attn if n_attn and cfg.resolved_head_dim() in (64, 128) else 0}
 
 
 def step_batched(cfg):
@@ -855,6 +914,13 @@ def check_flash_attention(torch, dev, bench):
          {"moe": MOE_DEPTHS["grok-1-314b"]}),
         ("arctic prefill", DECODE_B, PROMPT, PROMPT, 56, 8, 128, True, 0, torch.bfloat16,
          {"moe": MOE_DEPTHS["arctic-480b"]}),
+        # phase 6d: recurrentgemma-9b (MQA, g = 16, D = 256, window 2048; the
+        # simt route) at prefill and the live step, a window that the sequence
+        # outgrows, and f32
+        ("hybrid prefill", DECODE_B, PROMPT, PROMPT, 16, 1, 256, True, 2048, torch.bfloat16, {"hybrid": 12}),
+        ("hybrid live", 1, 1, 1, 16, 1, 256, True, 2048, torch.bfloat16, {"hybrid": 12}),
+        ("hybrid windowed", 1, 4096, 4096, 16, 1, 256, True, 2048, torch.bfloat16, {}),
+        ("hybrid f32", 1, 512, 512, 16, 1, 256, True, 128, torch.float32, {}),
     ]
     log("flash_attention against attention_ref (ms: CUDA events):")
     totals = path_totals()
@@ -959,6 +1025,11 @@ def check_paged_attention(torch, dev, bench, usage):
         ("grok decode", DECODE_B, 48, 8, 128, decode_pt, mp, decode_lengths, False, {"moe": MOE_DEPTHS["grok-1-314b"]}),
         ("arctic decode", DECODE_B, 56, 8, 128, decode_pt, mp, decode_lengths, False,
          {"moe": MOE_DEPTHS["arctic-480b"]}),
+        # phase 6d's ring decode: recurrentgemma-9b (MQA, g = 16 in 4 blocks of
+        # 4 heads, D = 256), a full ring of PROMPT slots in pages of 64, then a
+        # ring that has not wrapped yet with a row of length 0
+        ("hybrid decode", DECODE_B, 16, 1, 256, 64, PROMPT // 64, (PROMPT,) * DECODE_B, False, {"hybrid": 12}),
+        ("hybrid ring filling", DECODE_B, 16, 1, 256, 64, PROMPT // 64, (1, 300, PROMPT - 1, 0), True, {}),
         ("test 1", 2, 4, 2, 32, 16, 4, (1, 8), False, {}),
         ("test 2", 3, 8, 1, 64, 32, 3, (1, 8, 15), False, {}),
         ("test 3", 1, 4, 4, 32, 16, 8, (1,), False, {}),
@@ -973,8 +1044,10 @@ def check_paged_attention(torch, dev, bench, usage):
     for label, b, h, hkv, d, pt, max_pages, lengths, permuted, calls in cases:
         splits = pa_splits(b, hkv, max_pages, sms)
         g = h // hkv
+        md = 128 if d <= 128 else 256  # the kernel instance's widest head dim
+        heads = g if g <= 4 else (8 if d <= 128 else 4)  # query heads a block serves
         regs = kernel_usage(usage, "paged_attention_cu", "pa_split_kernelI13__nv_bfloat16Li"
-                            f"{g if g <= 4 else 8}ELb{int(d % 8 == 0)}E")
+                            f"{heads}ELb{int(d % 8 == 0)}ELi{md}E")
         for dtype in (torch.bfloat16, torch.float32):
             n_pool = b * max_pages + 3
             q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
@@ -1208,16 +1281,19 @@ def check_ssm_against_cpu(torch, dev):
     return {"err": err, "f32_err": err32, "decode_err": err_dec, "err_forward": err_fwd}
 
 
-def serve_slice(torch, dev):
+def serve_slice(torch, dev, archs=ARCHS, label="serve"):
+    """Phase 5 (and phase 6d with the hybrid beside the live set): ``archs``
+    at full width served under 150% oversubscription; returns the run's
+    launches, its steps and its tensor-core launches."""
     from repro_torch.runtime.serve_loop import MultiModelServer, Request
 
     t0 = time.perf_counter()
-    server = MultiModelServer(ARCHS, device=dev, full=True, page_size=PAGE_SIZE)
+    server = MultiModelServer(archs, device=dev, full=True, page_size=PAGE_SIZE)
     rt = server.runtime
     tasks = list(rt.tasks.values())
     footprint = sum(t.footprint_bytes() for t in tasks)
     budget = rt.pool.capacity * rt.page_size
-    log(f"serve: {len(tasks)} models at full width, footprint {footprint / 1e9:.3f} GB, "
+    log(f"{label}: {len(tasks)} models at full width, footprint {footprint / 1e9:.3f} GB, "
         f"budget {budget / 1e9:.3f} GB ({100 * footprint / budget:.0f}%), page {PAGE_SIZE} B, "
         f"set-up {time.perf_counter() - t0:.1f} s")
 
@@ -1270,25 +1346,25 @@ def serve_slice(torch, dev):
 
     steps = sum(rt.stats.steps.values())
     ls = rt.stats
-    log(f"serve: {serve_s:.2f} s, served {stats.served}, "
+    log(f"{label}: {serve_s:.2f} s, served {stats.served}, "
         f"p99 {[f'{1e3 * stats.p99(m):.1f} ms' for m in stats.served]}, steps {ls.steps}")
-    log(f"serve: migrated_in {ls.migrated_in_bytes} B, migrated_out {ls.migrated_out_bytes} B, "
+    log(f"{label}: migrated_in {ls.migrated_in_bytes} B, migrated_out {ls.migrated_out_bytes} B, "
         f"demand_faults {ls.demand_faults}, switches {len(ls.switch_wall_s)}")
-    log(f"serve: per-switch coordinator wall {[f'{1e3 * s:.2f}' for s in ls.coordinator_wall_s]} ms; "
+    log(f"{label}: per-switch coordinator wall {[f'{1e3 * s:.2f}' for s in ls.coordinator_wall_s]} ms; "
         f"per-switch plan+copies {[f'{1e3 * s:.1f}' for s in ls.switch_wall_s]} ms")
-    for fault, label in ((False, "switch syncs"), (True, "demand-fault syncs")):
+    for fault, kind in ((False, "switch syncs"), (True, "demand-fault syncs")):
         sel = [x for x in syncs if x[0] == fault]
         secs = sum(x[1] for x in sel)
         b_in, b_out = sum(x[2] for x in sel), sum(x[3] for x in sel)
         rate = (b_in + b_out) / secs / 1e9 if secs else 0.0
-        log(f"serve: {label}: {len(sel)} calls, {secs:.3f} s, in {b_in} B, out {b_out} B, "
+        log(f"{label}: {kind}: {len(sel)} calls, {secs:.3f} s, in {b_in} B, out {b_out} B, "
             f"{rate:.2f} GB/s (synchronous pinned copies, page walk included)")
     for t in tasks:
         wbytes = sum(s.nbytes for s in t.segments)
         med = statistics.median(step_s[t.task_id])
-        log(f"serve: {t.cfg.name} step median {1e3 * med:.3f} ms over {len(step_s[t.task_id])} steps, "
+        log(f"{label}: {t.cfg.name} step median {1e3 * med:.3f} ms over {len(step_s[t.task_id])} steps, "
             f"weight-bytes bound {1e3 * wbytes / HBM_BYTES_PER_S:.3f} ms ({wbytes} B)")
-    log(f"serve: launches {launches} over {steps} steps")
+    log(f"{label}: launches {launches} over {steps} steps")
 
     if stats.served != {t.task_id: REQUESTS_PER_MODEL for t in tasks} or any(server.queues.values()):
         raise AssertionError(f"not every request was served: {stats.served}")
@@ -1296,7 +1372,8 @@ def serve_slice(torch, dev):
         raise AssertionError("no real migration in both directions")
     # the live step is a forward: 197 stream_matmul and 28 flash_attention
     # for each dense model at its published depth, 97 stream_matmul for
-    # mamba2, no paged_attention and no int8 kernel
+    # mamba2, 293 and 12 for recurrentgemma-9b, no paged_attention and no
+    # int8 kernel
     want = {name: sum(step_launches(t.cfg, "serve")[name] * ls.steps[t.task_id] for t in tasks)
             for name in KERNELS}
     if launches != want:
@@ -1313,7 +1390,7 @@ def serve_slice(torch, dev):
             again = t.run_step(i)
             if not torch.equal(again, out) or not torch.isfinite(out.float()).all():
                 raise AssertionError(f"{t.cfg.name} step {i}: oversubscribed != all-resident")
-    log(f"serve: {sum(len(v) for v in outputs.values())} oversubscribed steps bit-identical to all-resident")
+    log(f"{label}: {sum(len(v) for v in outputs.values())} oversubscribed steps bit-identical to all-resident")
     for t in tasks:
         profile_steps(torch, dev, t.cfg.name, t.run_step, statistics.median(step_s[t.task_id]))
     return launches, steps, wgmma
@@ -2016,6 +2093,257 @@ def moe_slice(torch, dev):
     launches, steps, wgmma = total
     log(f"moe path: launches {launches} over {steps} calls, tensor-core {wgmma}, expert-batched {batched_total}")
     return (launches, steps, wgmma), batched_total, results
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def check_hybrid_against_cpu(torch, dev):
+    """Phase 6d, first part: recurrentgemma-9b at published width and
+    HYBRID_CHECK_LAYERS layers, one set of weights. On the card and on the
+    CPU (the kernels' plain versions): ``forward`` over HYBRID_CHECK_B x
+    (HYBRID_CHECK_S + 4) tokens, and a prefill of HYBRID_CHECK_S tokens (the
+    ring of min(window, S) slots) with 4 decode steps; gated by relative L2,
+    at HYBRID_F32_REL_L2 in f32 and HYBRID_BF16_REL_L2 in bf16 (its max error
+    and the logits beyond rtol = atol = TOL reported). On the card, decode
+    against ``forward`` after a prefill of ``window`` tokens, where the
+    reference's ring drops exactly what the window drops: gated at
+    HYBRID_F32_REL_L2 in f32 and DECODE_REL_L2 in bf16; after a prefill of
+    PROMPT < window tokens its ring of PROMPT slots drops position 0 at the
+    first step, where ``forward`` still sees it (reference behaviour):
+    reported. Launches are not counted on any path."""
+    from repro_torch.models.model import build_model
+
+    gc.collect()  # the earlier phases' host copies
+    cfg = hybrid_config(HYBRID_CHECK_LAYERS)
+    b, s, n = HYBRID_CHECK_B, HYBRID_CHECK_S, 4
+    win = cfg.rglru.window
+    tokens = torch.randint(1, cfg.vocab_size, (b, s + n), generator=torch.Generator().manual_seed(1000))
+    long_tokens = torch.randint(1, cfg.vocab_size, (1, max(win, PROMPT) + n),
+                                generator=torch.Generator().manual_seed(1001))
+    t0 = time.perf_counter()
+
+    def run(fns, params, device):
+        """(forward logits, the prefill's last and the n decode steps' logits), on the host."""
+        toks = tokens.to(device)
+        fwd = fns.forward(params, {"tokens": toks}).float().cpu()
+        logits, cache = fns.prefill(params, {"tokens": toks[:, :s]})
+        outs = [logits]
+        for i in range(n):
+            logits, cache = fns.decode_step(params, cache, {"tokens": toks[:, s + i : s + i + 1]})
+            outs.append(logits)
+        if cache["k"].shape[2] != min(win, s) or int(cache["index"]) != s + n:
+            raise AssertionError(f"hybrid: ring {cache['k'].shape[2]} slots, index {int(cache['index'])}")
+        return fwd, torch.cat(outs, dim=1).float().cpu()
+
+    def decode_vs_forward(fns, params, prompt):
+        toks = long_tokens[:, : prompt + n].to(dev)
+        logits, cache = fns.prefill(params, {"tokens": toks[:, :prompt]})
+        outs = [logits]
+        for i in range(n):
+            logits, cache = fns.decode_step(params, cache, {"tokens": toks[:, prompt + i : prompt + i + 1]})
+            outs.append(logits)
+        ref = fns.forward(params, {"tokens": toks})[:, prompt - 1 :]
+        return rel_l2(torch.cat(outs, dim=1), ref)
+
+    with torch.inference_mode():
+        fns = build_model(cfg)
+        params = fns.init(torch.Generator(dev).manual_seed(1100))
+        fwd16, dec16 = run(fns, params, dev)
+        win16 = decode_vs_forward(fns, params, win)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        with kernel_plain_attend():
+            fwd16_cpu, dec16_cpu = run(fns, cpu_params, "cpu")
+        to_f32_in_place(torch, params)
+        fns32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        fwd32, dec32 = run(fns32, params, dev)
+        win32 = decode_vs_forward(fns32, params, win)
+        short32 = decode_vs_forward(fns32, params, PROMPT)
+        del params
+        torch.cuda.empty_cache()
+        to_f32_in_place(torch, cpu_params)
+        with kernel_plain_attend():
+            fwd32_cpu, dec32_cpu = run(fns32, cpu_params, "cpu")
+        del cpu_params
+    for out in (fwd16, dec16, fwd32, dec32):
+        if not torch.isfinite(out).all():
+            raise AssertionError("hybrid: logits not finite")
+    if fwd16.shape != (b, s + n, cfg.vocab_size) or dec16.shape != (b, n + 1, cfg.vocab_size):
+        raise AssertionError(f"hybrid: logits {tuple(fwd16.shape)}, {tuple(dec16.shape)}")
+    rel = {"forward f32": rel_l2(fwd32, fwd32_cpu), "prefill + decode f32": rel_l2(dec32, dec32_cpu),
+           "forward bf16": rel_l2(fwd16, fwd16_cpu), "prefill + decode bf16": rel_l2(dec16, dec16_cpu)}
+    diff = (fwd16 - fwd16_cpu).abs()
+    beyond = int((diff > TOL + TOL * fwd16_cpu.abs()).sum())
+    log(f"hybrid {HYBRID_ARCH} published width, {cfg.num_layers} layers (one (rec, rec, attn) group and "
+        f"{cfg.num_layers - 3} trailing recurrent), B={b}, forward over {s + n}, prefill {s} + {n} steps "
+        f"({time.perf_counter() - t0:.1f} s):")
+    log("  card vs CPU plain kernels, relative L2: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (gates {HYBRID_F32_REL_L2} f32, {HYBRID_BF16_REL_L2} bf16); bf16 forward max abs err "
+          f"{float(diff.max()):.3e}, {beyond} of {diff.numel()} beyond rtol=atol={TOL} (reported)")
+    log(f"  decode vs forward after a prefill of window = {win} tokens (ring {win} slots), B=1, {n} steps: "
+        f"relative L2 f32 {win32:.3e} (gate {HYBRID_F32_REL_L2}), bf16 {win16:.3e} (gate {DECODE_REL_L2})")
+    log(f"  decode vs forward after a prefill of {PROMPT} < window tokens (ring {PROMPT} slots: the first step "
+        f"drops position 0, forward keeps it), f32: relative L2 {short32:.3e} (reported, not gated)")
+    for key, val in rel.items():
+        if not val <= (HYBRID_F32_REL_L2 if "f32" in key else HYBRID_BF16_REL_L2):
+            raise AssertionError(f"hybrid {key} card vs CPU: relative L2 {val:.3e}")
+    if not (win32 <= HYBRID_F32_REL_L2 and win16 <= DECODE_REL_L2):
+        raise AssertionError(f"hybrid decode vs forward at s = window: f32 {win32:.3e}, bf16 {win16:.3e}")
+    return {"rel_l2": rel, "bf16_forward_max_err": float(diff.max()), "bf16_forward_beyond": beyond,
+            "window_decode_rel_l2_f32": win32, "window_decode_rel_l2_bf16": win16,
+            "short_prompt_decode_rel_l2_f32": short32}
+
+
+def hybrid_slice(torch, dev):
+    """Phase 6d: recurrentgemma-9b at published width and depth (38 layers:
+    12 (rec, rec, attn) groups and 2 trailing recurrent layers), random
+    weights from a seed: a prefill of DECODE_B x PROMPT tokens (a ring of
+    min(window, PROMPT) slots) and DECODE_STEPS greedy decode steps, each
+    call's launches gated exactly (every M = 4096 projection of the prefill
+    on the wgmma route, its 12 flash_attention calls at D = 256 on simt; 293
+    stream_matmul and 12 paged_attention a decode step), logits finite.
+    Reported: prefill time against its bound (operations or weight bytes,
+    the larger), each decode step against the bytes it must move (weights,
+    the ring, the recurrent state and conv history read and written), the
+    device's idle share, and decode against one ``forward`` over the same
+    tokens (not gated: the ring of PROMPT slots has dropped position 0 at
+    the first step, which the window of 2048 keeps). Then the hybrid beside
+    the live set served at 150% oversubscription (:func:`serve_slice`).
+    Returns the path's launches (the served run's included), its calls and
+    its tensor-core launches."""
+    from repro_torch.core.runtime import flatten
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+
+    cfg = hybrid_config()
+    n_rec, n_attn = layer_counts(cfg)
+    d, hd, V = cfg.d_model, cfg.resolved_head_dim(), cfg.vocab_size
+    fns = build_model(cfg)
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    total = [{name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS}]
+
+    def gated(what, path, run, count=True):
+        torch.cuda.synchronize(dev)
+        zero_launches()
+        out = run()
+        torch.cuda.synchronize(dev)
+        launches, wgmma = read_launches(), read_wgmma()
+        want, want_wgmma = step_launches(cfg, path), step_wgmma(cfg, path)
+        if launches != want or wgmma != want_wgmma:
+            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}; want {want}, {want_wgmma}")
+        if count:
+            add(launches, 1, wgmma)
+        return out, launches, wgmma
+
+    def add(launches, steps, wgmma):
+        total[0] = {k: total[0][k] + launches[k] for k in total[0]}
+        total[1] += steps
+        total[2] = {k: total[2][k] + wgmma[k] for k in total[2]}
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = fns.init(torch.Generator(dev).manual_seed(1200))
+        prompts = torch.randint(1, V, (DECODE_B, PROMPT), device=dev,
+                                generator=torch.Generator(dev).manual_seed(1300))
+        torch.cuda.synchronize(dev)
+        leaves = flatten(params)
+        weight_bytes = sum(t.nbytes for _, t in leaves)
+        log(f"hybrid {HYBRID_ARCH}: {cfg.num_layers} layers ({n_rec} recurrent, {n_attn} local attention, window "
+            f"{cfg.rglru.window}), d {d}, H {cfg.num_heads}, Hkv {cfg.num_kv_heads}, D {hd}, V {V}; {weight_bytes} B "
+            f"of weights, set-up {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card")
+
+        t0 = time.perf_counter()
+        (logits, cache), launches, wgmma = gated(
+            f"{HYBRID_ARCH} prefill", "prefill", lambda: prefill_step(params, {"tokens": prompts}, max_seq=DECODE_SMAX))
+        prefill_s = time.perf_counter() - t0
+        w = cache["k"].shape[2]
+        if w != min(cfg.rglru.window, PROMPT) or cache["host_index"] != PROMPT:
+            raise AssertionError(f"{HYBRID_ARCH}: ring of {w} slots, index {cache['host_index']}")
+        # the prefill's least time: its operations at the bf16 rate (every
+        # projection at M = DECODE_B x PROMPT, the causal pairs inside the
+        # window, the LM head on the last position) or its weight bytes
+        # (every leaf but the embedding table), the larger
+        n_tok = DECODE_B * PROMPT
+        proj = sum(t.numel() for p, t in leaves if t.dim() == 3 and not p.endswith("conv_w"))
+        ops = 2 * n_tok * proj + 2 * DECODE_B * d * V
+        ops += n_attn * 4 * DECODE_B * cfg.num_heads * hd * attention_pairs(PROMPT, PROMPT, True, cfg.rglru.window)
+        t_ops = ops / PEAK_OPS["torch.bfloat16"] * 1e3
+        t_bytes = (weight_bytes - params["head"]["embed"].nbytes) / HBM_BYTES_PER_S * 1e3
+        prefill_bound, prefill_kind = max((t_ops, "operations"), (t_bytes, "bytes"))
+        log(f"  prefill {DECODE_B} x {PROMPT} tokens: {1e3 * prefill_s:.3f} ms, {n_tok / prefill_s:.1f} tokens/s, "
+            f"bound {prefill_bound:.3f} ms ({prefill_kind}; operations {t_ops:.3f} ms, weight bytes {t_bytes:.3f} ms); "
+            f"launches {launches}, tensor-core {wgmma}; ring of {w} slots")
+
+        outs, fed, step_s = [logits], [], []
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for i in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            (logits, cache), _, _ = gated(f"{HYBRID_ARCH} decode step {i}", "decode",
+                                          lambda: serve_step(params, cache, {"tokens": tok}))
+            step_s.append(time.perf_counter() - t0)
+            fed.append(tok)
+            outs.append(logits)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        if int(cache["index"]) != DECODE_SMAX or cache["host_index"] != DECODE_SMAX:
+            raise AssertionError(f"{HYBRID_ARCH}: index {int(cache['index'])} != {DECODE_SMAX}")
+        decoded = torch.cat(outs, dim=1).float()
+        if not torch.isfinite(decoded).all():
+            raise AssertionError(f"{HYBRID_ARCH}: decode logits not finite")
+        # a step reads every weight but the embedding table (DECODE_B rows of
+        # it), the ring's valid k/v (full: w slots) and writes one slot, reads
+        # and writes the recurrent state (f32) and the conv history
+        elem = cache["k"].element_size()
+        ring = 2 * n_attn * DECODE_B * (w + 1) * cfg.num_kv_heads * hd * elem
+        state = 2 * (cache["h"].nbytes + cache["conv"].nbytes)
+        step_bytes = weight_bytes - params["head"]["embed"].nbytes + DECODE_B * d * elem + ring + state
+        med = statistics.median(step_s)
+        log(f"  decode step median {1e3 * med:.3f} ms (min {1e3 * min(step_s):.3f}, max {1e3 * max(step_s):.3f}), "
+            f"bound {1e3 * step_bytes / HBM_BYTES_PER_S:.3f} ms ({step_bytes} B: weights, ring {ring} B, state and "
+            f"conv {state} B); {DECODE_B / med:.1f} tokens/s at the median")
+
+        full = torch.cat([prompts] + fed, dim=1)
+        t0 = time.perf_counter()
+        ref, _, fwd_wgmma = gated(f"{HYBRID_ARCH} forward", "forward",
+                                  lambda: fns.forward(params, {"tokens": full}), count=False)
+        forward_s = time.perf_counter() - t0
+        ref = ref[:, PROMPT - 1 :].float()
+        rel = rel_l2(decoded, ref)
+        per_step = ((decoded - ref).norm(dim=(0, 2)) / ref.norm(dim=(0, 2))).tolist()
+        del decoded, ref
+        log(f"  decode vs one forward over the same {DECODE_SMAX} tokens ({1e3 * forward_s:.0f} ms; tensor-core "
+            f"{fwd_wgmma}): relative L2 {rel:.3e}, per position first {per_step[0]:.3e}, max {max(per_step):.3e} "
+            f"(reported, not gated: the ring of {w} slots dropped position 0 at the first step, the window of "
+            f"{cfg.rglru.window} keeps it)")
+
+        profile_steps(torch, dev, f"{HYBRID_ARCH} prefill",
+                      lambda i: prefill_step(params, {"tokens": prompts}, max_seq=DECODE_SMAX), prefill_s, n=1)
+        state_ = {"cache": cache}
+
+        def step(i):  # a ring never fills: the decode just goes on
+            _, state_["cache"] = serve_step(params, state_["cache"], {"tokens": fed[i]})
+
+        profile_steps(torch, dev, f"{HYBRID_ARCH} decode", step, med)
+        result = {"prefill_ms": 1e3 * prefill_s, "prefill_bound_ms": prefill_bound, "prefill_bound_by": prefill_kind,
+                  "decode_median_ms": 1e3 * med, "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+                  "decode_vs_forward_rel_l2": rel}
+        del params, cache, state_, outs, fed, logits, leaves, prompts, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the hybrid as a live task beside the live set: the footprint over 1.5
+    # must hold the hybrid's own pages (20.9 GB), which the live set alone
+    # (14.2 GB) would not
+    torch.cuda.synchronize(dev)
+    launches, steps, wgmma = serve_slice(torch, dev, ARCHS + [HYBRID_ARCH], "hybrid serve")
+    add(launches, steps, wgmma)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, steps, wgmma = total
+    log(f"hybrid path: launches {launches} over {steps} calls, tensor-core {wgmma}")
+    return (launches, steps, wgmma), result
 
 
 def kernel_bench_path(torch, dev):

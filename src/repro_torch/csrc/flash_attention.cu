@@ -38,14 +38,15 @@
 //    an H100 (chip_smoke.py gates it at 1e-2).
 //  * simt (f32, the one-token live call, other head dims, Sq > Skv): a block
 //    owns 64 rows and walks KV tiles of 32 positions through shared memory in
-//    plain f32 arithmetic, 16 x 16 threads.
+//    plain f32 arithmetic, 16 x 16 threads. Its tiles are sized for D <= 128
+//    or D <= 256 (recurrentgemma's head dim), a template argument chosen by D.
 // Masking keeps the reference's finite sentinel -1e30 and max(l, 1e-30): a
 // window can mask every column of a row's first tile, where -inf would give
 // exp(-inf + inf) = NaN; with -1e30 the next visible score rescales that tile
 // away. Columns past Skv are -inf and contribute exactly 0. When Sq <= Skv
 // every row sees at least one key, so tiles that the causal or window mask
 // hides from every row of the block are skipped: that changes only speed.
-// Both routes are deterministic (no atomics). Any Sq and Skv; D <= 128.
+// Both routes are deterministic (no atomics). Any Sq and Skv; D <= 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,7 +59,7 @@ namespace {
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kRows = 64;      // rows (query position x group head) per block
 constexpr int kCols = 32;      // KV positions per tile
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;     // the simt route's widest head; its blocks come in 128 and 256
 constexpr float kNegInf = -1e30f;  // the reference's masked-score sentinel
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -66,24 +67,32 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-constexpr size_t kSmemFloats =
-    kRows * kMaxD            // q tile, pre-scaled
-    + kCols * (kMaxD + 1)    // k tile (+1 pad: threads read different rows)
-    + kCols * kMaxD          // v tile
-    + kRows * (kCols + 1)    // scores, then probabilities
-    + 3 * kRows;             // running max, denominator, rescale factor
+// Shared memory of a simt block whose head dims go up to MD: 74,880 bytes at
+// MD = 128, 140,416 at MD = 256 (above 48 KB, so both opt in through
+// hopper::allow_smem; one block of 256 threads an SM at 256).
+template <int MD>
+constexpr size_t smem_floats() {
+  return kRows * MD            // q tile, pre-scaled
+         + kCols * (MD + 1)    // k tile (+1 pad: threads read different rows)
+         + kCols * MD          // v tile
+         + kRows * (kCols + 1) // scores, then probabilities
+         + 3 * kRows;          // running max, denominator, rescale factor
+}
 
 // q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D); o like q. grid = (B*Hkv, ceil(Sq*g/64)).
-template <typename T>
+// MD (128 or 256) bounds D: a thread holds head dims tx + 16c, c < MD / 16. D
+// <= 128 takes MD = 128, the code and the bits it always had.
+template <typename T, int MD>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int Sq, int Skv, int H, int Hkv, int D, float scale,
           int causal, int window, int skip_ok) {
+  constexpr int kAcc = MD / 16;  // head dims a thread accumulates
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + kRows * kMaxD;
-  float* vs = ks + kCols * (kMaxD + 1);
-  float* ps = vs + kCols * kMaxD;
+  float* ks = qs + kRows * MD;
+  float* vs = ks + kCols * (MD + 1);
+  float* ps = vs + kCols * MD;
   float* row_m = ps + kRows * (kCols + 1);
   float* row_l = row_m + kRows;
   float* row_alpha = row_l + kRows;
@@ -105,7 +114,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int s = r / g, h = kvh * g + r % g;
       val = to_float(q[(((size_t)b * Sq + s) * H + h) * D + d]) * scale;
     }
-    qs[i * kMaxD + d] = val;
+    qs[i * MD + d] = val;
   }
   if (tid < kRows) {
     row_m[tid] = kNegInf;
@@ -121,11 +130,11 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     if (window > 0) t_begin = (max(0, s_lo - window + 1) / kCols) * kCols;
   }
 
-  float acc[4][8];
+  float acc[4][kAcc];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < kAcc; ++c) acc[a][c] = 0.f;
 
   for (int t0 = t_begin; t0 < t_end; t0 += kCols) {
     __syncthreads();  // q tile and stats written; previous tile fully consumed
@@ -138,8 +147,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         kv = to_float(k[off]);
         vv = to_float(v[off]);
       }
-      ks[j * (kMaxD + 1) + d] = kv;
-      vs[j * kMaxD + d] = vv;
+      ks[j * (MD + 1) + d] = kv;
+      vs[j * MD + d] = vv;
     }
     __syncthreads();
 
@@ -148,9 +157,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int d = 0; d < D; ++d) {
       float qa[4], kb[2];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * kMaxD + d];
+      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * MD + d];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) kb[c] = ks[(tx + 16 * c) * (kMaxD + 1) + d];
+      for (int c = 0; c < 2; ++c) kb[c] = ks[(tx + 16 * c) * (MD + 1) + d];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -204,13 +213,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int i = ty + 16 * a;
       const float alpha = row_alpha[i];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[a][c] *= alpha;
+      for (int c = 0; c < kAcc; ++c) acc[a][c] *= alpha;
       for (int j = 0; j < kCols; ++j) {
         const float p = ps[i * (kCols + 1) + j];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+        for (int c = 0; c < kAcc; ++c) {
           const int d = tx + 16 * c;
-          if (d < D) acc[a][c] = fmaf(p, vs[j * kMaxD + d], acc[a][c]);
+          if (d < D) acc[a][c] = fmaf(p, vs[j * MD + d], acc[a][c]);
         }
       }
     }
@@ -226,7 +235,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const float inv = 1.f / fmaxf(row_l[i], 1e-30f);
     T* out = o + (((size_t)b * Sq + s) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < kAcc; ++c) {
       const int d = tx + 16 * c;
       if (d < D) store(out + d, acc[a][c] * inv);
     }
@@ -528,24 +537,32 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
-        int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = kSmemFloats * sizeof(float);
+template <typename T, int MD>
+int run_md(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
+           int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
+  const size_t smem = smem_floats<MD>() * sizeof(float);
   static std::atomic<uint32_t> smem_set{0};
-  const int err = hopper::allow_smem(fa_kernel<T>, static_cast<int>(smem), smem_set);
+  const int err = hopper::allow_smem(fa_kernel<T, MD>, static_cast<int>(smem), smem_set);
   if (err != 0) return err;
   const int g = H / Hkv;
   dim3 grid(B * Hkv, (Sq * g + kRows - 1) / kRows);
-  fa_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fa_kernel<T, MD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Skv, H, Hkv, D, scale, causal, window, Sq <= Skv ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int run(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
+        int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
+  if (D <= 128)
+    return run_md<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, D, scale, causal, window, stream);
+  return run_md<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, D, scale, causal, window, stream);
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
+// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o share it). D <= 256.
 // window = 0: no window. route: 0 = simt, 1 = wgmma (bfloat16, D = 64 or
 // 128, Sq <= Skv, Sq * H / Hkv >= 64, q, k, v 16-byte aligned); anything
 // else is refused. `sms`: the device's SM count, the wgmma route's most

@@ -34,8 +34,15 @@
 // empty (length 0) gives acc / max(l, 1e-30) = 0, as the Pallas kernel does.
 // No atomics: the split count and every merge order depend on shapes only,
 // so a call gives the same bits on every run.
+// Head dims up to 256 (recurrentgemma) take a second instance of the kernel,
+// MD = 256: a warp covers a row (bf16), or each lane holds two 16-byte
+// vectors of it, 128 dims apart (f32); a block then serves at most 4 query
+// heads (g = 16 in 4 chunks), so that a lane's q, accumulators and loads in
+// flight stay in registers and the warps' accumulators (8 x 4 x 256 f32) in
+// 32 KB of static shared memory. D <= 128 keeps MD = 128, the code and the
+// bits it always had.
 // Any page_tokens, any lengths (clamped to the table's max_pages * page_tokens
-// slots); head dim D <= 128; f32 and bf16.
+// slots); head dim D <= 256; f32 and bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,8 +55,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpTile = 8;                  // tokens a warp takes of a tile
 constexpr int kTile = kWarps * kWarpTile;     // tokens a block walks per tile
-constexpr int kMaxD = 128;
-constexpr int kMaxG = 8;                      // query heads per block
+constexpr int kMaxD = 256;
+constexpr int kMaxG = 8;                      // query heads per block (4 at D > 128)
 constexpr int kMaxSplitPages = 64;            // page ids a block holds (pa_splits caps pps)
 constexpr float kNegInf = -1e30f;             // the reference's masked-score sentinel
 constexpr float kLog2e = 1.4426950408889634f;
@@ -86,18 +93,22 @@ __device__ __forceinline__ void unpack(uint4 u, float (&f)[8]) {
 
 // q: (B, H, D); pool_k, pool_v: (n_pages, pt, Hkv, D); page_table: (B, max_pages)
 // int32; lengths: (B,) int32; o like q; work: (B, H, splits, D + 2) f32 when
-// splits > 1, else unused. grid = (splits, Hkv * ceil(g / G), B).
-template <typename T, int G, bool kVec>
+// splits > 1, else unused. grid = (splits, Hkv * ceil(g / G), B). MD (128 or
+// 256) bounds D.
+template <typename T, int G, bool kVec, int MD>
 __global__ void __launch_bounds__(kThreads)
 pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                 const T* __restrict__ pool_v, const int* __restrict__ page_table,
                 const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ work,
                 int H, int Hkv, int D, int pt, int max_pages, int pps, float scale) {
-  constexpr int V = 16 / sizeof(T);           // head dims a lane holds
-  constexpr int LPR = kMaxD / V;              // lanes across one row
+  constexpr int V = 16 / sizeof(T);           // head dims of one 16-byte vector
+  constexpr int VPR = MD / V;                 // vectors across one row
+  constexpr int NV = VPR > 32 ? VPR / 32 : 1; // vectors of a row a lane holds, LPR * V dims apart
+  constexpr int LPR = VPR / NV;               // lanes across one row
   constexpr int RPW = 32 / LPR;               // rows a warp loads at once
-  constexpr int U = kWarpTile / RPW;          // loads of K (and of V) a lane has in flight
-  __shared__ float acc_s[kWarps][G][kMaxD];
+  constexpr int U = kWarpTile / RPW;          // rows of K (and of V) a lane has in flight
+  constexpr int E = NV * V;                   // head dims a lane holds
+  __shared__ float acc_s[kWarps][G][MD];
   __shared__ float m_s[kWarps][G];
   __shared__ float l_s[kWarps][G];
   __shared__ int pages_s[kMaxSplitPages];
@@ -140,51 +151,63 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   for (int i = threadIdx.x; i < n_pages; i += kThreads)
     pages_s[i] = __ldg(page_table + (size_t)b * max_pages + p_begin + i);
 
-  float qv[G][V];
+  float qv[G][E];
 #pragma unroll
   for (int h = 0; h < G; ++h) {
-    float f[V];
-    unpack(h < gb ? load_row<T, false>(q + (head0 + h) * D, d0, D) : make_uint4(0, 0, 0, 0), f);
 #pragma unroll
-    for (int e = 0; e < V; ++e) qv[h][e] = f[e] * scale * kLog2e;
+    for (int n = 0; n < NV; ++n) {
+      float f[V];
+      unpack(h < gb ? load_row<T, false>(q + (head0 + h) * D, d0 + n * LPR * V, D) : make_uint4(0, 0, 0, 0), f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) qv[h][n * V + e] = f[e] * scale * kLog2e;
+    }
   }
-  float m[G], l[G], acc[G][V];
+  float m[G], l[G], acc[G][E];
 #pragma unroll
   for (int h = 0; h < G; ++h) {
     m[h] = kNegInf;
     l[h] = 0.f;
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[h][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[h][e] = 0.f;
   }
   __syncthreads();
 
   for (int base = t_begin + warp * kWarpTile; base < t_end; base += kTile) {
     // every K and V load of the warp's tile, then the math
-    uint4 kr[U], vr[U];
+    uint4 kr[U][NV], vr[U][NV];
     bool valid[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = base + u * RPW + r;
       valid[u] = t < t_end;
-      if (valid[u]) {
-        const int page = pages_s[t / pt - p_begin];
-        const size_t row = (((size_t)page * pt + t % pt) * Hkv + kvh) * D;
-        kr[u] = load_row<T, kVec>(pool_k + row, d0, D);
-        vr[u] = load_row<T, kVec>(pool_v + row, d0, D);
-      } else {
-        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        if (valid[u]) {
+          const int page = pages_s[t / pt - p_begin];
+          const size_t row = (((size_t)page * pt + t % pt) * Hkv + kvh) * D;
+          kr[u][n] = load_row<T, kVec>(pool_k + row, d0 + n * LPR * V, D);
+          vr[u][n] = load_row<T, kVec>(pool_v + row, d0 + n * LPR * V, D);
+        } else {
+          kr[u][n] = vr[u][n] = make_uint4(0, 0, 0, 0);
+        }
       }
     }
     float s[G][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[V];
-      unpack(kr[u], kf);
+      float kf[E];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        float f[V];
+        unpack(kr[u][n], f);
+#pragma unroll
+        for (int e = 0; e < V; ++e) kf[n * V + e] = f[e];
+      }
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         float part = 0.f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) part = fmaf(qv[h][e], kf[e], part);
+        for (int e = 0; e < E; ++e) part = fmaf(qv[h][e], kf[e], part);
 #pragma unroll
         for (int off = LPR / 2; off > 0; off /= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
         s[h][u] = valid[u] ? part : kNegInf;
@@ -209,16 +232,22 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       l[h] = fmaf(l[h], alpha, lsum);
       m[h] = mx;
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[h][e] *= alpha;
+      for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float vf[V];
-      unpack(vr[u], vf);
+      float vf[E];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        float f[V];
+        unpack(vr[u][n], f);
+#pragma unroll
+        for (int e = 0; e < V; ++e) vf[n * V + e] = f[e];
+      }
 #pragma unroll
       for (int h = 0; h < G; ++h)
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[h][e] = fmaf(s[h][u], vf[e], acc[h][e]);
+        for (int e = 0; e < E; ++e) acc[h][e] = fmaf(s[h][u], vf[e], acc[h][e]);
     }
   }
 
@@ -230,11 +259,13 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     for (int off = 16; off >= LPR; off /= 2) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], off);
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], off);
+      for (int e = 0; e < E; ++e) acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], off);
     }
     if (r == 0) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc_s[warp][h][d0 + e] = acc[h][e];
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc_s[warp][h][d0 + n * LPR * V + e] = acc[h][n * V + e];
     }
     if (lane == 0) {
       m_s[warp][h] = m[h];
@@ -268,9 +299,9 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 }
 
 // o[bh, d] = the splits of row bh merged in split order. grid = B * H,
-// block = kMaxD threads.
-template <typename T>
-__global__ void __launch_bounds__(kMaxD)
+// block = MD threads (MD >= D: 128 or 256).
+template <typename T, int MD>
+__global__ void __launch_bounds__(MD)
 pa_merge_kernel(const float* __restrict__ work, T* __restrict__ o, int D, int splits) {
   const int d = threadIdx.x;
   const float* w = work + (size_t)blockIdx.x * splits * (D + 2);
@@ -286,7 +317,7 @@ pa_merge_kernel(const float* __restrict__ work, T* __restrict__ o, int D, int sp
   if (d < D) store(o + (size_t)blockIdx.x * D + d, a / fmaxf(lsum, 1e-30f));
 }
 
-template <typename T, int G>
+template <typename T, int G, int MD>
 int launch_g(const void* q, const void* k, const void* v, const int* table, const int* lens,
              void* o, float* work, int B, int H, int Hkv, int D, int pt, int max_pages,
              int splits, float scale, cudaStream_t stream) {
@@ -300,35 +331,42 @@ int launch_g(const void* q, const void* k, const void* v, const int* table, cons
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   if (vec)
-    pa_split_kernel<T, G, true><<<grid, kThreads, 0, stream>>>(
+    pa_split_kernel<T, G, true, MD><<<grid, kThreads, 0, stream>>>(
         qt, kt, vt, table, lens, ot, work, H, Hkv, D, pt, max_pages, pps, scale);
   else
-    pa_split_kernel<T, G, false><<<grid, kThreads, 0, stream>>>(
+    pa_split_kernel<T, G, false, MD><<<grid, kThreads, 0, stream>>>(
         qt, kt, vt, table, lens, ot, work, H, Hkv, D, pt, max_pages, pps, scale);
-  if (splits > 1) pa_merge_kernel<T><<<B * H, kMaxD, 0, stream>>>(work, ot, D, splits);
+  if (splits > 1) pa_merge_kernel<T, MD><<<B * H, MD, 0, stream>>>(work, ot, D, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// G: g itself up to 4 (llama3.2's 3 included), else 8 (g > 8 in chunks of 8).
+// G: g itself up to 4 (llama3.2's 3 included), else 8 (g > 8 in chunks of 8)
+// for D <= 128; at most 4 (g > 4 in chunks of 4) for D <= 256.
 template <typename T>
 int run(const void* q, const void* k, const void* v, const int* table, const int* lens, void* o,
         float* work, int B, int H, int Hkv, int D, int pt, int max_pages, int splits, float scale,
         cudaStream_t s) {
   const int g = H / Hkv;
-#define PA_LAUNCH(GG) \
-  launch_g<T, GG>(q, k, v, table, lens, o, work, B, H, Hkv, D, pt, max_pages, splits, scale, s)
-  if (g == 1) return PA_LAUNCH(1);
-  if (g == 2) return PA_LAUNCH(2);
-  if (g == 3) return PA_LAUNCH(3);
-  if (g == 4) return PA_LAUNCH(4);
-  return PA_LAUNCH(kMaxG);
+#define PA_LAUNCH(GG, MD) \
+  launch_g<T, GG, MD>(q, k, v, table, lens, o, work, B, H, Hkv, D, pt, max_pages, splits, scale, s)
+  if (D > 128) {
+    if (g == 1) return PA_LAUNCH(1, 256);
+    if (g == 2) return PA_LAUNCH(2, 256);
+    if (g == 3) return PA_LAUNCH(3, 256);
+    return PA_LAUNCH(4, 256);
+  }
+  if (g == 1) return PA_LAUNCH(1, 128);
+  if (g == 2) return PA_LAUNCH(2, 128);
+  if (g == 3) return PA_LAUNCH(3, 128);
+  if (g == 4) return PA_LAUNCH(4, 128);
+  return PA_LAUNCH(kMaxG, 128);
 #undef PA_LAUNCH
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, the pools and o share it);
-// page_table and lengths are int32. `splits` cuts each row's pages into runs
+// page_table and lengths are int32; D <= 256. `splits` cuts each row's pages into runs
 // of ceil(max_pages / splits) <= 64 pages; splits > 1 needs a float32
 // workspace of B * H * splits * (D + 2). Returns cudaGetLastError() after the
 // launches.

@@ -9,9 +9,9 @@ The kernel replaces the JAX package's ``flash_attention``
 (``src/repro/kernels/flash_attention/kernel.py:79``). At prefill it is bound
 by the bf16 tensor-core rate; :func:`fa_route` sends those calls to the
 ``wgmma`` route (TMA-fed K/V tiles, wgmma for both products, P rounded to
-bf16) and everything else (f32, the one-token live call, other head dims,
-Sq > Skv) to the f32 ``simt`` route. The route is a rule of dtype and shape,
-not a fallback: a route that fails raises.
+bf16) and everything else (f32, the one-token live call, other head dims
+up to MAX_HEAD_DIM, Sq > Skv) to the f32 ``simt`` route. The route is a rule
+of dtype and shape, not a fallback: a route that fails raises.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # the simt route; the wgmma route takes WGMMA_HEAD_DIMS
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_MIN_ROWS = 64  # folded rows (Sq x group heads): one consumer warpgroup's tile
 ROUTE_CODES = {"simt": 0, "wgmma": 1}  # the C entry point's route argument

@@ -4,7 +4,7 @@ A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``paged_attention.launches``
 counts the wrapper's calls on the card: a call is one kernel launch when
 :func:`pa_splits` gives one split, else two (the split kernel and the merge
-of the splits).
+of the splits). Head dims up to MAX_HEAD_DIM.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 PA_BLOCKS_PER_SM = 2  # blocks of (row, KV head, run) the rule aims for on each SM
 PA_MAX_SPLIT_PAGES = 64  # page ids one block holds (kMaxSplitPages)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

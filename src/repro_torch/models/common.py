@@ -183,7 +183,9 @@ def attend(
         kv_positions = torch.arange(skv, dtype=torch.int32, device=q.device).expand(b, skv)
 
     def block(qb, qpos_b):
-        scores = gqa_scores_einsum(qb * scale, k)  # (B, H, sb, Skv)
+        # (B, H, sb, Skv) in f32, as the reference's: its scale is a NumPy
+        # float64, which is not weakly typed, so JAX computes q * scale in f32
+        scores = gqa_scores_einsum(qb.float() * scale, k.float())
         valid = (kv_positions >= 0)[:, None, None, :]
         if causal:
             mask = qpos_b[:, None, :, None] >= kv_positions[:, None, None, :]

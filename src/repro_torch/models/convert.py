@@ -26,11 +26,12 @@ def params_from_reference(tree):
 
 
 def cache_from_reference(cache):
-    """A reference decode cache (``{"k", "v", "index"}`` of the dense family
-    or ``{"state", "conv", "index"}`` of the SSM family, numpy arrays) as the
-    port's: tensors of the same shapes and dtypes, ``index`` a 0-d int32
-    tensor and ``host_index`` its value as an int. On the CPU; move the
-    tensors with ``.to`` where needed."""
+    """A reference decode cache (``{"k", "v", "index"}`` of the attention
+    families, ``{"state", "conv", "index"}`` of the SSM family or ``{"h",
+    "conv", "k", "v", "index"}`` of the hybrid, its k/v rings in ring order;
+    numpy arrays) as the port's: tensors of the same shapes and dtypes,
+    ``index`` a 0-d int32 tensor and ``host_index`` its value as an int. On
+    the CPU; move the tensors with ``.to`` where needed."""
     index = int(np.asarray(cache["index"]))
     out = {key: to_tensor(val) for key, val in cache.items() if key != "index"}
     out["index"] = torch.tensor(index, dtype=torch.int32)

@@ -9,7 +9,8 @@ builds with ``vmap``. Every ``x @ W`` is the ``stream_matmul`` kernel on a 2-D
 ``paged_attention`` kernel. The MoE layer (grok-1-314b, arctic-480b with its
 dense residual) dispatches tokens into expert slots as the reference does and
 runs the expert products through ``stream_matmul``'s expert-batched form. The
-ring/window caches of the hybrid family are not ported yet (ROADMAP.md).
+hybrid family's local-attention layers decode against a ring of ``w`` slots
+(``ring=True``), still through ``paged_attention``.
 """
 from __future__ import annotations
 
@@ -110,15 +111,19 @@ def kv_page_tokens(smax: int) -> int:
     return pt
 
 
-def kv_pages(index, batch: int, smax: int):
+def kv_pages(index, batch: int, smax: int, ring: bool = False):
     """The page-pool view of a layer's cache of ``smax`` slots at decode
     position ``index`` (0-d int32 tensor): the write slot (a 1-element int64
     tensor), the page table (B, Smax / pt) int32, row b owning pages
     ``b * P .. b * P + P - 1`` of :func:`kv_page_tokens` slots, and the lengths
-    ``index + 1`` (B,) int32. Every layer of a step shares it. Nothing here
+    ``index + 1`` (B,) int32. With ``ring``, the cache is a ring of ``smax``
+    slots: the write slot is ``index % smax`` and the lengths
+    ``min(index + 1, smax)``. Every layer of a step shares it. Nothing here
     waits for the device."""
     n = smax // kv_page_tokens(smax)
     table = torch.arange(batch * n, dtype=torch.int32, device=index.device).reshape(batch, n)
+    if ring:
+        return (index % smax).reshape(1).long(), table, (index.expand(batch) + 1).clamp(max=smax)
     return index.reshape(1).long(), table, index.expand(batch) + 1
 
 
@@ -140,25 +145,37 @@ def attention_decode(
 
     k_cache/v_cache: (B, Smax, Hkv, Dh); index: 0-d int32 tensor on their
     device (the current position, the same for every row); positions: (B, 1);
-    positions3: (3, B, 1) for M-RoPE; pages: :func:`kv_pages` of ``index``, built here when not given.
-    The JAX function is pure and returns new caches; this one writes k/v at
-    slot ``index`` into ``k_cache``/``v_cache`` themselves, so that a step
-    copies no cache, and returns them. Attention then views the cache as a
-    pool of ``B * Smax / pt`` pages and reads the first ``index + 1`` slots of
-    each row through ``paged_attention``. The caller checks ``index < Smax``
-    (``decode_step`` does, on the host copy the cache carries); past it, the
-    write's own bounds check fails (IndexError on the CPU, a device-side
-    assertion on CUDA) where the reference's ``dynamic_update_slice`` clamps
-    and overwrites the last slot. Ring buffers and windows (the hybrid family)
-    are not ported yet.
+    positions3: (3, B, 1) for M-RoPE; pages: :func:`kv_pages` of ``index``
+    (and ``ring``), built here when not given. The JAX function is pure and
+    returns new caches; this one writes k/v at the write slot into
+    ``k_cache``/``v_cache`` themselves, so that a step copies no cache, and
+    returns them. Attention then views the cache as a pool of ``B * Smax /
+    pt`` pages and reads the first ``lengths`` slots of each row through
+    ``paged_attention``.
+
+    A plain cache is written at slot ``index``. The caller checks ``index <
+    Smax`` (``decode_step`` does, on the host copy the cache carries); past
+    it, the write's own bounds check fails (IndexError on the CPU, a
+    device-side assertion on CUDA) where the reference's
+    ``dynamic_update_slice`` clamps and overwrites the last slot.
+
+    With ``ring=True`` the cache is a ring of Smax slots (the hybrid's local
+    attention), written at slot ``index % Smax`` before attending, as the
+    reference does. Its valid slots are then exactly the first ``min(index +
+    1, Smax)``, and with Smax <= ``window`` every one of them lies inside the
+    window, so the kernel needs no window: softmax does not depend on the
+    order of the slots. A ring wider than ``window``, and a window over a
+    plain cache, would need slots that are not a prefix: they raise
+    ValueError (no path of either package builds them).
     """
-    if ring or window is not None:
-        raise NotImplementedError(
-            "attention_decode: ring and window caches come with the hybrid family (ROADMAP.md §1)"
+    if window is not None and not (ring and k_cache.shape[1] <= window):
+        raise ValueError(
+            f"attention_decode: a window of {window} needs a ring of at most that many slots "
+            f"(ring={ring}, {k_cache.shape[1]} slots)"
         )
     q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     b, smax, hkv, hd = k_cache.shape
-    slot, table, lengths = pages if pages is not None else kv_pages(index, b, smax)
+    slot, table, lengths = pages if pages is not None else kv_pages(index, b, smax, ring)
     k_cache.index_copy_(1, slot, k)
     v_cache.index_copy_(1, slot, v)
     pt = kv_page_tokens(smax)

@@ -1,5 +1,6 @@
 """Model assembly for the attention families (dense, tied or not; MoE; VLM;
-the audio encoder) and the SSM family, with the reference's contract:
+the audio encoder), the SSM family and the hybrid family, with the
+reference's contract:
 
   init(generator)                     -> params
   forward(params, batch)              -> logits (B, S, V)
@@ -23,8 +24,10 @@ conv_dim), each with a 0-d int32 ``index``; ``prefill`` and ``decode_step``
 write into it in place. It also carries ``host_index``, the same position as
 a Python int, so that a step checks its bounds without waiting for the
 device. An MoE layer (``cfg.moe``) holds ``moe`` where a dense one holds
-``mlp``. ``loss`` (and with it MoE's load-balance term) and the hybrid family
-are not ported yet (ROADMAP.md §1).
+``mlp``. The hybrid family (recurrentgemma) holds ``rec_layers`` and
+``attn_layers``, each stacked, and a cache of ``{"h", "conv", "k", "v"}``
+whose k/v are rings of ``w`` slots. ``loss`` (and with it MoE's
+load-balance term) is not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, ssm
+from repro_torch.models import common, rglru, ssm
 from repro_torch.models.common import resolve_device, rms_norm
 from repro_torch.models.layers import (
     attention_apply,
@@ -285,10 +288,162 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
     return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
 
 
+def _hybrid_counts(cfg: ModelConfig):
+    kinds = cfg.layer_kinds()
+    n_rec = sum(1 for k in kinds if k == "rec")
+    n_attn = sum(1 for k in kinds if k == "attn")
+    pat = cfg.rglru.pattern
+    n_groups = cfg.num_layers // len(pat)
+    n_rem = cfg.num_layers - n_groups * len(pat)
+    return kinds, n_rec, n_attn, n_groups, n_rem
+
+
+def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
+    """recurrentgemma: the reference's ``_hybrid_fns``. ``n_groups`` groups of
+    (rec, rec, attn) layers, then ``n_rem`` trailing recurrent layers; params
+    ``{"head", "rec_layers", "attn_layers"}``, each stack on its own leading
+    axis (recurrent layer 2g and 2g + 1 and attention layer g make group g).
+    The attention layers are local (``cfg.rglru.window``); their decode cache
+    is a ring of ``w = min(window, S)`` slots after a prefill of S tokens, as
+    the reference sizes it (``max_seq`` is not read), and the recurrent
+    layers carry ``h`` (f32) and the last ``conv_width - 1`` conv inputs."""
+    _, n_rec, n_attn, n_groups, n_rem = _hybrid_counts(cfg)
+    assert cfg.rglru.pattern == ("rec", "rec", "attn")
+    window = cfg.rglru.window
+    width = cfg.rglru.conv_width
+    hd = cfg.resolved_head_dim()
+
+    def init(gen: torch.Generator):
+        dev = gen.device
+        return {
+            "head": _init_head(gen, cfg),
+            "rec_layers": {
+                "norm": init_norm(cfg, (n_rec,), dev),
+                "rec": rglru.init_rec_block(gen, cfg, (n_rec,)),
+                "mlp_norm": init_norm(cfg, (n_rec,), dev),
+                "mlp": init_mlp(gen, cfg, (n_rec,)),
+            },
+            "attn_layers": {
+                "norm": init_norm(cfg, (n_attn,), dev),
+                "attn": init_attention(gen, cfg, (n_attn,)),
+                "mlp_norm": init_norm(cfg, (n_attn,), dev),
+                "mlp": init_mlp(gen, cfg, (n_attn,)),
+            },
+        }
+
+    def _mlp(lp, x):
+        return x + mlp_apply(lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
+
+    def _rec_apply(lp, x):
+        """A recurrent layer over the sequence: (x, h_last, the conv tail)."""
+        h = rms_norm(x, lp["norm"], cfg.norm_eps)
+        out, h_new, xr = rglru.rec_block_with_input(lp["rec"], h, cfg)
+        return _mlp(lp, x + out), h_new, xr[:, -(width - 1) :]
+
+    def _attn_apply(lp, x, positions):
+        h = rms_norm(x, lp["norm"], cfg.norm_eps)
+        out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, window=window)
+        return _mlp(lp, x + out), kv
+
+    def _order():
+        """The layers in the order they run: ("rec", i) or ("attn", g)."""
+        for g in range(n_groups):
+            yield from (("rec", 2 * g), ("rec", 2 * g + 1), ("attn", g))
+        for i in range(n_rem):
+            yield "rec", 2 * n_groups + i
+
+    def _run_full(params, tokens, cache=None):
+        """The layer stack over the whole sequence; with ``cache``, each
+        recurrent layer's state and conv tail and each attention layer's last
+        ``w`` k/v, in ring order, are written into it."""
+        x = params["head"]["embed"][tokens]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        for kind, i in _order():
+            if kind == "rec":
+                x, h, tail = _rec_apply(_layer_view(params["rec_layers"], i), x)
+                if cache is not None:
+                    cache["h"][i] = h
+                    cache["conv"][i] = tail
+            else:
+                x, kv = _attn_apply(_layer_view(params["attn_layers"], i), x, positions)
+                if cache is not None:
+                    w = cache["k"].shape[2]
+                    for key, t in zip(("k", "v"), kv):  # the reference's seed_ring
+                        cache[key][i] = torch.roll(t[:, -w:], (s - w) % w, dims=1)
+        return x
+
+    def forward(params, batch):
+        return _logits(params["head"], _run_full(params, batch["tokens"]), cfg)
+
+    def init_cache(batch_size: int, max_seq: int, device="cuda"):
+        dev = resolve_device(device)
+        dt = common.dtype_of(cfg)
+        w = min(window, max_seq)
+        kv = (n_attn, batch_size, w, cfg.num_kv_heads, hd)
+        return {
+            "h": torch.zeros((n_rec, batch_size, cfg.d_model), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((n_rec, batch_size, width - 1, cfg.d_model), dtype=dt, device=dev),
+            "k": torch.zeros(kv, dtype=dt, device=dev),
+            "v": torch.zeros(kv, dtype=dt, device=dev),
+            "index": torch.zeros((), dtype=torch.int32, device=dev),
+            "host_index": 0,
+        }
+
+    def prefill(params, batch, max_seq: Optional[int] = None):
+        """Logits at the last position (B, 1, V) and the decode cache after the
+        prompt: a ring of ``min(window, S)`` slots, as the reference sizes it
+        (``max_seq`` is not read; a prompt shorter than the window gets a ring
+        of S slots, whose first decode step overwrites position 0). Raises
+        ValueError for a prompt shorter than ``conv_width - 1`` tokens: its
+        conv tail would be short, and the reference's decode cannot read the
+        cache the reference builds there."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if s < width - 1:
+            raise ValueError(f"prefill: {cfg.name} needs a prompt of at least {width - 1} tokens, got {s}")
+        cache = init_cache(b, s, tokens.device)
+        x = _run_full(params, tokens, cache)
+        cache["index"].fill_(s)
+        cache["host_index"] = s
+        return _logits(params["head"], x[:, -1:, :], cfg), cache
+
+    def decode_step(params, cache, batch):
+        """One token per row at position ``cache["index"]``: logits (B, 1, V)
+        and the cache, whose state, conv history and k/v rings were updated in
+        place (the returned dict shares them with the one passed in) and whose
+        index is one more. A ring never fills, so there is no bound to check."""
+        x = params["head"]["embed"][batch["tokens"]]
+        b = x.shape[0]
+        index = cache["index"]
+        positions = index.expand(b, 1)
+        pages = kv_pages(index, b, cache["k"].shape[2], ring=True)
+        for kind, i in _order():
+            if kind == "rec":
+                lp = _layer_view(params["rec_layers"], i)
+                h = rms_norm(x, lp["norm"], cfg.norm_eps)
+                out, h_new, conv_new = rglru.rec_block_decode(lp["rec"], h, cache["h"][i], cfg, cache["conv"][i])
+                cache["h"][i] = h_new
+                cache["conv"][i] = conv_new
+                x = _mlp(lp, x + out)
+            else:
+                lp = _layer_view(params["attn_layers"], i)
+                h = rms_norm(x, lp["norm"], cfg.norm_eps)
+                out, _ = attention_decode(
+                    lp["attn"], h, cfg, k_cache=cache["k"][i], v_cache=cache["v"][i],
+                    index=index, positions=positions, window=window, ring=True, pages=pages,
+                )
+                x = _mlp(lp, x + out)
+        logits = _logits(params["head"], x, cfg)
+        return logits, {"h": cache["h"], "conv": cache["conv"], "k": cache["k"], "v": cache["v"],
+                        "index": index + 1, "host_index": cache["host_index"] + 1}
+
+    return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
+
+
 def build_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP.md §1, 'Modules still to port')"
-        )
-    return _ssm_fns(cfg) if cfg.family == "ssm" else _transformer_fns(cfg)
+    if cfg.family == "ssm":
+        return _ssm_fns(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_fns(cfg)
+    return _transformer_fns(cfg)

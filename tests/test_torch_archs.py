@@ -4,9 +4,10 @@ reduced configs: the port's copy of ``tests/models/test_archs_smoke.py``
 (``launch/specs.py``) bit-equal to the reference's, the forward pass in f32
 against the reference's (where no bf16 rounding can hide a difference:
 rtol = atol = 1e-4), the VLM path with temporal positions that are not
-0..S-1, and the tied-embedding model and the two MoE models (grok-1-314b,
-arctic-480b with its dense residual) as live MSched tasks, whose segments
-and decisions must equal the reference's exactly."""
+0..S-1, and the tied-embedding model, the two MoE models (grok-1-314b,
+arctic-480b with its dense residual) and the hybrid (recurrentgemma-9b) as
+live MSched tasks, whose segments and decisions must equal the reference's
+exactly."""
 import dataclasses
 
 import numpy as np
@@ -33,13 +34,14 @@ from repro_torch.models.model import build_model  # noqa: E402
 
 SMOKE = {kind: (ShapeSpec(f"smoke_{kind}", 64, 2, kind), RefShapeSpec(f"smoke_{kind}", 64, 2, kind))
          for kind in ("train", "prefill", "decode")}
-# the archs build_model takes: every family but the hybrid
-PORTED = sorted(a for a, c in ARCHS.items() if c.family in ("dense", "moe", "vlm", "audio", "ssm"))
+# the archs build_model takes: every family
+PORTED = sorted(ARCHS)
 ATTENTION = [a for a in PORTED if ARCHS[a].family != "ssm"]
 F32_TOL = 1e-4
 TOL = 5e-2
 LIVE_SET = ["minicpm-2b", "qwen3-1.7b", "mamba2-1.3b"]  # the tied head beside the live set's two families
 MOE_LIVE_SET = ["grok-1-314b", "arctic-480b", "qwen3-1.7b"]  # the MoE pair beside a dense model
+HYBRID_LIVE_SET = ["recurrentgemma-9b", "qwen3-1.7b", "mamba2-1.3b"]  # the hybrid beside the live set
 
 
 def _f32(cfg):
@@ -56,7 +58,7 @@ def _port_batch(batch):
 
 def test_ported_archs():
     assert PORTED == ["arctic-480b", "grok-1-314b", "hubert-xlarge", "llama3.2-3b", "mamba2-1.3b", "minicpm-2b",
-                      "paper-llama3-8b", "qwen1.5-110b", "qwen2-vl-7b", "qwen3-1.7b"]
+                      "paper-llama3-8b", "qwen1.5-110b", "qwen2-vl-7b", "qwen3-1.7b", "recurrentgemma-9b"]
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -287,4 +289,61 @@ def test_moe_task_step_matches_reference(moe_live_tasks, task):
     for i in range(2):
         got, want = ours[task].run_step(i), ref[task].run_step(i)
         assert tuple(got.shape) == want.shape == (1, 1, ours[task].cfg.vocab_size)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=TOL, atol=TOL)
+
+
+# -- the hybrid as a live MSched task -------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hybrid_live_tasks():
+    ref = [RefTask(i, a, seed=i) for i, a in enumerate(HYBRID_LIVE_SET)]
+    ours = [
+        LiveModelTask(i, a, seed=i, device="cpu", params=_ref_params(ref_get_config(a).reduced(), i))
+        for i, a in enumerate(HYBRID_LIVE_SET)
+    ]
+    return ref, ours
+
+
+def test_hybrid_task_segments_match_reference(hybrid_live_tasks):
+    """The hybrid's two stacks (``attn_layers``, ``rec_layers``) land in the
+    reference's segments, page for page."""
+    ref, ours = hybrid_live_tasks
+    for r, o in zip(ref, ours):
+        ref_segs = [(s.path.replace("['", "").replace("']", ""), s.base, s.nbytes) for s in r.segments]
+        assert [(s.path, s.base, s.nbytes) for s in o.segments] == ref_segs
+        assert o.footprint_bytes() == r.footprint_bytes()
+    paths = [s.path for s in ours[0].segments]
+    assert "rec_layers/rec/lam" in paths and "attn_layers/attn/wq" in paths and len(paths) == 25
+
+
+@pytest.mark.parametrize("what,share", [("footprint", 0.5), ("params", 0.6)])
+def test_hybrid_task_stats_equal_reference(hybrid_live_tasks, what, share):
+    ref, ours = hybrid_live_tasks
+    for t in ref + ours:
+        for s in t.segments:
+            s.device = None
+    if what == "footprint":
+        budget = int(share * sum(t.footprint_bytes() for t in ref))
+    else:
+        budget = int(share * sum(s.nbytes for t in ref for s in t.segments))
+    a = RefRuntime(ref, budget, steps_per_slice=2).run(6)
+    b = LiveRuntime(ours, budget, steps_per_slice=2).run(6)
+    assert b.steps == a.steps and b.steps[0] > 0
+    assert b.migrated_in_bytes == a.migrated_in_bytes > 0
+    assert b.migrated_out_bytes == a.migrated_out_bytes
+    assert b.demand_faults == a.demand_faults
+
+
+def test_hybrid_task_step_matches_reference(hybrid_live_tasks):
+    """A live step is one token: the recurrence from a zero state, the local
+    attention over one position (the flash kernel's Sq = Skv = 1 call)."""
+    ref, ours = hybrid_live_tasks
+    for t in (ref[0], ours[0]):
+        for s in t.segments:
+            if s.device is None:
+                s.device = s.host if isinstance(s.host, torch.Tensor) else jax.device_put(s.host)
+    for i in range(2):
+        got, want = ours[0].run_step(i), ref[0].run_step(i)
+        assert tuple(got.shape) == want.shape == (1, 1, ours[0].cfg.vocab_size)
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=TOL, atol=TOL)

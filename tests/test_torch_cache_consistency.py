@@ -1,7 +1,8 @@
 """Prefill + decode against the full-sequence forward pass: the port's copy of
 ``tests/models/test_cache_consistency.py`` over every decode arch the port
 builds (the dense models, tied or not, the MoE pair, qwen2-vl-7b with M-RoPE,
-mamba2-1.3b),
+mamba2-1.3b, recurrentgemma-9b with its ring of 16 slots, which the 64-token
+prefill wraps),
 on the reference's own parameters. Each decode is held against the
 reference's ``forward`` and against the port's own, at the reference's
 tolerance for this comparison, rtol = atol = 8e-2; once from the port's
@@ -24,7 +25,7 @@ from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.models.convert import cache_from_reference, params_from_reference, to_tensor  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-DECODE_ARCHS = sorted(a for a, c in ARCHS.items() if c.has_decode and c.family in ("dense", "moe", "vlm", "ssm"))
+DECODE_ARCHS = sorted(a for a, c in ARCHS.items() if c.has_decode)
 B = 2
 S = 68  # prefill 64 (a multiple of the reduced ssm chunk 32), decode 4 more
 S_VIS = 8
@@ -76,7 +77,7 @@ def _offset(fns):
 
 def test_decode_archs():
     assert DECODE_ARCHS == ["arctic-480b", "grok-1-314b", "llama3.2-3b", "mamba2-1.3b", "minicpm-2b",
-                            "paper-llama3-8b", "qwen1.5-110b", "qwen2-vl-7b", "qwen3-1.7b"]
+                            "paper-llama3-8b", "qwen1.5-110b", "qwen2-vl-7b", "qwen3-1.7b", "recurrentgemma-9b"]
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS)

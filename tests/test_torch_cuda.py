@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(``stream_matmul``'s expert-batched form too), the MoE layer on the card
-against the CPU and without a host sync, and mamba2 and minicpm-2b at full
-width on the card against the CPU.
+(``stream_matmul``'s expert-batched form too; both attention kernels up to
+head dim 256), the MoE layer on the card against the CPU and without a host
+sync, mamba2 and minicpm-2b at full width on the card against the CPU, and
+the hybrid's ring decode on the card against the CPU and without a host
+sync.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -51,6 +53,15 @@ FA_CASES = [
     # D = 80 over 16 heads (the simt route) at a full 1024-frame sequence
     (1, 77, 77, 28, 4, 128, True, 0),
     (1, 1024, 1024, 16, 16, 80, False, 0),
+    # recurrentgemma-9b (MQA, g = 16, D = 256, the simt route's second
+    # instance): its live call, a causal prefill, windows that the sequence
+    # outgrows (tiles before the window skipped), Sq > Skv, an odd D above 128
+    (1, 1, 1, 16, 1, 256, True, 0),
+    (2, 300, 300, 16, 1, 256, True, 0),
+    (1, 700, 700, 16, 1, 256, True, 128),
+    (2, 96, 96, 16, 1, 256, True, 16),
+    (1, 70, 40, 16, 1, 256, True, 16),
+    (1, 65, 65, 4, 2, 200, False, 0),
 ]
 
 PA_CASES = [
@@ -83,6 +94,13 @@ PA_CASES = [
     (3, 28, 4, 128, 16, 5, (37, 0, 80), False),
     (4, 36, 36, 64, 64, 17, (1025, 1046, 1067, 1088), False),
     (4, 16, 16, 80, 64, 17, (1025, 1046, 1067, 1088), False),
+    # recurrentgemma-9b's ring decode (MQA, g = 16 in 4 blocks of 4 heads, D =
+    # 256): a full ring of 1024 slots in pages of 64, a ring that has not
+    # wrapped yet (and a row of length 0), g = 3 and an odd D above 128
+    (4, 16, 1, 256, 64, 16, (1024, 1024, 1024, 1024), False),
+    (4, 16, 1, 256, 64, 16, (1, 300, 1023, 0), True),
+    (2, 6, 2, 256, 16, 5, (37, 80), True),
+    (2, 8, 1, 200, 16, 4, (64, 17), False),
 ]
 
 
@@ -333,9 +351,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         mm_ops.stream_matmul(x, torch.zeros((4, 3), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         mm_ops.stream_matmul(x, torch.zeros((4, 6), device=cuda)[:, ::2])
-    q = torch.zeros((1, 2, 2, 256), device=cuda)
+    q = torch.zeros((1, 2, 2, 264), device=cuda)
     with pytest.raises(ValueError):
-        fa_ops.flash_attention(q, q, q)  # head dim above 128
+        fa_ops.flash_attention(q, q, q)  # head dim above 256
 
 
 def _pa_inputs(b, h, hkv, d, pt, mp, lengths, permuted, dt, dev):
@@ -382,9 +400,9 @@ def test_paged_attention_raises_on_what_the_kernel_does_not_take(cuda):
         pa_ops.paged_attention(q.float(), pool_k, pool_v, table, lens)
     with pytest.raises(ValueError):
         pa_ops.paged_attention(q, pool_k, pool_v, table[:, ::2], lens)  # not contiguous
-    wide = _pa_inputs(2, 4, 2, 256, 16, 4, (5, 9), False, torch.bfloat16, cuda)
+    wide = _pa_inputs(2, 4, 2, 264, 16, 4, (5, 9), False, torch.bfloat16, cuda)
     with pytest.raises(ValueError):
-        pa_ops.paged_attention(*wide)  # head dim above 128
+        pa_ops.paged_attention(*wide)  # head dim above 256
 
 
 @pytest.mark.cuda
@@ -665,3 +683,48 @@ def test_moe_apply_has_no_host_sync(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(out.float()).all() and torch.isfinite(out_step.float()).all()
+
+
+@pytest.mark.cuda
+def test_hybrid_ring_decode_card_against_cpu(cuda):
+    """recurrentgemma-9b reduced to 5 layers (one (rec, rec, attn) group and
+    two trailing recurrent layers) in f32: prefill of 64 tokens (the ring of
+    16 slots wraps) and 4 decode steps on the card against the CPU from the
+    same weights, at 1e-4 (the same f32 function, sums in another order);
+    then the same steps in bf16 with CUDA's sync debug mode set to "error":
+    the ring's write slot and lengths stay on the device."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(), num_layers=5, dtype="float32")
+    fns = build_model(cfg)
+    params = fns.init(torch.Generator(cuda).manual_seed(3))
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(1, cfg.vocab_size, (2, 68)))
+
+    def prefill_decode(fns, p, toks):
+        logits, cache = fns.prefill(p, {"tokens": toks[:, :64]})
+        outs = [logits]
+        for i in range(4):
+            logits, cache = fns.decode_step(p, cache, {"tokens": toks[:, 64 + i : 65 + i]})
+            outs.append(logits)
+        assert cache["k"].shape[2] == cfg.rglru.window and cache["host_index"] == 68
+        return torch.cat(outs, dim=1)
+
+    with torch.inference_mode():
+        card = prefill_decode(fns, params, tokens.to(cuda))
+        cpu = prefill_decode(fns, _tree_to(params, "cpu"), tokens)
+        torch.testing.assert_close(card.cpu(), cpu, rtol=1e-4, atol=1e-4)
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        fns16 = build_model(cfg16)
+        p16 = fns16.init(torch.Generator(cuda).manual_seed(3))
+        tokens = tokens.to(cuda)
+        prefill_decode(fns16, p16, tokens)  # builds the kernels first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = prefill_decode(fns16, p16, tokens)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.float()).all()

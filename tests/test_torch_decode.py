@@ -1,7 +1,9 @@
 """The port's prefill and KV-cache decode against the JAX package's, on the
 reference's own parameters and the same numpy tokens, for every dense arch
 reduced (tied or not) and the two MoE archs, in f32 (``MOE`` below; at the
-reduced capacity factor 2.0 no token drops, at prefill, decode or forward). Tolerances: rtol = atol = 5e-2 for prefill logits and cache (the
+reduced capacity factor 2.0 no token drops, at prefill, decode or forward);
+and the hybrid's ring cache (``ring=True``) layer by layer, across the wrap
+(the hybrid's whole-model decode: tests/test_torch_hybrid.py). Tolerances: rtol = atol = 5e-2 for prefill logits and cache (the
 reference's kernel-test tolerance: bf16 rounds at other places in the two
 frameworks) and 8e-2 for decode logits, the reference's own for decode
 against forward (tests/models/test_cache_consistency.py): the port's decode
@@ -196,19 +198,85 @@ def test_attention_decode_takes_a_step_s_pages():
     assert torch.equal(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("kw", [{"ring": True}, {"window": 16}])
-def test_ring_and_window_caches_are_not_ported(kw):
+def _hybrid_attn_layer(seed=0):
+    """The reduced hybrid's attention layer 0: reference params (numpy) and
+    the port's tensors of the same values."""
+    ref_cfg = ref_get_config("recurrentgemma-9b").reduced()
+    ref = jax.tree.map(np.asarray, ref_build_model(ref_cfg).init(jax.random.PRNGKey(seed)))
+    lp = jax.tree.map(lambda a: a[0], ref["attn_layers"]["attn"])
+    return ref_cfg, lp, params_from_reference(lp)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ring_attention_decode_matches_reference(dtype):
+    """The hybrid's local attention against the reference's ``ring=True,
+    window=16`` over a ring of 16 slots, from an empty ring through the wrap:
+    indices 0 .. 39 write slot index % 16 and attend over min(index + 1, 16)
+    slots. The cache after every step equals the reference's too."""
+    from repro.models.layers import attention_decode as ref_attention_decode
+
+    ref_cfg, ref_lp, lp = _hybrid_attn_layer()
+    ref_cfg = dataclasses.replace(ref_cfg, dtype=dtype)
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(), dtype=dtype)
+    window, hd = cfg.rglru.window, cfg.resolved_head_dim()
+    if dtype == "float32":
+        ref_lp = jax.tree.map(lambda a: a.astype(np.float32), ref_lp)
+        lp = {k: v.float() for k, v in lp.items()}
+    rng = np.random.default_rng(11)
+    shape = (B, window, cfg.num_kv_heads, hd)
+    ref_k = jnp.zeros(shape, getattr(jnp, dtype))
+    ref_v = jnp.zeros(shape, getattr(jnp, dtype))
+    k_cache = torch.zeros(shape, dtype=getattr(torch, dtype))
+    v_cache = torch.zeros(shape, dtype=getattr(torch, dtype))
+    tol = TOL if dtype == "bfloat16" else 1e-5
+    for index in range(40):
+        x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+        xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+        idx = jnp.asarray(index, jnp.int32)
+        pos = jnp.full((B, 1), index, jnp.int32)
+        ref, (ref_k, ref_v) = ref_attention_decode(
+            ref_lp, xj, ref_cfg, k_cache=ref_k, v_cache=ref_v, index=idx, positions=pos, window=window, ring=True,
+        )
+        t_index = torch.tensor(index, dtype=torch.int32)
+        with torch.inference_mode():
+            out, _ = layers.attention_decode(
+                lp, torch.from_numpy(np.array(xj.astype(jnp.float32))).to(k_cache.dtype), cfg,
+                k_cache=k_cache, v_cache=v_cache, index=t_index, positions=t_index.expand(B, 1),
+                window=window, ring=True,
+            )
+        _close(out, ref, tol)
+        _close(k_cache, ref_k, tol)
+        _close(v_cache, ref_v, tol)
+
+
+@pytest.mark.parametrize("index,slot,length", [(0, 0, 1), (5, 5, 6), (15, 15, 16), (16, 0, 16), (37, 5, 16)])
+def test_kv_pages_ring(index, slot, length):
+    """A ring of 16 slots: the write slot wraps, the lengths stop at 16, the
+    page table is the plain cache's; nothing leaves the device."""
+    got_slot, table, lengths = layers.kv_pages(torch.tensor(index, dtype=torch.int32), 2, 16, ring=True)
+    plain_table = layers.kv_pages(torch.tensor(index, dtype=torch.int32), 2, 16)[1]
+    assert got_slot.tolist() == [slot] and got_slot.dtype == torch.int64
+    assert lengths.tolist() == [length, length] and lengths.dtype == torch.int32 and lengths.is_contiguous()
+    assert torch.equal(table, plain_table)
+
+
+@pytest.mark.parametrize("kw,smax", [({"window": 16}, 16), ({"window": 8, "ring": True}, 16)])
+def test_windows_that_are_not_a_prefix_raise(kw, smax):
+    """The kernel reads a prefix of each row: a window over a plain cache, or
+    a ring wider than its window, would need other slots (no path of either
+    package builds them) and raises before anything is written."""
     cfg = get_config("qwen3-1.7b").reduced()
     fns = build_model(cfg)
     params = fns.init(torch.Generator().manual_seed(0))
-    cache = fns.init_cache(1, 8, device="cpu")
+    cache = fns.init_cache(1, smax, device="cpu")
     lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
-    x = torch.zeros((1, 1, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    x = torch.ones((1, 1, cfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="window"):
         layers.attention_decode(
             lp, x, cfg, k_cache=cache["k"][0], v_cache=cache["v"][0],
             index=cache["index"], positions=cache["index"].expand(1, 1), **kw,
         )
+    assert not cache["k"].any()
 
 
 @pytest.mark.parametrize("smax,pt", [(1088, 64), (76, 4), (68, 4), (64, 64), (96, 32), (7, 1), (128, 64)])

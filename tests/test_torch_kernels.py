@@ -224,6 +224,11 @@ FA_ROUTES = [
     (2, 70, 40, 4, 2, 64, BF16, True, "simt"),
     (1, 31, 31, 4, 2, 64, BF16, True, "simt"),
     (4, 1024, 1024, 16, 8, 128, BF16, False, "simt"),
+    # recurrentgemma-9b (D = 256): its prefill, a windowed forward and the
+    # live call, all on the simt route
+    (4, 1024, 1024, 16, 1, 256, BF16, True, "simt"),
+    (1, 4096, 4096, 16, 1, 256, BF16, True, "simt"),
+    (1, 1, 1, 16, 1, 256, BF16, True, "simt"),
 ]
 
 
@@ -263,6 +268,10 @@ FA_CASES = [
     (2, 256, 256, 8, 2, 64, True, 0),
     (2, 128, 128, 4, 1, 32, True, 64),  # MQA + sliding window
     (1, 128, 128, 4, 4, 32, False, 0),  # bidirectional (hubert)
+    # recurrentgemma-9b's local attention: MQA, g = 16, head dim 256; causal,
+    # and with a window that the sequence outgrows
+    (1, 128, 128, 16, 1, 256, True, 0),
+    (1, 192, 192, 16, 1, 256, True, 64),
 ]
 
 

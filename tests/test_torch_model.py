@@ -1,8 +1,10 @@
 """The port's attention transformers (dense, tied or not; VLM; the audio
-encoder; the MoE family's layout) against the JAX package's, on the same numpy inputs and the
+encoder; the MoE family's layout; the hybrid's layout and live step) against the JAX package's, on the same numpy inputs and the
 reference's own initial parameters. Tolerance: rtol = atol = 5e-2, the
 reference's kernel-test tolerance, since bf16 rounds at other places in the
 two frameworks."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -211,7 +213,47 @@ def test_forward_logits_match_reference(arch, seq):
     _close(ours, ref)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch).reduced())
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_build_model_takes_every_family(arch):
+    """Every arch of the zoo builds, the hybrid (recurrentgemma-9b) included,
+    and its params tree flattens in the reference's order."""
+    cfg = get_config(arch).reduced()
+    ours = flatten(build_model(cfg).init(torch.Generator().manual_seed(0)))
+    ref = flatten(params_from_reference(_ref_params(arch)))
+    assert [(p, t.shape, t.dtype) for p, t in ours] == [(p, t.shape, t.dtype) for p, t in ref]
+
+
+def test_hybrid_params_keep_layout():
+    """The hybrid's tree: ``head``, then ``attn_layers`` and ``rec_layers``,
+    each stacked on its own leading axis, in the reference's sorted-key order,
+    the RG-LRU's ``lam`` and the norms in f32."""
+    ref = _ref_params("recurrentgemma-9b")
+    ours = flatten(params_from_reference(ref))
+    ref_leaves = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert [p for p, _ in ours] == ["/".join(k.key for k in path) for path, _ in ref_leaves]
+    for (_, t), (_, leaf) in zip(ours, ref_leaves):
+        assert tuple(t.shape) == leaf.shape and str(t.dtype) == f"torch.{leaf.dtype.name}"
+        np.testing.assert_array_equal(t.float().numpy(), leaf.astype(np.float32))
+    dtypes = dict((p, t.dtype) for p, t in ours)
+    assert dtypes["rec_layers/rec/lam"] == dtypes["rec_layers/norm"] == dtypes["attn_layers/norm"] == torch.float32
+    assert dtypes["rec_layers/rec/w_a"] == dtypes["head/lm_head"] == torch.bfloat16
+    shapes = dict((p, tuple(t.shape)) for p, t in ours)
+    cfg = get_config("recurrentgemma-9b").reduced()
+    assert shapes["rec_layers/rec/conv_w"] == (2, 4, cfg.d_model) and shapes["attn_layers/attn/wk"][0] == 1
+
+
+@pytest.mark.parametrize("layers", [3, 5])
+def test_hybrid_forward_logits_match_reference(layers):
+    """The live step's forward (one position) in bf16, at one (rec, rec, attn)
+    group and with the two trailing recurrent layers of the 5-layer config.
+    Longer sequences are held in tests/test_torch_hybrid.py, by relative L2
+    in bf16 and elementwise in f32."""
+    ref_cfg = dataclasses.replace(ref_get_config("recurrentgemma-9b").reduced(), num_layers=layers)
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(), num_layers=layers)
+    params = jax.tree.map(np.asarray, ref_build_model(ref_cfg).init(jax.random.PRNGKey(1)))
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    ref = ref_build_model(ref_cfg).forward(params, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        ours = build_model(cfg).forward(params_from_reference(params), {"tokens": torch.from_numpy(tokens)})
+    assert ours.shape == ref.shape == (2, 1, cfg.vocab_size) and ours.dtype == torch.bfloat16
+    _close(ours, ref)

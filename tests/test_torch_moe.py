@@ -336,7 +336,9 @@ def test_bf16_decode_matches_forward_up_to_near_ties(arch, monkeypatch):
     8e-2; where a layer routes it otherwise (the decode attention rounds its
     probabilities in f32, the forward's in bf16), the forward's gate margin
     there is below NEAR_TIE, a tie that rounding may break either way. The
-    flips are counted, not hidden: seed 7 has one, at decode step 0."""
+    flips are counted, not hidden: seed 7 had one, at decode step 0, while
+    the CPU ``attend`` rounded q * scale to bf16; since it computes the
+    scores in f32 as the reference does, there is none."""
     cfg = get_config(arch).reduced()
     ref_cfg = ref_get_config(arch).reduced()
     params = params_from_reference(jax.tree.map(np.asarray, ref_build_model(ref_cfg).init(jax.random.PRNGKey(7))))
@@ -366,7 +368,7 @@ def test_bf16_decode_matches_forward_up_to_near_ties(arch, monkeypatch):
                 margins.append(float(probs[b, s, k - 1] - probs[b, s, k]))
                 flipped.add((b, s))
     assert all(m < NEAR_TIE for m in margins), f"{arch}: routing differs beyond a near-tie: margins {margins}"
-    assert flipped == {(0, 64)}, f"{arch}: positions routed otherwise: {sorted(flipped)}, margins {margins}"
+    assert flipped == set(), f"{arch}: positions routed otherwise: {sorted(flipped)}, margins {margins}"
     for b in range(2):
         for j, s in enumerate(range(63, 68)):
             if (b, s) not in flipped:

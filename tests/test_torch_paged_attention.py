@@ -25,11 +25,14 @@ RTOL = ATOL = 5e-2
 DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16), "float32": (jnp.float32, torch.float32)}
 PA_CASES = [
     # (B, H, Hkv, D, page_tokens, max_pages): the reference's PA_CASES, then
-    # a group of g = 3 query heads (llama3.2's H 24 / Hkv 8, narrowed)
+    # a group of g = 3 query heads (llama3.2's H 24 / Hkv 8, narrowed) and the
+    # hybrid's shape
     (2, 4, 2, 32, 16, 4),
     (3, 8, 1, 64, 32, 3),
     (1, 4, 4, 32, 16, 8),
     (2, 6, 2, 32, 16, 4),
+    # recurrentgemma-9b's local attention: MQA with g = 16 at head dim 256
+    (2, 16, 1, 256, 16, 4),
 ]
 
 
@@ -197,4 +200,22 @@ def test_split_merge_matches_both_references(b, h, hkv, d, pt, mp, lengths, spli
     for row, n in enumerate(lengths):
         if n == 0:
             assert not ours[row].any()
+    _close(ours, jax_paged(*jx, jnp.asarray(table), jnp.asarray(np.asarray(lengths, np.int32)), interpret=True))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, "pages", "rule"])
+def test_split_merge_at_head_dim_256(splits):
+    """The hybrid's ring decode (g = 16, D = 256): a full ring of 64 slots
+    (min(index + 1, w) = w) beside one that has not wrapped yet. The same
+    check as above, with atol 1e-5: each score is a 256-term f32 dot product
+    whose sums run in another order (errors ~sqrt(256) x 2^-24 of terms of
+    order 1), and the outputs (rms ~0.06) are small differences of weighted
+    sums of V; 1.3e-6 was measured."""
+    b, h, hkv, d, pt, mp, lengths = 2, 16, 1, 256, 16, 4, (64, 37)
+    splits = {"pages": mp, "rule": pa_ops.pa_splits(b, hkv, mp, 132)}.get(splits, splits)
+    jx, tx = _inputs(b, h, hkv, d, pt, b * mp + 2, "float32", seed=11)
+    table = np.random.default_rng(12).permutation(b * mp + 2)[: b * mp].reshape(b, mp).astype(np.int32)
+    tt, lt = torch.from_numpy(table), torch.tensor(lengths, dtype=torch.int32)
+    ours = _split_merge(*tx, tt, lt, splits)
+    torch.testing.assert_close(ours, paged_attention_ref(*tx, tt, lt), rtol=1e-5, atol=1e-5)
     _close(ours, jax_paged(*jx, jnp.asarray(table), jnp.asarray(np.asarray(lengths, np.int32)), interpret=True))
