@@ -85,7 +85,21 @@
    path of ``stream_matmul_int8``, as the JAX package's kernel bench is its
    only caller there; every bench call of the three kernels with a
    tensor-core route takes it;
-8. prints the kernels line and, last, the device line.
+8. trains: holds ``flash_attention``'s backward kernel against the plain
+   version's gradients at every family's training shape in f32 and bf16
+   (times beside its operations bound and the backward of
+   ``scaled_dot_product_attention``, a yardstick the port never calls), and
+   ``stream_matmul``'s gradients (through ``stream_matmul`` itself) at
+   qwen3-1.7b's projections and minicpm-2b's tied head; then the loss and
+   every gradient of qwen3-1.7b, minicpm-2b, hubert-xlarge and mamba2-1.3b
+   (2 layers) and recurrentgemma-9b (3 layers) at published width on the
+   card against the CPU (f32 gated, bf16 reported); then qwen3-1.7b at
+   published width and depth, 5 AdamW steps through ``make_train_step`` on
+   4 x 1024 tokens of ``TokenPipeline`` with remat, every step's launches
+   gated exactly, the loss falling, remat off giving the same bits, against
+   its operations bound; and ``TrainSupervisor`` with an injected failure
+   resuming with the uninterrupted run's losses;
+9. prints the kernels line and, last, the device line.
 
 Any failure raises, so the exit code is not 0; so is a run without a card or
 without ``src/repro_torch`` beside this file. Needs no network and no JAX.
@@ -94,6 +108,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -161,7 +176,7 @@ INT8_EXACT_REL_L2 = 1e-5
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
-PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench")
+PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench", "train")
 # Phase 6b: the attention families beside the live set, at published width
 # and depth: tied embeddings, M-RoPE (VLM), the bidirectional audio encoder.
 # A step of the "families" path is one call of an entry point: a prefill or
@@ -171,7 +186,8 @@ FAMILY_ARCHS = ("minicpm-2b", "qwen2-vl-7b", "hubert-xlarge")
 # phase 3 also off the path: the live step's M = 1, a 4096-row product and
 # the decode check's forward over 4 x 1088 positions
 TIED_NK = (122753, 2304)
-KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "paged_attention")
+KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "paged_attention", "flash_attention_backward")
+BENCH_KERNELS = KERNELS[:4]  # the kernel bench's: every forward kernel
 # Phase 6c: the MoE family at published width. A step of the "moe" path is a
 # prefill or a decode step of one model. Depth is the only cut: grok-1-314b
 # holds 9.84 GB a layer (64 layers: 630 GB), arctic-480b 27.2 GB (35 layers:
@@ -215,6 +231,34 @@ PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # paper-llama3-8b's projections (K, N), for which stream_matmul_int8 was
 # written: wq, wk/wv, w1/w3, w2, the LM head
 LLAMA3_8B_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
+# Phase 8: training. A step of the "train" path is one train step of
+# qwen3-1.7b at published width and depth over TRAIN_B x TRAIN_S tokens.
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_B, TRAIN_S = 4, 1024
+TRAIN_STEPS = 5
+# flash_attention's backward against the plain version's gradients (autograd
+# through attention_ref in f32): in f32 the same function with sums in another
+# order (~1e-6 measured), in bf16 the rounding of inputs, forward output and
+# gradients (~2e-3 measured); a dropped tile or a wrong row statistic moves a
+# gradient by order 1.
+FA_BWD_REL_L2 = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+# the families' training shapes: (label, B, S, H, Hkv, D, causal, window,
+# calls a train step)
+FA_BWD_CASES = (
+    ("qwen3", TRAIN_B, TRAIN_S, 16, 8, 128, True, 0, 28),
+    ("minicpm-2b", TRAIN_B, TRAIN_S, 36, 36, 64, True, 0, 0),
+    ("hubert-xlarge", TRAIN_B, TRAIN_S, 16, 16, 80, False, 0, 0),
+    ("recurrentgemma-9b", TRAIN_B, TRAIN_S, 16, 1, 256, True, 2048, 0),
+    ("recurrentgemma-9b S=4096", 1, 4096, 16, 1, 256, True, 2048, 0),
+    ("g=4 D=80", 2, TRAIN_S, 16, 4, 80, True, 0, 0),
+)
+# Card against CPU at published width: (arch, layers); the loss and every
+# gradient leaf in f32 within this relative L2 (the same f32 function with
+# sums in another order, ~1e-6 a product), bf16 reported.
+TRAIN_CHECK = (("qwen3-1.7b", 2), ("minicpm-2b", 2), ("hubert-xlarge", 2), ("mamba2-1.3b", 2),
+               ("recurrentgemma-9b", 3))
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 32
+TRAIN_F32_REL_L2 = 1e-4
 
 
 def log(*args):
@@ -272,6 +316,12 @@ def main() -> None:
     check_hybrid_against_cpu(torch, dev)
     paths["hybrid"], _ = hybrid_slice(torch, dev)
     paths["kernel_bench"] = kernel_bench_path(torch, dev)
+    # 8. training
+    recs["flash_attention_backward"] = check_flash_backward(torch, dev)
+    check_stream_matmul_grads(torch, dev)
+    check_train_against_cpu(torch, dev)
+    paths["train"], _ = train_slice(torch, dev)
+    supervisor_on_card(torch, dev)
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
     recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches}
@@ -425,6 +475,30 @@ def step_projections(c, m_layer, m_head):
     return counts
 
 
+def train_projections(c, m, remat=True):
+    """{(M, K, N, w_layout, dtype): calls} of one train step of a dense model
+    over m tokens: the forward's projections (the layers' twice with remat)
+    and LM head, then each product's two gradients through stream_matmul: for
+    a (K, N) weight dX = dY (M, N) @ W^T with W read K-major in place and dW
+    = X^T (K, M) @ dY; for the tied head's (V, d) table dX = dY (M, V) @ E and
+    dE = dY^T (V, M) @ X."""
+    counts = {}
+
+    def add(key, calls):
+        counts[key] = counts.get(key, 0) + calls
+
+    for (mm, k, n, layout, dt), calls in step_projections(c, m, m).items():
+        head = n == c.vocab_size or k == c.vocab_size
+        add((mm, k, n, layout, dt), calls * (1 + (remat and not head)))
+        if layout == "kn":
+            add((mm, n, k, "nk", dt), calls)
+            add((k, mm, n, "kn", dt), calls)
+        else:  # x (M, K) @ w.T for w (N, K)
+            add((mm, n, k, "kn", dt), calls)
+            add((n, mm, k, "kn", dt), calls)
+    return counts
+
+
 def step_experts(c, n_tokens):
     """{(E, C, K, N): calls} of the expert-batched products of one call of an
     MoE model over ``n_tokens`` tokens: w1 and w3 (E, d, f), w2 (E, f, d)
@@ -461,7 +535,8 @@ def moe_config(arch, layers=None):
 
 def projection_shapes():
     """{path: {label: {(M, K, N, w_layout): calls a step}}}: every x @ W of
-    one step of each main path: the live step (M = 1), a prefill of DECODE_B
+    one step of each main path (the train path's gradient products included,
+    :func:`train_projections`): the live step (M = 1), a prefill of DECODE_B
     prompts (M = DECODE_B * PROMPT for the layers, M = DECODE_B for the LM
     head on the last position) and a decode step (M = DECODE_B), for each
     model; on the families path a prefill and a decode step of each decode
@@ -495,6 +570,8 @@ def projection_shapes():
     shapes["hybrid"][f"{HYBRID_ARCH} decode"] = step_projections(c, DECODE_B, DECODE_B)
     shapes["hybrid"][f"{HYBRID_ARCH} live"] = step_projections(c, 1, 1)
     shapes["kernel_bench"]["bench"] = {(*kernel_bench.MM_SHAPE, "kn", "bf16"): 1}
+    c = get_config(TRAIN_ARCH)
+    shapes["train"][f"{TRAIN_ARCH} step"] = train_projections(c, TRAIN_B * TRAIN_S, c.remat)
     return shapes
 
 
@@ -503,13 +580,16 @@ def path_totals(library=0.0):
 
 
 def counters():
-    """Each kernel's wrapper, which counts its launches."""
+    """Each kernel's wrapper, which counts its launches, and the name of its
+    count: the backward of flash_attention counts on the forward's wrapper,
+    in ``bwd_launches``."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.streammm.ops import stream_matmul, stream_matmul_int8
 
-    return {"stream_matmul": stream_matmul, "stream_matmul_int8": stream_matmul_int8,
-            "flash_attention": flash_attention, "paged_attention": paged_attention}
+    return {"stream_matmul": (stream_matmul, "launches"), "stream_matmul_int8": (stream_matmul_int8, "launches"),
+            "flash_attention": (flash_attention, "launches"), "paged_attention": (paged_attention, "launches"),
+            "flash_attention_backward": (flash_attention, "bwd_launches")}
 
 
 # wrappers with a tensor-core route
@@ -517,19 +597,19 @@ WGMMA_KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention")
 
 
 def zero_launches():
-    for name, fn in counters().items():
-        fn.launches = 0
+    for name, (fn, count) in counters().items():
+        setattr(fn, count, 0)
         if name in WGMMA_KERNELS:
             fn.wgmma_launches = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, count) for name, (fn, count) in counters().items()}
 
 
 def read_wgmma():
     """The launches that took the tensor-core route, by kernel."""
-    return {name: fn.wgmma_launches for name, fn in counters().items() if name in WGMMA_KERNELS}
+    return {name: fn.wgmma_launches for name, (fn, _) in counters().items() if name in WGMMA_KERNELS}
 
 
 def model_matmuls(cfg) -> int:
@@ -556,6 +636,24 @@ def step_launches(cfg, path):
         "stream_matmul_int8": 0,
         "flash_attention": n_attn if path != "decode" else 0,
         "paged_attention": n_attn if path == "decode" else 0,
+        "flash_attention_backward": 0,
+    }
+
+
+def train_launches(cfg, remat: bool):
+    """The launches of one train step of a dense model: every projection and
+    the LM head forward (the layers' twice with remat: the backward replays
+    each layer's forward), then two gradient products each (dX, and dW of
+    the weight), through stream_matmul; one flash_attention a layer (two
+    with remat) and one backward call a layer."""
+    _, n_attn = layer_counts(cfg)
+    layers = model_matmuls(cfg)
+    return {
+        "stream_matmul": layers * (1 + remat) + 1 + 2 * (layers + 1),
+        "stream_matmul_int8": 0,
+        "flash_attention": n_attn * (1 + remat),
+        "paged_attention": 0,
+        "flash_attention_backward": n_attn,
     }
 
 
@@ -894,7 +992,9 @@ def check_flash_attention(torch, dev, bench):
         # (label, B, Sq, Skv, H, Hkv, D, causal, window, dtype, calls a step by path)
         ("qwen3 live", 1, 1, 1, 16, 8, 128, True, 0, torch.bfloat16, {"serve": 28}),
         ("llama3.2 live", 1, 1, 1, 24, 8, 128, True, 0, torch.bfloat16, {"serve": 28}),
-        ("qwen3 prefill", DECODE_B, PROMPT, PROMPT, 16, 8, 128, True, 0, torch.bfloat16, {"prefill": 28}),
+        # the train step of phase 8 runs the same call twice a layer (remat)
+        ("qwen3 prefill", DECODE_B, PROMPT, PROMPT, 16, 8, 128, True, 0, torch.bfloat16,
+         {"prefill": 28, "train": 56}),
         ("llama3.2 prefill", DECODE_B, PROMPT, PROMPT, 24, 8, 128, True, 0, torch.bfloat16, {"prefill": 28}),
         ("long causal", 1, 2048, 2048, 16, 8, 128, True, 0, torch.bfloat16, {}),
         ("long window", 1, 2048, 2048, 16, 8, 128, True, 512, torch.bfloat16, {}),
@@ -1396,10 +1496,11 @@ def serve_slice(torch, dev, archs=ARCHS, label="serve"):
     return launches, steps, wgmma
 
 
-def profile_steps(torch, dev, name: str, step, step_wall_s: float, n: int = 3) -> None:
+def profile_steps(torch, dev, name: str, step, step_wall_s: float, n: int = 3, top: int = 4) -> None:
     """Device time of ``n`` calls ``step(i)`` from torch.profiler, against
     the median step wall time of the timed run (taken without the profiler,
-    whose own host cost would inflate the wall): the device's idle share."""
+    whose own host cost would inflate the wall): the device's idle share,
+    and the ``top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1411,11 +1512,11 @@ def profile_steps(torch, dev, name: str, step, step_wall_s: float, n: int = 3) -
     if busy_s == 0:
         log(f"profile: {name} device time not measured (the profiler saw no kernel)")
         return
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    heavy = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     log(f"profile: {name} device busy {1e3 * busy_s:.3f} ms a step; of a "
         f"{1e3 * step_wall_s:.3f} ms step the device idles {100 * (1 - busy_s / step_wall_s):.1f}%; "
         "top kernels (ms a step): " + ", ".join(
-            f"{e.key[:48]} {e.self_device_time_total * 1e-3 / n:.3f}" for e in top))
+            f"{e.key[:48]} {e.self_device_time_total * 1e-3 / n:.3f}" for e in heavy))
 
 
 def decode_slice(torch, dev):
@@ -1673,11 +1774,11 @@ def families_slice(torch, dev):
         its output, its launches and its tensor-core launches."""
         torch.cuda.synchronize(dev)
         zero_launches()
-        nk0 = counters()["stream_matmul"].nk_launches
+        nk0 = counters()["stream_matmul"][0].nk_launches
         out = run()
         torch.cuda.synchronize(dev)
         launches, wgmma = read_launches(), read_wgmma()
-        nk = counters()["stream_matmul"].nk_launches - nk0
+        nk = counters()["stream_matmul"][0].nk_launches - nk0
         want, want_wgmma = step_launches(cfg, path), step_wgmma(cfg, path)
         if launches != want or wgmma != want_wgmma or nk != step_nk(cfg):
             raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, K-major {nk}; "
@@ -1951,7 +2052,7 @@ def moe_slice(torch, dev):
     from repro_torch.models.layers import moe_dispatch
     from repro_torch.models.model import build_model
 
-    stream_matmul = counters()["stream_matmul"]
+    stream_matmul = counters()["stream_matmul"][0]
     total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
     batched_total = 0
     results = {}
@@ -2364,7 +2465,7 @@ def kernel_bench_path(torch, dev):
     for name, us, derived in rows:
         log(f"  {name},{us:.1f},{derived}")
     log(f"kernel bench: launches {launches}, tensor-core {wgmma}")
-    missing = [name for name in KERNELS if launches[name] == 0]
+    missing = [name for name in BENCH_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernel bench launched no {missing}")
     # the bench's shapes (M = 256 products, S = 512 attention) are all on the
@@ -2372,6 +2473,304 @@ def kernel_bench_path(torch, dev):
     if any(wgmma[name] != launches[name] for name in WGMMA_KERNELS):
         raise AssertionError(f"kernel bench: tensor-core launches {wgmma} != launches {launches}")
     return launches, kernel_bench.REPS + 1, wgmma
+
+
+def check_flash_backward(torch, dev):
+    """Phase 8, first part: ``flash_attention_backward`` (three launches: the
+    rows' softmax statistics, dQ, dK and dV) against the plain version's
+    gradients, autograd through ``attention_ref`` in f32, at every family's
+    training shape (FA_BWD_CASES), in f32 and bf16, the forward's output from
+    the forward kernel. Gated: relative L2 of dQ, dK and dV (FA_BWD_REL_L2;
+    bf16 against the f32 gradients of the same inputs), the same bits on a
+    second call. Timed (CUDA events, cold L2) beside the plain version on the
+    same inputs, the backward of ``scaled_dot_product_attention`` on (B, H, S,
+    D) copies (a yardstick only) and the bound: every input and gradient
+    moved once, and 2.5 times the forward's operations (the five products of
+    the standard backward: S again, dV, dP, dQ, dK) over the masked pairs.
+    The qwen3 row's calls a train step go into the train path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_backward
+    from repro_torch.kernels.flash_attention.ref import attention_ref_backward
+
+    bench = Bench(torch, dev, reps=5)
+    gen = torch.Generator(dev).manual_seed(8)
+    log("flash_attention_backward against the plain version's gradients (ms: CUDA events; library: the "
+        "backward of scaled_dot_product_attention on (B, H, S, D) copies):")
+    totals = path_totals()
+    errs, bound_kinds, by_shape = [], set(), []
+    for label, b, s, h, hkv, d, causal, window, calls in FA_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+            kw = dict(causal=causal, window=window)
+            with torch.no_grad():
+                out = flash_attention(q, k, v, **kw)
+            grads = flash_attention_backward(q, k, v, out, do, **kw)
+            want = attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **kw)
+            rels = [float((g.float() - w).norm() / w.norm()) for g, w in zip(grads, want)]
+            err = max(float((g.float() - w).abs().max()) for g, w in zip(grads, want))
+            del want
+            if not max(rels) <= FA_BWD_REL_L2[str(dtype)]:
+                raise AssertionError(f"flash_attention_backward {label} {dtype}: relative L2 dq/dk/dv "
+                                     f"{rels} > {FA_BWD_REL_L2[str(dtype)]}")
+            again = flash_attention_backward(q, k, v, out, do, **kw)
+            if not all(torch.equal(g, a) for g, a in zip(grads, again)):
+                raise AssertionError(f"flash_attention_backward {label} {dtype} is not deterministic")
+            del again
+            t = bench.ms(lambda: flash_attention_backward(q, k, v, out, do, **kw))
+            t_plain = bench.ms(lambda: attention_ref_backward(q, k, v, do, **kw))
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            mask = None
+            if window > 0:
+                i = torch.arange(s, device=dev)[:, None]
+                j = torch.arange(s, device=dev)[None, :]
+                mask = (i - j < window) & ((i >= j) if causal else True)
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                                                      enable_gqa=h != hkv)
+            dot = do.transpose(1, 2).contiguous()
+            t_lib = bench.ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+            del sdpa_out, qt, kt, vt, dot, mask
+            elem = q.element_size()
+            nbytes = elem * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())  # q, o, dO, dQ; k, v, dK, dV
+            bt, kind = bound(nbytes, 10 * b * h * d * attention_pairs(s, s, causal, window), dtype)
+            if calls and dtype == torch.bfloat16:
+                bound_kinds.add(kind)
+                for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", bt), ("library_ms", t_lib)):
+                    totals["train"][key] += calls * val
+            errs.append(err)
+            by_shape.append({"label": label, "B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal": causal,
+                             "window": window, "dtype": str(dtype), "ms": t, "bound_ms": bt, "bound_by": kind,
+                             "plain_ms": t_plain, "library_ms": t_lib, "max_abs_err": err, "rel_l2": rels})
+            log(f"  {label} B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal} window={window} {dtype}: rel L2 "
+                f"dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} kernel {t:.3f} ms bound {bt:.4f} ms ({kind}, "
+                f"{100 * bt / t:.1f}%) plain {t_plain:.3f} ms sdpa backward {t_lib:.3f} ms (kernel {t / t_lib:.2f}x)")
+            del q, k, v, do, out, grads
+        torch.cuda.empty_cache()
+    return {
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "the gradient XLA takes of attend in the reference's loss, src/repro/models/common.py:131",
+        "max_abs_err": max(errs),
+        "bound_by": "+".join(sorted(bound_kinds)),
+        "by_path": totals,
+        "extra": {"by_shape": by_shape},
+    }
+
+
+def check_stream_matmul_grads(torch, dev):
+    """Phase 8: ``stream_matmul``'s gradients on the card (the 2-D form under
+    autograd: dX and dW are ``stream_matmul`` calls themselves) at
+    qwen3-1.7b's projections and LM head at M = 4096 and minicpm-2b's tied
+    head (``w_layout="nk"``), in bf16, against f32 products of the same
+    operands at relative L2 1e-2 (one bf16 rounding of each gradient, ~2e-3);
+    every product's launches (3) and the gradients' routes logged from the
+    counters. Their times are phase 3's, at the train path's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.streammm.ops import stream_matmul
+
+    gen = torch.Generator(dev).manual_seed(9)
+    m = TRAIN_B * TRAIN_S
+    c = get_config(TRAIN_ARCH)
+    d, f, hd = c.d_model, c.d_ff, c.resolved_head_dim()
+    cases = [(d, c.num_heads * hd, "kn"), (d, c.num_kv_heads * hd, "kn"), (c.num_heads * hd, d, "kn"), (d, f, "kn"),
+             (f, d, "kn"), (d, c.vocab_size, "kn"), (TIED_NK[1], TIED_NK[0], "nk")]
+    log(f"stream_matmul gradients at M={m} (bf16, against f32 products of the same operands):")
+    for k, n, layout in cases:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+        w = (torch.randn((k, n) if layout == "kn" else (n, k), generator=gen, device=dev) / k ** 0.5).to(
+            torch.bfloat16).requires_grad_()
+        dy = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+        torch.cuda.synchronize(dev)
+        l0, w0, nk0 = stream_matmul.launches, stream_matmul.wgmma_launches, stream_matmul.nk_launches
+        y = stream_matmul(x, w, out_dtype=torch.bfloat16, w_layout=layout)
+        gx, gw = torch.autograd.grad(y, (x, w), dy)
+        torch.cuda.synchronize(dev)
+        launches, wgmma, nk = (stream_matmul.launches - l0, stream_matmul.wgmma_launches - w0,
+                               stream_matmul.nk_launches - nk0)
+        xf, wf, dyf = x.detach().float(), w.detach().float(), dy.float()
+        want_x = dyf @ (wf.T if layout == "kn" else wf)
+        rel_x = float((gx.float() - want_x).norm() / want_x.norm())
+        del want_x
+        want_w = xf.T @ dyf if layout == "kn" else dyf.T @ xf
+        rel_w = float((gw.float() - want_w).norm() / want_w.norm())
+        del want_w, xf, wf, dyf
+        log(f"  K={k} N={n} {layout}: launches {launches} (tensor-core {wgmma}, K-major {nk}); rel L2 dX "
+            f"{rel_x:.2e} dW {rel_w:.2e}")
+        if launches != 3 or gx.dtype != torch.bfloat16 or gw.dtype != torch.bfloat16:
+            raise AssertionError(f"stream_matmul gradient K={k} N={n} {layout}: {launches} launches, "
+                                 f"dtypes {gx.dtype} {gw.dtype}")
+        if not max(rel_x, rel_w) <= 1e-2:
+            raise AssertionError(f"stream_matmul gradient K={k} N={n} {layout}: rel L2 {rel_x:.2e} {rel_w:.2e}")
+        del x, w, dy, y, gx, gw
+    torch.cuda.empty_cache()
+
+
+def check_train_against_cpu(torch, dev):
+    """Phase 8: the loss and every gradient leaf at published width and cut
+    depth (TRAIN_CHECK) on the card (the kernels, forward and backward)
+    against the same weights and batch on the CPU (the plain versions, which
+    autograd differentiates), remat as published. Gated in f32: the loss and
+    each leaf within TRAIN_F32_REL_L2; reported in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import make_concrete_batch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import flatten
+
+    results = {}
+    for seed, (arch, layers) in enumerate(TRAIN_CHECK):
+        t0 = time.perf_counter()
+        row = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+            fns = build_model(cfg)
+            params = fns.init(torch.Generator(dev).manual_seed(500 + seed))
+            batch = make_concrete_batch(cfg, ShapeSpec("train", TRAIN_CHECK_S, TRAIN_CHECK_B, "train"),
+                                        seed=600 + seed, device="cpu")
+            loss, _, grads = value_and_grad(fns, params, {k: v.to(dev) for k, v in batch.items()})
+            paths = [p for p, _ in flatten(params)]
+            grads = [g.cpu() for g in grads]
+            params = tree_map(lambda t: t.cpu(), params)
+            torch.cuda.empty_cache()
+            loss_cpu, _, grads_cpu = value_and_grad(fns, params, batch)
+            rel = {p: float((g.float() - gc.float()).norm() / gc.float().norm().clamp(min=1e-30))
+                   for p, g, gc in zip(paths, grads, grads_cpu)}
+            loss_rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+            worst = max(rel, key=rel.get)
+            row[dtype] = {"loss": float(loss), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
+                          "worst_leaf": worst, "worst_rel_l2": rel[worst]}
+            del params, grads, grads_cpu, batch
+            if not (math.isfinite(float(loss)) and math.isfinite(float(loss_cpu))):
+                raise AssertionError(f"train {arch} {dtype}: loss {float(loss)} / {float(loss_cpu)} not finite")
+            if dtype == "float32" and not (loss_rel <= TRAIN_F32_REL_L2 and rel[worst] <= TRAIN_F32_REL_L2):
+                raise AssertionError(f"train {arch} f32 card vs CPU: loss rel {loss_rel:.2e}, {worst} relative "
+                                     f"L2 {rel[worst]:.2e} > {TRAIN_F32_REL_L2}")
+        log(f"train {arch} at published width, {layers} layers, B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}, card vs CPU "
+            f"({time.perf_counter() - t0:.1f} s): f32 loss {row['float32']['loss']:.6f} (rel {row['float32']['loss_rel']:.2e}), "
+            f"worst leaf {row['float32']['worst_leaf']} rel L2 {row['float32']['worst_rel_l2']:.2e} (gate "
+            f"{TRAIN_F32_REL_L2}); bf16 loss rel {row['bfloat16']['loss_rel']:.2e}, worst leaf "
+            f"{row['bfloat16']['worst_leaf']} rel L2 {row['bfloat16']['worst_rel_l2']:.2e} (reported)")
+        results[arch] = row
+    return results
+
+
+def train_slice(torch, dev):
+    """Phase 8: qwen3-1.7b at published width and depth (28 layers, 2.03 B
+    parameters), AdamW and the cosine schedule of its config, remat as
+    published: TRAIN_STEPS steps through ``make_train_step`` (``warmup=1``) on
+    one batch of TRAIN_B x TRAIN_S tokens from ``TokenPipeline``, repeated.
+    Gated: every step's launches exactly (:func:`train_launches`), the loss
+    finite and falling, and the loss and every gradient with remat off equal
+    to those with remat on, bit for bit. Reported: the median step, tokens/s,
+    the device's idle share (torch.profiler), the peak of allocated memory,
+    and the operations bound of a step (6 N tokens for the weights' products,
+    14 B H D pairs a layer for attention forward and backward, at the bf16
+    peak). Returns the path's launches, steps and tensor-core launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.launch.steps import make_train_state, make_train_step, value_and_grad
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import flatten, leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(700))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipeline_for(cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"), seed=7).batch(0).items()}
+    step_fn = make_train_step(cfg, warmup=1, total_steps=100)
+    torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    mat_params = sum(p.numel() for path, p in flatten(state["params"])
+                     if p.dim() >= 2 and path != "head/embed")
+    log(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, {n_params} parameters "
+        f"({mat_params} in products), {cfg.optimizer} + {cfg.schedule}, remat {cfg.remat}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = train_launches(cfg, cfg.remat)
+    total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        launches, wgmma = read_launches(), read_wgmma()
+        if launches != want:
+            raise AssertionError(f"train step {i}: launches {launches} != {want}")
+        counts, n, counts_wgmma = total
+        total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
+                 {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        log(f"  step {i}: {1e3 * step_s[-1]:.1f} ms, loss {m['loss']:.6f} ce {m['ce']:.6f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; launches {launches}, tensor-core {wgmma}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {TRAIN_ARCH}: losses {losses} not finite or not falling")
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = statistics.median(step_s[1:])
+    tokens = TRAIN_B * TRAIN_S
+    ops = 6 * mat_params * tokens + 14 * TRAIN_B * cfg.num_heads * cfg.resolved_head_dim() * cfg.num_layers * \
+        attention_pairs(TRAIN_S, TRAIN_S, True, 0)
+    b_ms = ops / PEAK_OPS["torch.bfloat16"] * 1e3
+    log(f"  median step {1e3 * med:.1f} ms over steps 1-{TRAIN_STEPS - 1}, {tokens / med:.0f} tokens/s; "
+        f"operations bound {b_ms:.1f} ms ({ops:.4e} operations at the bf16 peak, {100 * b_ms / (1e3 * med):.1f}% "
+        f"of the step); peak allocated {peak} B")
+    profile_steps(torch, dev, f"{TRAIN_ARCH} train step", lambda i: step_fn(state, batch), med, n=2, top=12)
+
+    # remat off against remat on: the loss and every gradient, bit for bit
+    params = state["params"]
+    del state, metrics
+    torch.cuda.empty_cache()
+    on = value_and_grad(build_model(cfg), params, batch)
+    zero_launches()
+    off = value_and_grad(build_model(dataclasses.replace(cfg, remat=False)), params, batch)
+    torch.cuda.synchronize(dev)
+    launches = read_launches()
+    want_off = train_launches(cfg, False)
+    if launches != want_off:
+        raise AssertionError(f"train without remat: launches {launches} != {want_off}")
+    same = torch.equal(on[0], off[0]) and all(torch.equal(a, b) for a, b in zip(on[2], off[2]))
+    log(f"  remat off vs on: loss {float(off[0]):.6f} vs {float(on[0]):.6f}, {len(on[2])} gradient leaves, "
+        f"bit-identical {same}; launches without remat {launches}")
+    if not same:
+        raise AssertionError("train: remat off does not give remat on's bits")
+    del on, off, params, batch
+    torch.cuda.empty_cache()
+    return total, {"losses": losses, "median_step_ms": 1e3 * med, "tokens_per_s": tokens / med,
+                   "bound_ms": b_ms, "peak_allocated_bytes": peak}
+
+
+def supervisor_on_card(torch, dev):
+    """Phase 8, last: ``TrainSupervisor`` at qwen3-1.7b's reduced config on the
+    card, in a temporary directory: a run with an injected failure at step 3
+    restarts from the step-2 checkpoint and gives the uninterrupted run's
+    losses from there (rtol = atol = 1e-5, the reference's test; bit-equality
+    reported)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.runtime.train_loop import FailureInjector, TrainSupervisor
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    shape = ShapeSpec("smoke", 64, 4, "train")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        base = TrainSupervisor(cfg, shape, f"{tmp}/a", ckpt_every=2, device=dev).run(total_steps=6)
+        rep = TrainSupervisor(cfg, shape, f"{tmp}/b", ckpt_every=2, device=dev).run(
+            total_steps=6, injector=FailureInjector(fail_at=[3]))
+    same = rep.losses[3:] == base.losses[2:]
+    log(f"TrainSupervisor {cfg.name} on the card ({time.perf_counter() - t0:.1f} s): restarts {rep.restarts}, "
+        f"final step {rep.final_step}, checkpoints {rep.checkpoints}, losses {base.losses}; after the restart "
+        f"{rep.losses[3:]} (bit-identical {same})")
+    if rep.restarts != 1 or rep.final_step != 6 or len(rep.losses) != 7:
+        raise AssertionError(f"TrainSupervisor: {rep}")
+    if not all(abs(a - b) <= 1e-5 + 1e-5 * abs(b) for a, b in zip(rep.losses[3:], base.losses[2:])):
+        raise AssertionError(f"TrainSupervisor: resumed losses {rep.losses[3:]} != {base.losses[2:]}")
 
 
 if __name__ == "__main__":

@@ -37,29 +37,7 @@ from repro_torch.core.timeline import TaskTimeline
 from repro_torch.models.common import resolve_device
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import build_model
-
-
-def flatten(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(path, leaf) pairs in JAX's flatten order: keys sorted at every level."""
-    out = []
-    for key in sorted(tree):
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(tree[key], dict):
-            out.extend(flatten(tree[key], path))
-        else:
-            out.append((path, tree[key]))
-    return out
-
-
-def unflatten(pairs) -> dict:
-    tree: dict = {}
-    for path, leaf in pairs:
-        *parents, name = path.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[name] = leaf
-    return tree
+from repro_torch.tree import flatten, unflatten
 
 
 @dataclasses.dataclass

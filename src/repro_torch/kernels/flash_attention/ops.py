@@ -5,6 +5,14 @@ the kernel on the current stream or raises. ``flash_attention.launches``
 counts the kernel's launches, ``flash_attention.wgmma_launches`` those of
 them that took the tensor-core route.
 
+On CUDA, with grad mode on and q, k or v requiring grad, the call runs
+inside an ``autograd.Function`` that saves q, k, v and the output; its
+backward is :func:`flash_attention_backward`, the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (three launches: the rows' softmax
+statistics, dQ, dK and dV; no atomics), counted once a call in
+``flash_attention.bwd_launches``. Without grad the forward's launch, route
+and bits are those of a call outside autograd.
+
 The kernel replaces the JAX package's ``flash_attention``
 (``src/repro/kernels/flash_attention/kernel.py:79``). At prefill it is bound
 by the bf16 tensor-core rate; :func:`fa_route` sends those calls to the
@@ -22,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_backward
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # the simt route; the wgmma route takes WGMMA_HEAD_DIMS
@@ -32,6 +40,9 @@ ROUTE_CODES = {"simt": 0, "wgmma": 1}  # the C entry point's route argument
 _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+)
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
@@ -60,6 +71,14 @@ def flash_attention(
     causal keeps j <= i, a window keeps i - j < window."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    scale = _check(q, k, v, window, sm_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
+
+
+def _check(q, k, v, window, sm_scale) -> float:
+    """Raises on what the CUDA kernels do not take; returns the scale."""
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError(f"flash_attention: q/k/v on {q.device}, {k.device}, {v.device}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -74,7 +93,13 @@ def flash_attention(
         raise ValueError("flash_attention: q, k and v must be contiguous")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float) -> torch.Tensor:
+    """One launch of the forward kernel on checked inputs."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     route = fa_route(b, sq, skv, h, hkv, d, q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention", _ARGTYPES)
@@ -91,5 +116,68 @@ def flash_attention(
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with :func:`flash_attention_backward` as its
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.attrs = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.attrs
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(), causal=causal, window=window,
+                                              sm_scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_backward(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, Hkv, D)
+    v: torch.Tensor,  # (B, Skv, Hkv, D)
+    out: torch.Tensor,  # (B, Sq, H, D), the forward's output
+    dout: torch.Tensor,  # (B, Sq, H, D), its gradient
+    *,
+    causal: bool = True,
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of :func:`flash_attention` with the same masks, each in
+    its input's dtype. A CPU tensor goes to the plain version; on CUDA one
+    call of the C entry point (three kernel launches), counted in
+    ``flash_attention.bwd_launches``."""
+    tensors = (q, k, v, out, dout)
+    if all(t.device.type == "cpu" for t in tensors):
+        return attention_ref_backward(q, k, v, dout, causal=causal, window=window, sm_scale=sm_scale)
+    scale = _check(q, k, v, window, sm_scale)
+    if not all(t.is_cuda and t.device == q.device for t in (out, dout)):
+        raise ValueError(f"flash_attention_backward: out on {out.device}, dout on {dout.device}")
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward: out {tuple(out.shape)} {out.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype} for q {tuple(q.shape)} {q.dtype}")
+    if not (out.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("flash_attention_backward: out and dout must be contiguous")
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    work = torch.empty((3, b * h * sq), dtype=torch.float32, device=q.device)  # row m, l, delta
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+        b, sq, skv, h, hkv, d, scale, int(causal), int(window), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention_backward")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+flash_attention.bwd_launches = 0

@@ -1,5 +1,7 @@
 """Plain PyTorch version of flash attention (copy of the JAX package's
-``flash_attention/ref.py``): exact attention with causal/window masks + GQA."""
+``flash_attention/ref.py``): exact attention with causal/window masks + GQA;
+and its plain backward, the gradient the reference's training step takes of
+its plain attention."""
 import math
 
 import torch
@@ -26,3 +28,15 @@ def attention_ref(q, k, v, causal=True, window=0, sm_scale=None):
     p = p / p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, vf)
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_ref_backward(q, k, v, do, causal=True, window=0, sm_scale=None):
+    """Plain backward of :func:`attention_ref`: (dq, dk, dv) for the output
+    gradient ``do``, by autograd through its f32 arithmetic, each cast to its
+    input's dtype. The masked scores are constants there (``torch.where``), so
+    no gradient reaches them."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        out = attention_ref(qf, kf, vf, causal=causal, window=window, sm_scale=sm_scale)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

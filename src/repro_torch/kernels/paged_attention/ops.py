@@ -4,7 +4,8 @@ A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``paged_attention.launches``
 counts the wrapper's calls on the card: a call is one kernel launch when
 :func:`pa_splits` gives one split, else two (the split kernel and the merge
-of the splits). Head dims up to MAX_HEAD_DIM.
+of the splits). Head dims up to MAX_HEAD_DIM. The kernel has no backward: on
+CUDA under grad, with q or a pool requiring grad, the call raises.
 """
 from __future__ import annotations
 
@@ -71,6 +72,9 @@ def paged_attention(
         raise TypeError(f"paged_attention: page_table {page_table.dtype}, lengths {lengths.dtype}; need int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: every input must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, pool_k, pool_v)):
+        raise RuntimeError("paged_attention has no backward on CUDA yet (ROADMAP.md §1); "
+                           "call it under torch.no_grad() or on the CPU")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     max_pages = page_table.shape[1]
     splits = pa_splits(b, hkv, max_pages, _build.sm_count(q.device))

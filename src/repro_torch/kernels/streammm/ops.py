@@ -30,6 +30,18 @@ launch, the experts on the grid's z axis, the route picked by
 (E,) gives each expert's filled slots: rows at or past ``rows[e]`` come out
 0, and an expert with none reads no weight. ``stream_matmul.
 batched_launches`` counts those launches; their checks run on both devices.
+
+Gradients: on CUDA, with grad mode on and x or w requiring grad, the 2-D
+form runs inside an ``autograd.Function`` whose forward is the same launch
+and whose backward is ``stream_matmul`` itself, on contiguous operands: for
+a (K, N) weight dX = ``stream_matmul(dY, w, w_layout="nk")`` (w read in
+place as the K-major weight of ``dY @ w.T``) and dW = ``stream_matmul(x.T,
+dY)``; for an (N, K) weight (``w_layout="nk"``, the tied head) dX =
+``stream_matmul(dY, w)`` and dW = ``stream_matmul(dY.T, x)``. Each gradient
+comes out in its operand's dtype, and f32 stays exact f32. Without grad
+(every serving path) nothing changes: the same launch, route, bits and
+counts. The expert-batched form and ``stream_matmul_int8`` have no backward
+yet: on CUDA under grad, with an input that requires grad, they raise.
 """
 from __future__ import annotations
 
@@ -92,6 +104,13 @@ def stream_matmul(
         return _stream_matmul_batched(x, w, out_dtype, w_layout, rows)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return stream_matmul_ref(x, w, out_dtype, w_layout)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _StreamMatmul.apply(x, w, out_dtype, w_layout)
+    return _stream_matmul_2d(x, w, out_dtype, w_layout)
+
+
+def _stream_matmul_2d(x, w, out_dtype, w_layout):
+    """The 2-D form on CUDA: checks, the route and one launch."""
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"stream_matmul: x on {x.device}, w on {w.device}")
     nk = w_layout == "nk"
@@ -111,6 +130,42 @@ def stream_matmul(
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     _launch(x, w, out, None, 1, m, n, k, route, splits, w_layout)
     return out
+
+
+class _StreamMatmul(torch.autograd.Function):
+    """The 2-D form with gradients through ``stream_matmul`` (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype, w_layout):
+        ctx.save_for_backward(x, w)
+        ctx.w_layout = w_layout
+        return _stream_matmul_2d(x, w, out_dtype, w_layout)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.w_layout == "kn":  # y = x @ w, w (K, N)
+            if ctx.needs_input_grad[0]:
+                dx = stream_matmul(dy, w, out_dtype=x.dtype, w_layout="nk")
+            if ctx.needs_input_grad[1]:
+                dw = stream_matmul(x.T.contiguous(), dy, out_dtype=w.dtype)
+        else:  # y = x @ w.T, w (N, K)
+            if ctx.needs_input_grad[0]:
+                dx = stream_matmul(dy, w, out_dtype=x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = stream_matmul(dy.T.contiguous(), x, out_dtype=w.dtype)
+        return dx, dw, None, None
+
+
+def _no_grad_on_cuda(what: str, tensors) -> None:
+    """Raises for a CUDA call under grad with an input that requires grad: the
+    kernel has no backward, and its result would carry no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward on CUDA yet (ROADMAP.md §1); "
+                           "call it under torch.no_grad() or on the CPU")
 
 
 def _stream_matmul_batched(x, w, out_dtype, w_layout, rows):
@@ -138,6 +193,7 @@ def _stream_matmul_batched(x, w, out_dtype, w_layout, rows):
             raise ValueError(f"stream_matmul: rows {tuple(rows.shape)}, need a contiguous ({e},)")
     if on_cpu:
         return stream_matmul_ref(x, w, out_dtype, rows=rows)
+    _no_grad_on_cuda("stream_matmul's expert-batched form", (x, w))
     route = mm_route(c, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     splits = k_splits(c, n, k, _build.sm_count(x.device), experts=e) if route == "gemv" else 0
     out = torch.empty((e, c, n), dtype=out_dtype, device=x.device)
@@ -239,6 +295,7 @@ def stream_matmul_int8(
         raise ValueError("stream_matmul_int8: x, w_q and scales must be contiguous")
     if on_cpu:
         return stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype)
+    _no_grad_on_cuda("stream_matmul_int8", tensors)
     route = int8_route(m, n, k, block_k, x.dtype, all(t.data_ptr() % 16 == 0 for t in tensors))
     if route == "gemv":
         splits = int8_k_splits(m, n, k, block_k, _build.sm_count(x.device))

@@ -4,6 +4,7 @@ reference's contract:
 
   init(generator)                     -> params
   forward(params, batch)              -> logits (B, S, V)
+  loss(params, batch)                 -> (scalar, {"ce", "aux"})
   prefill(params, batch, max_seq)     -> (last_logits, cache)
   decode_step(params, cache, batch)   -> (logits, cache)        [one token]
   init_cache(batch, max_seq, device)  -> cache
@@ -12,8 +13,10 @@ Counterpart of the JAX package's ``models/model.py``. Params keep the
 reference's tree and stacked-layer layout: ``head`` holds
 ``embed``/``lm_head``/``final_norm`` (no ``lm_head`` where the embeddings are
 tied: the logits read ``embed`` as a K-major weight) and every leaf under
-``layers`` has a leading ``L`` axis, walked by a Python loop over ``[l]``
-views (the JAX package scans it). Batches are the reference's: ``tokens``;
+``layers`` has a leading ``L`` axis, walked by a Python loop over per-layer
+views (the JAX package scans it), one ``unbind`` a leaf, so that under
+autograd a leaf's gradient is one stack of its layers' gradients. Batches are the reference's: ``tokens``
+(and ``labels`` for ``loss``);
 for the VLM family also ``vision_embeds`` (B, S_vis, d), placed before the
 tokens, and ``positions3`` (3, B, S_vis + S_text); for the audio family
 ``frames`` (B, S, d) and an optional ``frame_mask`` (B, S), whose frames
@@ -26,8 +29,16 @@ a Python int, so that a step checks its bounds without waiting for the
 device. An MoE layer (``cfg.moe``) holds ``moe`` where a dense one holds
 ``mlp``. The hybrid family (recurrentgemma) holds ``rec_layers`` and
 ``attn_layers``, each stacked, and a cache of ``{"h", "conv", "k", "v"}``
-whose k/v are rings of ``w`` slots. ``loss`` (and with it MoE's
-load-balance term) is not ported yet (ROADMAP.md §1).
+whose k/v are rings of ``w`` slots.
+
+``loss`` is the reference's: the token-mean cross-entropy in f32
+(:func:`cross_entropy`) plus, for the attention families, 0.01 times MoE's
+load-balance term averaged over the layers (0 for a dense model); the VLM's
+vision prefix carries no labels, and audio labels are ignored where
+``frame_mask`` is False. With ``cfg.remat`` each layer (the hybrid: each
+(rec, rec, attn) group) runs under ``torch.utils.checkpoint``, as the
+reference's ``_remat`` wraps its scan body: the numbers do not change, the
+activations kept for the backward do.
 """
 from __future__ import annotations
 
@@ -35,6 +46,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, rglru, ssm
@@ -58,6 +71,7 @@ class ModelFns:
     cfg: ModelConfig
     init: Callable
     forward: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -80,8 +94,46 @@ def _logits(p, x, cfg: ModelConfig):
     return linear(x, p["lm_head"])
 
 
-def _layer_view(tree, l: int):
-    return {k: _layer_view(v, l) if isinstance(v, dict) else v[l] for k, v in tree.items()}
+def _layer_views(tree, n: int):
+    """The ``n`` layers of a stacked tree as views, one ``unbind`` a leaf:
+    under autograd the leaf's gradient is then one stack of the layers'
+    gradients, where indexing ``[l]`` would add a zero tensor of the whole
+    leaf for every layer."""
+    split = {k: _layer_views(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[l] for k, v in split.items()} for l in range(n)]
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``: the
+    reference's ``_remat`` (``jax.checkpoint``) around a scan body. The
+    model draws no random numbers, so no RNG state is kept for the replay."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def cross_entropy(logits, labels, ignore: int = -1):
+    """Token-mean cross-entropy in f32, the reference's: the max taken without
+    a gradient, labels equal to ``ignore`` masked out. The label's logit is
+    gathered (the reference selects it with an iota compare and a sum over
+    V, which adds only zeros to it: the same value)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    mask = labels != ignore
+    ll = logits.gather(-1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
+    maskf = mask.float()
+    return ((lse - ll) * maskf).sum() / maskf.sum().clamp(min=1.0)
+
+
+def _load_balance_loss(router_logits, cfg: ModelConfig):
+    """MoE's auxiliary term, the reference's ``_load_balance_loss``: E times
+    the sum over experts of (the share of tokens whose top choice it is) x
+    (its mean router probability)."""
+    e = cfg.moe.num_experts
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    frac = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0)
+    return e * (frac * probs.mean(dim=0)).sum()
 
 
 def _transformer_fns(cfg: ModelConfig) -> ModelFns:
@@ -101,13 +153,28 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         return {"head": _init_head(gen, cfg), "layers": layers}
 
     def _mlp_block(lp, x):
-        """The reference's ``_mix_mlp`` without its auxiliary loss, which
-        only ``loss`` reads."""
+        """The reference's ``_mix_mlp``: (x + the MLP's output, the MoE
+        layer's router logits, from which only ``loss`` takes the auxiliary
+        term; None for a dense layer)."""
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if cfg.moe is not None:
-            out, _ = moe_apply(lp["moe"], h, cfg)
-            return x + out
-        return x + mlp_apply(lp["mlp"], h)
+            out, router_logits = moe_apply(lp["moe"], h, cfg)
+            return x + out, router_logits
+        return x + mlp_apply(lp["mlp"], h), None
+
+    def _layer(lp, x, positions, positions3):
+        """One layer over the sequence: (x, (k, v), router logits or None)."""
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        attn_out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, positions3=positions3)
+        x, router_logits = _mlp_block(lp, x + attn_out)
+        return x, kv, router_logits
+
+    def _loss_layer(lp, x, positions, positions3):
+        """One layer of ``loss``: (x, its load-balance term, 0 if dense)."""
+        x, _, router_logits = _layer(lp, x, positions, positions3)
+        if router_logits is None:
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, _load_balance_loss(router_logits, cfg)
 
     def _embed_inputs(params, batch):
         """(x, positions, positions3) as the reference's ``_embed_inputs``:
@@ -144,19 +211,32 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         """The layer stack over the embedded sequence x (B, S, d); with
         ``cache``, each layer's k/v are written into its slots 0..S-1."""
         s = x.shape[1]
-        for l in range(L):
-            lp = _layer_view(params["layers"], l)
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            attn_out, (k, v) = attention_apply(lp["attn"], h, cfg, positions=positions, positions3=positions3)
+        for l, lp in enumerate(_layer_views(params["layers"], L)):
+            x, (k, v), _ = _layer(lp, x, positions, positions3)
             if cache is not None:
                 cache["k"][l, :, :s] = k
                 cache["v"][l, :, :s] = v
-            x = _mlp_block(lp, x + attn_out)
         return x
 
     def forward(params, batch):
         x = _run_layers(params, *_embed_inputs(params, batch))
         return _logits(params["head"], x, cfg)
+
+    def loss(params, batch):
+        x, positions, positions3 = _embed_inputs(params, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in _layer_views(params["layers"], L):
+            x, aux_l = _remat(cfg, _loss_layer, lp, x, positions, positions3)
+            aux = aux + aux_l
+        aux = aux / L
+        if cfg.family == "vlm":  # only text positions carry labels
+            x = x[:, batch["vision_embeds"].shape[1] :, :]
+        logits = _logits(params["head"], x, cfg)
+        labels = batch["labels"]
+        if cfg.family == "audio" and "frame_mask" in batch:
+            labels = torch.where(batch["frame_mask"], labels, -1)
+        ce = cross_entropy(logits, labels)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
         dev = resolve_device(device)
@@ -200,19 +280,18 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         # the reference's decode takes position = index on all three M-RoPE axes
         positions3 = index.expand(3, b, 1) if cfg.family == "vlm" else None
         pages = kv_pages(index, b, smax)
-        for l in range(L):
-            lp = _layer_view(params["layers"], l)
+        for l, lp in enumerate(_layer_views(params["layers"], L)):
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             attn_out, _ = attention_decode(
                 lp["attn"], h, cfg, k_cache=cache["k"][l], v_cache=cache["v"][l],
                 index=index, positions=positions, positions3=positions3, pages=pages,
             )
-            x = _mlp_block(lp, x + attn_out)
+            x, _ = _mlp_block(lp, x + attn_out)
         logits = _logits(params["head"], x, cfg)
         return logits, {"k": cache["k"], "v": cache["v"], "index": index + 1,
                         "host_index": cache["host_index"] + 1}
 
-    return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
+    return ModelFns(cfg, init, forward, loss, prefill, decode_step, init_cache)
 
 
 def _ssm_fns(cfg: ModelConfig) -> ModelFns:
@@ -235,8 +314,7 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         """The layer stack over the whole sequence; with ``cache``, each
         layer's final state and conv tail are written into it."""
         x = params["head"]["embed"][tokens]
-        for l in range(L):
-            lp = _layer_view(params["layers"], l)
+        for l, lp in enumerate(_layer_views(params["layers"], L)):
             h = rms_norm(x, lp["norm"], cfg.norm_eps)
             out, st = ssm.ssm_apply_with_state(lp["mixer"], h, cfg)
             if cache is not None:
@@ -247,6 +325,16 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
 
     def forward(params, batch):
         return _logits(params["head"], _run_layers(params, batch["tokens"]), cfg)
+
+    def _loss_layer(lp, x):
+        return x + ssm.ssm_apply(lp["mixer"], rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
+
+    def loss(params, batch):
+        x = params["head"]["embed"][batch["tokens"]]
+        for lp in _layer_views(params["layers"], L):
+            x = _remat(cfg, _loss_layer, lp, x)
+        ce = cross_entropy(_logits(params["head"], x, cfg), batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
         """``max_seq`` is not used: the decode state has a constant size."""
@@ -276,8 +364,7 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         conv history were updated in place (the returned dict shares them with
         the one passed in) and whose index is one more."""
         x = params["head"]["embed"][batch["tokens"]]
-        for l in range(L):
-            lp = _layer_view(params["layers"], l)
+        for l, lp in enumerate(_layer_views(params["layers"], L)):
             h = rms_norm(x, lp["norm"], cfg.norm_eps)
             out, _ = ssm.ssm_decode(lp["mixer"], h, {"state": cache["state"][l], "conv": cache["conv"][l]}, cfg)
             x = x + out
@@ -285,7 +372,7 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         return logits, {"state": cache["state"], "conv": cache["conv"], "index": cache["index"] + 1,
                         "host_index": cache["host_index"] + 1}
 
-    return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
+    return ModelFns(cfg, init, forward, loss, prefill, decode_step, init_cache)
 
 
 def _hybrid_counts(cfg: ModelConfig):
@@ -345,6 +432,10 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, window=window)
         return _mlp(lp, x + out), kv
 
+    def _views(params):
+        """The recurrent and the attention layers' views (:func:`_layer_views`)."""
+        return _layer_views(params["rec_layers"], n_rec), _layer_views(params["attn_layers"], n_attn)
+
     def _order():
         """The layers in the order they run: ("rec", i) or ("attn", g)."""
         for g in range(n_groups):
@@ -359,14 +450,15 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         x = params["head"]["embed"][tokens]
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        recs, attns = _views(params)
         for kind, i in _order():
             if kind == "rec":
-                x, h, tail = _rec_apply(_layer_view(params["rec_layers"], i), x)
+                x, h, tail = _rec_apply(recs[i], x)
                 if cache is not None:
                     cache["h"][i] = h
                     cache["conv"][i] = tail
             else:
-                x, kv = _attn_apply(_layer_view(params["attn_layers"], i), x, positions)
+                x, kv = _attn_apply(attns[i], x, positions)
                 if cache is not None:
                     w = cache["k"].shape[2]
                     for key, t in zip(("k", "v"), kv):  # the reference's seed_ring
@@ -375,6 +467,25 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
 
     def forward(params, batch):
         return _logits(params["head"], _run_full(params, batch["tokens"]), cfg)
+
+    def _loss_group(r0, r1, attn, x, positions):
+        """One (rec, rec, attn) group of ``loss``, the reference's remat unit."""
+        x = _rec_apply(r0, x)[0]
+        x = _rec_apply(r1, x)[0]
+        return _attn_apply(attn, x, positions)[0]
+
+    def loss(params, batch):
+        tokens = batch["tokens"]
+        x = params["head"]["embed"][tokens]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        recs, attns = _views(params)
+        for g in range(n_groups):
+            x = _remat(cfg, _loss_group, recs[2 * g], recs[2 * g + 1], attns[g], x, positions)
+        for i in range(n_rem):  # the trailing recurrent layers, outside the reference's remat scan
+            x = _rec_apply(recs[2 * n_groups + i], x)[0]
+        ce = cross_entropy(_logits(params["head"], x, cfg), batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
         dev = resolve_device(device)
@@ -418,16 +529,17 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         index = cache["index"]
         positions = index.expand(b, 1)
         pages = kv_pages(index, b, cache["k"].shape[2], ring=True)
+        recs, attns = _views(params)
         for kind, i in _order():
             if kind == "rec":
-                lp = _layer_view(params["rec_layers"], i)
+                lp = recs[i]
                 h = rms_norm(x, lp["norm"], cfg.norm_eps)
                 out, h_new, conv_new = rglru.rec_block_decode(lp["rec"], h, cache["h"][i], cfg, cache["conv"][i])
                 cache["h"][i] = h_new
                 cache["conv"][i] = conv_new
                 x = _mlp(lp, x + out)
             else:
-                lp = _layer_view(params["attn_layers"], i)
+                lp = attns[i]
                 h = rms_norm(x, lp["norm"], cfg.norm_eps)
                 out, _ = attention_decode(
                     lp["attn"], h, cfg, k_cache=cache["k"][i], v_cache=cache["v"][i],
@@ -438,7 +550,7 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         return logits, {"h": cache["h"], "conv": cache["conv"], "k": cache["k"], "v": cache["v"],
                         "index": index + 1, "host_index": cache["host_index"] + 1}
 
-    return ModelFns(cfg, init, forward, prefill, decode_step, init_cache)
+    return ModelFns(cfg, init, forward, loss, prefill, decode_step, init_cache)
 
 
 def build_model(cfg: ModelConfig) -> ModelFns:

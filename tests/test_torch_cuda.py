@@ -1,9 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (``stream_matmul``'s expert-batched form too; both attention kernels up to
 head dim 256), the MoE layer on the card against the CPU and without a host
-sync, mamba2 and minicpm-2b at full width on the card against the CPU, and
-the hybrid's ring decode on the card against the CPU and without a host
-sync.
+sync, mamba2 and minicpm-2b at full width on the card against the CPU, the
+hybrid's ring decode on the card against the CPU and without a host sync;
+and the training path's kernels: ``flash_attention``'s backward against the
+plain version's gradients (f32 at relative L2 1e-4, bf16 at 2e-2 against
+the f32 gradients), ``stream_matmul``'s gradients in both weight layouts,
+the wrappers that have no backward raising under grad, and train steps on
+the card against the CPU without a host sync.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -728,3 +732,175 @@ def test_hybrid_ring_decode_card_against_cpu(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(out.float()).all()
+
+
+# The flash backward (csrc/flash_attention_bwd.cu): head dims 64 / 80 / 128 /
+# 256, causal, windowed and bidirectional, g = 1 and g > 1, Sq > Skv, ragged
+# sizes. f32 gradients: the same function with sums in another order (~1e-6);
+# bf16 inputs against the f32 gradient of the same inputs: bf16 rounding of
+# the inputs, the forward's output and the gradients (~2e-3 measured).
+FA_BWD_CASES = [
+    (2, 256, 256, 8, 2, 64, True, 0),
+    (1, 128, 128, 4, 4, 64, True, 0),
+    (2, 100, 100, 16, 16, 80, False, 0),
+    (2, 130, 130, 16, 4, 80, True, 0),
+    (1, 300, 300, 16, 8, 128, True, 0),
+    (1, 300, 300, 16, 8, 128, True, 100),
+    (1, 1, 1, 16, 8, 128, True, 0),
+    (2, 96, 96, 16, 1, 256, True, 16),
+    (1, 200, 200, 16, 1, 256, True, 64),
+    (1, 70, 40, 4, 2, 64, True, 16),
+    (1, 65, 65, 4, 2, 200, False, 0),
+]
+FA_BWD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_backward_kernel(cuda, b, sq, skv, h, hkv, d, causal, window, dtype):
+    from repro_torch.kernels.flash_attention.ref import attention_ref_backward
+
+    dt = DTYPES[dtype]
+    q, do = (_randn((b, sq, h, d), dt, cuda, seed) for seed in (31, 32))
+    k, v = (_randn((b, skv, hkv, d), dt, cuda, seed) for seed in (33, 34))
+    kw = dict(causal=causal, window=window)
+    with torch.no_grad():
+        o = fa_ops.flash_attention(q, k, v, **kw)
+    before = fa_ops.flash_attention.bwd_launches
+    grads = fa_ops.flash_attention_backward(q, k, v, o, do, **kw)
+    assert fa_ops.flash_attention.bwd_launches == before + 1
+    want = attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **kw)
+    again = fa_ops.flash_attention_backward(q, k, v, o, do, **kw)
+    for name, g, w, g2 in zip("qkv", grads, want, again):
+        assert g.dtype == dt and g.shape == w.shape
+        if w.norm() == 0:  # one key a row (Sq = Skv = 1): P = 1, so dS = dP - delta = 0 and dQ = dK = 0
+            assert float(g.float().abs().max()) <= 1e-5, f"d{name}: {float(g.float().abs().max()):.3e}"
+        else:
+            assert _rel_l2(g, w) <= FA_BWD_REL_L2[dtype], f"d{name}: {_rel_l2(g, w):.3e}"
+        assert torch.equal(g, g2), f"d{name} is not deterministic"
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card(cuda):
+    """Under grad the wrapper's result has a grad_fn whose backward is the
+    kernel; without grad the call is the plain forward launch."""
+    q = _randn((2, 128, 8, 64), torch.bfloat16, cuda, 41).requires_grad_()
+    k, v = (_randn((2, 128, 2, 64), torch.bfloat16, cuda, s).requires_grad_() for s in (42, 43))
+    do = _randn((2, 128, 8, 64), torch.bfloat16, cuda, 44)
+    launches, bwd = fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches) == (launches + 1, bwd + 1)
+    want = fa_ops.flash_attention_backward(q.detach(), k.detach(), v.detach(), out.detach(), do, causal=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with torch.no_grad():
+        plain = fa_ops.flash_attention(q, k, v, causal=True)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+    assert fa_ops.flash_attention.bwd_launches == bwd + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,layout,dtype", [
+    (256, 512, 1024, "kn", "bfloat16"), (4, 512, 1024, "kn", "bfloat16"), (130, 264, 136, "kn", "float32"),
+    (256, 2304, 1000, "nk", "bfloat16"), (64, 300, 1001, "nk", "float32"),
+])
+def test_stream_matmul_gradients_on_the_card(cuda, m, k, n, layout, dtype):
+    dt = DTYPES[dtype]
+    x = _randn((m, k), dt, cuda, 51).requires_grad_()
+    w = _randn((k, n) if layout == "kn" else (n, k), dt, cuda, 52, scale=k ** -0.5).requires_grad_()
+    dy = _randn((m, n), dt, cuda, 53)
+    before = mm_ops.stream_matmul.launches
+    y = mm_ops.stream_matmul(x, w, out_dtype=dt, w_layout=layout)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    assert mm_ops.stream_matmul.launches == before + 3  # forward, dX, dW
+    xf, wf, dyf = x.detach().float(), w.detach().float(), dy.float()
+    want_x = dyf @ (wf.T if layout == "kn" else wf)
+    want_w = xf.T @ dyf if layout == "kn" else dyf.T @ xf
+    tol = 1e-5 if dt == torch.float32 else 1e-2  # f32 stays exact f32; bf16 rounds the gradient once
+    assert gx.dtype == gw.dtype == dt
+    assert _rel_l2(gx, want_x) <= tol and _rel_l2(gw, want_w) <= tol
+    with torch.no_grad():
+        plain = mm_ops.stream_matmul(x, w, out_dtype=dt, w_layout=layout)
+    assert plain.grad_fn is None and torch.equal(plain, y.detach())
+
+
+@pytest.mark.cuda
+def test_wrappers_without_a_backward_raise_under_grad(cuda):
+    x = _randn((2, 16, 64), torch.bfloat16, cuda, 61).requires_grad_()
+    w = _randn((2, 64, 32), torch.bfloat16, cuda, 62)
+    with pytest.raises(RuntimeError, match="expert-batched form has no backward"):
+        mm_ops.stream_matmul(x, w)
+    with torch.no_grad():
+        assert mm_ops.stream_matmul(x, w).shape == (2, 16, 32)
+    xq = _randn((4, 128), torch.bfloat16, cuda, 63).requires_grad_()
+    w_q = torch.ones((128, 64), dtype=torch.int8, device=cuda)
+    scales = torch.ones((2, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="stream_matmul_int8 has no backward"):
+        mm_ops.stream_matmul_int8(xq, w_q, scales, 64)
+    q = _randn((2, 4, 32), torch.bfloat16, cuda, 64).requires_grad_()
+    pool = _randn((4, 16, 2, 32), torch.bfloat16, cuda, 65)
+    table = torch.arange(4, dtype=torch.int32, device=cuda).reshape(2, 2)
+    lengths = torch.tensor([5, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="paged_attention has no backward"):
+        pa_ops.paged_attention(q, pool, pool, table, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,micro", [("qwen3-1.7b", 0), ("qwen3-1.7b", 2), ("minicpm-2b", 0),
+                                        ("recurrentgemma-9b", 0)])
+def test_train_steps_card_against_cpu(cuda, arch, micro):
+    """Reduced configs in f32, remat on: two train steps on the card (the
+    kernels forward and backward) against the same steps on the CPU (the
+    plain versions), metrics and params within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32", remat=True)
+    state_cpu = make_train_state(cfg, torch.Generator().manual_seed(0))
+    state = tree_map(lambda t: t.to(cuda), state_cpu)
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=1, total_steps=10, microbatches=micro)
+    pipe = pipeline_for(cfg, ShapeSpec("train", 64, 4, "train"), seed=1)
+    bwd = fa_ops.flash_attention.bwd_launches
+    for i in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in pipe.batch(i).items()}
+        state, metrics = step(state, {k: v.to(cuda) for k, v in batch.items()})
+        state_cpu, metrics_cpu = step(state_cpu, batch)
+        for key in metrics:
+            torch.testing.assert_close(metrics[key].cpu(), metrics_cpu[key], rtol=1e-4, atol=1e-4)
+    assert fa_ops.flash_attention.bwd_launches > bwd
+    for (path, a), (_, b) in zip(flatten(state), flatten(state_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=path)
+
+
+@pytest.mark.cuda
+def test_train_step_has_no_host_sync(cuda):
+    """A bf16 train step with remat waits for the device nowhere: under
+    CUDA's sync debug mode set to "error" a synchronising call raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_state, make_train_step
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    state = make_train_state(cfg, torch.Generator(cuda).manual_seed(0))
+    step = make_train_step(cfg, warmup=1)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 64), device=cuda)}
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    state, _ = step(state, batch)  # builds the kernels first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]).all()

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-and its entry points do not fall back to the CPU when there is no card."""
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
+(nor msgpack and ml_dtypes, which the reference's checkpoints and bf16
+arrays use), and its entry points do not fall back to the CPU when there is
+no card."""
 import os
 import pkgutil
 import re
@@ -14,14 +16,14 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|msgpack|ml_dtypes)(\.|\s|$)", re.M)
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "msgpack", "ml_dtypes"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -30,7 +32,11 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "repro_torch.launch.specs" in names, names
+for want in ("repro_torch.launch.specs", "repro_torch.launch.train", "repro_torch.optim.optimizers",
+             "repro_torch.optim.schedules", "repro_torch.data.pipeline", "repro_torch.runtime.compression",
+             "repro_torch.runtime.train_loop", "repro_torch.checkpointing.checkpoint",
+             "repro_torch.checkpointing.manifest", "repro_torch.tree"):
+    assert want in names, (want, names)
 import chip_smoke  # noqa: F401  (the module does nothing on import)
 sys.path.insert(0, "examples")
 import port_multitask_oversubscription  # noqa: F401  (runs only as a script)
