@@ -86,9 +86,14 @@
    only caller there; every bench call of the three kernels with a
    tensor-core route takes it;
 8. trains: holds ``flash_attention``'s backward kernel against the plain
-   version's gradients at every family's training shape in f32 and bf16
-   (times beside its operations bound and the backward of
-   ``scaled_dot_product_attention``, a yardstick the port never calls), and
+   version's gradients at every family's training shape in f32 and bf16,
+   each call's route (wgmma for bf16 at head dim 64 and 128, simt
+   otherwise) logged and held against ``bwd_wgmma_launches``, the wgmma
+   route also with the row statistics its forward writes under autograd
+   (the same bits as without) and gated at qwen3-1.7b's call at
+   MAX_BWD_LIBRARY_RATIO times the backward of
+   ``scaled_dot_product_attention`` (times beside its operations bound and
+   that backward, a yardstick the port never calls), and
    ``stream_matmul``'s gradients (through ``stream_matmul`` itself) at
    qwen3-1.7b's projections and minicpm-2b's tied head; then the loss and
    every gradient of qwen3-1.7b, minicpm-2b, hubert-xlarge and mamba2-1.3b
@@ -96,7 +101,8 @@
    card against the CPU (f32 gated, bf16 reported); then qwen3-1.7b at
    published width and depth, 5 AdamW steps through ``make_train_step`` on
    4 x 1024 tokens of ``TokenPipeline`` with remat, every step's launches
-   gated exactly, the loss falling, remat off giving the same bits, against
+   gated exactly (every attention call, forward and backward, on its
+   tensor-core route), the loss falling, remat off giving the same bits, against
    its operations bound; and ``TrainSupervisor`` with an injected failure
    resuming with the uninterrupted run's losses;
 9. prints the kernels line and, last, the device line.
@@ -176,6 +182,13 @@ INT8_EXACT_REL_L2 = 1e-5
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
+# The backward's tensor-core route at qwen3-1.7b's training call (4 x 1024,
+# H 16 / Hkv 8, D 128, causal, the forward's statistics given) must come
+# within this factor of SDPA's backward on the same inputs: it runs seven
+# products where SDPA's runs five (dQ has a kernel of its own, so that no
+# sum needs atomics and the bits depend on the shapes alone), so it is held
+# to a looser factor than the forward kernels.
+MAX_BWD_LIBRARY_RATIO = 3.0
 PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench", "train")
 # Phase 6b: the attention families beside the live set, at published width
 # and depth: tied embeddings, M-RoPE (VLM), the bidirectional audio encoder.
@@ -244,8 +257,9 @@ TRAIN_STEPS = 5
 FA_BWD_REL_L2 = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 # the families' training shapes: (label, B, S, H, Hkv, D, causal, window,
 # calls a train step)
+TRAIN_LABEL = "qwen3"  # the FA_BWD_CASES row of the train path's call
 FA_BWD_CASES = (
-    ("qwen3", TRAIN_B, TRAIN_S, 16, 8, 128, True, 0, 28),
+    (TRAIN_LABEL, TRAIN_B, TRAIN_S, 16, 8, 128, True, 0, 28),
     ("minicpm-2b", TRAIN_B, TRAIN_S, 36, 36, 64, True, 0, 0),
     ("hubert-xlarge", TRAIN_B, TRAIN_S, 16, 16, 80, False, 0, 0),
     ("recurrentgemma-9b", TRAIN_B, TRAIN_S, 16, 1, 256, True, 2048, 0),
@@ -580,36 +594,40 @@ def path_totals(library=0.0):
 
 
 def counters():
-    """Each kernel's wrapper, which counts its launches, and the name of its
-    count: the backward of flash_attention counts on the forward's wrapper,
-    in ``bwd_launches``."""
+    """Each kernel's wrapper, which counts its launches, the name of its
+    count, and the name of its count of tensor-core launches (None where it
+    has no such route): the backward of flash_attention counts on the
+    forward's wrapper, in ``bwd_launches`` and ``bwd_wgmma_launches``."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.streammm.ops import stream_matmul, stream_matmul_int8
 
-    return {"stream_matmul": (stream_matmul, "launches"), "stream_matmul_int8": (stream_matmul_int8, "launches"),
-            "flash_attention": (flash_attention, "launches"), "paged_attention": (paged_attention, "launches"),
-            "flash_attention_backward": (flash_attention, "bwd_launches")}
+    return {"stream_matmul": (stream_matmul, "launches", "wgmma_launches"),
+            "stream_matmul_int8": (stream_matmul_int8, "launches", "wgmma_launches"),
+            "flash_attention": (flash_attention, "launches", "wgmma_launches"),
+            "paged_attention": (paged_attention, "launches", None),
+            "flash_attention_backward": (flash_attention, "bwd_launches", "bwd_wgmma_launches")}
 
 
-# wrappers with a tensor-core route
-WGMMA_KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention")
+# kernels with a tensor-core route
+WGMMA_KERNELS = ("stream_matmul", "stream_matmul_int8", "flash_attention", "flash_attention_backward")
 
 
 def zero_launches():
-    for name, (fn, count) in counters().items():
+    for fn, count, wgmma_count in counters().values():
         setattr(fn, count, 0)
-        if name in WGMMA_KERNELS:
-            fn.wgmma_launches = 0
+        if wgmma_count is not None:
+            setattr(fn, wgmma_count, 0)
 
 
 def read_launches():
-    return {name: getattr(fn, count) for name, (fn, count) in counters().items()}
+    return {name: getattr(fn, count) for name, (fn, count, _) in counters().items()}
 
 
 def read_wgmma():
     """The launches that took the tensor-core route, by kernel."""
-    return {name: fn.wgmma_launches for name, (fn, _) in counters().items() if name in WGMMA_KERNELS}
+    return {name: getattr(fn, wgmma_count) for name, (fn, _, wgmma_count) in counters().items()
+            if wgmma_count is not None}
 
 
 def model_matmuls(cfg) -> int:
@@ -657,6 +675,16 @@ def train_launches(cfg, remat: bool):
     }
 
 
+def train_wgmma(cfg, remat: bool):
+    """The attention launches of one train step of a bf16 model that take
+    the tensor-core route: at head dim 64 or 128 (qwen3-1.7b's 128) every
+    forward (twice with remat) and every backward call, the backward reading
+    the statistics its forward wrote; none at other head dims."""
+    _, n_attn = layer_counts(cfg)
+    on = cfg.resolved_head_dim() in (64, 128)
+    return {"flash_attention": n_attn * (1 + remat) * on, "flash_attention_backward": n_attn * on}
+
+
 def step_wgmma(cfg, path):
     """The launches of one call of ``path`` that take the tensor-core route:
     on prefill and on a forward over DECODE_B x PROMPT positions or more every
@@ -665,14 +693,16 @@ def step_wgmma(cfg, path):
     (a prefill's runs on the last position, M = 4: gemv); every attention at
     head dim 64 or 128 (hubert-xlarge's 80 and recurrentgemma-9b's 256 take
     simt); none on the live and decode steps (M = 1 and 4, Sq = 1 or paged;
-    an expert capacity of 2). The int8 kernel is on no model's path."""
+    an expert capacity of 2). The int8 kernel is on no model's path, the
+    backward on none of these."""
     _, n_attn = layer_counts(cfg)
     if path not in ("prefill", "forward"):
-        return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0}
+        return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0, "flash_attention_backward": 0}
     routers = cfg.num_layers if cfg.moe is not None else 0
     return {"stream_matmul": model_matmuls(cfg) - routers + (path == "forward"),
             "stream_matmul_int8": 0,
-            "flash_attention": n_attn if n_attn and cfg.resolved_head_dim() in (64, 128) else 0}
+            "flash_attention": n_attn if n_attn and cfg.resolved_head_dim() in (64, 128) else 0,
+            "flash_attention_backward": 0}
 
 
 def step_batched(cfg):
@@ -2470,33 +2500,43 @@ def kernel_bench_path(torch, dev):
         raise AssertionError(f"kernel bench launched no {missing}")
     # the bench's shapes (M = 256 products, S = 512 attention) are all on the
     # tensor-core routes
-    if any(wgmma[name] != launches[name] for name in WGMMA_KERNELS):
+    if any(wgmma[name] != launches[name] for name in BENCH_KERNELS if name in WGMMA_KERNELS):
         raise AssertionError(f"kernel bench: tensor-core launches {wgmma} != launches {launches}")
     return launches, kernel_bench.REPS + 1, wgmma
 
 
 def check_flash_backward(torch, dev):
-    """Phase 8, first part: ``flash_attention_backward`` (three launches: the
-    rows' softmax statistics, dQ, dK and dV) against the plain version's
-    gradients, autograd through ``attention_ref`` in f32, at every family's
-    training shape (FA_BWD_CASES), in f32 and bf16, the forward's output from
-    the forward kernel. Gated: relative L2 of dQ, dK and dV (FA_BWD_REL_L2;
-    bf16 against the f32 gradients of the same inputs), the same bits on a
-    second call. Timed (CUDA events, cold L2) beside the plain version on the
-    same inputs, the backward of ``scaled_dot_product_attention`` on (B, H, S,
-    D) copies (a yardstick only) and the bound: every input and gradient
-    moved once, and 2.5 times the forward's operations (the five products of
-    the standard backward: S again, dV, dP, dQ, dK) over the masked pairs.
-    The qwen3 row's calls a train step go into the train path."""
+    """Phase 8, first part: ``flash_attention_backward`` against the plain
+    version's gradients, autograd through ``attention_ref`` in f32, at every
+    family's training shape (FA_BWD_CASES), in f32 and bf16, the forward's
+    output from the forward kernel. Each call's route (``fa_bwd_route``:
+    wgmma for bf16 at head dim 64 and 128, simt otherwise) is logged and
+    held against ``bwd_wgmma_launches``. Gated: relative L2 of dQ, dK and dV
+    (FA_BWD_REL_L2; bf16 against the f32 gradients of the same inputs), the
+    same bits on a second call; on the wgmma route also the forward's row
+    statistics (written only when asked: O bit-equal without them, within
+    1e-5 of ``attention_ref_lse``), the same gradient bits with them as
+    without, and at qwen3's call a time within MAX_BWD_LIBRARY_RATIO of
+    SDPA's backward. Timed (CUDA events, cold L2) as the train path calls
+    it (with the forward's statistics where its route takes them; also
+    without, reported), beside the plain version on the same inputs, the
+    backward of ``scaled_dot_product_attention`` on (B, H, S, D) copies (a
+    yardstick only, which reads its forward's logsumexp too) and the bound:
+    every input and gradient moved once, and 2.5 times the forward's
+    operations (the five products of the standard backward: S again, dV,
+    dP, dQ, dK) over the masked pairs. The qwen3 row's calls a train step go
+    into the train path."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_backward
-    from repro_torch.kernels.flash_attention.ref import attention_ref_backward
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref_backward, attention_ref_lse
 
+    flash_attention, flash_attention_backward = fa_ops.flash_attention, fa_ops.flash_attention_backward
     bench = Bench(torch, dev, reps=5)
     gen = torch.Generator(dev).manual_seed(8)
-    log("flash_attention_backward against the plain version's gradients (ms: CUDA events; library: the "
-        "backward of scaled_dot_product_attention on (B, H, S, D) copies):")
+    log("flash_attention_backward against the plain version's gradients (ms: CUDA events, with the forward's "
+        "statistics on the wgmma route; library: the backward of scaled_dot_product_attention on (B, H, S, D) "
+        "copies):")
     totals = path_totals()
     errs, bound_kinds, by_shape = [], set(), []
     for label, b, s, h, hkv, d, causal, window, calls in FA_BWD_CASES:
@@ -2506,7 +2546,12 @@ def check_flash_backward(torch, dev):
             kw = dict(causal=causal, window=window)
             with torch.no_grad():
                 out = flash_attention(q, k, v, **kw)
+            rule = fa_ops.fa_bwd_route(b, s, s, h, hkv, d, dtype)
+            before = flash_attention.bwd_wgmma_launches
             grads = flash_attention_backward(q, k, v, out, do, **kw)
+            if flash_attention.bwd_wgmma_launches - before != (rule == "wgmma"):
+                raise AssertionError(f"flash_attention_backward {label} {dtype}: route rule says {rule}, wgmma "
+                                     f"launches rose by {flash_attention.bwd_wgmma_launches - before}")
             want = attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **kw)
             rels = [float((g.float() - w).norm() / w.norm()) for g, w in zip(grads, want)]
             err = max(float((g.float() - w).abs().max()) for g, w in zip(grads, want))
@@ -2518,7 +2563,22 @@ def check_flash_backward(torch, dev):
             if not all(torch.equal(g, a) for g, a in zip(grads, again)):
                 raise AssertionError(f"flash_attention_backward {label} {dtype} is not deterministic")
             del again
-            t = bench.ms(lambda: flash_attention_backward(q, k, v, out, do, **kw))
+            lse, lse_err = None, None
+            if rule == "wgmma":
+                # the statistics as autograd's forward writes them
+                lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+                out_lse = fa_ops._forward(q, k, v, causal, window, 1.0 / math.sqrt(d), lse)
+                lse_err = float((lse - attention_ref_lse(q, k, **kw)).abs().max())
+                with_lse = flash_attention_backward(q, k, v, out, do, lse=lse, **kw)
+                if not (torch.equal(out_lse, out) and lse_err <= 1e-5
+                        and all(torch.equal(g, a) for g, a in zip(grads, with_lse))):
+                    raise AssertionError(f"flash_attention_backward {label}: O with statistics equal "
+                                         f"{torch.equal(out_lse, out)}, statistics off by {lse_err:.2e}, gradients "
+                                         f"with them equal {all(torch.equal(g, a) for g, a in zip(grads, with_lse))}")
+                del out_lse, with_lse
+            kw_path = dict(kw, lse=lse) if lse is not None else kw
+            t = bench.ms(lambda: flash_attention_backward(q, k, v, out, do, **kw_path))
+            t_none = bench.ms(lambda: flash_attention_backward(q, k, v, out, do, **kw)) if lse is not None else t
             t_plain = bench.ms(lambda: attention_ref_backward(q, k, v, do, **kw))
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
             mask = None
@@ -2540,12 +2600,18 @@ def check_flash_backward(torch, dev):
                     totals["train"][key] += calls * val
             errs.append(err)
             by_shape.append({"label": label, "B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal": causal,
-                             "window": window, "dtype": str(dtype), "ms": t, "bound_ms": bt, "bound_by": kind,
-                             "plain_ms": t_plain, "library_ms": t_lib, "max_abs_err": err, "rel_l2": rels})
-            log(f"  {label} B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal} window={window} {dtype}: rel L2 "
-                f"dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} kernel {t:.3f} ms bound {bt:.4f} ms ({kind}, "
-                f"{100 * bt / t:.1f}%) plain {t_plain:.3f} ms sdpa backward {t_lib:.3f} ms (kernel {t / t_lib:.2f}x)")
-            del q, k, v, do, out, grads
+                             "window": window, "dtype": str(dtype), "route": rule, "ms": t,
+                             "ms_without_statistics": t_none, "bound_ms": bt, "bound_by": kind, "plain_ms": t_plain,
+                             "library_ms": t_lib, "max_abs_err": err, "rel_l2": rels, "lse_max_abs_err": lse_err})
+            log(f"  {label} B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal} window={window} {dtype} [{rule}]: "
+                f"rel L2 dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} kernel {t:.3f} ms"
+                + (f" (without statistics {t_none:.3f} ms; statistics off by {lse_err:.2e})" if lse is not None else "")
+                + f" bound {bt:.4f} ms ({kind}, {100 * bt / t:.1f}%) plain {t_plain:.3f} ms sdpa backward "
+                f"{t_lib:.3f} ms (kernel {t / t_lib:.2f}x)")
+            if label == TRAIN_LABEL and dtype == torch.bfloat16 and not t <= MAX_BWD_LIBRARY_RATIO * t_lib:
+                raise AssertionError(f"flash_attention_backward {label}: {t:.3f} ms > {MAX_BWD_LIBRARY_RATIO} x sdpa "
+                                     f"backward {t_lib:.3f} ms")
+            del q, k, v, do, out, grads, lse
         torch.cuda.empty_cache()
     return {
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2660,7 +2726,9 @@ def train_slice(torch, dev):
     parameters), AdamW and the cosine schedule of its config, remat as
     published: TRAIN_STEPS steps through ``make_train_step`` (``warmup=1``) on
     one batch of TRAIN_B x TRAIN_S tokens from ``TokenPipeline``, repeated.
-    Gated: every step's launches exactly (:func:`train_launches`), the loss
+    Gated: every step's launches exactly (:func:`train_launches`), and its
+    attention launches on the tensor-core routes (:func:`train_wgmma`: all 28
+    backward calls on the backward's wgmma route), the loss
     finite and falling, and the loss and every gradient with remat off equal
     to those with remat on, bit for bit. Reported: the median step, tokens/s,
     the device's idle share (torch.profiler), the peak of allocated memory,
@@ -2688,7 +2756,7 @@ def train_slice(torch, dev):
     log(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, {n_params} parameters "
         f"({mat_params} in products), {cfg.optimizer} + {cfg.schedule}, remat {cfg.remat}; set-up "
         f"{time.perf_counter() - t0:.1f} s")
-    want = train_launches(cfg, cfg.remat)
+    want, want_wgmma = train_launches(cfg, cfg.remat), train_wgmma(cfg, cfg.remat)
     total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
@@ -2699,8 +2767,9 @@ def train_slice(torch, dev):
         torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t0)
         launches, wgmma = read_launches(), read_wgmma()
-        if launches != want:
-            raise AssertionError(f"train step {i}: launches {launches} != {want}")
+        if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()):
+            raise AssertionError(f"train step {i}: launches {launches} != {want}, or tensor-core {wgmma} "
+                                 f"against {want_wgmma}")
         counts, n, counts_wgmma = total
         total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
                  {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
@@ -2729,10 +2798,11 @@ def train_slice(torch, dev):
     zero_launches()
     off = value_and_grad(build_model(dataclasses.replace(cfg, remat=False)), params, batch)
     torch.cuda.synchronize(dev)
-    launches = read_launches()
-    want_off = train_launches(cfg, False)
-    if launches != want_off:
-        raise AssertionError(f"train without remat: launches {launches} != {want_off}")
+    launches, wgmma = read_launches(), read_wgmma()
+    want_off, want_off_wgmma = train_launches(cfg, False), train_wgmma(cfg, False)
+    if launches != want_off or any(wgmma[k] != n for k, n in want_off_wgmma.items()):
+        raise AssertionError(f"train without remat: launches {launches} != {want_off}, or tensor-core {wgmma} "
+                             f"against {want_off_wgmma}")
     same = torch.equal(on[0], off[0]) and all(torch.equal(a, b) for a, b in zip(on[2], off[2]))
     log(f"  remat off vs on: loss {float(off[0]):.6f} vs {float(on[0]):.6f}, {len(on[2])} gradient leaves, "
         f"bit-identical {same}; launches without remat {launches}")

@@ -35,7 +35,11 @@
 //    MN-major, the transpose bit). Rounding P to bf16 is the route's one
 //    precision change against the f32 plain version: the output's relative
 //    L2 error against attention_ref is 2.0-2.1e-3 at the prefill shapes on
-//    an H100 (chip_smoke.py gates it at 1e-2).
+//    an H100 (chip_smoke.py gates it at 1e-2). Given a statistics buffer
+//    (autograd's forward, for the backward), each thread that writes a row
+//    of O also writes that row's lse2 = m2 + log2(l); the convention, and
+//    the route's code, which the backward shares, are in
+//    flash_attention_wgmma.cuh. Without one the launch is what it was.
 //  * simt (f32, the one-token live call, other head dims, Sq > Skv): a block
 //    owns 64 rows and walks KV tiles of 32 positions through shared memory in
 //    plain f32 arithmetic, 16 x 16 threads. Its tiles are sized for D <= 128
@@ -52,7 +56,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -242,301 +246,6 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-// ---- wgmma route ---------------------------------------------------------------
-
-constexpr int kFaRows = 128;    // folded rows a block: two consumer warpgroups of 64
-constexpr int kFaCols = 64;     // KV positions a tile
-constexpr int kFaStages = 3;
-constexpr int kFaThreads = 384;  // producer warpgroup + two consumers
-constexpr int kKVBoxBytes = kFaCols * 128;  // 64 positions x 64 head dims, bf16
-
-template <int D>
-struct FaLayout {
-  static constexpr int kBoxes = D / 64;                  // 64-wide head-dim boxes
-  static constexpr int kQBytes = kBoxes * kFaRows * 128;
-  static constexpr int kKBytes = kBoxes * kKVBoxBytes;   // one K (or V) tile
-  static constexpr int kStageBytes = 2 * kKBytes;
-  static constexpr int kSmem = 1024 + kQBytes + kFaStages * kStageBytes + 2 * kFaStages * 8;
-};
-
-// One work item: 128 folded rows of one (batch, kv head), and the KV tiles
-// they must visit. Items are numbered heaviest first: the causal mask gives
-// late row blocks the most tiles, so item it takes row block
-// n_row_blocks - 1 - it / (B * Hkv).
-struct FaItem {
-  int b, kvh, r0, t_begin, n_tiles;
-};
-
-__device__ __forceinline__ FaItem fa_item(int it, int B, int Hkv, int g, int n_rows, int Skv,
-                                          int causal, int window) {
-  const int n_row_blocks = (n_rows + kFaRows - 1) / kFaRows;
-  FaItem w;
-  const int bh = it % (B * Hkv);
-  w.b = bh / Hkv;
-  w.kvh = bh % Hkv;
-  w.r0 = (n_row_blocks - 1 - it / (B * Hkv)) * kFaRows;
-  // KV range the item must visit (Sq <= Skv: every row sees a key)
-  const int s_lo = w.r0 / g;
-  const int s_hi = (min(n_rows, w.r0 + kFaRows) - 1) / g;
-  int t_end = Skv;
-  w.t_begin = 0;
-  if (causal) t_end = min(Skv, s_hi + 1);
-  if (window > 0) w.t_begin = (max(0, s_lo - window + 1) / kFaCols) * kFaCols;
-  w.n_tiles = (t_end - w.t_begin + kFaCols - 1) / kFaCols;
-  return w;
-}
-
-// The item block x takes in round k: items are dealt in rounds of gridDim.x,
-// every other round in reverse, so that heavy and light items pair up.
-__device__ __forceinline__ int fa_item_index(int k) {
-  return k * gridDim.x + ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
-}
-
-// Persistent: grid = min(items, SMs); each block walks its items in rounds.
-// The K/V ring runs on across items, so the producer loads the next item's
-// first tiles while the consumers finish the current one.
-template <int D>
-__global__ void __launch_bounds__(kFaThreads, 1)
-fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int B, int Sq,
-                int Skv, int H, int Hkv, float scale, int causal, int window) {
-  using L = FaLayout<D>;
-  extern __shared__ uint8_t fa_smem[];
-  const uint32_t pad = (1024 - (hopper::smem_u32(fa_smem) & 1023)) & 1023;
-  uint8_t* q_s = fa_smem + pad;
-  uint8_t* kv_s = q_s + L::kQBytes;  // stage s: K tile, then V tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + kFaStages * L::kStageBytes);
-  uint64_t* empty = full + kFaStages;
-
-  const int g = H / Hkv;
-  const int n_rows = Sq * g;
-  const int n_items = B * Hkv * ((n_rows + kFaRows - 1) / kFaRows);
-  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kFaStages; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
-    }
-    hopper::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    hopper::setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      int gi = 0;  // tiles loaded by this block so far: the ring's position
-      for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
-        const int it = fa_item_index(k);
-        if (it >= n_items) continue;
-        const FaItem w = fa_item(it, B, Hkv, g, n_rows, Skv, causal, window);
-        for (int i = 0; i < w.n_tiles; ++i, ++gi) {
-          const int s = gi % kFaStages;
-          if (gi >= kFaStages) hopper::mbar_wait(&empty[s], ((gi / kFaStages) - 1) & 1);
-          hopper::mbar_arrive_expect_tx(&full[s], L::kStageBytes);
-          uint8_t* k_s = kv_s + s * L::kStageBytes;
-          const int t0 = w.t_begin + i * kFaCols;
-#pragma unroll
-          for (int j = 0; j < L::kBoxes; ++j) {
-            hopper::tma_load_4d(k_s + j * kKVBoxBytes, &tk, &full[s], 64 * j, w.kvh, t0, w.b);
-            hopper::tma_load_4d(k_s + L::kKBytes + j * kKVBoxBytes, &tv, &full[s], 64 * j, w.kvh,
-                                t0, w.b);
-          }
-        }
-      }
-    }
-  } else {
-    hopper::setmaxnreg_inc<232>();
-    const int c = wg - 1;
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const uint32_t q_addr = hopper::smem_u32(q_s) + c * 64 * 128;
-    int gi = 0;  // tiles consumed by this block so far
-
-    for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
-      const int it = fa_item_index(k);
-      if (it >= n_items) continue;
-      const FaItem w = fa_item(it, B, Hkv, g, n_rows, Skv, causal, window);
-
-      // This warpgroup's 64 Q rows (it alone reads them), 16 bytes a thread,
-      // into the swizzled layout (box j holds head dims 64j .. 64j + 63, 128
-      // bytes a row). All loads are issued before the first store, so they
-      // are in flight together; the barrier first lets every warp finish
-      // the previous item's products, which read these rows.
-      constexpr int kChunks = D / 8;
-      constexpr int kPerThread = 64 * kChunks / 128;
-      uint4 qv[kPerThread];
-#pragma unroll
-      for (int u = 0; u < kPerThread; ++u) {
-        const int p = tid + 128 * u;
-        const int r = w.r0 + c * 64 + p / kChunks;
-        qv[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n_rows) {
-          const int sq = r / g, h = w.kvh * g + r % g;
-          qv[u] = __ldg(reinterpret_cast<const uint4*>(q + (((size_t)w.b * Sq + sq) * H + h) * D +
-                                                       (p % kChunks) * 8));
-        }
-      }
-      hopper::named_barrier(1 + c, 128);
-#pragma unroll
-      for (int u = 0; u < kPerThread; ++u) {
-        const int p = tid + 128 * u;
-        const int row = c * 64 + p / kChunks, ch = p % kChunks;
-        *reinterpret_cast<uint4*>(q_s + (ch / 8) * (kFaRows * 128) + row * 128 +
-                                  (((ch % 8) ^ (row % 8)) * 16)) = qv[u];
-      }
-      hopper::fence_proxy_async();
-      hopper::named_barrier(1 + c, 128);
-
-      const int R0 = w.r0 + c * 64 + warp * 16 + lane / 4;  // this thread's rows: R0, R0 + 8
-      const int pos[2] = {R0 / g, (R0 + 8) / g};
-      const int warp_pos_lo = (w.r0 + c * 64 + warp * 16) / g;  // positions of the warp's 16 rows
-      const int warp_pos_hi = (w.r0 + c * 64 + warp * 16 + 15) / g;
-      float m_run[2] = {kNegInf, kNegInf};
-      float l_run[2] = {0.f, 0.f};  // this thread's columns only; summed over the quad at the end
-      float oacc[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
-
-      for (int i = 0; i < w.n_tiles; ++i, ++gi) {
-        const int s = gi % kFaStages;
-        const int t0 = w.t_begin + i * kFaCols;
-        hopper::mbar_wait(&full[s], (gi / kFaStages) & 1);
-        const uint32_t k_addr = hopper::smem_u32(kv_s + s * L::kStageBytes);
-        const uint32_t v_addr = k_addr + L::kKBytes;
-
-        // S = Q K^T: K tile K-major (head dim contiguous), 64 positions wide
-        float sacc[kFaCols / 2];
-#pragma unroll
-        for (int j = 0; j < kFaCols / 2; ++j) sacc[j] = 0.f;
-        hopper::fence_regs(sacc);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss<kFaCols, 0>(
-              sacc,
-              hopper::desc_sw128(q_addr + (kk / 4) * (kFaRows * 128) + (kk % 4) * 32, 16, 1024),
-              hopper::desc_sw128(k_addr + (kk / 4) * kKVBoxBytes + (kk % 4) * 32, 16, 1024), 1);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(sacc);
-
-        // Scale, masks, online softmax, in log2 units (scale2 = scale *
-        // log2(e), so exp(x - m) = 2^(x2 - m2); the sentinel and -inf keep
-        // their meaning). sacc[4j + e]: row R0 + 8 (e / 2), column t0 + 8j +
-        // 2 (lane % 4) + e % 2. A tile that no mask reaches for any row of
-        // this warp (most tiles of a causal prefill) skips the per-column
-        // tests and keeps raw scores: with a positive scale their max is the
-        // max of the scaled ones, and the scale rides in the exponent's FMA.
-        const bool masked = t0 + kFaCols > Skv || (causal && t0 + kFaCols - 1 > warp_pos_lo) ||
-                            (window > 0 && warp_pos_hi - t0 >= window) || !(scale2 > 0.f);
-        float sf = scale2;  // the factor still to apply to sacc
-        if (masked) {
-          sf = 1.f;
-#pragma unroll
-          for (int j = 0; j < kFaCols / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int t = t0 + 8 * j + 2 * (lane % 4) + (e & 1);
-              const int sp = pos[e >> 1];
-              float val = sacc[4 * j + e] * scale2;
-              if (t >= Skv) {
-                val = -INFINITY;
-              } else if ((causal && sp < t) || (window > 0 && sp - t >= window)) {
-                val = kNegInf;
-              }
-              sacc[4 * j + e] = val;
-            }
-          }
-        }
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < kFaCols / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sacc[j]);
-        float alpha[2], neg_m[2], rowsum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-          const float m_new = fmaxf(m_run[rr], mx[rr] * sf);
-          alpha[rr] = hopper::exp2_approx(m_run[rr] - m_new);
-          m_run[rr] = m_new;
-          neg_m[rr] = -m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < kFaCols / 2; ++j) {
-          const float p = hopper::exp2_approx(fmaf(sacc[j], sf, neg_m[(j >> 1) & 1]));
-          sacc[j] = p;
-          rowsum[(j >> 1) & 1] += p;
-        }
-        // P in bf16 as the A operand of PV: k-step kk covers columns 16kk ..
-        // 16kk + 15, the accumulator's 8-column chunks 2kk and 2kk + 1
-        uint32_t pf[kFaCols / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < kFaCols / 16; ++kk) {
-          pf[kk][0] = hopper::pack_bf16x2(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-          pf[kk][1] = hopper::pack_bf16x2(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-          pf[kk][2] = hopper::pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-          pf[kk][3] = hopper::pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) l_run[rr] = l_run[rr] * alpha[rr] + rowsum[rr];
-#pragma unroll
-        for (int j = 0; j < D / 2; ++j) oacc[j] *= alpha[(j >> 1) & 1];
-
-        // O += P V: V tile MN-major (head dim contiguous), its 64-wide boxes
-        // kKVBoxBytes apart; 16 positions = 16 rows of 128 bytes a k-step
-        hopper::fence_regs(oacc);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kFaCols / 16; ++kk)
-          hopper::wgmma_rs<D>(oacc, pf[kk],
-                              hopper::desc_sw128(v_addr + kk * 16 * 128, kKVBoxBytes, 1024), 1);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(oacc);
-        if (lane == 0) hopper::mbar_arrive(&empty[s]);
-      }
-
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        l_run[rr] += __shfl_xor_sync(0xffffffffu, l_run[rr], 1);
-        l_run[rr] += __shfl_xor_sync(0xffffffffu, l_run[rr], 2);
-        const int r = R0 + 8 * rr;
-        if (r >= n_rows) continue;
-        const float inv = 1.f / fmaxf(l_run[rr], 1e-30f);
-        const int h = w.kvh * g + r % g;
-        __nv_bfloat16* out = o + (((size_t)w.b * Sq + pos[rr]) * H + h) * D + 2 * (lane % 4);
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(out + 8 * j) =
-              hopper::pack_bf16x2(oacc[4 * j + 2 * rr] * inv, oacc[4 * j + 2 * rr + 1] * inv);
-      }
-    }
-  }
-}
-
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                 int H, int Hkv, float scale, int causal, int window, int sms,
-                 cudaStream_t stream) {
-  using L = FaLayout<D>;
-  CUtensorMap tk, tv;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Skv, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
-                                 (cuuint64_t)Skv * Hkv * D * 2};
-  const cuuint32_t box[4] = {64, 1, kFaCols, 1};
-  int err = hopper::encode_bf16_sw128(&tk, k, 4, dims, strides, box);
-  if (err == 0) err = hopper::encode_bf16_sw128(&tv, v, 4, dims, strides, box);
-  static std::atomic<uint32_t> smem_set{0};
-  if (err == 0) err = hopper::allow_smem(fa_wgmma_kernel<D>, L::kSmem, smem_set);
-  if (err != 0) return err;
-  const int items = B * Hkv * ((Sq * (H / Hkv) + kFaRows - 1) / kFaRows);
-  fa_wgmma_kernel<D><<<min(items, sms), kFaThreads, L::kSmem, stream>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), B, Sq, Skv,
-      H, Hkv, scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int MD>
 int run_md(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
            int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
@@ -565,14 +274,17 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int Sq, int
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o share it). D <= 256.
 // window = 0: no window. route: 0 = simt, 1 = wgmma (bfloat16, D = 64 or
 // 128, Sq <= Skv, Sq * H / Hkv >= 64, q, k, v 16-byte aligned); anything
-// else is refused. `sms`: the device's SM count, the wgmma route's most
-// blocks. Returns cudaGetLastError() after the launch.
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int Sq, int Skv, int H, int Hkv, int D, float scale,
+// else is refused. lse: null, or (wgmma route only) (B, H, Sq) f32 that
+// receives each row's statistics (flash_attention_wgmma.cuh). `sms`: the
+// device's SM count, the wgmma route's most blocks. Returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int B, int Sq, int Skv, int H, int Hkv, int D, float scale,
                                int causal, int window, int dtype, int route, int sms,
                                void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > kMaxD ||
-      window < 0 || route < 0 || route > 1 || (route == 1 && sms <= 0))
+      window < 0 || route < 0 || route > 1 || (route == 1 && sms <= 0) ||
+      (route == 0 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
@@ -581,10 +293,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                          reinterpret_cast<uintptr_t>(v) % 16 == 0;
     if (dtype != 1 || Sq > Skv || Sq * (H / Hkv) < 64 || !aligned)
       return static_cast<int>(cudaErrorInvalidValue);
+    float* stats = static_cast<float*>(lse);
     if (D == 64)
-      return launch_wgmma<64>(q, k, v, o, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+      return fa::launch_wgmma<64>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 128)
-      return launch_wgmma<128>(q, k, v, o, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+      return fa::launch_wgmma<128>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
+                                   s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1)

@@ -105,24 +105,29 @@ class TrainSupervisor:
             step = 0
 
         durations: List[float] = []
-        while step < total_steps:
-            if injector is not None:
-                injector.maybe_fail(step)
-            batch = {k: torch.from_numpy(v).to(self.device) for k, v in self.pipeline.batch(step).items()}
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])  # waits for the step, as the reference's float() does
-            dt = time.perf_counter() - t0
-            durations.append(dt)
-            if len(durations) >= 5:
-                med = statistics.median(durations[-20:])
-                if dt > self.straggler_factor * med:
-                    report.straggler_steps += 1
-            report.losses.append(loss)
-            report.steps_run += 1
-            step += 1
-            report.final_step = step
-            if step % self.ckpt_every == 0 or step == total_steps:
-                ckpt.save_async(step, state)
-                report.checkpoints += 1
-        ckpt.wait()
+        try:
+            while step < total_steps:
+                if injector is not None:
+                    injector.maybe_fail(step)
+                batch = {k: torch.from_numpy(v).to(self.device) for k, v in self.pipeline.batch(step).items()}
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])  # waits for the step, as the reference's float() does
+                dt = time.perf_counter() - t0
+                durations.append(dt)
+                if len(durations) >= 5:
+                    med = statistics.median(durations[-20:])
+                    if dt > self.straggler_factor * med:
+                        report.straggler_steps += 1
+                report.losses.append(loss)
+                report.steps_run += 1
+                step += 1
+                report.final_step = step
+                if step % self.ckpt_every == 0 or step == total_steps:
+                    ckpt.save_async(step, state)
+                    report.checkpoints += 1
+        finally:
+            # a save still in flight when a step fails lands before the
+            # restart looks for the latest checkpoint, which it would
+            # otherwise miss, starting over from an older one
+            ckpt.wait()

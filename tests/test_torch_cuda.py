@@ -6,8 +6,9 @@ hybrid's ring decode on the card against the CPU and without a host sync;
 and the training path's kernels: ``flash_attention``'s backward against the
 plain version's gradients (f32 at relative L2 1e-4, bf16 at 2e-2 against
 the f32 gradients), ``stream_matmul``'s gradients in both weight layouts,
-the wrappers that have no backward raising under grad, and train steps on
-the card against the CPU without a host sync.
+the backward's tensor-core route and the forward's row statistics that it
+reads, the wrappers that have no backward raising under grad, and train
+steps on the card against the CPU without a host sync.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -783,6 +784,78 @@ def test_flash_attention_backward_kernel(cuda, b, sq, skv, h, hkv, d, causal, wi
         else:
             assert _rel_l2(g, w) <= FA_BWD_REL_L2[dtype], f"d{name}: {_rel_l2(g, w):.3e}"
         assert torch.equal(g, g2), f"d{name} is not deterministic"
+
+
+# The backward's tensor-core route (fa_bwd_route: bf16, D 64 / 128, Sq <=
+# Skv, Sq x g >= 64): g = 1, 2, 4 and 8; causal, windowed and bidirectional;
+# Sq = Skv not a multiple of 64, and Sq < Skv. bf16 gradients against the
+# f32 plain version (P and dS rounded to bf16 as product operands, ~2e-3).
+WGMMA_BWD_SIZES = [(1, 77, 77), (2, 1000, 1000), (1, 200, 333)]  # (B, Sq, Skv)
+WGMMA_BWD_MASKS = {"causal": (True, 0), "window": (True, 48), "bidirectional": (False, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv", WGMMA_BWD_SIZES)
+@pytest.mark.parametrize("mask", sorted(WGMMA_BWD_MASKS))
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_backward_wgmma_route(cuda, b, sq, skv, mask, g, d):
+    from repro_torch.kernels.flash_attention.ref import attention_ref_backward
+
+    causal, window = WGMMA_BWD_MASKS[mask]
+    hkv = 2
+    h = g * hkv
+    q, do = (_randn((b, sq, h, d), torch.bfloat16, cuda, seed) for seed in (51, 52))
+    k, v = (_randn((b, skv, hkv, d), torch.bfloat16, cuda, seed) for seed in (53, 54))
+    kw = dict(causal=causal, window=window)
+    assert fa_ops.fa_bwd_route(b, sq, skv, h, hkv, d, torch.bfloat16) == "wgmma"
+    with torch.no_grad():
+        o = fa_ops.flash_attention(q, k, v, **kw)
+    before, wgmma = fa_ops.flash_attention.bwd_launches, fa_ops.flash_attention.bwd_wgmma_launches
+    grads = fa_ops.flash_attention_backward(q, k, v, o, do, **kw)
+    assert (fa_ops.flash_attention.bwd_launches, fa_ops.flash_attention.bwd_wgmma_launches) == (before + 1, wgmma + 1)
+    want = attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **kw)
+    again = fa_ops.flash_attention_backward(q, k, v, o, do, **kw)
+    for name, gr, w, g2 in zip("qkv", grads, want, again):
+        assert gr.dtype == torch.bfloat16 and gr.shape == w.shape
+        assert _rel_l2(gr, w) <= FA_BWD_REL_L2["bfloat16"], f"d{name}: {_rel_l2(gr, w):.3e}"
+        assert torch.equal(gr, g2), f"d{name} is not deterministic"
+
+
+# The forward's statistics (lse2, (B, H, Sq), log2 units): written only when
+# asked, O unchanged by them, within 1e-5 of log2(e) x logsumexp of the plain
+# scores (f32 sums in another order and ex2.approx; a wrong row or tile is
+# off by order 1), and the backward's bits the same with them as without.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", [
+    (4, 1024, 1024, 16, 8, 128, True, 0),
+    (2, 300, 300, 8, 8, 64, True, 100),
+    (1, 77, 200, 16, 2, 128, False, 0),
+    (1, 333, 333, 28, 4, 128, True, 0),
+])
+def test_flash_attention_forward_statistics(cuda, b, sq, skv, h, hkv, d, causal, window):
+    from repro_torch.kernels.flash_attention.ref import attention_ref_lse
+
+    q, do = (_randn((b, sq, h, d), torch.bfloat16, cuda, seed) for seed in (61, 62))
+    k, v = (_randn((b, skv, hkv, d), torch.bfloat16, cuda, seed) for seed in (63, 64))
+    kw = dict(causal=causal, window=window)
+    scale = 1.0 / d ** 0.5
+    lse = torch.full((b, h, sq), float("nan"), dtype=torch.float32, device=cuda)
+    o = fa_ops._forward(q, k, v, causal, window, scale)
+    o_lse = fa_ops._forward(q, k, v, causal, window, scale, lse)
+    assert torch.equal(o, o_lse)
+    want = attention_ref_lse(q, k, **kw)
+    assert float((lse - want).abs().max()) <= 1e-5, float((lse - want).abs().max())
+    with_lse = fa_ops.flash_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    without = fa_ops.flash_attention_backward(q, k, v, o, do, **kw)
+    for name, a, c in zip("qkv", with_lse, without):
+        assert torch.equal(a, c), f"d{name} differs with the forward's statistics"
+    # under autograd the forward writes them and the backward reads them
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa_ops.flash_attention(qg, kg, vg, **kw)
+    assert torch.equal(out.detach(), o)
+    for name, a, c in zip("qkv", torch.autograd.grad(out, (qg, kg, vg), do), without):
+        assert torch.equal(a, c), f"d{name} under autograd"
 
 
 @pytest.mark.cuda

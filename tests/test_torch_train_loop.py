@@ -2,8 +2,11 @@
 injected failure restarts from the latest checkpoint and resumes with the
 uninterrupted run's losses, as the reference's
 ``tests/test_substrate.py::test_train_restart_resumes_identically`` holds
-its own; stragglers are counted; meshes and shardings raise; the launcher
+its own, also when the latest save is still in flight at the failure;
+stragglers are counted; meshes and shardings raise; the launcher
 trains, resumes, and raises without a card unless asked for the CPU."""
+import time
+
 import numpy as np
 import pytest
 
@@ -34,6 +37,28 @@ def test_train_restart_resumes_identically(tmp_path, arch):
     assert rep.losses[6:] == base.losses[4:]  # the same bits after the restart
     assert np.isfinite(base.losses).all()
     assert latest_step(str(tmp_path / "b")) == 8
+
+
+def test_a_save_in_flight_at_a_failure_lands_before_the_restart(tmp_path, monkeypatch):
+    """The step-2 save is still being written when step 3 fails (a slow
+    disk, or a fast card): the restart waits for it and resumes from step 2
+    instead of finding no checkpoint and starting over."""
+    from repro_torch.checkpointing import checkpoint
+
+    inner = checkpoint.save
+
+    def slow_save(*args, **kw):
+        time.sleep(0.5)
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(checkpoint, "save", slow_save)
+    cfg = get_config("qwen3-1.7b").reduced()
+    rep = TrainSupervisor(cfg, SMOKE, str(tmp_path), ckpt_every=2, device="cpu").run(
+        total_steps=4, injector=FailureInjector(fail_at=[3]))
+    assert rep.restarts == 1 and rep.final_step == 4
+    # steps 0-2, the failure at 3, then 2-3 again from the step-2 checkpoint
+    assert len(rep.losses) == 5 and rep.losses[3] == rep.losses[2]
+    assert latest_step(str(tmp_path)) == 4
 
 
 def test_restarts_stop_after_max_and_other_errors_pass(tmp_path):
