@@ -65,7 +65,7 @@
    ms and tokens/s against an operations-or-bytes bound, the median decode
    step against the bytes of the experts the step hit, tokens dropped per
    layer, and the device's idle share. First, at published width, each
-   model's MoE path in f32 (grok 2 layers, arctic 1) is held against the
+   model's MoE path in f32 (1 layer each) is held against the
    same path on the CPU (equal top-k sets for every token and layer,
    relative L2 <= 1e-4), and decode against one ``forward`` at a capacity
    factor where nothing drops; the same in bf16 is reported;
@@ -94,17 +94,24 @@
    MAX_BWD_LIBRARY_RATIO times the backward of
    ``scaled_dot_product_attention`` (times beside its operations bound and
    that backward, a yardstick the port never calls), and
-   ``stream_matmul``'s gradients (through ``stream_matmul`` itself) at
-   qwen3-1.7b's projections and minicpm-2b's tied head; then the loss and
-   every gradient of qwen3-1.7b, minicpm-2b, hubert-xlarge and mamba2-1.3b
-   (2 layers) and recurrentgemma-9b (3 layers) at published width on the
-   card against the CPU (f32 gated, bf16 reported); then qwen3-1.7b at
-   published width and depth, 5 AdamW steps through ``make_train_step`` on
-   4 x 1024 tokens of ``TokenPipeline`` with remat, every step's launches
-   gated exactly (every attention call, forward and backward, on its
-   tensor-core route), the loss falling, remat off giving the same bits, against
-   its operations bound; and ``TrainSupervisor`` with an injected failure
-   resuming with the uninterrupted run's losses;
+   ``stream_matmul``'s gradients (through ``stream_matmul`` itself, x read
+   in place for dW) at qwen3-1.7b's projections and minicpm-2b's tied head,
+   and the expert-batched form's (dX over the stack, dW over the filled
+   slots) at grok-1-314b's and arctic-480b's training shapes in bf16 and
+   f32, beside ``torch.bmm``; then the loss and every gradient of
+   qwen3-1.7b, minicpm-2b, hubert-xlarge, mamba2-1.3b, llama3.2-3b and
+   qwen2-vl-7b (2 layers), recurrentgemma-9b (3) and grok-1-314b (1, f32
+   only) at published width on the card against the CPU (f32 gated, bf16
+   reported), and arctic-480b at 1 layer in bf16 on the card (finite);
+   then qwen3-1.7b at published width and depth, 5 AdamW steps through
+   ``make_train_step`` on 4 x 1024 tokens of ``TokenPipeline`` with remat,
+   and the MoE pair (grok-1-314b at 2 layers, arctic-480b at 1) for 5
+   Adafactor steps each, every step's launches gated exactly (every
+   attention call, forward and backward, on its tensor-core route; the
+   expert products and their gradients on the expert-batched form), the
+   loss falling, remat off giving the same bits, against operations and
+   bytes bounds; and ``TrainSupervisor`` with an injected failure resuming
+   with the uninterrupted run's losses;
 9. prints the kernels line and, last, the device line.
 
 Any failure raises, so the exit code is not 0; so is a run without a card or
@@ -189,7 +196,7 @@ MAX_LIBRARY_RATIO = 2.0
 # sum needs atomics and the bits depend on the shapes alone), so it is held
 # to a looser factor than the forward kernels.
 MAX_BWD_LIBRARY_RATIO = 3.0
-PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench", "train")
+PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench", "train", "train_moe")
 # Phase 6b: the attention families beside the live set, at published width
 # and depth: tied embeddings, M-RoPE (VLM), the bidirectional audio encoder.
 # A step of the "families" path is one call of an entry point: a prefill or
@@ -207,9 +214,10 @@ BENCH_KERNELS = KERNELS[:4]  # the kernel bench's: every forward kernel
 # 953 GB), so 4 and 2 layers with their heads take 42.6 and 55.4 GB of the
 # card's 80.
 MOE_DEPTHS = {"grok-1-314b": 4, "arctic-480b": 2}
-# The strict check in f32 (twice the bytes): grok 2 layers (45.8 GB), arctic
-# 1 layer (56.3 GB), each also copied to the host for the CPU run.
-MOE_F32_DEPTHS = {"grok-1-314b": 2, "arctic-480b": 1}
+# The strict check in f32 (twice the bytes): 1 layer each, grok-1-314b 26.1
+# GB (phase 8 checks its training at the same depth in f32), arctic-480b
+# 56.3 GB, each also copied to the host for the CPU run.
+MOE_F32_DEPTHS = {"grok-1-314b": 1, "arctic-480b": 1}
 # f32 MoE path on the card against the CPU: the same function in f32 with
 # sums in another order (~1e-6 relative a product), while one token routed
 # to another expert, or dropped, moves its logits by order 1 (a relative L2
@@ -255,24 +263,50 @@ TRAIN_STEPS = 5
 # gradients (~2e-3 measured); a dropped tile or a wrong row statistic moves a
 # gradient by order 1.
 FA_BWD_REL_L2 = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+# Phase 8's MoE path ("train_moe"): a step is one train step of one MoE
+# model at published width over TRAIN_B x TRAIN_S tokens, Adafactor and remat
+# as published, capacity factor 1.25. Depth is the only cut: bf16 parameters
+# and gradients of grok-1-314b at 2 layers take 45.8 GB, of arctic-480b at 1
+# layer 56.3 GB, of the card's 80.
+TRAIN_MOE_DEPTHS = {"grok-1-314b": 2, "arctic-480b": 1}
 # the families' training shapes: (label, B, S, H, Hkv, D, causal, window,
-# calls a train step)
+# calls a train step by path); llama3.2-3b (g = 3), qwen2-vl-7b (g = 7) and
+# the MoE pair (g = 6, 7) leave padding rows in the wgmma route's 64-row
+# tiles of 64 // g positions
 TRAIN_LABEL = "qwen3"  # the FA_BWD_CASES row of the train path's call
 FA_BWD_CASES = (
-    (TRAIN_LABEL, TRAIN_B, TRAIN_S, 16, 8, 128, True, 0, 28),
-    ("minicpm-2b", TRAIN_B, TRAIN_S, 36, 36, 64, True, 0, 0),
-    ("hubert-xlarge", TRAIN_B, TRAIN_S, 16, 16, 80, False, 0, 0),
-    ("recurrentgemma-9b", TRAIN_B, TRAIN_S, 16, 1, 256, True, 2048, 0),
-    ("recurrentgemma-9b S=4096", 1, 4096, 16, 1, 256, True, 2048, 0),
-    ("g=4 D=80", 2, TRAIN_S, 16, 4, 80, True, 0, 0),
+    (TRAIN_LABEL, TRAIN_B, TRAIN_S, 16, 8, 128, True, 0, {"train": 28}),
+    ("minicpm-2b", TRAIN_B, TRAIN_S, 36, 36, 64, True, 0, {}),
+    ("hubert-xlarge", TRAIN_B, TRAIN_S, 16, 16, 80, False, 0, {}),
+    ("recurrentgemma-9b", TRAIN_B, TRAIN_S, 16, 1, 256, True, 2048, {}),
+    ("recurrentgemma-9b S=4096", 1, 4096, 16, 1, 256, True, 2048, {}),
+    ("g=4 D=80", 2, TRAIN_S, 16, 4, 80, True, 0, {}),
+    ("llama3.2-3b", TRAIN_B, TRAIN_S, 24, 8, 128, True, 0, {}),
+    ("qwen2-vl-7b", TRAIN_B, TRAIN_S, 28, 4, 128, True, 0, {}),
+    ("grok-1-314b", TRAIN_B, TRAIN_S, 48, 8, 128, True, 0, {"train_moe": TRAIN_MOE_DEPTHS["grok-1-314b"]}),
+    ("arctic-480b", TRAIN_B, TRAIN_S, 56, 8, 128, True, 0, {"train_moe": TRAIN_MOE_DEPTHS["arctic-480b"]}),
 )
-# Card against CPU at published width: (arch, layers); the loss and every
-# gradient leaf in f32 within this relative L2 (the same f32 function with
-# sums in another order, ~1e-6 a product), bf16 reported.
-TRAIN_CHECK = (("qwen3-1.7b", 2), ("minicpm-2b", 2), ("hubert-xlarge", 2), ("mamba2-1.3b", 2),
-               ("recurrentgemma-9b", 3))
+# Card against CPU at published width: (arch, layers, dtypes); the loss and
+# every gradient leaf in f32 within this relative L2 (the same f32 function
+# with sums in another order, ~1e-6 a product), bf16 reported. llama3.2-3b
+# (g = 3) and qwen2-vl-7b (g = 7) in f32 only, the gate their GQA ratios
+# need; grok-1-314b in f32 only: 6.53 B parameters, 26.1 GB of them and 26.1
+# GB of gradients on the card, and as much again on the host for the CPU's
+# run.
+TRAIN_CHECK = (("qwen3-1.7b", 2, ("float32", "bfloat16")), ("minicpm-2b", 2, ("float32", "bfloat16")),
+               ("hubert-xlarge", 2, ("float32", "bfloat16")), ("mamba2-1.3b", 2, ("float32", "bfloat16")),
+               ("recurrentgemma-9b", 3, ("float32", "bfloat16")), ("llama3.2-3b", 2, ("float32",)),
+               ("qwen2-vl-7b", 2, ("float32",)), ("grok-1-314b", 1, ("float32",)))
+# arctic-480b's f32 parameters and gradients at 1 layer take 113 GB, more
+# than the card holds: its f32 check is the kernel-level one at its expert
+# shapes (check_batched_grads) and the reduced model in the on-card tests;
+# at published width it runs in bf16 at 1 layer, loss and gradients finite.
+TRAIN_CARD_ONLY = (("arctic-480b", 1),)
 TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 32
 TRAIN_F32_REL_L2 = 1e-4
+# the expert-batched gradients against f32 products of the same operands:
+# bf16 rounds each gradient once (~2e-3), f32 sums in another order (~1e-6)
+BATCHED_GRAD_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 
 
 def log(*args):
@@ -311,34 +345,57 @@ def main() -> None:
 
     bench = Bench(torch, dev)
     usage = ptxas_usage()
+    t_run = time.perf_counter()
+
+    def phase_done(name):
+        log(f"[{time.perf_counter() - t_run:.0f} s] {name} done; {torch.cuda.memory_allocated(dev)} B allocated, "
+            f"{torch.cuda.memory_reserved(dev)} B reserved on the card, {host_rss()} B resident on the host")
+
     recs = {
         "stream_matmul": check_stream_matmul(torch, dev, bench),
         "stream_matmul_int8": check_stream_matmul_int8(torch, dev, bench, usage),
         "flash_attention": check_flash_attention(torch, dev, bench),
         "paged_attention": check_paged_attention(torch, dev, bench, usage),
     }
+    phase_done("3. kernels against their plain versions")
     check_model_against_cpu(torch, dev)
     check_decode_against_cpu(torch, dev)
     check_ssm_against_cpu(torch, dev)
+    phase_done("4. card against the CPU")
     # each path: its launches, read with every count set to 0 just before it
     paths = {"serve": serve_slice(torch, dev)}
+    phase_done("5. serve")
     paths.update(decode_slice(torch, dev))
+    phase_done("6. prefill and decode")
     check_families_against_cpu(torch, dev)
     paths["families"], nk_launches = families_slice(torch, dev)
+    phase_done("6b. families")
     check_moe_against_cpu(torch, dev)
     paths["moe"], batched_launches, _ = moe_slice(torch, dev)
+    phase_done("6c. moe")
     check_hybrid_against_cpu(torch, dev)
     paths["hybrid"], _ = hybrid_slice(torch, dev)
+    phase_done("6d. hybrid")
     paths["kernel_bench"] = kernel_bench_path(torch, dev)
+    phase_done("7. kernel bench")
     # 8. training
     recs["flash_attention_backward"] = check_flash_backward(torch, dev)
     check_stream_matmul_grads(torch, dev)
+    check_batched_grads(torch, dev, recs["stream_matmul"])
+    phase_done("8. gradient kernels")
     check_train_against_cpu(torch, dev)
+    phase_done("8. training against the CPU")
     paths["train"], _ = train_slice(torch, dev)
+    phase_done("8. train")
+    paths["train_moe"], moe_runs = train_moe_slice(torch, dev)
+    phase_done("8. train_moe")
     supervisor_on_card(torch, dev)
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
-    recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches}
+    recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches,
+                                                          "train_moe": sum(r["batched"][0] for r in moe_runs.values())}
+    recs["stream_matmul"]["extra"]["batched_grad_launches"] = {
+        "train_moe": sum(r["batched"][1] for r in moe_runs.values())}
     kernels = kernels_line(recs, paths)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -490,12 +547,15 @@ def step_projections(c, m_layer, m_head):
 
 
 def train_projections(c, m, remat=True):
-    """{(M, K, N, w_layout, dtype): calls} of one train step of a dense model
-    over m tokens: the forward's projections (the layers' twice with remat)
-    and LM head, then each product's two gradients through stream_matmul: for
-    a (K, N) weight dX = dY (M, N) @ W^T with W read K-major in place and dW
-    = X^T (K, M) @ dY; for the tied head's (V, d) table dX = dY (M, V) @ E and
-    dE = dY^T (V, M) @ X."""
+    """{(M, K, N, layout, dtype): calls} of one train step of a model over m
+    tokens: the forward's 2-D projections (the layers' twice with remat; an
+    MoE layer's router, not its expert products, which are
+    :func:`step_experts`') and LM head, then each product's two gradients
+    through stream_matmul: for a (K, N) weight dX = dY (M, N) @ W^T with W
+    read K-major in place and dW = X^T @ dY with X (M, K) read in place as
+    (K', M') ("km"); for the tied head's (V, d) table dX = dY (M, V) @ E and
+    dE = dY^T @ X, dY read in place, or from a transposed copy ("kn") where
+    its bf16 rows are no multiple of 16 bytes (an odd V)."""
     counts = {}
 
     def add(key, calls):
@@ -506,10 +566,10 @@ def train_projections(c, m, remat=True):
         add((mm, k, n, layout, dt), calls * (1 + (remat and not head)))
         if layout == "kn":
             add((mm, n, k, "nk", dt), calls)
-            add((k, mm, n, "kn", dt), calls)
+            add((k, mm, n, "km", dt), calls)
         else:  # x (M, K) @ w.T for w (N, K)
             add((mm, n, k, "kn", dt), calls)
-            add((n, mm, k, "kn", dt), calls)
+            add((n, mm, k, "kn" if dt == "bf16" and n % 8 else "km", dt), calls)
     return counts
 
 
@@ -548,7 +608,7 @@ def moe_config(arch, layers=None):
 
 
 def projection_shapes():
-    """{path: {label: {(M, K, N, w_layout): calls a step}}}: every x @ W of
+    """{path: {label: {(M, K, N, layout, dtype): calls a step}}}: every x @ W of
     one step of each main path (the train path's gradient products included,
     :func:`train_projections`): the live step (M = 1), a prefill of DECODE_B
     prompts (M = DECODE_B * PROMPT for the layers, M = DECODE_B for the LM
@@ -558,7 +618,8 @@ def projection_shapes():
     the moe path a prefill and a decode step of each MoE model at its phase
     6c depth (the expert products apart, :func:`step_experts`); on the
     hybrid path a prefill, a decode step and a live step of recurrentgemma-9b;
-    and the kernel bench's one product."""
+    the kernel bench's one product; and a train step of each MoE model at its
+    phase 8 depth (the expert products and their gradients apart)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bench as kernel_bench
 
@@ -586,6 +647,9 @@ def projection_shapes():
     shapes["kernel_bench"]["bench"] = {(*kernel_bench.MM_SHAPE, "kn", "bf16"): 1}
     c = get_config(TRAIN_ARCH)
     shapes["train"][f"{TRAIN_ARCH} step"] = train_projections(c, TRAIN_B * TRAIN_S, c.remat)
+    for arch, layers in TRAIN_MOE_DEPTHS.items():
+        c = moe_config(arch, layers)
+        shapes["train_moe"][f"{arch} step"] = train_projections(c, TRAIN_B * TRAIN_S, c.remat)
     return shapes
 
 
@@ -738,15 +802,24 @@ def check_stream_matmul(torch, dev, bench):
     gen = torch.Generator(dev).manual_seed(0)
 
     def operands(m, k, n, dtype, layout="kn"):
-        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-        w = (torch.randn((k, n) if layout == "kn" else (n, k), generator=gen, device=dev) / k ** 0.5).to(dtype)
+        x = torch.randn((k, m) if layout == "km" else (m, k), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((n, k) if layout == "nk" else (k, n), generator=gen, device=dev) / k ** 0.5).to(dtype)
         return x, w
 
     def library(x, w, layout):
-        return torch.matmul(x, w if layout == "kn" else w.T)
+        return torch.matmul(x.T if layout == "km" else x, w.T if layout == "nk" else w)
+
+    def layout_kw(layout):
+        return {"w_layout": "kn", "x_layout": "km"} if layout == "km" else {"w_layout": layout}
+
+    def route_rule(m, k, n, x, w, layout):
+        kw = layout_kw(layout)
+        return mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, kw["w_layout"],
+                        kw.get("x_layout", "mk"))
 
     log("stream_matmul against stream_matmul_ref at every shape of each path (ms: CUDA events, cold L2; "
-        "w_layout nk: x @ w.T for w (N, K), the library call torch.matmul(x, w.T)):")
+        "layout nk: x @ w.T for w (N, K), the library call torch.matmul(x, w.T); km: x.T @ w for x (K, M), "
+        "x read in place, torch.matmul(x.T, w)):")
     totals = path_totals()
     errs, bound_kinds, measured, by_shape = [], set(), {}, []
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -757,8 +830,8 @@ def check_stream_matmul(torch, dev, bench):
                 if (m, k, n, layout, dt) not in measured:
                     dtype = dtypes[dt]
                     x, w = operands(m, k, n, dtype, layout)
-                    kw = dict(out_dtype=dtype, w_layout=layout)
-                    rule = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, layout)
+                    kw = dict(out_dtype=dtype, **layout_kw(layout))
+                    rule = route_rule(m, k, n, x, w, layout)
                     out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
                     err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
                     if not torch.equal(out, stream_matmul(x, w, **kw)):
@@ -785,7 +858,7 @@ def check_stream_matmul(torch, dev, bench):
             log(f"  one {path} step of {arch} ({sum(counts.values())} calls): kernel {step['ms']:.3f} ms, "
                 f"bound {step['bound_ms']:.3f} ms, torch.matmul {step['library_ms']:.3f} ms "
                 f"(kernel {step['ms'] / step['library_ms']:.2f}x)")
-    check_batched_experts(torch, dev, bench, totals["moe"], by_shape, errs, bound_kinds)
+    check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds)
     moe = totals["moe"]
     log(f"  moe path (a prefill and a decode step of grok-1-314b at {MOE_DEPTHS['grok-1-314b']} layers and "
         f"arctic-480b at {MOE_DEPTHS['arctic-480b']}, expert products included): kernel {moe['ms']:.3f} ms, "
@@ -811,10 +884,14 @@ def check_stream_matmul(torch, dev, bench):
     off_path += [(m, tied_k, tied_n, torch.bfloat16, "nk") for m in (1, PREFILL_M, DECODE_B * DECODE_SMAX)]
     off_path += [(3, 300, 1001, torch.bfloat16, "nk"), (64, 300, 1001, torch.bfloat16, "nk"),
                  (64, 2048, 1001, torch.float32, "nk"), (200, 264, 137, torch.bfloat16, "nk")]
+    # x read in place as (K, M): a ragged K and N on wgmma, a K of 2, f32, an M
+    # no multiple of 8 (simt)
+    off_path += [(264, 200, 136, torch.bfloat16, "km"), (2048, 2, 1024, torch.bfloat16, "km"),
+                 (300, 64, 200, torch.float32, "km"), (100, 256, 512, torch.bfloat16, "km")]
     for m, k, n, dtype, layout in off_path:
         x, w = operands(m, k, n, dtype, layout)
-        kw = dict(out_dtype=dtype, w_layout=layout)
-        rule = mm_route(m, n, k, dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, layout)
+        kw = dict(out_dtype=dtype, **layout_kw(layout))
+        rule = route_rule(m, k, n, x, w, layout)
         out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
         err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
         if not torch.equal(out, stream_matmul(x, w, **kw)):
@@ -852,7 +929,10 @@ def check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds
     bits on a second call, the route. Timed beside the plain version and
     ``torch.bmm`` on the same (E, C, K) @ (E, K, N); the bound counts the
     filled rows' operations, the weights of the experts that hold a row and
-    the whole output. Adds each product's calls a step into ``totals``."""
+    the whole output. Adds each product's calls a step into ``totals["moe"]``
+    and, at the prefill's capacity (the same 4 x 1024 tokens), a phase 8
+    train step's forward calls (twice a layer with remat) into
+    ``totals["train_moe"]``."""
     from repro_torch.kernels.streammm.ops import mm_route, stream_matmul
     from repro_torch.kernels.streammm.ref import stream_matmul_ref
     from repro_torch.models.common import dense_init
@@ -867,6 +947,10 @@ def check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds
             route_rows = moe_dispatch(torch.randn((n_tokens, c.moe.num_experts), generator=gen, device=dev),
                                       c.moe).rows
             counts = route_rows.tolist()
+            train_calls = {}
+            if what == "prefill" and arch in TRAIN_MOE_DEPTHS:
+                ct = moe_config(arch, TRAIN_MOE_DEPTHS[arch])
+                train_calls = {key: n * (1 + ct.remat) for key, n in step_experts(ct, TRAIN_B * TRAIN_S).items()}
             for (e, cap, k, n), calls in step_experts(c, n_tokens).items():
                 live = torch.arange(cap, device=dev) < route_rows[:, None].long()
                 x = torch.randn((e, cap, k), generator=gen, device=dev).to(torch.bfloat16) * live[..., None]
@@ -886,7 +970,8 @@ def check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds
                 filled, hit = sum(counts), sum(r > 0 for r in counts)
                 b, kind = bound(2 * (filled * k + hit * k * n + e * cap * n), 2 * filled * k * n, torch.bfloat16)
                 for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", b), ("library_ms", t_lib)):
-                    totals[key] += calls * val
+                    totals["moe"][key] += calls * val
+                    totals["train_moe"][key] += train_calls.get((e, cap, k, n), 0) * val
                 by_shape.append({"label": f"{arch} {what}", "E": e, "C": cap, "K": k, "N": n, "rows": filled,
                                  "experts_hit": hit, "route": route, "ms": t, "bound_ms": b, "bound_by": kind,
                                  "plain_ms": t_plain, "library_ms": t_lib, "max_abs_err": err})
@@ -1040,10 +1125,11 @@ def check_flash_attention(torch, dev, bench):
         ("qwen2-vl prefill", DECODE_B, PROMPT, PROMPT, 28, 4, 128, True, 0, torch.bfloat16, {"families": 28}),
         ("hubert forward", DECODE_B, PROMPT, PROMPT, 16, 16, 80, False, 0, torch.bfloat16, {"families": 48}),
         # phase 6c: grok-1-314b (g = 6) and arctic-480b (g = 7) prefill
+        # and phase 8's train step of each (the same call, twice a layer with remat)
         ("grok prefill", DECODE_B, PROMPT, PROMPT, 48, 8, 128, True, 0, torch.bfloat16,
-         {"moe": MOE_DEPTHS["grok-1-314b"]}),
+         {"moe": MOE_DEPTHS["grok-1-314b"], "train_moe": 2 * TRAIN_MOE_DEPTHS["grok-1-314b"]}),
         ("arctic prefill", DECODE_B, PROMPT, PROMPT, 56, 8, 128, True, 0, torch.bfloat16,
-         {"moe": MOE_DEPTHS["arctic-480b"]}),
+         {"moe": MOE_DEPTHS["arctic-480b"], "train_moe": 2 * TRAIN_MOE_DEPTHS["arctic-480b"]}),
         # phase 6d: recurrentgemma-9b (MQA, g = 16, D = 256, window 2048; the
         # simt route) at prefill and the live step, a window that the sequence
         # outgrows, and f32
@@ -2594,10 +2680,12 @@ def check_flash_backward(torch, dev):
             elem = q.element_size()
             nbytes = elem * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())  # q, o, dO, dQ; k, v, dK, dV
             bt, kind = bound(nbytes, 10 * b * h * d * attention_pairs(s, s, causal, window), dtype)
-            if calls and dtype == torch.bfloat16:
+            for path, n in calls.items():
+                if dtype != torch.bfloat16:
+                    continue
                 bound_kinds.add(kind)
                 for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", bt), ("library_ms", t_lib)):
-                    totals["train"][key] += calls * val
+                    totals[path][key] += n * val
             errs.append(err)
             by_shape.append({"label": label, "B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal": causal,
                              "window": window, "dtype": str(dtype), "route": rule, "ms": t,
@@ -2625,12 +2713,14 @@ def check_flash_backward(torch, dev):
 
 def check_stream_matmul_grads(torch, dev):
     """Phase 8: ``stream_matmul``'s gradients on the card (the 2-D form under
-    autograd: dX and dW are ``stream_matmul`` calls themselves) at
-    qwen3-1.7b's projections and LM head at M = 4096 and minicpm-2b's tied
-    head (``w_layout="nk"``), in bf16, against f32 products of the same
-    operands at relative L2 1e-2 (one bf16 rounding of each gradient, ~2e-3);
-    every product's launches (3) and the gradients' routes logged from the
-    counters. Their times are phase 3's, at the train path's shapes."""
+    autograd: dX and dW are ``stream_matmul`` calls themselves, dW reading x
+    in place) at qwen3-1.7b's projections and LM head at M = 4096 and
+    minicpm-2b's tied head (``w_layout="nk"``), in bf16, against f32
+    products of the same operands at relative L2 1e-2 (one bf16 rounding of
+    each gradient, ~2e-3); every product's launches (3) and the gradients'
+    routes logged from the counters, and whether dW has the bits of the same
+    product on a transposed copy. Their times are phase 3's, at the train
+    path's shapes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.streammm.ops import stream_matmul
 
@@ -2660,8 +2750,15 @@ def check_stream_matmul_grads(torch, dev):
         want_w = xf.T @ dyf if layout == "kn" else dyf.T @ xf
         rel_w = float((gw.float() - want_w).norm() / want_w.norm())
         del want_w, xf, wf, dyf
+        # dW reads x (or dY) in place; the same product on a transposed copy
+        # (the form before it did), compared bit for bit (reported)
+        with torch.no_grad():
+            copied = stream_matmul(*((x.detach().T.contiguous(), dy) if layout == "kn" else (dy.T.contiguous(), x.detach())),
+                                   out_dtype=torch.bfloat16)
+        same = torch.equal(copied, gw)
+        del copied
         log(f"  K={k} N={n} {layout}: launches {launches} (tensor-core {wgmma}, K-major {nk}); rel L2 dX "
-            f"{rel_x:.2e} dW {rel_w:.2e}")
+            f"{rel_x:.2e} dW {rel_w:.2e}; dW bit-identical to the product on a transposed copy: {same}")
         if launches != 3 or gx.dtype != torch.bfloat16 or gw.dtype != torch.bfloat16:
             raise AssertionError(f"stream_matmul gradient K={k} N={n} {layout}: {launches} launches, "
                                  f"dtypes {gx.dtype} {gw.dtype}")
@@ -2671,12 +2768,172 @@ def check_stream_matmul_grads(torch, dev):
     torch.cuda.empty_cache()
 
 
+def host_rss() -> int:
+    """The process's resident host memory now, in bytes (Linux)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def release_host_cache(torch) -> None:
+    """Frees the pinned host blocks that PyTorch's caching host allocator
+    keeps after the served phases' migrations (up to their 35 GB footprint),
+    so that the CPU side of phase 8's checks fits beside them in the host's
+    memory. PyTorch names the call ``_host_emptyCache`` (2.11) or
+    ``_accelerator_emptyHostCache`` (later); raises if it has neither."""
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None) or getattr(torch._C, "_accelerator_emptyHostCache", None)
+    if empty is None:
+        raise RuntimeError("chip_smoke: this PyTorch has no call that empties its pinned host cache")
+    before = host_rss()
+    empty()
+    log(f"pinned host cache released: host resident {before} B -> {host_rss()} B")
+
+
+def chunked_rel_l2(torch, got, want_of, chunk_bytes=2 << 30):
+    """(relative L2, max abs error) of an expert stack ``got`` against
+    ``want_of(slice)``, the f32 reference of a slice of its experts, a few
+    experts at a time: arctic-480b's f32 dW is 17.8 GB, and a whole f32
+    reference beside it and the weights would not fit on the card."""
+    e = got.shape[0]
+    step = max(1, chunk_bytes // (4 * got[0].numel()))
+    num = den = err = 0.0
+    for i in range(0, e, step):
+        sl = slice(i, i + step)
+        want = want_of(sl)
+        diff = got[sl].float() - want
+        num += float(diff.square().sum())
+        den += float(want.square().sum())
+        err = max(err, float(diff.abs().max()))
+        del want, diff
+    return math.sqrt(num / den), err
+
+
+def check_batched_grads(torch, dev, rec):
+    """Phase 8: the expert-batched form's gradients (dX = dY @ W^T over the
+    stack, rows past ``rows[e]`` written as 0; dW = X^T @ dY over the filled
+    slots, X read in place) at the MoE pair's training shapes (grok-1-314b:
+    E 8, C 1280, d 6144, f 32768; arctic-480b: E 128, C 80, d 7168, f 4864;
+    C the capacity of TRAIN_B x TRAIN_S tokens at 1.25), through autograd
+    as the layer calls them, in bf16 and f32, against f32 products of the
+    same operands (BATCHED_GRAD_REL_L2). Each expert's rows come from a
+    dispatch of random router logits, with three experts set empty, full
+    and partly filled; x and dY hold noise past the rows. Gated: the
+    tolerance, dX's rows past the count and an empty expert's dW exactly 0,
+    the same bits on a second backward (bf16), the launches exactly (the
+    forward and two gradient launches a backward) and each route against
+    the rule.
+    Timed in bf16 (CUDA events, cold L2) beside the plain version, the
+    bound (dX: the weight bytes of the experts that hold a row, or the
+    filled rows' operations; dW: those operations, or the bytes of dW
+    written plus X and dY read) and ``torch.bmm`` of the same gradients
+    (a yardstick over every slot); each call's times go into the
+    train_moe path of ``rec`` weighted by its calls a step."""
+    from repro_torch.kernels.streammm.ops import mm_route, stream_matmul
+    from repro_torch.kernels.streammm.ref import stream_matmul_ref
+    from repro_torch.models.layers import moe_dispatch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench = Bench(torch, dev, reps=5)
+    gen = torch.Generator(dev).manual_seed(10)
+    totals = rec["by_path"]["train_moe"]
+    log("stream_matmul expert-batched gradients at the MoE pair's training shapes (against f32 products of the "
+        "same operands; ms: CUDA events, cold L2; library: torch.bmm of the same gradient):")
+    fn = stream_matmul
+    for arch, layers in TRAIN_MOE_DEPTHS.items():
+        c = moe_config(arch, layers)
+        m = c.moe
+        rows = moe_dispatch(torch.randn((TRAIN_B * TRAIN_S, m.num_experts), generator=gen, device=dev), m).rows
+        for (e, cap, k, n), calls in step_experts(c, TRAIN_B * TRAIN_S).items():
+            rows[0], rows[1], rows[2] = 0, cap, cap // 3 + 1
+            counts = rows.tolist()
+            filled, hit = sum(counts), sum(r > 0 for r in counts)
+            live = torch.arange(cap, device=dev) < rows[:, None].long()
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((e, cap, k), generator=gen, device=dev).to(dtype).requires_grad_()
+                w = (torch.randn((e, k, n), generator=gen, device=dev) / k ** 0.5).to(dtype).requires_grad_()
+                dy = torch.randn((e, cap, n), generator=gen, device=dev).to(dtype)
+                aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+                rules = (mm_route(cap, k, n, dtype, aligned, "nk"), mm_route(k, n, cap, dtype, aligned, "kn", "km"))
+                torch.cuda.synchronize(dev)
+                before = (fn.launches, fn.wgmma_launches, fn.batched_launches, fn.batched_grad_launches)
+                y = fn(x, w, out_dtype=dtype, rows=rows)
+                wgmma_fwd = fn.wgmma_launches - before[1]
+                gx, gw = torch.autograd.grad(y, (x, w), dy)
+                torch.cuda.synchronize(dev)
+                counted = (fn.launches - before[0], fn.wgmma_launches - before[1] - wgmma_fwd,
+                           fn.batched_launches - before[2], fn.batched_grad_launches - before[3])
+                want_counts = (3, sum(r == "wgmma" for r in rules), 1, 2)
+                if counted != want_counts:
+                    raise AssertionError(f"batched gradients {arch} ({e},{cap},{k},{n}) {dtype}: launches, gradient "
+                                         f"tensor-core, forward, gradient {counted} != {want_counts}")
+                xd, wd = x.detach(), w.detach()
+                rel_x, _ = chunked_rel_l2(torch, gx, lambda sl: stream_matmul_ref(
+                    dy[sl].float(), wd[sl].float(), torch.float32, "nk", rows[sl]))
+                rel_w, err = chunked_rel_l2(torch, gw, lambda sl: stream_matmul_ref(
+                    xd[sl].float(), dy[sl].float(), torch.float32, "kn", rows[sl], "km"))
+                zeros = not gx[~live].any() and not gw[0].any()
+                del y
+                same = True
+                if dtype == torch.bfloat16:  # f32 (no atomics either) would hold three 17.8 GB stacks at arctic's
+                    again = torch.autograd.grad(fn(x, w, out_dtype=dtype, rows=rows), (x, w), dy)
+                    same = torch.equal(gx, again[0]) and torch.equal(gw, again[1])
+                    del again
+                tol = BATCHED_GRAD_REL_L2[str(dtype)]
+                line = (f"  {arch} E={e} C={cap} K={k} N={n} {dtype} ({filled} rows filled, {hit} experts hit) "
+                        f"[dX {rules[0]}, dW {rules[1]}]: rel L2 dX {rel_x:.2e} dW {rel_w:.2e} (gate {tol})")
+                if not (max(rel_x, rel_w) <= tol and zeros and same and gx.dtype == gw.dtype == dtype):
+                    raise AssertionError(f"batched gradients {arch} ({e},{cap},{k},{n}) {dtype}: rel L2 {rel_x:.2e} "
+                                         f"{rel_w:.2e}, zeros past the rows {zeros}, deterministic {same}")
+                del gx, gw
+                if dtype == torch.bfloat16:
+                    kw_x, kw_w = dict(out_dtype=dtype, w_layout="nk", rows=rows), dict(out_dtype=dtype, rows=rows,
+                                                                                      x_layout="km")
+                    t_x = bench.ms(lambda: fn(dy, wd, **kw_x))
+                    t_w = bench.ms(lambda: fn(xd, dy, **kw_w))
+                    p_x = bench.ms(lambda: stream_matmul_ref(dy, wd, dtype, "nk", rows))
+                    p_w = bench.ms(lambda: stream_matmul_ref(xd, dy, dtype, "kn", rows, "km"))
+                    l_x = bench.ms(lambda: torch.bmm(dy, wd.transpose(1, 2)))
+                    l_w = bench.ms(lambda: torch.bmm(xd.transpose(1, 2), dy))
+                    ops = 2 * filled * k * n
+                    b_x, kind_x = bound(2 * (hit * k * n + filled * n + e * cap * k), ops, dtype)
+                    b_w, kind_w = bound(2 * (e * k * n + filled * (k + n)), ops, dtype)
+                    for t, p, bt, lt in ((t_x, p_x, b_x, l_x), (t_w, p_w, b_w, l_w)):
+                        for key, val in (("ms", t), ("plain_ms", p), ("bound_ms", bt), ("library_ms", lt)):
+                            totals[key] += calls * val
+                    rec["extra"]["by_shape"].append({
+                        "label": f"{arch} train gradients", "E": e, "C": cap, "K": k, "N": n, "rows": filled,
+                        "experts_hit": hit, "route": list(rules), "ms": [t_x, t_w], "bound_ms": [b_x, b_w],
+                        "bound_by": [kind_x, kind_w], "plain_ms": [p_x, p_w], "library_ms": [l_x, l_w],
+                        "rel_l2": [rel_x, rel_w], "max_abs_err": err})
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    line += (f"; dX {t_x:.3f} ms (bound {b_x:.3f} {kind_x}, {100 * b_x / t_x:.0f}%; plain {p_x:.3f}; "
+                             f"torch.bmm {l_x:.3f}, {t_x / l_x:.2f}x), dW {t_w:.3f} ms (bound {b_w:.3f} {kind_w}, "
+                             f"{100 * b_w / t_w:.0f}%; plain {p_w:.3f}; torch.bmm {l_w:.3f}, {t_w / l_w:.2f}x); "
+                             f"{calls} of each a step")
+                log(line)
+                del x, w, dy, xd, wd
+                torch.cuda.empty_cache()
+
+
 def check_train_against_cpu(torch, dev):
     """Phase 8: the loss and every gradient leaf at published width and cut
     depth (TRAIN_CHECK) on the card (the kernels, forward and backward)
     against the same weights and batch on the CPU (the plain versions, which
     autograd differentiates), remat as published. Gated in f32: the loss and
-    each leaf within TRAIN_F32_REL_L2; reported in bf16."""
+    each leaf within TRAIN_F32_REL_L2; reported in bf16. The card's
+    gradients stay on the card while the CPU runs and are compared one leaf
+    at a time, so the host holds the parameters, the CPU's gradients and one
+    leaf of the card's (grok-1-314b in f32: 26.1 + 26.1 + 6.4 GB), after the
+    pinned blocks that the served phases left in PyTorch's host cache are
+    released (:func:`release_host_cache`); the host's resident memory is
+    logged. Then TRAIN_CARD_ONLY (arctic-480b
+    at 1 layer in bf16, too large for f32 on one card): the loss and every
+    gradient finite."""
+    import resource
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import make_concrete_batch
@@ -2684,134 +2941,269 @@ def check_train_against_cpu(torch, dev):
     from repro_torch.models.model import build_model
     from repro_torch.tree import flatten
 
+    def batch_of(cfg, seed):
+        return make_concrete_batch(cfg, ShapeSpec("train", TRAIN_CHECK_S, TRAIN_CHECK_B, "train"), seed=seed,
+                                   device="cpu")
+
+    release_host_cache(torch)
     results = {}
-    for seed, (arch, layers) in enumerate(TRAIN_CHECK):
+    for seed, (arch, layers, dtypes) in enumerate(TRAIN_CHECK):
         t0 = time.perf_counter()
         row = {}
-        for dtype in ("float32", "bfloat16"):
+        for dtype in dtypes:
             cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
             fns = build_model(cfg)
             params = fns.init(torch.Generator(dev).manual_seed(500 + seed))
-            batch = make_concrete_batch(cfg, ShapeSpec("train", TRAIN_CHECK_S, TRAIN_CHECK_B, "train"),
-                                        seed=600 + seed, device="cpu")
+            batch = batch_of(cfg, 600 + seed)
             loss, _, grads = value_and_grad(fns, params, {k: v.to(dev) for k, v in batch.items()})
             paths = [p for p, _ in flatten(params)]
-            grads = [g.cpu() for g in grads]
             params = tree_map(lambda t: t.cpu(), params)
             torch.cuda.empty_cache()
             loss_cpu, _, grads_cpu = value_and_grad(fns, params, batch)
-            rel = {p: float((g.float() - gc.float()).norm() / gc.float().norm().clamp(min=1e-30))
-                   for p, g, gc in zip(paths, grads, grads_cpu)}
+            del params
+            rel = {}
+            for i, path in enumerate(paths):  # one card leaf on the host at a time
+                g, want = grads[i].cpu().float(), grads_cpu[i].float()
+                rel[path] = float((g - want).norm() / want.norm().clamp(min=1e-30))
+                grads[i] = grads_cpu[i] = None
+                del g, want
             loss_rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
             worst = max(rel, key=rel.get)
             row[dtype] = {"loss": float(loss), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
                           "worst_leaf": worst, "worst_rel_l2": rel[worst]}
-            del params, grads, grads_cpu, batch
+            del grads, grads_cpu, batch
+            torch.cuda.empty_cache()
             if not (math.isfinite(float(loss)) and math.isfinite(float(loss_cpu))):
                 raise AssertionError(f"train {arch} {dtype}: loss {float(loss)} / {float(loss_cpu)} not finite")
             if dtype == "float32" and not (loss_rel <= TRAIN_F32_REL_L2 and rel[worst] <= TRAIN_F32_REL_L2):
                 raise AssertionError(f"train {arch} f32 card vs CPU: loss rel {loss_rel:.2e}, {worst} relative "
                                      f"L2 {rel[worst]:.2e} > {TRAIN_F32_REL_L2}")
-        log(f"train {arch} at published width, {layers} layers, B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}, card vs CPU "
-            f"({time.perf_counter() - t0:.1f} s): f32 loss {row['float32']['loss']:.6f} (rel {row['float32']['loss_rel']:.2e}), "
-            f"worst leaf {row['float32']['worst_leaf']} rel L2 {row['float32']['worst_rel_l2']:.2e} (gate "
-            f"{TRAIN_F32_REL_L2}); bf16 loss rel {row['bfloat16']['loss_rel']:.2e}, worst leaf "
-            f"{row['bfloat16']['worst_leaf']} rel L2 {row['bfloat16']['worst_rel_l2']:.2e} (reported)")
+        f32 = row["float32"]
+        line = (f"train {arch} at published width, {layers} layers, B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}, card vs CPU "
+                f"({time.perf_counter() - t0:.1f} s): f32 loss {f32['loss']:.6f} (rel {f32['loss_rel']:.2e}), "
+                f"worst leaf {f32['worst_leaf']} rel L2 {f32['worst_rel_l2']:.2e} (gate {TRAIN_F32_REL_L2})")
+        if "bfloat16" in row:
+            line += (f"; bf16 loss rel {row['bfloat16']['loss_rel']:.2e}, worst leaf {row['bfloat16']['worst_leaf']} "
+                     f"rel L2 {row['bfloat16']['worst_rel_l2']:.2e} (reported)")
+        log(line + f"; host resident {host_rss()} B (peak of the process "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} B)")
         results[arch] = row
+    for seed, (arch, layers) in enumerate(TRAIN_CARD_ONLY):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        fns = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = fns.init(torch.Generator(dev).manual_seed(550 + seed))
+        batch = batch_of(cfg, 650 + seed)
+        loss, aux, grads = value_and_grad(fns, params, {k: v.to(dev) for k, v in batch.items()})
+        paths = [p for p, _ in flatten(params)]
+        norms = {p: float(g.float().norm()) if g.dim() < 3 else
+                 math.sqrt(sum(float(sl.float().square().sum()) for sl in g.reshape(-1, *g.shape[-2:])))
+                 for p, g in zip(paths, grads)}
+        bad = [p for p, v in norms.items() if not math.isfinite(v)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        del params, grads
+        torch.cuda.empty_cache()
+        log(f"train {arch} at published width, {layers} layer(s), {cfg.dtype}, B={TRAIN_CHECK_B} S={TRAIN_CHECK_S} "
+            f"on the card ({time.perf_counter() - t0:.1f} s): loss {float(loss):.6f} (ce {float(aux['ce']):.6f}, "
+            f"aux {float(aux['aux']):.6f}); gradient norms " + ", ".join(f"{p} {v:.4e}" for p, v in norms.items())
+            + f"; peak allocated {peak} B")
+        if not math.isfinite(float(loss)) or bad:
+            raise AssertionError(f"train {arch} bf16: loss {float(loss)}, gradients not finite: {bad}")
+        results[arch] = {"bfloat16": {"loss": float(loss), "grad_norms": norms}}
     return results
 
 
 def train_slice(torch, dev):
     """Phase 8: qwen3-1.7b at published width and depth (28 layers, 2.03 B
     parameters), AdamW and the cosine schedule of its config, remat as
-    published: TRAIN_STEPS steps through ``make_train_step`` (``warmup=1``) on
-    one batch of TRAIN_B x TRAIN_S tokens from ``TokenPipeline``, repeated.
-    Gated: every step's launches exactly (:func:`train_launches`), and its
-    attention launches on the tensor-core routes (:func:`train_wgmma`: all 28
-    backward calls on the backward's wgmma route), the loss
-    finite and falling, and the loss and every gradient with remat off equal
-    to those with remat on, bit for bit. Reported: the median step, tokens/s,
-    the device's idle share (torch.profiler), the peak of allocated memory,
-    and the operations bound of a step (6 N tokens for the weights' products,
-    14 B H D pairs a layer for attention forward and backward, at the bf16
-    peak). Returns the path's launches, steps and tensor-core launches."""
+    published, through :func:`train_run`. Returns the path's launches,
+    steps and tensor-core launches, and the run's numbers."""
     from repro_torch.configs import get_config
+
+    return train_run(torch, dev, get_config(TRAIN_ARCH), seed=700)
+
+
+def train_moe_slice(torch, dev):
+    """Phase 8's MoE path: grok-1-314b at TRAIN_MOE_DEPTHS (2 of 64 layers)
+    and arctic-480b (1 of 35, its dense residual beside the experts), one
+    model at a time, each through :func:`train_run` at published width,
+    Adafactor and remat as published, capacity factor 1.25: the expert
+    products and their gradients through ``stream_matmul``'s expert-batched
+    form. Returns the path's launches, steps and tensor-core launches, and
+    each model's numbers."""
+    total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
+    runs = {}
+    for i, (arch, layers) in enumerate(TRAIN_MOE_DEPTHS.items()):
+        (counts, n, wgmma), runs[arch] = train_run(torch, dev, moe_config(arch, layers), seed=710 + i)
+        total = ({k: total[0][k] + counts[k] for k in counts}, total[1] + n,
+                 {k: total[2][k] + wgmma[k] for k in wgmma})
+        torch.cuda.empty_cache()
+    return total, runs
+
+
+def train_batched(cfg, remat: bool):
+    """stream_matmul's expert-batched launches of one train step: the three
+    expert products of every MoE layer forward (twice with remat) in
+    ``batched_launches``, and their dX and dW in ``batched_grad_launches``."""
+    if cfg.moe is None:
+        return 0, 0
+    return 3 * cfg.num_layers * (1 + remat), 6 * cfg.num_layers
+
+
+def train_bounds(cfg, params, tokens, kept):
+    """(operations, bytes) that one train step must at least do and move.
+    Operations: 6 per weight of a product a token (forward, dX, dW), the
+    expert products over the ``kept`` assignments of each layer instead of
+    every token, and 14 B H D a layer a masked pair for attention forward
+    and backward. Bytes: the layer stack's parameters read four times
+    (forward, remat's replay, dX) or written (dW) in the products, the LM
+    head's three times (no replay), the embedding's gradient written once;
+    the clip norm reads every gradient, and the optimizer reads them again,
+    then reads the parameters and gradients and writes the parameters
+    (AdamW also reads and writes its two f32 moments). Activations are not
+    counted."""
+    from repro_torch.tree import flatten
+
+    d, n_layers = cfg.d_model, cfg.num_layers
+    ops, nbytes = 0, 0
+    for path, p in flatten(params):
+        size = p.numel() * p.element_size()
+        nbytes += 5 * size
+        if cfg.optimizer == "adamw":
+            nbytes += 4 * 4 * p.numel()
+        if path == "head/embed":
+            nbytes += size
+            if not cfg.tie_embeddings:
+                continue
+        if p.dim() < 2:
+            continue
+        nbytes += (3 if path.startswith("head/") else 4 if cfg.remat else 3) * size
+        if cfg.moe is not None and path.split("/")[-1] in ("w1", "w2", "w3") and "/moe/w" in path:
+            continue  # the experts: over the kept assignments below
+        ops += 6 * p.numel() * tokens
+    if cfg.moe is not None:
+        ops += sum(6 * 3 * d * cfg.moe.d_ff * k for k in kept)
+    if n_layers and cfg.family != "ssm":
+        ops += 14 * TRAIN_B * cfg.num_heads * cfg.resolved_head_dim() * layer_counts(cfg)[1] * \
+            attention_pairs(TRAIN_S, TRAIN_S, True, 0)
+    return ops, nbytes
+
+
+def train_run(torch, dev, cfg, seed):
+    """One model at published width: TRAIN_STEPS steps through
+    ``make_train_step`` (``warmup=1``) on one batch of TRAIN_B x TRAIN_S
+    tokens from ``TokenPipeline``, repeated, the config's optimizer and
+    schedule and remat. Gated: every step's launches exactly
+    (:func:`train_launches`; for MoE also :func:`train_batched`), its
+    attention launches on the tensor-core routes (:func:`train_wgmma`), the
+    loss finite and falling, and the loss and every gradient with remat off
+    equal to those with remat on, bit for bit (remat on's gradients held on
+    the host meanwhile). Reported: the median step, tokens/s, the device's
+    idle share and top kernels (torch.profiler), the peak of allocated
+    memory, and the operations and bytes bounds of a step
+    (:func:`train_bounds`, the experts over the first step's kept
+    assignments). Returns the launches, steps and tensor-core launches, and
+    the run's numbers."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.kernels.streammm.ops import stream_matmul
     from repro_torch.launch.steps import make_train_state, make_train_step, value_and_grad
+    from repro_torch.models.layers import moe_dispatch
     from repro_torch.models.model import build_model
-    from repro_torch.tree import flatten, leaves
+    from repro_torch.tree import leaves
 
-    cfg = get_config(TRAIN_ARCH)
+    name = cfg.name
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    state = make_train_state(cfg, torch.Generator(dev).manual_seed(700))
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed))
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in pipeline_for(cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"), seed=7).batch(0).items()}
     step_fn = make_train_step(cfg, warmup=1, total_steps=100)
     torch.cuda.synchronize(dev)
     n_params = sum(p.numel() for p in leaves(state["params"]))
-    mat_params = sum(p.numel() for path, p in flatten(state["params"])
-                     if p.dim() >= 2 and path != "head/embed")
-    log(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, {n_params} parameters "
-        f"({mat_params} in products), {cfg.optimizer} + {cfg.schedule}, remat {cfg.remat}; set-up "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"train {name}: {cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, {n_params} parameters, "
+        f"{cfg.optimizer} + {cfg.schedule}, remat {cfg.remat}"
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} at capacity factor {cfg.moe.capacity_factor}"
+           if cfg.moe is not None else "") + f"; set-up {time.perf_counter() - t0:.1f} s")
     want, want_wgmma = train_launches(cfg, cfg.remat), train_wgmma(cfg, cfg.remat)
-    total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
-    losses, step_s = [], []
+    want_batched = train_batched(cfg, cfg.remat)
+    total = ({k: 0 for k in KERNELS}, 0, {k: 0 for k in WGMMA_KERNELS})
+    losses, step_s, kept, batched_total = [], [], [], (0, 0)
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize(dev)
         zero_launches()
+        stream_matmul.batched_launches = stream_matmul.batched_grad_launches = 0
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        with moe_routing([]) as routed:
+            state, metrics = step_fn(state, batch)
         torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t0)
         launches, wgmma = read_launches(), read_wgmma()
-        if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()):
-            raise AssertionError(f"train step {i}: launches {launches} != {want}, or tensor-core {wgmma} "
-                                 f"against {want_wgmma}")
+        batched = (stream_matmul.batched_launches, stream_matmul.batched_grad_launches)
+        if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()) or batched != want_batched:
+            raise AssertionError(f"train {name} step {i}: launches {launches} != {want}, or tensor-core {wgmma} "
+                                 f"against {want_wgmma}, or expert-batched {batched} != {want_batched}")
+        if i == 0 and cfg.moe is not None:  # the layers' routings (remat's replay routes the same)
+            kept = [int(moe_dispatch(logits, cfg.moe).rows.sum()) for logits in routed[:cfg.num_layers]]
+        del routed
         counts, n, counts_wgmma = total
         total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
                  {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
+        batched_total = (batched_total[0] + batched[0], batched_total[1] + batched[1])
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m["loss"])
         log(f"  step {i}: {1e3 * step_s[-1]:.1f} ms, loss {m['loss']:.6f} ce {m['ce']:.6f} grad_norm "
-            f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; launches {launches}, tensor-core {wgmma}")
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; launches {launches}, tensor-core {wgmma}"
+            + (f", expert-batched {batched}" if cfg.moe is not None else ""))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train {TRAIN_ARCH}: losses {losses} not finite or not falling")
+        raise AssertionError(f"train {name}: losses {losses} not finite or not falling")
     peak = torch.cuda.max_memory_allocated(dev)
     med = statistics.median(step_s[1:])
     tokens = TRAIN_B * TRAIN_S
-    ops = 6 * mat_params * tokens + 14 * TRAIN_B * cfg.num_heads * cfg.resolved_head_dim() * cfg.num_layers * \
-        attention_pairs(TRAIN_S, TRAIN_S, True, 0)
-    b_ms = ops / PEAK_OPS["torch.bfloat16"] * 1e3
+    ops, nbytes = train_bounds(cfg, state["params"], tokens, kept)
+    ops_ms, bytes_ms = ops / PEAK_OPS["torch.bfloat16"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     log(f"  median step {1e3 * med:.1f} ms over steps 1-{TRAIN_STEPS - 1}, {tokens / med:.0f} tokens/s; "
-        f"operations bound {b_ms:.1f} ms ({ops:.4e} operations at the bf16 peak, {100 * b_ms / (1e3 * med):.1f}% "
-        f"of the step); peak allocated {peak} B")
-    profile_steps(torch, dev, f"{TRAIN_ARCH} train step", lambda i: step_fn(state, batch), med, n=2, top=12)
+        f"operations bound {ops_ms:.1f} ms ({ops:.4e} operations at the bf16 peak"
+        + (f", the experts over {kept} kept assignments a layer" if kept else "")
+        + f"), bytes bound {bytes_ms:.1f} ms ({nbytes:.4e} B at {HBM_BYTES_PER_S:.3g} B/s); "
+        f"{100 * max(ops_ms, bytes_ms) / (1e3 * med):.1f}% of the step; peak allocated {peak} B")
+    profile_steps(torch, dev, f"{name} train step", lambda i: step_fn(state, batch), med, n=2, top=12)
 
     # remat off against remat on: the loss and every gradient, bit for bit
     params = state["params"]
     del state, metrics
     torch.cuda.empty_cache()
-    on = value_and_grad(build_model(cfg), params, batch)
+    loss_on, _, grads = value_and_grad(build_model(cfg), params, batch)
+    grads_on = [g.cpu() for g in grads]
+    del grads
+    torch.cuda.empty_cache()
     zero_launches()
-    off = value_and_grad(build_model(dataclasses.replace(cfg, remat=False)), params, batch)
+    stream_matmul.batched_launches = stream_matmul.batched_grad_launches = 0
+    loss_off, _, grads = value_and_grad(build_model(dataclasses.replace(cfg, remat=False)), params, batch)
     torch.cuda.synchronize(dev)
     launches, wgmma = read_launches(), read_wgmma()
+    batched = (stream_matmul.batched_launches, stream_matmul.batched_grad_launches)
     want_off, want_off_wgmma = train_launches(cfg, False), train_wgmma(cfg, False)
-    if launches != want_off or any(wgmma[k] != n for k, n in want_off_wgmma.items()):
-        raise AssertionError(f"train without remat: launches {launches} != {want_off}, or tensor-core {wgmma} "
-                             f"against {want_off_wgmma}")
-    same = torch.equal(on[0], off[0]) and all(torch.equal(a, b) for a, b in zip(on[2], off[2]))
-    log(f"  remat off vs on: loss {float(off[0]):.6f} vs {float(on[0]):.6f}, {len(on[2])} gradient leaves, "
+    if launches != want_off or any(wgmma[k] != n for k, n in want_off_wgmma.items()) \
+            or batched != train_batched(cfg, False):
+        raise AssertionError(f"train {name} without remat: launches {launches} != {want_off}, or tensor-core "
+                             f"{wgmma} against {want_off_wgmma}, or expert-batched {batched}")
+    same = torch.equal(loss_on, loss_off)
+    for i, g in enumerate(grads):
+        same = same and torch.equal(g.cpu(), grads_on[i])
+        grads[i] = grads_on[i] = None
+    log(f"  remat off vs on: loss {float(loss_off):.6f} vs {float(loss_on):.6f}, {len(grads)} gradient leaves, "
         f"bit-identical {same}; launches without remat {launches}")
     if not same:
-        raise AssertionError("train: remat off does not give remat on's bits")
-    del on, off, params, batch
+        raise AssertionError(f"train {name}: remat off does not give remat on's bits")
+    del grads, grads_on, params, batch
     torch.cuda.empty_cache()
     return total, {"losses": losses, "median_step_ms": 1e3 * med, "tokens_per_s": tokens / med,
-                   "bound_ms": b_ms, "peak_allocated_bytes": peak}
+                   "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, "kept": kept, "peak_allocated_bytes": peak,
+                   "batched": batched_total}
 
 
 def supervisor_on_card(torch, dev):

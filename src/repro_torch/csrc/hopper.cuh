@@ -1,5 +1,5 @@
 // Shared Hopper (sm_90a) device helpers of the port's tensor-core kernels
-// (streammm.cu, streammm_int8.cu, flash_attention.cu): mbarriers, TMA tile
+// (streammm.cu, streammm_int8.cu, flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile
 // loads, ldmatrix, wgmma shared-memory descriptors and instructions, register
 // hand-over between warpgroups, and the host-side encoding of TMA tensor maps.
 //
@@ -177,7 +177,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // d[4j + e] is row 16w + l/4 + 8 (e / 2), column 8j + 2 (l % 4) + e % 2. The A
 // register fragment of _rs is the same map over a 64 x 16 tile: a[0] holds
 // (row, cols 2(l%4) + 0..1), a[1] row + 8, a[2] and a[3] the same 8 columns on.
-template <int TNSP_B>
+template <int TNSP_B, int TNSP_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -185,16 +185,16 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B), "n"(TNSP_A));
 }
 
-template <int TNSP_B>
+template <int TNSP_B, int TNSP_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -208,7 +208,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -226,7 +226,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B), "n"(TNSP_A));
 }
 
 template <int TNSP_B>
@@ -299,12 +299,14 @@ __device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96], const uint32
 }
 
 // Only the widths the kernels use have wrappers; any other N fails to compile.
-template <int N, int TNSP_B>
+// A is K-major unless TNSP_A = 1, which reads an MN-major A (M contiguous,
+// the transpose bit; bf16 only), described as an MN-major B is.
+template <int N, int TNSP_B, int TNSP_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   static_assert(N == 64 || N == 256, "no m64nNk16 shared-memory wgmma wrapper for this N");
-  if constexpr (N == 64) wgmma_m64n64k16_ss<TNSP_B>(d, desc_a, desc_b, scale_d);
-  if constexpr (N == 256) wgmma_m64n256k16_ss<TNSP_B>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_m64n64k16_ss<TNSP_B, TNSP_A>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 256) wgmma_m64n256k16_ss<TNSP_B, TNSP_A>(d, desc_a, desc_b, scale_d);
 }
 
 // B is MN-major (transposed) unless TNSP_B = 0, which reads a K-major B.
@@ -344,12 +346,20 @@ static inline EncodeTiledFn encode_tiled_fn() {
 
 // A tensor map of `rank` dims (innermost first) of `type`, strides in bytes of
 // dims 1.. , boxes of `box` elements, zero fill out of bounds. Returns 0 or a
-// cudaError_t code.
+// cudaError_t code. cuTensorMapEncodeTiled needs a current context in the
+// calling thread, which a thread that has made no runtime call yet lacks
+// (autograd's device thread, whose first call is a backward's launch):
+// cudaSetDevice on the runtime's current device makes its primary context
+// current there.
 static inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                                int rank, const cuuint64_t* dims, const cuuint64_t* strides,
                                const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  int dev = 0;
+  cudaError_t ctx = cudaGetDevice(&dev);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(dev);
+  if (ctx != cudaSuccess) return static_cast<int>(ctx);
   cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem_strides,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -57,7 +57,7 @@
 //    stores single elements there.
 //  * simt: the f32 tiles indexing w[n, k].
 //
-// Expert-batched form (E > 1, (K, N) weights only): out[e] = x[e] @ w[e] for
+// Expert-batched form (E > 1): out[e] = x[e] @ w[e] for
 // x (E, M, K), w (E, K, N), out (E, M, N), in one launch with the expert on
 // the grid's z axis. It computes the MoE layer's expert products, the
 // einsum("ecd,edf->ecf") of src/repro/models/layers.py:241-243, which the
@@ -80,6 +80,28 @@
 //    own row of x, so the rows it loaded there reach nothing);
 //  * simt: x rows at or past rows[e] load as 0, and a 64-row tile past them
 //    stores zeros without loading.
+//
+// Gradients (the MoE layer's backward, which the reference leaves to XLA's
+// derivative of the same einsum). With dY (E, M, N) of out[e] = x[e] @ w[e]:
+//  * dX[e] = dY[e] @ w[e]^T is the K-major form over the expert stack: w[e]
+//    (K, N) row-major read in place as the (N', K') = (K, N) weight of a
+//    product whose sum runs over N, with the same `rows` (rows past rows[e]
+//    written as 0, their dY never read). The gemv route takes E on the
+//    grid's y axis; wgmma and simt on z, as above. Bound: the weight bytes
+//    of the experts that hold a row, or the filled rows' operations.
+//  * dW[e] = x[e]^T @ dY[e] (x_layout = 1: x given as (K', M') = (M, K), out
+//    (K, N)), the sum over the filled slots only. On the wgmma route x is an
+//    MN-major A (the transpose bit of wgmma's A; two 64 x 64 TMA boxes of x
+//    as (K, M, E) a stage), dY an MN-major B as the forward's (K, N)
+//    weight; the k-loop of expert e ends at ceil(rows[e] / 64) stages, and
+//    in the last one the consumers zero the rows at or past rows[e] of both
+//    tiles in shared memory (fence.proxy.async, then a barrier of the two
+//    consumer warpgroups) before the products, so slots past the count add
+//    nothing whatever they hold; an expert with rows[e] = 0 writes zeros
+//    and reads nothing. The simt route loads those terms as 0. Bound: the
+//    filled rows' operations, or the bytes of dW written plus x and dY read.
+// The 2-D form's dW uses the same x_layout = 1 (E = 1, no rows), so x is
+// read in place there too.
 // Tuning (persistent tiles across experts, splits sized to the experts hit)
 // is later work.
 #include <cuda_bf16.h>
@@ -233,15 +255,30 @@ __global__ void split_reduce_kernel(const float* __restrict__ work, O* __restric
 constexpr int kNkRowsPerWarp = 4;  // rows of a K-major weight a gemv warp owns
 constexpr int kNkChunk = 1024;     // K-columns of x a gemv block stages at a time
 
-// out[m, n] = sum_k x[m, k] * w[n, k], w (N, K) row-major.
-// grid = ceil(N / (8 warps * kNkRowsPerWarp)); block = 256 threads.
+// out[e, m, n] = sum_k x[e, m, k] * w[e, n, k], w[e] (N, K) row-major.
+// grid = (ceil(N / (8 warps * kNkRowsPerWarp)), E); block = 256 threads.
+// Rows of x at or past the expert's filled rows are not read and come out 0;
+// an expert with none reads none of its weight.
 template <typename T, typename O, int MM>
 __global__ void __launch_bounds__(kThreads)
 gemv_nk_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
-               int M, int N, int K, int vec_ok) {
+               const int* __restrict__ rows, int M, int N, int K, int vec_ok) {
   constexpr int V = 16 / sizeof(T);
   constexpr int R = kNkRowsPerWarp;
+  constexpr int kBlockRows = (kThreads / 32) * R;
   __shared__ __align__(16) float xs[MM][kNkChunk];
+  const int e = blockIdx.y;
+  const int me = expert_rows(rows, e, M);
+  x += (size_t)e * M * K;
+  w += (size_t)e * N * K;
+  out += (size_t)e * M * N;
+  if (me == 0) {  // an empty expert: zeros, and none of its weight is read
+    for (int i = threadIdx.x; i < M * kBlockRows; i += kThreads) {
+      const int n = blockIdx.x * kBlockRows + i % kBlockRows;
+      if (n < N) out[(size_t)(i / kBlockRows) * N + n] = from_float<O>(0.f);
+    }
+    return;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = (blockIdx.x * (kThreads / 32) + warp) * R;
 
@@ -256,7 +293,7 @@ gemv_nk_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__
     __syncthreads();  // the previous chunk's reads are done
     for (int i = threadIdx.x; i < MM * kNkChunk; i += kThreads) {
       const int m = i / kNkChunk, kk = i % kNkChunk;
-      xs[m][kk] = (m < M && kk < kn) ? to_float(x[(size_t)m * K + kc + kk]) : 0.f;
+      xs[m][kk] = (m < me && kk < kn) ? to_float(x[(size_t)m * K + kc + kk]) : 0.f;
     }
     __syncthreads();
     if (vec_ok) {  // K % V == 0 and 16-byte aligned rows, so kn % V == 0
@@ -309,15 +346,17 @@ gemv_nk_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__
 #pragma unroll
     for (int m = 0; m < MM; ++m)
       if (lane == r * MM + m && m < M && n0 + r < N)
-        out[(size_t)m * N + n0 + r] = from_float<O>(acc[r][m]);
+        out[(size_t)m * N + n0 + r] = from_float<O>(m < me ? acc[r][m] : 0.f);
 }
 
 constexpr int kTile = 64;
 constexpr int kTileK = 16;
 
 // grid = (ceil(N / 64), ceil(M / 64), E); block = 256 threads, 4x4 outputs
-// each; expert blockIdx.z as in gemv_kernel. kNK: w is (N, K) row-major.
-template <typename T, typename O, bool kNK>
+// each; expert blockIdx.z as in gemv_kernel. kNK: w is (N, K) row-major. kTA:
+// x is (K, M) row-major (out = x^T @ w), and the expert's filled rows bound
+// the sum over K instead of the output's rows.
+template <typename T, typename O, bool kNK, bool kTA>
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
              const int* __restrict__ rows, int M, int N, int K) {
@@ -327,20 +366,28 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ o
   const int ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * kTile;
   const int n0 = blockIdx.x * kTile;
-  const int me = expert_rows(rows, blockIdx.z, M);
+  const int me = expert_rows(rows, blockIdx.z, kTA ? K : M);
+  const int m_end = kTA ? M : me;  // rows of x that are read
+  const int k_end = kTA ? me : K;  // terms of the sum
   x += (size_t)blockIdx.z * M * K;
   w += (size_t)blockIdx.z * K * N;
   out += (size_t)blockIdx.z * M * N;
   float acc[4][4] = {};
 
   // a tile at or past the expert's filled rows loads nothing and stores zeros
-  for (int k0 = 0; m0 < me && k0 < K; k0 += kTileK) {
+  for (int k0 = 0; m0 < m_end && k0 < k_end; k0 += kTileK) {
 #pragma unroll
     for (int e = 0; e < (kTile * kTileK) / kThreads; ++e) {
       const int idx = threadIdx.x + e * kThreads;
-      const int xm = idx / kTileK, xk = idx % kTileK;
-      const int gm = m0 + xm, gk = k0 + xk;
-      xs[xk][xm] = (gm < me && gk < K) ? to_float(x[(size_t)gm * K + gk]) : 0.f;
+      if constexpr (kTA) {  // neighbouring threads on neighbouring m of a row of x
+        const int xk = idx / kTile, xm = idx % kTile;
+        const int gm = m0 + xm, gk = k0 + xk;
+        xs[xk][xm] = (gm < M && gk < k_end) ? to_float(x[(size_t)gk * M + gm]) : 0.f;
+      } else {
+        const int xm = idx / kTileK, xk = idx % kTileK;
+        const int gm = m0 + xm, gk = k0 + xk;
+        xs[xk][xm] = (gm < me && gk < K) ? to_float(x[(size_t)gm * K + gk]) : 0.f;
+      }
       if constexpr (kNK) {  // neighbouring threads on neighbouring k of a row
         const int wn = idx / kTileK, wk = idx % kTileK;
         const int hk = k0 + wk, hn = n0 + wn;
@@ -348,7 +395,7 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ o
       } else {
         const int wk = idx / kTile, wn = idx % kTile;
         const int hk = k0 + wk, hn = n0 + wn;
-        ws[wk][wn] = (hk < K && hn < N) ? to_float(w[(size_t)hk * N + hn]) : 0.f;
+        ws[wk][wn] = (hk < k_end && hn < N) ? to_float(w[(size_t)hk * N + hn]) : 0.f;
       }
     }
     __syncthreads();
@@ -416,19 +463,23 @@ __device__ __forceinline__ void store_cols(O* row, int col, int N, float a, floa
 
 // grid = (ceil(M / 128), ceil(N / kWgmmaBN), E): consecutive blocks share a
 // column of weight tiles; blockIdx.z is the expert. tx: x as (K, M, E)
-// innermost first, boxes 64 x 128 x 1; tw: w as (N, K, E) innermost first,
-// boxes 64 x 64 x 1 (MN-major B), or with kNK w as (K, N, 1), boxes 64 x
-// kWgmmaBN x 1 (K-major B).
-template <typename O, bool kNK>
+// innermost first, boxes 64 x 128 x 1, or with kTA x as (M, K, E), boxes 64 x
+// 64 x 1 (MN-major A, two boxes a stage); tw: w as (N, K, E) innermost first,
+// boxes 64 x 64 x 1 (MN-major B), or with kNK w as (K, N, E), boxes 64 x
+// kWgmmaBN x 1 (K-major B). With kTA the expert's filled rows bound the sum
+// over K: its k-loop ends at ceil(rows[e] / 64) stages, and in the last one
+// the rows of both tiles at or past rows[e] are zeroed before the products.
+template <typename O, bool kNK, bool kTA>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
              O* __restrict__ out, const int* __restrict__ rows, int M, int N, int K) {
+  static_assert(!(kNK && kTA), "an MN-major x takes (K, N) weights only");
   const int m0 = blockIdx.x * kWgmmaBM;
   const int n0 = blockIdx.y * kWgmmaBN;
   const int e = blockIdx.z;
-  const int me = expert_rows(rows, e, M);
+  const int me = expert_rows(rows, e, kTA ? K : M);
   out += (size_t)e * M * N;
-  if (m0 >= me) {  // a tile past the expert's filled rows: zeros, no loads
+  if (kTA ? me == 0 : m0 >= me) {  // a tile past the expert's filled rows: zeros, no loads
     for (int i = threadIdx.x; i < kWgmmaBM * kWgmmaBN; i += kWgmmaThreads) {
       const int r = m0 + i / kWgmmaBN, c = n0 + i % kWgmmaBN;
       if (r < M && c < N) out[(size_t)r * N + c] = from_float<O>(0.f);
@@ -442,7 +493,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
   uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kWgmmaStages * kBBytes);
   uint64_t* empty = full + kWgmmaStages;
 
-  const int ktiles = (K + kWgmmaBK - 1) / kWgmmaBK;
+  const int ktiles = ((kTA ? me : K) + kWgmmaBK - 1) / kWgmmaBK;
+  // rows of the last stage at or past the filled ones (TMA zero-fills past K)
+  const int tail = kTA && me < K ? me % kWgmmaBK : 0;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -461,9 +514,16 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
         const int s = kt % kWgmmaStages;
         if (kt >= kWgmmaStages) hopper::mbar_wait(&empty[s], ((kt / kWgmmaStages) - 1) & 1);
         hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
-        hopper::tma_load_3d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0, e);
+        if constexpr (kTA) {
+#pragma unroll
+          for (int j = 0; j < kWgmmaBM / 64; ++j)
+            hopper::tma_load_3d(a_s + s * kABytes + j * kBoxBytes, &tx, &full[s], m0 + 64 * j,
+                                kt * kWgmmaBK, e);
+        } else {
+          hopper::tma_load_3d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0, e);
+        }
         if constexpr (kNK) {
-          hopper::tma_load_3d(b_s + s * kBBytes, &tw, &full[s], kt * kWgmmaBK, n0, 0);
+          hopper::tma_load_3d(b_s + s * kBBytes, &tw, &full[s], kt * kWgmmaBK, n0, e);
         } else {
 #pragma unroll
           for (int j = 0; j < kWgmmaBN / 64; ++j)
@@ -483,15 +543,38 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
     for (int kt = 0; kt < ktiles; ++kt) {
       const int s = kt % kWgmmaStages;
       hopper::mbar_wait(&full[s], (kt / kWgmmaStages) & 1);
-      const uint32_t a_addr = hopper::smem_u32(a_s + s * kABytes) + c * 64 * 128;
+      if (tail != 0 && kt == ktiles - 1) {
+        // Rows tail..63 of every box of both tiles (x's two, w's four) hold
+        // slots past the filled ones: zero them (a whole 128-byte row each,
+        // whatever the swizzle), then order the stores before the async
+        // proxy's reads and wait for both consumer warpgroups.
+        constexpr int kBoxes = (kABytes + kBBytes) / kBoxBytes;
+        const int chunks = (kWgmmaBK - tail) * 8;  // 16-byte chunks a box
+        for (int i = threadIdx.x - 128; i < kBoxes * chunks; i += 256) {
+          const int box = i / chunks, r = tail + (i % chunks) / 8, q = i % 8;
+          uint8_t* base = box < kABytes / kBoxBytes ? a_s + s * kABytes + box * kBoxBytes
+                                                    : b_s + s * kBBytes + (box - kABytes / kBoxBytes) * kBoxBytes;
+          *reinterpret_cast<uint4*>(base + r * 128 + q * 16) = make_uint4(0, 0, 0, 0);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_barrier(1, 256);
+      }
+      const uint32_t a_addr =
+          hopper::smem_u32(a_s + s * kABytes) + c * (kTA ? kBoxBytes : 64 * 128);
       const uint32_t b_addr = hopper::smem_u32(b_s + s * kBBytes);
       hopper::fence_regs(acc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgmmaBK / 16; ++kk) {
-        // x: K-major, 16 columns = 32 bytes on; w: MN-major, 16 K rows on,
-        // its 64-column boxes kBoxBytes apart, or K-major like x
-        if constexpr (kNK) {
+        // x: K-major, 16 columns = 32 bytes on, or with kTA MN-major, 16 K
+        // rows on in its own 64-row box; w: MN-major, 16 K rows on, its
+        // 64-column boxes kBoxBytes apart, or K-major like x
+        if constexpr (kTA) {
+          hopper::wgmma_ss<kWgmmaBN, 1, 1>(acc,
+                                           hopper::desc_sw128(a_addr + kk * 16 * 128, kBoxBytes, 1024),
+                                           hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024),
+                                           1);
+        } else if constexpr (kNK) {
           hopper::wgmma_ss<kWgmmaBN, 0>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
                                         hopper::desc_sw128(b_addr + kk * 32, 16, 1024), 1);
         } else {
@@ -509,9 +592,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
     hopper::fence_regs(acc);
 
     // rows at or past `me` (loaded, but they reach only their own output
-    // rows) are stored as zeros
+    // rows) are stored as zeros; with kTA every output row is live
     const int row = m0 + c * 64 + warp * 16 + lane / 4;
-    const bool live0 = row < me, live8 = row + 8 < me;
+    const bool live0 = kTA || row < me, live8 = kTA || row + 8 < me;
 #pragma unroll
     for (int j = 0; j < kWgmmaBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
@@ -527,15 +610,15 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
   }
 }
 
-template <typename O, bool kNK>
+template <typename O, bool kNK, bool kTA>
 int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, const int* rows, int E,
                  int M, int N, int K, cudaStream_t stream) {
   CUtensorMap tx, tw;
   // each expert's matrix is one slice of the outermost dim, so boxes stay
-  // inside it and zero-fill past its own M and K
-  const cuuint64_t x_dims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)E};
-  const cuuint64_t x_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)M * K * 2};
-  const cuuint32_t x_box[3] = {64, kWgmmaBM, 1};
+  // inside it and zero-fill past its own M and K; (K, M) row-major with kTA
+  const cuuint64_t x_dims[3] = {(cuuint64_t)(kTA ? M : K), (cuuint64_t)(kTA ? K : M), (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)(kTA ? M : K) * 2, (cuuint64_t)M * K * 2};
+  const cuuint32_t x_box[3] = {64, (cuuint32_t)(kTA ? kWgmmaBK : kWgmmaBM), 1};
   // (N, K) row-major: K innermost, rows of K * 2 bytes; (K, N): N innermost
   const cuuint64_t w_dims[3] = {(cuuint64_t)(kNK ? K : N), (cuuint64_t)(kNK ? N : K), (cuuint64_t)E};
   const cuuint64_t w_strides[2] = {(cuuint64_t)(kNK ? K : N) * 2, (cuuint64_t)K * N * 2};
@@ -543,19 +626,21 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, const i
   int err = hopper::encode_bf16_sw128(&tx, x, 3, x_dims, x_strides, x_box);
   if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 3, w_dims, w_strides, w_box);
   static std::atomic<uint32_t> smem_set{0};
-  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O, kNK>, kWgmmaSmem, smem_set);
+  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O, kNK, kTA>, kWgmmaSmem, smem_set);
   if (err != 0) return err;
   dim3 grid((M + kWgmmaBM - 1) / kWgmmaBM, (N + kWgmmaBN - 1) / kWgmmaBN, E);
-  wgmma_kernel<O, kNK><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, rows, M, N, K);
+  wgmma_kernel<O, kNK, kTA><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, rows, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename O, int MM>
-void launch_gemv_nk(const T* x, const T* w, O* out, int M, int N, int K, cudaStream_t stream) {
+void launch_gemv_nk(const T* x, const T* w, O* out, const int* rows, int E, int M, int N, int K,
+                    cudaStream_t stream) {
+  // an expert's (N, K) slice starts N * K elements on: 16-byte aligned with w when K is
   const int vec_ok = (K % (16 / sizeof(T)) == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  const int rows = (kThreads / 32) * kNkRowsPerWarp;
-  gemv_nk_kernel<T, O, MM><<<(N + rows - 1) / rows, kThreads, 0, stream>>>(x, w, out, M, N, K,
-                                                                           vec_ok);
+  const int block_rows = (kThreads / 32) * kNkRowsPerWarp;
+  dim3 grid((N + block_rows - 1) / block_rows, E);
+  gemv_nk_kernel<T, O, MM><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K, vec_ok);
 }
 
 template <typename T, typename O, int MM>
@@ -578,33 +663,36 @@ enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2 };
 
 template <typename T, typename O>
 int run(const void* x_, const void* w_, void* out_, void* work, const int* rows, int E, int M,
-        int N, int K, int route, int splits, int nk, cudaStream_t stream) {
+        int N, int K, int route, int splits, int nk, int ta, cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   const T* w = static_cast<const T*>(w_);
   O* out = static_cast<O*>(out_);
   float* ws = static_cast<float*>(work);
   if (route == kRouteWgmma) {
     if constexpr (sizeof(T) == 2) {
-      return nk ? launch_wgmma<O, true>(x, w, out, rows, E, M, N, K, stream)
-                : launch_wgmma<O, false>(x, w, out, rows, E, M, N, K, stream);
+      if (ta) return launch_wgmma<O, false, true>(x, w, out, rows, E, M, N, K, stream);
+      return nk ? launch_wgmma<O, true, false>(x, w, out, rows, E, M, N, K, stream)
+                : launch_wgmma<O, false, false>(x, w, out, rows, E, M, N, K, stream);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kRouteSimt) {
     dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, E);
-    if (nk)
-      tiled_kernel<T, O, true><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
+    if (ta)
+      tiled_kernel<T, O, false, true><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
+    else if (nk)
+      tiled_kernel<T, O, true, false><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
     else
-      tiled_kernel<T, O, false><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
+      tiled_kernel<T, O, false, false><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K);
   } else if (nk) {
     if (M == 1)
-      launch_gemv_nk<T, O, 1>(x, w, out, M, N, K, stream);
+      launch_gemv_nk<T, O, 1>(x, w, out, rows, E, M, N, K, stream);
     else if (M <= 2)
-      launch_gemv_nk<T, O, 2>(x, w, out, M, N, K, stream);
+      launch_gemv_nk<T, O, 2>(x, w, out, rows, E, M, N, K, stream);
     else if (M <= 4)
-      launch_gemv_nk<T, O, 4>(x, w, out, M, N, K, stream);
+      launch_gemv_nk<T, O, 4>(x, w, out, rows, E, M, N, K, stream);
     else
-      launch_gemv_nk<T, O, kGemvMaxM>(x, w, out, M, N, K, stream);
+      launch_gemv_nk<T, O, kGemvMaxM>(x, w, out, rows, E, M, N, K, stream);
   } else if (M == 1) {
     launch_gemv<T, O, 1>(x, w, out, ws, rows, E, M, N, K, splits, stream);
   } else if (M <= 2) {
@@ -620,36 +708,40 @@ int run(const void* x_, const void* w_, void* out_, void* work, const int* rows,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. w_layout: 0 = w (K, N), 1 = w (N, K)
-// (out = x @ w^T). E >= 1 experts: x (E, M, K), w (E, K, N), out (E, M, N),
-// contiguous; E > 1 or `rows` (int32 (E,) on the device, or null) only with
-// w_layout 0. route: 0 = gemv (M <= 8; for (K, N) weights K cut into `splits`
-// >= 1 chunks, which needs a float32 workspace of splits * E * M * N when
-// splits > 1; for (N, K) weights splits = 1), 1 = simt tiles, 2 = wgmma
-// (bfloat16 in, M > 8, K a multiple of 8 and, for (K, N) weights, N too, x and
-// w 16-byte aligned); anything else is refused. Returns cudaGetLastError()
-// after the launches.
+// (out = x @ w^T). x_layout: 0 = x (M, K), 1 = x (K, M) (out = x^T @ w, with
+// w_layout 0 only). E >= 1 experts: each operand and out (M, N) stacked on a
+// leading E, contiguous; `rows` (int32 (E,) on the device, or null) bounds
+// each expert's rows of x and out with x_layout 0 (rows past it are 0) and
+// its terms of the sum over K with x_layout 1. route: 0 = gemv (M <= 8,
+// x_layout 0; for (K, N) weights K cut into `splits` >= 1 chunks, which
+// needs a float32 workspace of splits * E * M * N when splits > 1; for
+// (N, K) weights splits = 1), 1 = simt tiles, 2 = wgmma (bfloat16 in, M >
+// 8, K a multiple of 8 and, for (K, N) weights, N too, and M with x_layout
+// 1; x and w 16-byte aligned); anything else is refused. Returns
+// cudaGetLastError() after the launches.
 extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work,
                              const int* rows, int E, int M, int N, int K, int route, int splits,
-                             int in_dtype, int out_dtype, int w_layout, void* stream) {
+                             int in_dtype, int out_dtype, int w_layout, int x_layout, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || E <= 0 || E > 65535 || w_layout < 0 || w_layout > 1 ||
-      (w_layout == 1 && (E != 1 || rows != nullptr)))
+      x_layout < 0 || x_layout > 1 || (x_layout == 1 && (w_layout != 0 || route == kRouteGemv)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM || (w_layout == 1 && splits != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma &&
       (in_dtype != 1 || M <= kGemvMaxM || K % 8 || (w_layout == 0 && N % 8) ||
-       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16))
+       (x_layout == 1 && M % 8) || reinterpret_cast<uintptr_t>(x) % 16 ||
+       reinterpret_cast<uintptr_t>(w) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route < kRouteGemv || route > kRouteWgmma) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nk = w_layout;
+  const int nk = w_layout, ta = x_layout;
   if (in_dtype == 1 && out_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
+    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
   if (in_dtype == 1 && out_dtype == 0)
-    return run<__nv_bfloat16, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
+    return run<__nv_bfloat16, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
   if (in_dtype == 0 && out_dtype == 1)
-    return run<float, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
+    return run<float, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
   if (in_dtype == 0 && out_dtype == 0)
-    return run<float, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, s);
+    return run<float, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,17 +31,30 @@ launch, the experts on the grid's z axis, the route picked by
 0, and an expert with none reads no weight. ``stream_matmul.
 batched_launches`` counts those launches; their checks run on both devices.
 
+With ``x_layout="km"``, x is given as (K, M), or (E, K, M), and the product
+is ``x.T @ w`` for a (K, N) weight: x is read in place as an MN-major
+operand (on the wgmma route, the transpose bit of wgmma's A); ``rows`` then
+bounds each expert's terms of the sum over K, so slots past ``rows[e]`` add
+nothing, whatever they hold, and an expert with none gives an exact zero.
+
 Gradients: on CUDA, with grad mode on and x or w requiring grad, the 2-D
 form runs inside an ``autograd.Function`` whose forward is the same launch
-and whose backward is ``stream_matmul`` itself, on contiguous operands: for
-a (K, N) weight dX = ``stream_matmul(dY, w, w_layout="nk")`` (w read in
-place as the K-major weight of ``dY @ w.T``) and dW = ``stream_matmul(x.T,
-dY)``; for an (N, K) weight (``w_layout="nk"``, the tied head) dX =
-``stream_matmul(dY, w)`` and dW = ``stream_matmul(dY.T, x)``. Each gradient
-comes out in its operand's dtype, and f32 stays exact f32. Without grad
-(every serving path) nothing changes: the same launch, route, bits and
-counts. The expert-batched form and ``stream_matmul_int8`` have no backward
-yet: on CUDA under grad, with an input that requires grad, they raise.
+and whose backward is ``stream_matmul`` itself, on contiguous operands read
+in place: for a (K, N) weight dX = ``stream_matmul(dY, w, w_layout="nk")``
+(w read as the K-major weight of ``dY @ w.T``) and dW = ``stream_matmul(x,
+dY, x_layout="km")``; for an (N, K) weight (``w_layout="nk"``, the tied
+head) dX = ``stream_matmul(dY, w)`` and dW = ``stream_matmul(dY, x,
+x_layout="km")``, or, where dY's rows are no multiple of 16 bytes (bf16 at
+an odd vocabulary, which TMA cannot stride), ``stream_matmul(dY.T, x)`` on a
+transposed copy, so that it stays on the tensor cores. The expert-batched
+form (E, C, K) @ (E, K, N) has the same pair, each one launch over the
+experts: dX[e] = dY[e] @ W[e]^T (``w_layout="nk"`` over the stack, rows
+past ``rows[e]`` written as 0) and dW[e] = X[e]^T @ dY[e] over the filled
+slots only (``x_layout="km"`` with ``rows``), counted in ``stream_matmul.
+batched_grad_launches``. Each gradient comes out in its operand's dtype, and
+f32 stays exact f32. Without grad (every serving path) nothing changes: the
+same launch, route, bits and counts. ``stream_matmul_int8`` has no backward
+yet: on CUDA under grad, with an input that requires grad, it raises.
 """
 from __future__ import annotations
 
@@ -60,20 +73,26 @@ ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry points' route ar
 INT8_TILE_K = 64  # K rows of a stage of the int8 wgmma route (kI8BK)
 INT8_TILE_M, INT8_TILE_N = 192, 128  # rows and columns of an int8 wgmma output tile (kI8BM, kI8BN)
 W_LAYOUT_CODES = {"kn": 0, "nk": 1}  # the C entry point's w_layout argument
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+X_LAYOUT_CODES = {"mk": 0, "km": 1}  # and its x_layout argument
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, w_layout: str = "kn") -> str:
-    """The kernel route of an (m, k) @ (k, n) product: "gemv" for m <= 8;
-    "wgmma" for bf16 where TMA can describe both operands (16-byte aligned
-    base pointers, ``aligned``, and rows that each start 16 bytes on: k a
-    multiple of 8 and, for a (K, N) weight, n too; a K-major (N, K) weight,
-    ``w_layout="nk"``, takes any n, which TMA zero-fill and the masked store
-    handle); "simt" otherwise, which keeps f32 in exact f32."""
+def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, w_layout: str = "kn",
+             x_layout: str = "mk") -> str:
+    """The kernel route of an (m, k) @ (k, n) product: "gemv" for m <= 8
+    (an x given as (K, M), ``x_layout="km"``, never: its rows are the sum's
+    terms); "wgmma" for bf16 at m > 8 where TMA can describe both operands
+    (16-byte aligned base pointers, ``aligned``, and rows that each start 16
+    bytes on: k a multiple of 8, n too for a (K, N) weight, m too for a (K,
+    M) x; a K-major (N, K) weight, ``w_layout="nk"``, takes any n, which TMA
+    zero-fill and the masked store handle); "simt" otherwise, which keeps
+    f32 in exact f32."""
+    km = x_layout == "km"
     if m <= GEMV_MAX_M:
-        return "gemv"
-    if dtype == torch.bfloat16 and k % 8 == 0 and (n % 8 == 0 or w_layout == "nk") and aligned:
+        return "simt" if km else "gemv"
+    if dtype == torch.bfloat16 and k % 8 == 0 and (n % 8 == 0 or w_layout == "nk") \
+            and (m % 8 == 0 or not km) and aligned:
         return "wgmma"
     return "simt"
 
@@ -92,44 +111,48 @@ def k_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1) -> int:
 
 def stream_matmul(
     x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16, w_layout: str = "kn",
-    rows: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None, x_layout: str = "mk",
 ) -> torch.Tensor:
-    """``x @ w`` for x (M, K) and w (K, N) of one dtype, or ``x @ w.T`` for w
-    (N, K) with ``w_layout="nk"``; f32 accumulation, result in ``out_dtype``
-    (bfloat16 or float32). For x (E, C, K) and w (E, K, N), the
-    expert-batched form (module docstring), with ``rows`` optional."""
-    if w_layout not in W_LAYOUT_CODES:
-        raise ValueError(f"stream_matmul: w_layout {w_layout!r}, need 'kn' or 'nk'")
+    """``x @ w`` for x (M, K) and w (K, N) of one dtype, ``x @ w.T`` for w
+    (N, K) with ``w_layout="nk"``, or ``x.T @ w`` for x (K, M) with
+    ``x_layout="km"``; f32 accumulation, result in ``out_dtype`` (bfloat16
+    or float32). For x and w stacked on a leading E, the expert-batched form
+    (module docstring), with ``rows`` optional."""
+    if w_layout not in W_LAYOUT_CODES or x_layout not in X_LAYOUT_CODES:
+        raise ValueError(f"stream_matmul: w_layout {w_layout!r}, x_layout {x_layout!r}; need 'kn' or 'nk', "
+                         "'mk' or 'km'")
+    if x_layout == "km" and w_layout != "kn":
+        raise ValueError("stream_matmul: an x given as (K, M) takes (K, N) weights only")
     if x.dim() == 3 or w.dim() == 3 or rows is not None:
-        return _stream_matmul_batched(x, w, out_dtype, w_layout, rows)
+        return _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout)
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return stream_matmul_ref(x, w, out_dtype, w_layout)
+        return stream_matmul_ref(x, w, out_dtype, w_layout, x_layout=x_layout)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if x_layout != "mk":
+            raise RuntimeError("stream_matmul: gradients are taken of the (M, K) @ (K, N) and (N, K) forms")
         return _StreamMatmul.apply(x, w, out_dtype, w_layout)
-    return _stream_matmul_2d(x, w, out_dtype, w_layout)
+    return _stream_matmul_2d(x, w, out_dtype, w_layout, x_layout)
 
 
-def _stream_matmul_2d(x, w, out_dtype, w_layout):
+def _mkn(x, w, w_layout, x_layout):
+    """(m, k, n, k of w) of a product from its operands' last two axes."""
+    m, k = (x.shape[-1], x.shape[-2]) if x_layout == "km" else (x.shape[-2], x.shape[-1])
+    n, kw = (w.shape[-2], w.shape[-1]) if w_layout == "nk" else (w.shape[-1], w.shape[-2])
+    return m, k, n, kw
+
+
+def _stream_matmul_2d(x, w, out_dtype, w_layout, x_layout="mk"):
     """The 2-D form on CUDA: checks, the route and one launch."""
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"stream_matmul: x on {x.device}, w on {w.device}")
-    nk = w_layout == "nk"
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1 if nk else 0] or 0 in (*x.shape, *w.shape):
-        raise ValueError(f"stream_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} ({w_layout})")
+    m, k, n, kw = _mkn(x, w, w_layout, x_layout)
+    if x.dim() != 2 or w.dim() != 2 or k != kw or 0 in (*x.shape, *w.shape):
+        raise ValueError(f"stream_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} ({x_layout}, {w_layout})")
     if x.dtype != w.dtype or x.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
         raise TypeError(f"stream_matmul: dtypes {x.dtype} @ {w.dtype} -> {out_dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("stream_matmul: x and w must be contiguous")
-    m, k = x.shape
-    n = w.shape[0 if nk else 1]
-    route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, w_layout)
-    if route != "gemv":
-        splits = 0
-    else:  # a K-major row is one warp's dot product: no split-K
-        splits = 1 if nk else k_splits(m, n, k, _build.sm_count(x.device))
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    _launch(x, w, out, None, 1, m, n, k, route, splits, w_layout)
-    return out
+    return _route_and_launch(x, w, out_dtype, w_layout, None, x_layout, 1, m, n, k)
 
 
 class _StreamMatmul(torch.autograd.Function):
@@ -151,12 +174,37 @@ class _StreamMatmul(torch.autograd.Function):
             if ctx.needs_input_grad[0]:
                 dx = stream_matmul(dy, w, out_dtype=x.dtype, w_layout="nk")
             if ctx.needs_input_grad[1]:
-                dw = stream_matmul(x.T.contiguous(), dy, out_dtype=w.dtype)
+                dw = stream_matmul(x, dy, out_dtype=w.dtype, x_layout="km")
         else:  # y = x @ w.T, w (N, K)
             if ctx.needs_input_grad[0]:
                 dx = stream_matmul(dy, w, out_dtype=x.dtype)
             if ctx.needs_input_grad[1]:
-                dw = stream_matmul(dy.T.contiguous(), x, out_dtype=w.dtype)
+                if dy.dtype == torch.bfloat16 and dy.shape[1] % 8:  # rows TMA cannot stride
+                    dw = stream_matmul(dy.T.contiguous(), x, out_dtype=w.dtype)
+                else:
+                    dw = stream_matmul(dy, x, out_dtype=w.dtype, x_layout="km")
+        return dx, dw, None, None
+
+
+class _StreamMatmulBatched(torch.autograd.Function):
+    """The expert-batched (E, C, K) @ (E, K, N) form with gradients, two
+    launches over the experts (module docstring). Rows past ``rows[e]`` of
+    the output are 0 whatever x holds, so they pass no gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows, out_dtype):
+        ctx.save_for_backward(x, w, rows)
+        return _batched_launch(x, w, out_dtype, "kn", rows, "mk")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rows = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:  # dY[e] @ W[e]^T: W[e] (K, N) read as the K-major weight
+            dx = _batched_launch(dy, w, x.dtype, "nk", rows, "mk", grad=True)
+        if ctx.needs_input_grad[1]:  # X[e]^T @ dY[e] over the filled slots
+            dw = _batched_launch(x, dy, w.dtype, "kn", rows, "km", grad=True)
         return dx, dw, None, None
 
 
@@ -168,41 +216,63 @@ def _no_grad_on_cuda(what: str, tensors) -> None:
                            "call it under torch.no_grad() or on the CPU")
 
 
-def _stream_matmul_batched(x, w, out_dtype, w_layout, rows):
+def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout):
     """The expert-batched form: checks on both devices, the plain version on
-    the CPU, one launch on CUDA."""
+    the CPU, on CUDA one launch, under autograd for the (E, C, K) @ (E, K,
+    N) form."""
     tensors = (x, w) if rows is None else (x, w, rows)
     on_cpu = all(t.device.type == "cpu" for t in tensors)
     if not on_cpu and not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("stream_matmul: x, w, rows on " + ", ".join(str(t.device) for t in tensors))
-    if w_layout != "kn":
-        raise ValueError("stream_matmul: the expert-batched form takes (E, K, N) weights only")
-    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1] \
-            or 0 in (*x.shape, w.shape[2]):
-        raise ValueError(f"stream_matmul: expert shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    m, k, n, kw = _mkn(x, w, w_layout, x_layout)
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or k != kw or 0 in (*x.shape, *w.shape):
+        raise ValueError(f"stream_matmul: expert shapes {tuple(x.shape)} @ {tuple(w.shape)} "
+                         f"({x_layout}, {w_layout})")
     if x.dtype != w.dtype or x.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
         raise TypeError(f"stream_matmul: dtypes {x.dtype} @ {w.dtype} -> {out_dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("stream_matmul: x and w must be contiguous (a whole expert stack)")
-    e, c, k = x.shape
-    n = w.shape[2]
+    e = x.shape[0]
     if rows is not None:
         if rows.dtype != torch.int32:
             raise TypeError(f"stream_matmul: rows {rows.dtype}, need int32")
         if tuple(rows.shape) != (e,) or not rows.is_contiguous():
             raise ValueError(f"stream_matmul: rows {tuple(rows.shape)}, need a contiguous ({e},)")
     if on_cpu:
-        return stream_matmul_ref(x, w, out_dtype, rows=rows)
-    _no_grad_on_cuda("stream_matmul's expert-batched form", (x, w))
-    route = mm_route(c, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    splits = k_splits(c, n, k, _build.sm_count(x.device), experts=e) if route == "gemv" else 0
-    out = torch.empty((e, c, n), dtype=out_dtype, device=x.device)
-    _launch(x, w, out, rows, e, c, n, k, route, splits, w_layout)
-    stream_matmul.batched_launches += 1
+        return stream_matmul_ref(x, w, out_dtype, w_layout, rows, x_layout)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if (w_layout, x_layout) != ("kn", "mk"):
+            raise RuntimeError("stream_matmul: gradients are taken of the (E, C, K) @ (E, K, N) form")
+        return _StreamMatmulBatched.apply(x, w, rows, out_dtype)
+    return _batched_launch(x, w, out_dtype, w_layout, rows, x_layout)
+
+
+def _batched_launch(x, w, out_dtype, w_layout, rows, x_layout, grad=False):
+    """One launch of the expert-batched form on checked operands, counted in
+    ``batched_launches``, or in ``batched_grad_launches`` for a gradient."""
+    m, k, n, _ = _mkn(x, w, w_layout, x_layout)
+    out = _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, x.shape[0], m, n, k)
+    if grad:
+        stream_matmul.batched_grad_launches += 1
+    else:
+        stream_matmul.batched_launches += 1
     return out
 
 
-def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout):
+def _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, e, m, n, k):
+    """The route of each expert's (m, k) @ (k, n), the gemv route's K splits,
+    and one launch into a new output of x's rank: (m, n), or (e, m, n)."""
+    route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, w_layout, x_layout)
+    if route != "gemv":
+        splits = 0
+    else:  # a K-major row is one warp's dot product: no split-K
+        splits = 1 if w_layout == "nk" else k_splits(m, n, k, _build.sm_count(x.device), experts=e)
+    out = torch.empty((e, m, n) if x.dim() == 3 else (m, n), dtype=out_dtype, device=x.device)
+    _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout)
+    return out
+
+
+def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
     """One call of the C entry point, with a split-K workspace where the gemv
     route cuts K; raises on a CUDA error; counts the launch."""
     work = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
@@ -212,9 +282,9 @@ def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout):
         work.data_ptr() if work is not None else None,
         rows.data_ptr() if rows is not None else None,
         e, m, n, k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype],
-        W_LAYOUT_CODES[w_layout], torch.cuda.current_stream(x.device).cuda_stream,
+        W_LAYOUT_CODES[w_layout], X_LAYOUT_CODES[x_layout], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"stream_matmul ({route}, {w_layout}, {e} experts)")
+    _build.check(err, f"stream_matmul ({route}, {x_layout}, {w_layout}, {e} experts)")
     stream_matmul.launches += 1
     if route == "wgmma":
         stream_matmul.wgmma_launches += 1
@@ -226,6 +296,7 @@ stream_matmul.launches = 0
 stream_matmul.wgmma_launches = 0
 stream_matmul.nk_launches = 0
 stream_matmul.batched_launches = 0
+stream_matmul.batched_grad_launches = 0
 
 
 def int8_k_splits(m: int, n: int, k: int, block_k: int, sm_count: int) -> int:

@@ -314,6 +314,11 @@ def moe_apply(p, x, cfg: ModelConfig):
     h = h * stream_matmul(expert_in, p["w3"], out_dtype=x.dtype, rows=route.rows)
     expert_out = stream_matmul(h, p["w2"], out_dtype=x.dtype, rows=route.rows)  # (E, cap, d)
 
+    # Under grad, index_select's backward is an index_add_ (atomics on CUDA)
+    # into the (E * cap, d) gradient: a kept slot receives its one row, and a
+    # dropped assignment adds an exact zero row into slot e * cap (the where
+    # below passes it no gradient), so that sum too has the same bits in any
+    # order, and remat off gives remat on's gradients bit for bit.
     out_rep = expert_out.view(e * cap, d).index_select(0, route.slot)
     out_rep = torch.where(route.keep[:, None], out_rep, 0) * route.gates[:, None].to(out_rep.dtype)
     out = out_rep.view(m.top_k, n, d).sum(dim=0)

@@ -6,9 +6,10 @@ hybrid's ring decode on the card against the CPU and without a host sync;
 and the training path's kernels: ``flash_attention``'s backward against the
 plain version's gradients (f32 at relative L2 1e-4, bf16 at 2e-2 against
 the f32 gradients), ``stream_matmul``'s gradients in both weight layouts,
-the backward's tensor-core route and the forward's row statistics that it
-reads, the wrappers that have no backward raising under grad, and train
-steps on the card against the CPU without a host sync.
+the backward's tensor-core route (GQA ratios 1-8) and the forward's row
+statistics that it reads, the expert-batched form's gradients on its three
+routes, the wrappers that have no backward raising under grad, and train
+steps on the card against the CPU (the MoE pair too) without a host sync.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -787,7 +788,9 @@ def test_flash_attention_backward_kernel(cuda, b, sq, skv, h, hkv, d, causal, wi
 
 
 # The backward's tensor-core route (fa_bwd_route: bf16, D 64 / 128, Sq <=
-# Skv, Sq x g >= 64): g = 1, 2, 4 and 8; causal, windowed and bidirectional;
+# Skv, Sq x g >= 64): g = 1, 2, 4 and 8, and 3, 6 and 7 (llama3.2-3b, grok-1-314b,
+# arctic-480b and qwen2-vl-7b), whose 64-row tiles of 64 // g positions keep
+# padding rows; causal, windowed and bidirectional;
 # Sq = Skv not a multiple of 64, and Sq < Skv. bf16 gradients against the
 # f32 plain version (P and dS rounded to bf16 as product operands, ~2e-3).
 WGMMA_BWD_SIZES = [(1, 77, 77), (2, 1000, 1000), (1, 200, 333)]  # (B, Sq, Skv)
@@ -797,7 +800,7 @@ WGMMA_BWD_MASKS = {"causal": (True, 0), "window": (True, 48), "bidirectional": (
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv", WGMMA_BWD_SIZES)
 @pytest.mark.parametrize("mask", sorted(WGMMA_BWD_MASKS))
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 7, 8])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_backward_wgmma_route(cuda, b, sq, skv, mask, g, d):
     from repro_torch.kernels.flash_attention.ref import attention_ref_backward
@@ -882,7 +885,7 @@ def test_flash_attention_autograd_on_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,layout,dtype", [
     (256, 512, 1024, "kn", "bfloat16"), (4, 512, 1024, "kn", "bfloat16"), (130, 264, 136, "kn", "float32"),
-    (256, 2304, 1000, "nk", "bfloat16"), (64, 300, 1001, "nk", "float32"),
+    (256, 2304, 1000, "nk", "bfloat16"), (64, 300, 1001, "nk", "float32"), (64, 256, 1001, "nk", "bfloat16"),
 ])
 def test_stream_matmul_gradients_on_the_card(cuda, m, k, n, layout, dtype):
     dt = DTYPES[dtype]
@@ -904,14 +907,88 @@ def test_stream_matmul_gradients_on_the_card(cuda, m, k, n, layout, dtype):
     assert plain.grad_fn is None and torch.equal(plain, y.detach())
 
 
+# The expert-batched form's gradients, one launch each over the experts: dX
+# = dY @ W^T (the K-major form over the stack, rows past rows[e] written as
+# 0) and dW = X^T @ dY over the filled slots only (x read in place as an
+# MN-major operand). (E, C, K, N, dtype, dX route, dW route): a capacity of
+# 2 (dX on the K-major gemv, dW's C = 2 on simt), arctic's capacity of 80
+# over 16 experts and grok's 1280 over 2, cut in K and N (wgmma, several
+# k-stages), ragged C, K and N on wgmma, a C no multiple of 8 (dW on simt),
+# f32 on simt and on the gemv, and shapes TMA cannot describe (simt in bf16).
+BATCHED_GRAD_CASES = [
+    (8, 2, 1024, 768, torch.bfloat16, "gemv", "simt"),
+    (16, 80, 512, 768, torch.bfloat16, "wgmma", "wgmma"),
+    (2, 1280, 512, 1024, torch.bfloat16, "wgmma", "wgmma"),
+    (3, 200, 264, 136, torch.bfloat16, "wgmma", "wgmma"),
+    (4, 60, 128, 256, torch.bfloat16, "wgmma", "simt"),
+    (4, 80, 300, 200, torch.float32, "simt", "simt"),
+    (4, 3, 96, 100, torch.float32, "gemv", "simt"),
+    (3, 20, 30, 50, torch.bfloat16, "simt", "simt"),
+]
+
+
 @pytest.mark.cuda
-def test_wrappers_without_a_backward_raise_under_grad(cuda):
+@pytest.mark.parametrize("e,c,k,n,dt,dx_route,dw_route", BATCHED_GRAD_CASES)
+@pytest.mark.parametrize("rows_case", ["none", "mixed"])
+def test_stream_matmul_batched_gradients_on_the_card(cuda, e, c, k, n, dt, dx_route, dw_route, rows_case):
+    """Against f32 products of the same operands (bf16: relative L2 1e-2,
+    one rounding of each gradient; f32: 1e-5, exact f32 in another order);
+    x and dY hold NaN past each expert's count, which must reach nothing:
+    dX's rows there and an empty expert's dW are exactly 0. Launches and
+    routes counted; the same bits on a second backward."""
+    from repro_torch.kernels.streammm.ref import stream_matmul_batched_grads_ref
+
+    x = _randn((e, c, k), dt, cuda, 70)
+    w = _randn((e, k, n), dt, cuda, 71, scale=k ** -0.5)
+    dy = _randn((e, c, n), dt, cuda, 72)
+    counts = _batched_rows(e, c, rows_case)
+    rows = None
+    if counts is not None:
+        rows = torch.tensor(counts, dtype=torch.int32, device=cuda)
+        for i, r in enumerate(counts):
+            x[i, min(r, c):] = float("nan")
+            dy[i, min(r, c):] = float("nan")
+    assert mm_ops.mm_route(c, k, n, dt, True, "nk") == dx_route
+    assert mm_ops.mm_route(k, n, c, dt, True, "kn", "km") == dw_route
+    fn = mm_ops.stream_matmul
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (fn.launches, fn.wgmma_launches, fn.batched_launches, fn.batched_grad_launches)
+    y = fn(xg, wg, out_dtype=dt, rows=rows)
+    assert y.grad_fn is not None
+    gx, gw = torch.autograd.grad(y, (xg, wg), dy)
+    wgmma = (mm_ops.mm_route(c, n, k, dt, True) == "wgmma") + (dx_route == "wgmma") + (dw_route == "wgmma")
+    assert (fn.launches, fn.wgmma_launches, fn.batched_launches, fn.batched_grad_launches) == (
+        before[0] + 3, before[1] + wgmma, before[2] + 1, before[3] + 2)
+    assert gx.dtype == gw.dtype == dt and gx.shape == x.shape and gw.shape == w.shape
+    want_x, want_w = stream_matmul_batched_grads_ref(x.float(), w.float(), dy.float(), rows)
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    assert torch.isfinite(gx.float()).all() and torch.isfinite(gw.float()).all()
+    assert _rel_l2(gx, want_x) <= tol and _rel_l2(gw, want_w) <= tol
+    if counts is not None:
+        for i, r in enumerate(counts):
+            assert not gx[i, min(r, c):].any()
+            if r == 0:
+                assert not gw[i].any()
+    again = torch.autograd.grad(fn(xg, wg, out_dtype=dt, rows=rows), (xg, wg), dy)
+    assert torch.equal(gx, again[0]) and torch.equal(gw, again[1])
+
+
+@pytest.mark.cuda
+def test_stream_matmul_batched_has_a_backward_under_grad(cuda):
+    """Under grad the expert-batched form's result has a grad_fn (it raised
+    before its gradients were written); without grad it is the plain launch,
+    the same bits."""
     x = _randn((2, 16, 64), torch.bfloat16, cuda, 61).requires_grad_()
     w = _randn((2, 64, 32), torch.bfloat16, cuda, 62)
-    with pytest.raises(RuntimeError, match="expert-batched form has no backward"):
-        mm_ops.stream_matmul(x, w)
+    y = mm_ops.stream_matmul(x, w)
+    assert y.grad_fn is not None and y.shape == (2, 16, 32)
     with torch.no_grad():
-        assert mm_ops.stream_matmul(x, w).shape == (2, 16, 32)
+        plain = mm_ops.stream_matmul(x, w)
+    assert plain.grad_fn is None and torch.equal(plain, y.detach())
+
+
+@pytest.mark.cuda
+def test_wrappers_without_a_backward_raise_under_grad(cuda):
     xq = _randn((4, 128), torch.bfloat16, cuda, 63).requires_grad_()
     w_q = torch.ones((128, 64), dtype=torch.int8, device=cuda)
     scales = torch.ones((2, 64), dtype=torch.float32, device=cuda)
@@ -927,7 +1004,7 @@ def test_wrappers_without_a_backward_raise_under_grad(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,micro", [("qwen3-1.7b", 0), ("qwen3-1.7b", 2), ("minicpm-2b", 0),
-                                        ("recurrentgemma-9b", 0)])
+                                        ("recurrentgemma-9b", 0), ("grok-1-314b", 0), ("arctic-480b", 0)])
 def test_train_steps_card_against_cpu(cuda, arch, micro):
     """Reduced configs in f32, remat on: two train steps on the card (the
     kernels forward and backward) against the same steps on the CPU (the

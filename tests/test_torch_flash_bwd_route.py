@@ -45,11 +45,14 @@ def _chip_smoke():
 
 
 SMOKE_BWD_CASES = _chip_smoke().FA_BWD_CASES
-# the route of each chip_smoke case in bf16: qwen3 (D 128, g 2) and
-# minicpm-2b (D 64, MHA) on the tensor cores; hubert's D = 80 and
+# the route of each chip_smoke case in bf16: qwen3 (D 128, g 2), minicpm-2b
+# (D 64, MHA), llama3.2-3b (g 3), qwen2-vl-7b and arctic-480b (g 7) and
+# grok-1-314b (g 6) on the tensor cores; hubert's D = 80 and
 # recurrentgemma's D = 256 on simt
 SMOKE_BF16_ROUTES = {"qwen3": "wgmma", "minicpm-2b": "wgmma", "hubert-xlarge": "simt",
-                     "recurrentgemma-9b": "simt", "recurrentgemma-9b S=4096": "simt", "g=4 D=80": "simt"}
+                     "recurrentgemma-9b": "simt", "recurrentgemma-9b S=4096": "simt", "g=4 D=80": "simt",
+                     "llama3.2-3b": "wgmma", "qwen2-vl-7b": "wgmma", "grok-1-314b": "wgmma",
+                     "arctic-480b": "wgmma"}
 
 
 def test_every_smoke_case_has_an_expected_route():

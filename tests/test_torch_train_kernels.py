@@ -56,9 +56,9 @@ def test_stream_matmul_gradients_go_through_stream_matmul(layout, dtype, monkeyp
     calls = []
     inner = mm_ops.stream_matmul
 
-    def spy(x, w, out_dtype=torch.bfloat16, w_layout="kn", rows=None):
-        calls.append((tuple(x.shape), tuple(w.shape), w_layout, x.is_contiguous() and w.is_contiguous()))
-        return inner(x, w, out_dtype=out_dtype, w_layout=w_layout, rows=rows)
+    def spy(x, w, out_dtype=torch.bfloat16, w_layout="kn", rows=None, x_layout="mk"):
+        calls.append((tuple(x.shape), tuple(w.shape), w_layout, x_layout, x.is_contiguous() and w.is_contiguous()))
+        return inner(x, w, out_dtype=out_dtype, w_layout=w_layout, rows=rows, x_layout=x_layout)
 
     monkeypatch.setattr(mm_ops, "_stream_matmul_2d", stream_matmul_ref)
     monkeypatch.setattr(mm_ops, "stream_matmul", spy)
@@ -73,10 +73,12 @@ def test_stream_matmul_gradients_go_through_stream_matmul(layout, dtype, monkeyp
     tol = 0 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(gx, want[0], rtol=tol, atol=tol)
     torch.testing.assert_close(gw, want[1], rtol=tol, atol=tol)
-    if layout == "kn":  # dX = dY @ w.T with w read K-major in place; dW = x.T @ dY
-        assert calls == [((m, n), (k, n), "nk", True), ((k, m), (m, n), "kn", True)]
-    else:  # dX = dY @ w; dW = dY.T @ x
-        assert calls == [((m, n), (n, k), "kn", True), ((n, m), (m, k), "kn", True)]
+    if layout == "kn":  # dX = dY @ w.T with w read K-major in place; dW = x.T @ dY with x read in place
+        assert calls == [((m, n), (k, n), "nk", "mk", True), ((m, k), (m, n), "kn", "km", True)]
+    elif dtype == torch.float32:  # dX = dY @ w; dW = dY.T @ x with dY read in place
+        assert calls == [((m, n), (n, k), "kn", "mk", True), ((m, n), (m, k), "kn", "km", True)]
+    else:  # bf16 rows of dY of n = 14 are no multiple of 16 bytes: dW on a transposed copy
+        assert calls == [((m, n), (n, k), "kn", "mk", True), ((n, m), (m, k), "kn", "mk", True)]
     calls.clear()
     (gx_only,) = torch.autograd.grad(mm_ops._StreamMatmul.apply(x, w.detach(), dtype, layout), (x,), dy)
     assert len(calls) == 1 and torch.equal(gx_only, gx)  # no dW product when w needs none
