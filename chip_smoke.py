@@ -112,7 +112,25 @@
    loss falling, remat off giving the same bits, against operations and
    bytes bounds; and ``TrainSupervisor`` with an injected failure resuming
    with the uninterrupted run's losses;
-9. prints the kernels line and, last, the device line.
+9. drives the reference's training examples, the mesh path and the
+   dry-run: (9a) ``examples/port_quickstart.py``, 30 steps of the reduced
+   qwen3-1.7b, the loss falling from about ln(512); (9b)
+   ``examples/port_train_lm.py``, the ~76 M llama-style config for 200
+   steps, and again with a failure injected at step 130, the restarted
+   run's losses the uninterrupted run's from the checkpoint on (its
+   attention at head dim 64 on the wgmma routes, forward and backward);
+   (9c) qwen3-1.7b at published width (MESH_LAYERS layers) through
+   ``TrainSupervisor`` on a one-rank NCCL group (a FileStore) and a 1 x 1
+   mesh, the state placed as DTensors: the losses of the same run without a
+   mesh, bit for bit, and checkpoints that cross between the two; (9d) the
+   dry-run of every applicable cell on the 16x16, 2x16x16 and 1x1 meshes (a
+   subprocess on the host from the start of the run, meta tensors only),
+   its 1x1 record of qwen3-1.7b's train state against the bytes
+   ``make_train_state`` really allocates on the card, and its products'
+   FLOPs of phase 8's step against ``train_bounds``' operations, at the
+   ratio :func:`predicted_dot_flops` gives; every launch of 9a-9c gated
+   exactly;
+10. prints the kernels line and, last, the device line.
 
 Any failure raises, so the exit code is not 0; so is a run without a card or
 without ``src/repro_torch`` beside this file. Needs no network and no JAX.
@@ -125,6 +143,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -309,6 +328,23 @@ TRAIN_F32_REL_L2 = 1e-4
 BATCHED_GRAD_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 
 
+# Phase 9: the reference's training examples, the one-rank mesh, the dry-run.
+QUICKSTART_STEPS = 30
+# examples/port_train_lm.py as the reference runs it: 200 steps, checkpoints
+# every 40; the failure at step 130, so that the restart from step 120 runs
+# ten steps again (at 120, the reference's example, nothing is run twice)
+TRAIN_LM_STEPS, TRAIN_LM_KILL, TRAIN_LM_CKPT = 200, 130, 40
+# the mesh path: qwen3-1.7b at published width, depth cut to MESH_LAYERS so
+# that each run's checkpoint (4.1 GB of bf16 parameters and f32 moments at 2
+# layers) is written and read back within a few seconds
+MESH_LAYERS, MESH_STEPS = 2, 3
+DRYRUN_MESHES = ("16x16", "2x16x16", "1x1")
+# the caching allocator rounds every request up to a multiple of 512 B; a
+# large one may also get a whole cached block of up to 1 MiB more
+# ("allocated" bytes), so the gate reads the bytes requested of it
+ALLOC_ROUND = 512
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -343,6 +379,20 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  {log_file.stem}: {line.strip()}")
 
+    # 9d's dry-run needs no card: it runs on the host beside phases 3-9c
+    dry_dir = tempfile.TemporaryDirectory()
+    dry = start_dryrun(Path(dry_dir.name) / "dryrun.jsonl")
+    try:
+        run_phases(torch, dev, dry, Path(dry_dir.name) / "dryrun.jsonl")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        dry_dir.cleanup()
+
+
+def run_phases(torch, dev, dry, dry_out) -> None:
+    """Phases 3 to 10; ``dry`` is 9d's dry-run process, writing ``dry_out``."""
     bench = Bench(torch, dev)
     usage = ptxas_usage()
     t_run = time.perf_counter()
@@ -390,6 +440,14 @@ def main() -> None:
     paths["train_moe"], moe_runs = train_moe_slice(torch, dev)
     phase_done("8. train_moe")
     supervisor_on_card(torch, dev)
+    paths["quickstart"] = quickstart_on_card(torch, dev)
+    phase_done("9a. quickstart")
+    paths["train_lm"] = train_lm_on_card(torch, dev)
+    phase_done("9b. train_lm")
+    paths["mesh"] = mesh_on_card(torch, dev)
+    phase_done("9c. mesh")
+    dryrun_on_card(torch, dev, dry, dry_out)
+    phase_done("9d. dry-run")
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
     recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches,
@@ -411,9 +469,11 @@ def main() -> None:
 def kernels_line(recs, paths):
     """Per kernel: launches on each path, and kernel / plain / bound / library
     ms of one step of that path for each model, weighted by the calls a step
-    makes at each shape; the top-level ms sum one step of every path.
-    library_ms is null where no single PyTorch call computes the function.
-    Raises if a kernel was launched on no path."""
+    makes at each shape; the top-level ms sum one step of every timed path.
+    Phase 9's paths (quickstart, train_lm, mesh) are counted, not timed
+    (``"timed": false``): their calls are the shapes of phase 8's train path
+    at other sizes. library_ms is null where no single PyTorch call computes
+    the function. Raises if a kernel was launched on no path."""
     kernels = []
     for name in KERNELS:
         rec = recs[name]
@@ -421,7 +481,7 @@ def kernels_line(recs, paths):
         for path, (launches, steps, wgmma) in paths.items():
             by_path[path] = {"launches": launches[name], "launches_per_step": launches[name] / steps,
                              **({"wgmma_launches": wgmma[name]} if name in wgmma else {}),
-                             **rec["by_path"][path]}
+                             **rec["by_path"].get(path, {"timed": False})}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -431,7 +491,7 @@ def kernels_line(recs, paths):
             **({"wgmma_launches": sum(p["wgmma_launches"] for p in by_path.values())}
                if name in WGMMA_KERNELS else {}),
             "max_abs_err": rec["max_abs_err"],
-            **{key: sum_or_none(p[key] for p in by_path.values())
+            **{key: sum_or_none(p[key] for p in by_path.values() if p.get("timed", True))
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": rec["bound_by"],
             "by_path": by_path,
@@ -3233,6 +3293,264 @@ def supervisor_on_card(torch, dev):
         raise AssertionError(f"TrainSupervisor: {rep}")
     if not all(abs(a - b) <= 1e-5 + 1e-5 * abs(b) for a, b in zip(rep.losses[3:], base.losses[2:])):
         raise AssertionError(f"TrainSupervisor: resumed losses {rep.losses[3:]} != {base.losses[2:]}")
+
+
+
+def start_dryrun(out: Path):
+    """Phase 9d's dry-run as a subprocess on the host: every cell of every
+    assigned arch on DRYRUN_MESHES, records appended to ``out``, its own
+    output to ``out`` + ".log"."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    with open(f"{out}.log", "w") as log_file:
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--meshes",
+                                 ",".join(DRYRUN_MESHES), "--out", str(out)], env=env, cwd=ROOT,
+                                stdout=log_file, stderr=subprocess.STDOUT)
+
+
+def example_module(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def gate_train_launches(name, cfg, steps, launches, wgmma):
+    """Every launch of ``steps`` train steps of a dense ``cfg``, exactly
+    (:func:`train_launches`, :func:`train_wgmma`)."""
+    want = {k: steps * n for k, n in train_launches(cfg, cfg.remat).items()}
+    want_wgmma = {k: steps * n for k, n in train_wgmma(cfg, cfg.remat).items()}
+    if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()):
+        raise AssertionError(f"{name}: launches {launches} != {want}, or tensor-core {wgmma} against {want_wgmma}")
+
+
+def quickstart_on_card(torch, dev):
+    """Phase 9a: ``examples/port_quickstart.py`` on the card through its
+    ``run``: the reduced qwen3-1.7b for 30 steps (seq 128, batch 8, peak lr
+    1e-3). Gated: the first loss within 0.6 of ln(512) and the last 0.5 below
+    it; every launch exactly. Returns the path's launches, steps and
+    tensor-core launches."""
+    from repro_torch.configs import get_config
+
+    example = example_module("port_quickstart")
+    cfg = get_config("qwen3-1.7b").reduced()
+    torch.cuda.synchronize(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    losses = example.run(dev, QUICKSTART_STEPS)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches, wgmma = read_launches(), read_wgmma()
+    log(f"quickstart: {QUICKSTART_STEPS} steps in {wall:.2f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"launches {launches}, tensor-core {wgmma}")
+    gate_train_launches("quickstart", cfg, QUICKSTART_STEPS, launches, wgmma)
+    if not (abs(losses[0] - math.log(512)) < 0.6 and losses[-1] < losses[0] - 0.5):
+        raise AssertionError(f"quickstart: losses {losses} do not fall from about ln(512)")
+    return launches, QUICKSTART_STEPS, wgmma
+
+
+def train_lm_on_card(torch, dev):
+    """Phase 9b: ``examples/port_train_lm.py`` on the card through its
+    ``run``, as the reference runs it (TRAIN_LM_STEPS steps, checkpoints
+    every TRAIN_LM_CKPT), then with a failure injected at TRAIN_LM_KILL.
+    Gated: the loss falling; one restart, from the last checkpoint before
+    the failure, after which the losses are the uninterrupted run's (rtol =
+    atol = 1e-5, the reference's test; bit-equality reported); every launch
+    of both runs exactly, the attention at head dim 64 on the wgmma routes.
+    Returns the path's launches, steps and tensor-core launches."""
+    example = example_module("port_train_lm")
+    cfg = example.build_cfg()
+    total = ({k: 0 for k in KERNELS}, 0, {k: 0 for k in WGMMA_KERNELS})
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for kill in (None, TRAIN_LM_KILL):
+            torch.cuda.synchronize(dev)
+            zero_launches()
+            report, wall = example.run(TRAIN_LM_STEPS, kill, f"{tmp}/{kill}", TRAIN_LM_CKPT, dev)
+            torch.cuda.synchronize(dev)
+            launches, wgmma = read_launches(), read_wgmma()
+            steps = len(report.losses)
+            log(f"train_lm (kill at {kill}): {steps} steps, {report.restarts} restarts, {report.checkpoints} "
+                f"checkpoints in {wall:.2f} s ({1e3 * wall / steps:.2f} ms a step, checkpoints included; "
+                f"{steps * example.SHAPE.seq_len * example.SHAPE.global_batch / wall:.0f} tokens/s); losses {report.losses[0]:.6f} -> "
+                f"{report.losses[-1]:.6f}; launches {launches}, tensor-core {wgmma}")
+            gate_train_launches(f"train_lm (kill at {kill})", cfg, steps, launches, wgmma)
+            total = ({k: total[0][k] + launches[k] for k in KERNELS}, total[1] + steps,
+                     {k: total[2][k] + wgmma[k] for k in WGMMA_KERNELS})
+            runs.append(report)
+    base, killed = runs
+    resume = TRAIN_LM_KILL // TRAIN_LM_CKPT * TRAIN_LM_CKPT
+    after, want = killed.losses[TRAIN_LM_KILL:], base.losses[resume:]
+    diff = max(abs(a - b) for a, b in zip(after, want))
+    log(f"train_lm: restart at {TRAIN_LM_KILL} resumed from step {resume}; {len(after)} losses after it against "
+        f"the uninterrupted run's: bit-identical {after == want}, largest difference {diff:.3e}")
+    if not base.losses[-1] < base.losses[0]:
+        raise AssertionError(f"train_lm: the loss did not fall: {base.losses[0]} -> {base.losses[-1]}")
+    if killed.restarts != 1 or len(after) != len(want) or \
+            not all(abs(a - b) <= 1e-5 + 1e-5 * abs(b) for a, b in zip(after, want)):
+        raise AssertionError(f"train_lm: the restarted run's losses {after[:4]}... != {want[:4]}...")
+    return total
+
+
+def mesh_on_card(torch, dev):
+    """Phase 9c: qwen3-1.7b at published width and MESH_LAYERS layers, AdamW
+    and remat as published, MESH_STEPS steps of TRAIN_B x TRAIN_S tokens
+    through ``TrainSupervisor``, first without a mesh, then on a one-rank
+    NCCL group (a FileStore, no network) under a 1 x 1 ``DeviceMesh``, the
+    state placed as DTensors (``sharding.specs``), the step
+    ``make_sharded_train_step``. Gated: the same losses bit for bit; the
+    same launches, exactly those of the steps (:func:`train_launches`); a
+    one-element NCCL all-reduce on the group; the mesh run's checkpoint
+    restored without a mesh, and the meshless run's restored into the placed
+    state, both equal to the meshless state bit for bit. Returns the mesh
+    run's launches, steps and tensor-core launches."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpointing.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.steps import abstract_train_state, make_train_state
+    from repro_torch.runtime.train_loop import TrainSupervisor
+    from repro_torch.sharding.specs import gather, place, state_shardings
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_LAYERS)
+    shape = ShapeSpec("mesh", TRAIN_S, TRAIN_B, "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_ranks(0, 1, f"{tmp}/store", dev)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            one = torch.ones(1, device=dev)
+            dist.all_reduce(one)
+            shardings = state_shardings(cfg, abstract_train_state(cfg), mesh)
+            log(f"mesh: a group of {dist.get_world_size()} rank, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({dist.get_backend()}), an all-reduce of one element gave {float(one)}")
+            runs = {}
+            for name, kw in (("plain", {}), ("mesh", {"mesh": mesh, "shardings": shardings})):
+                torch.cuda.synchronize(dev)
+                zero_launches()
+                t0 = time.perf_counter()
+                report = TrainSupervisor(cfg, shape, f"{tmp}/{name}", ckpt_every=MESH_STEPS, device=dev,
+                                         **kw).run(MESH_STEPS)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+                runs[name] = (report, read_launches(), read_wgmma())
+                log(f"mesh path, {name}: {cfg.num_layers} layers of {TRAIN_ARCH} at published width, {MESH_STEPS} "
+                    f"steps of {TRAIN_B} x {TRAIN_S} tokens in {wall:.2f} s (set-up and a checkpoint included); "
+                    f"losses {report.losses}; launches {runs[name][1]}, tensor-core {runs[name][2]}")
+                gate_train_launches(f"mesh path, {name}", cfg, MESH_STEPS, runs[name][1], runs[name][2])
+            plain = restore(f"{tmp}/plain", MESH_STEPS, make_train_state(cfg, torch.Generator(dev).manual_seed(1)))
+            other = restore(f"{tmp}/mesh", MESH_STEPS, make_train_state(cfg, torch.Generator(dev).manual_seed(2)))
+            same_from = all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(plain), flatten(other)))
+            del other
+            other = restore(f"{tmp}/plain", MESH_STEPS,
+                            place(make_train_state(cfg, torch.Generator(dev).manual_seed(3)), shardings))
+            same_into = all(torch.equal(a, gather(b)) for (_, a), (_, b) in zip(flatten(plain), flatten(other)))
+            del plain, other
+        finally:
+            dist.destroy_process_group()
+    (base, base_launches, _), (meshed, launches, wgmma) = runs["plain"], runs["mesh"]
+    log(f"mesh path: losses bit-identical {meshed.losses == base.losses}; checkpoints across: mesh -> none "
+        f"{same_from}, none -> mesh {same_into}")
+    if meshed.losses != base.losses or launches != base_launches or not (same_from and same_into):
+        raise AssertionError(f"mesh path: losses {meshed.losses} vs {base.losses}, launches {launches} vs "
+                             f"{base_launches}, checkpoints across {same_from} / {same_into}")
+    torch.cuda.empty_cache()
+    return launches, MESH_STEPS, wgmma
+
+
+def card_bytes(torch, dev):
+    """(bytes requested of the caching allocator, bytes it has allocated)
+    now live on the card."""
+    stats = torch.cuda.memory_stats(dev)
+    return stats["requested_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+
+def predicted_dot_flops(cfg, b: int, s: int) -> int:
+    """The products' FLOPs that the dry-run counts for a train step of a
+    dense attention model over b x s tokens: a layer's seven projections
+    forward, dX and dW, and with remat replayed but for the last (w2, whose
+    output the backward does not need: the checkpoint's replay stops once
+    every saved tensor is back); the LM head forward, dX and dW; the plain
+    attention's two S x S products a head forward (all S² scores: it masks,
+    it does not skip), replayed with remat, and four in the backward."""
+    d, n_layers, h, hkv, hd = cfg.d_model, cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    w_layer = d * h * hd + 2 * d * hkv * hd + h * hd * d + 3 * d * cfg.d_ff
+    r, t = int(cfg.remat), b * s
+    products = 2 * t * n_layers * (w_layer * (3 + r) - r * d * cfg.d_ff) + 6 * t * d * cfg.vocab_size
+    return products + (12 + 4 * r) * b * h * s * s * hd * n_layers
+
+
+def dryrun_on_card(torch, dev, dry, out: Path) -> None:
+    """Phase 9d: waits for the dry-run started with the run and logs each
+    cell's per-device bytes, products' FLOPs and collective bytes. Gated:
+    every applicable cell ok on every mesh; its 1x1 record of qwen3-1.7b's
+    train state (28 layers, AdamW) against the bytes ``make_train_state``
+    requests of the card's allocator, at most ALLOC_ROUND a tensor above
+    it;
+    its count of phase 8's step (TRAIN_B x TRAIN_S tokens, remat) equal to
+    :func:`predicted_dot_flops`, logged beside ``train_bounds``'
+    operations."""
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.configs.base import SHAPE_ORDER, SHAPES, ShapeSpec, cell_applicable
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import abstract_train_state, make_train_state
+    from repro_torch.roofline.costs import depth_flops
+    from repro_torch.tree import flatten
+
+    t0 = time.perf_counter()
+    if dry.wait(timeout=900) != 0:
+        raise AssertionError(f"dry-run exited {dry.returncode}: {Path(f'{out}.log').read_text()[-2000:]}")
+    records = [json.loads(line) for line in out.read_text().splitlines()]
+    want = sum(cell_applicable(get_config(a), SHAPES[s])[0] for a in ASSIGNED for s in SHAPE_ORDER)
+    ok = [r for r in records if r["status"] == "ok"]
+    log(f"dry-run: {len(records)} records ({len(ok)} ok, waited {time.perf_counter() - t0:.1f} s); per device: "
+        "arch shape mesh | argument GiB (state or params, cache, batch) | temp GiB | output - alias GiB | "
+        "dot FLOPs | all-gather / all-reduce GB | fits 80 GiB")
+    for r in ok:
+        m, c = r["mem"], r["hlo_costs"]
+        log(f"  {r['arch']} {r['shape']} {r['mesh']} | {m['argument_bytes'] / 2**30:.3f} | "
+            f"{m['temp_bytes'] / 2**30:.3f} | {(m['output_bytes'] - m['alias_bytes']) / 2**30:.3f} | "
+            f"{c['dot_flops']:.4e} | {c['collective_bytes']['all-gather'] / 1e9:.3f} / "
+            f"{c['collective_bytes']['all-reduce'] / 1e9:.3f} | {r['fits_h100']}")
+    if len(ok) != want * len(DRYRUN_MESHES) or any(r["status"] not in ("ok", "skipped") for r in records):
+        raise AssertionError(f"dry-run: {len(ok)} cells ok of {want * len(DRYRUN_MESHES)}: "
+                             f"{[r.get('error') for r in records if r['status'] == 'error'][:3]}")
+
+    cfg = get_config(TRAIN_ARCH)
+    (rec,) = [r for r in ok if (r["arch"], r["shape"], r["mesh"]) == (TRAIN_ARCH, "train_4k", "1x1")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    before = card_bytes(torch, dev)
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    requested, allocated = (a - b for a, b in zip(card_bytes(torch, dev), before))
+    n = len(flatten(state))
+    del state
+    torch.cuda.empty_cache()
+    over = requested - rec["mem"]["state_bytes"]
+    log(f"dry-run 1x1 {TRAIN_ARCH} train state: {rec['mem']['state_bytes']} B in {n} tensors; make_train_state "
+        f"requested {requested} B of the card's allocator ({over} B above, at most {ALLOC_ROUND * n}); its "
+        f"allocated bytes rose by {allocated} (whole cached blocks)")
+    if not 0 <= over <= ALLOC_ROUND * n:
+        raise AssertionError(f"dry-run state bytes {rec['mem']['state_bytes']} against {requested} requested")
+
+    cell = dryrun.build_cell(cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"), "1x1")
+    flops = depth_flops(cfg, cell.count)
+    ops, _ = train_bounds(cfg, abstract_train_state(cfg)["params"], TRAIN_B * TRAIN_S, [])
+    predicted = predicted_dot_flops(cfg, TRAIN_B, TRAIN_S)
+    log(f"dry-run of phase 8's step ({TRAIN_ARCH}, {TRAIN_B} x {TRAIN_S} tokens, remat): {flops:.6e} products' "
+        f"FLOPs, predicted {predicted:.6e}; train_bounds' operations {ops:.6e}: ratio {flops / ops:.4f}, "
+        f"predicted {predicted / ops:.4f}")
+    if flops != predicted:
+        raise AssertionError(f"dry-run: {flops} products' FLOPs, predicted {predicted}")
 
 
 if __name__ == "__main__":

@@ -11,6 +11,13 @@ newest ``keep`` steps; ``AsyncCheckpointer`` copies the tree to the host on
 the caller's thread and writes the files on a worker thread, overlapping the
 next steps. The manifest goes through the port's own coder
 (``manifest.py``): the port does not import msgpack.
+
+A tree of DTensors (a state placed on a mesh) is saved whole: every
+rank gathers each leaf (a collective, so every rank of the group calls the
+save), rank 0 alone writes the files, and the ranks meet at a barrier once
+they are written. ``restore`` into DTensors cuts each rank's shard from the
+whole array, so a checkpoint restores onto any mesh, or onto none (the
+elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -21,8 +28,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpointing import manifest
+from repro_torch.sharding.specs import gather
 from repro_torch.tree import flatten
 
 MANIFEST = "manifest.msgpack"
@@ -31,7 +41,7 @@ MANIFEST = "manifest.msgpack"
 def _host(leaf):
     """(array to save, dtype name) of a tensor or numpy leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = gather(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -44,14 +54,37 @@ def _host(leaf):
 
 
 def save(ckpt_dir: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Synchronous atomic save of a tree of tensors or numpy arrays; returns
-    the final directory."""
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    """Synchronous atomic save of a tree of tensors, DTensors or numpy
+    arrays; returns the final directory."""
+    pairs = [(path, _host(leaf)) for path, leaf in flatten(tree)]
+    final = _write(ckpt_dir, step, pairs, keep) if _writes() else _final(ckpt_dir, step)
+    _barrier()
+    return final
+
+
+def _final(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
+def _writes() -> bool:
+    """Only rank 0 of a process group writes: every rank holds the same
+    gathered arrays."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _write(ckpt_dir: str, step: int, pairs, keep: int) -> str:
+    """Writes (path, (array, dtype name)) pairs into ``<dir>.tmp``, renames
+    it into place and keeps the newest ``keep`` steps."""
+    final = _final(ckpt_dir, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     meta = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(flatten(tree)):
-        arr, dtype_name = _host(leaf)
+    for i, (path, (arr, dtype_name)) in enumerate(pairs):
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         meta["leaves"].append({"path": path, "file": fname, "dtype": dtype_name, "shape": list(arr.shape)})
@@ -87,11 +120,12 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, step: int, target: Any) -> Any:
-    """Fills ``target``, a tree of tensors, from the checkpoint of ``step``:
-    each leaf, found by its path, is copied into the target's tensor on that
-    tensor's device. Raises where a path is missing or a shape or dtype
-    differs. Returns the target."""
-    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    """Fills ``target``, a tree of tensors or DTensors, from the checkpoint of
+    ``step``: each leaf, found by its path, is copied into the target's
+    tensor on that tensor's device (a DTensor gets this rank's shard of it,
+    under the target's placements). Raises where a path is missing or a
+    shape or dtype differs. Returns the target."""
+    d = _final(ckpt_dir, step)
     with open(os.path.join(d, MANIFEST), "rb") as f:
         meta = manifest.unpackb(f.read())
     by_path = {e["path"]: e for e in meta["leaves"]}
@@ -102,6 +136,9 @@ def restore(ckpt_dir: str, step: int, target: Any) -> Any:
             raise ValueError(f"restore {path}: checkpoint {tuple(src.shape)} {src.dtype}, "
                              f"target {tuple(leaf.shape)} {leaf.dtype}")
         with torch.no_grad():
+            if isinstance(leaf, DTensor):
+                src = distribute_tensor(src, leaf.device_mesh, leaf.placements, src_data_rank=None).to_local()
+                leaf = leaf.to_local()
             leaf.copy_(src)
     return target
 
@@ -121,9 +158,13 @@ class AsyncCheckpointer:
         # update the tree in place), the file IO on the worker
         host_tree = _copy_to_host(tree)
 
+        if not _writes():
+            return
+        pairs = [(path, _host(leaf)) for path, leaf in flatten(host_tree)]
+
         def work():
             try:
-                save(self.ckpt_dir, step, host_tree, keep=self.keep)
+                _write(self.ckpt_dir, step, pairs, self.keep)
             except BaseException as e:  # noqa: BLE001
                 self.last_error = e
 
@@ -131,9 +172,13 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Waits for the save in flight; on a process group, every rank
+        then meets the others, so none reads a checkpoint before rank 0
+        has written it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self.last_error is not None:
             err, self.last_error = self.last_error, None
             raise err
@@ -143,5 +188,5 @@ def _copy_to_host(tree):
     if isinstance(tree, dict):
         return {k: _copy_to_host(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        return gather(tree).detach().to("cpu", copy=True)
     return np.array(tree, copy=True)

@@ -1,6 +1,6 @@
 """Wrapper of the CUDA online-softmax attention (``csrc/flash_attention.cu``).
 
-A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
+A CPU or meta tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``flash_attention.launches``
 counts the kernel's launches, ``flash_attention.wgmma_launches`` those of
 them that took the tensor-core route.
@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, takes_plain
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_backward
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,7 +78,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of query i over keys j (positions 0..S-1 on both sides):
     causal keeps j <= i, a window keeps i - j < window."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if takes_plain(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
     scale = _check(q, k, v, window, sm_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -202,7 +202,7 @@ def flash_attention_backward(
     route a forward that rebuilds them, with the same bits; the simt route
     computes its own and ignores it."""
     tensors = (q, k, v, out, dout)
-    if all(t.device.type == "cpu" for t in tensors):
+    if takes_plain(*tensors):
         return attention_ref_backward(q, k, v, dout, causal=causal, window=window, sm_scale=sm_scale)
     scale = _check(q, k, v, window, sm_scale)
     if not all(t.is_cuda and t.device == q.device for t in (out, dout)):

@@ -1,6 +1,6 @@
 """Wrapper of the CUDA paged-KV decode attention (``csrc/paged_attention.cu``).
 
-A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
+A CPU or meta tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``paged_attention.launches``
 counts the wrapper's calls on the card: a call is one kernel launch when
 :func:`pa_splits` gives one split, else two (the split kernel and the merge
@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, takes_plain
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,7 +49,7 @@ def paged_attention(
     of its pages ``page_table[b]``; a row of length 0 gives zeros. Table
     entries must be valid pool indices: the kernel does not check them."""
     tensors = (q, pool_k, pool_v, page_table, lengths)
-    if all(t.device.type == "cpu" for t in tensors):
+    if takes_plain(*tensors):
         return paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(

@@ -1,7 +1,7 @@
 """Wrappers of the CUDA weight-streaming matmuls (``csrc/streammm.cu``,
 ``csrc/streammm_int8.cu``).
 
-A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
+A CPU or meta tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``stream_matmul.launches`` and
 ``stream_matmul_int8.launches`` count the kernels' launches;
 ``stream_matmul.wgmma_launches`` and ``stream_matmul_int8.wgmma_launches``
@@ -63,7 +63,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, takes_plain
 from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref, stream_matmul_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,7 +125,7 @@ def stream_matmul(
         raise ValueError("stream_matmul: an x given as (K, M) takes (K, N) weights only")
     if x.dim() == 3 or w.dim() == 3 or rows is not None:
         return _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout)
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if takes_plain(x, w):
         return stream_matmul_ref(x, w, out_dtype, w_layout, x_layout=x_layout)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         if x_layout != "mk":
@@ -221,8 +221,8 @@ def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout):
     the CPU, on CUDA one launch, under autograd for the (E, C, K) @ (E, K,
     N) form."""
     tensors = (x, w) if rows is None else (x, w, rows)
-    on_cpu = all(t.device.type == "cpu" for t in tensors)
-    if not on_cpu and not all(t.is_cuda and t.device == x.device for t in tensors):
+    plain = takes_plain(*tensors)
+    if not plain and not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("stream_matmul: x, w, rows on " + ", ".join(str(t.device) for t in tensors))
     m, k, n, kw = _mkn(x, w, w_layout, x_layout)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or k != kw or 0 in (*x.shape, *w.shape):
@@ -238,7 +238,7 @@ def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout):
             raise TypeError(f"stream_matmul: rows {rows.dtype}, need int32")
         if tuple(rows.shape) != (e,) or not rows.is_contiguous():
             raise ValueError(f"stream_matmul: rows {tuple(rows.shape)}, need a contiguous ({e},)")
-    if on_cpu:
+    if plain:
         return stream_matmul_ref(x, w, out_dtype, w_layout, rows, x_layout)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         if (w_layout, x_layout) != ("kn", "mk"):
@@ -347,8 +347,8 @@ def stream_matmul_int8(
     JAX signature's ``block_m``/``block_n`` are TPU tile sizes and are
     dropped. Any M and N. The checks run on both devices."""
     tensors = (x, w_q, scales)
-    on_cpu = all(t.device.type == "cpu" for t in tensors)
-    if not on_cpu and not all(t.is_cuda and t.device == x.device for t in tensors):
+    plain = takes_plain(*tensors)
+    if not plain and not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("stream_matmul_int8: x, w_q, scales on " + ", ".join(str(t.device) for t in tensors))
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0] or 0 in (*x.shape, w_q.shape[1]):
         raise ValueError(f"stream_matmul_int8: shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
@@ -364,7 +364,7 @@ def stream_matmul_int8(
         raise TypeError(f"stream_matmul_int8: x {x.dtype} -> {out_dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("stream_matmul_int8: x, w_q and scales must be contiguous")
-    if on_cpu:
+    if plain:
         return stream_matmul_int8_ref(x, w_q, scales, block_k, out_dtype)
     _no_grad_on_cuda("stream_matmul_int8", tensors)
     route = int8_route(m, n, k, block_k, x.dtype, all(t.data_ptr() % 16 == 0 for t in tensors))

@@ -1,6 +1,7 @@
 """Step builders: the counterparts of the JAX package's ``make_train_state``,
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step``
-(``launch/steps.py``).
+(``launch/steps.py``), and :func:`make_sharded_train_step`, the
+counterpart of jitting ``make_train_step`` under shardings.
 
 Each returns a plain function over the port's params, cache and batch; the
 device is that of the tensors it is given. ``prefill_step`` also takes the
@@ -11,24 +12,36 @@ The train step runs eagerly: it is not compiled as the reference's
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import build_model
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.models.common import SHAPES_ONLY
+from repro_torch.models.model import build_model, loss_tokens
 from repro_torch.optim import get_optimizer, get_schedule
-from repro_torch.tree import leaves, unflatten_like
+from repro_torch.sharding.specs import batch_shardings, gather, keep_shards
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
 def make_train_state(cfg: ModelConfig, generator: torch.Generator):
     """``{"params", "opt", "step"}``: params drawn from ``generator`` on its
-    device, the config's optimizer state, ``step`` a 0-d int32 tensor."""
+    device, the config's optimizer state, ``step`` a 0-d int32 tensor. With
+    ``models.common.SHAPES_ONLY`` for the generator, every tensor is on
+    the meta device: shapes and dtypes, nothing drawn or allocated."""
     params = build_model(cfg).init(generator)
     opt = get_optimizer(cfg.optimizer)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=generator.device)}
+
+
+def abstract_train_state(cfg: ModelConfig):
+    """The train state on the meta device (the dry-run: no allocation)."""
+    return make_train_state(cfg, SHAPES_ONLY)
 
 
 def value_and_grad(fns, params, batch):
@@ -62,6 +75,18 @@ def make_train_step(
 
     With microbatches the reference reports ``ce`` as 0: its scan carries
     the loss but not the aux dict, and the port reports the same."""
+    core = _train_step_core(cfg, peak_lr, warmup, total_steps, microbatches)
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        return core(state, batch, None)
+
+    return train_step
+
+
+def _train_step_core(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatches):
+    """``step(state, batch, reduce)``: :func:`make_train_step`'s step, with
+    ``reduce(loss, aux, grads)`` (None: none) applied to the batch's loss,
+    aux dict and gradients before the update."""
     fns = build_model(cfg)
     opt = get_optimizer(cfg.optimizer)
     sched = get_schedule(cfg.schedule, peak_lr, warmup, total_steps)
@@ -79,7 +104,7 @@ def make_train_step(
 
         return {k: per(v) for k, v in batch.items()}
 
-    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+    def step(state: Dict[str, Any], batch: Dict[str, Any], reduce):
         params = state["params"]
         if n_micro > 1:
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
@@ -91,13 +116,110 @@ def make_train_step(
                 loss = loss + loss_i / n_micro
         else:
             loss, aux, grads = value_and_grad(fns, params, batch)
+        if reduce is not None:
+            loss, aux, grads = reduce(loss, aux, grads)
         lr = sched(state["step"])
         gnorm = torch.sqrt(sum(_square_sum(g) for g in grads))
         new_params, new_opt = opt.update(unflatten_like(params, grads), state["opt"], params, lr)
         metrics = {"loss": loss.float(), "ce": aux["ce"].float(), "grad_norm": gnorm, "lr": lr}
         return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
 
+    return step
+
+
+def make_sharded_train_step(
+    cfg: ModelConfig,
+    mesh,
+    peak_lr: float = 3e-4,
+    warmup: int = 100,
+    total_steps: int = 10_000,
+    microbatches: int = 0,
+):
+    """``train_step(state, batch) -> (state, metrics)`` over a state placed on
+    ``mesh`` (a ``DeviceMesh``; ``sharding.specs.place``), the global
+    function of :func:`make_train_step` on every rank:
+
+    * each leaf is gathered to full before use (on a one-rank mesh its local
+      tensor, so the step is the unsharded one, bit for bit);
+    * each rank takes its rows of the global ``batch`` along the axes that
+      ``batch_shardings`` splits it over (pod and data, or data alone);
+    * the loss, ``ce`` and every gradient are reduced over those axes as the
+      loss over the global batch: each rank's token-mean weighted by its
+      share of the labels (:func:`loss_tokens`, summed over the ranks), so
+      the sum is the global token-mean, not a mean of the ranks' means; the
+      gradients reduce in f32 and return to the leaves' dtypes;
+    * the optimizer runs on the gathered leaves (the reduced gradients are
+      whole on every rank, so Adafactor's row and column statistics and its
+      RMS are those of the whole leaf), and each rank keeps its shard.
+
+    No product is split over ``model``: ranks that share a batch slice
+    compute the same thing (tensor-parallel compute is ROADMAP.md §1 item 16).
+    MoE raises NotImplementedError where the batch is split: its capacity
+    and load-balance term are functions of all the call's tokens, which a
+    rank's dispatch does not see."""
+    core = _train_step_core(cfg, peak_lr, warmup, total_steps, microbatches)
+    ms = mesh_shape(mesh)
+    coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        axes = batch_split_axes(cfg, batch, ms)
+        reduce = None
+        if math.prod(ms.shape[a] for a in axes) > 1:
+            if cfg.moe is not None:
+                raise NotImplementedError(
+                    f"{cfg.name}: MoE under a batch split over {axes} (capacity and the load-balance "
+                    "term follow all tokens of the call; ROADMAP.md §3)")
+            batch = split_batch(batch, axes, ms, coords)
+            reduce = _reduce_over(cfg, [mesh.get_group(a) for a in axes if ms.shape[a] > 1], batch)
+        full = tree_map(gather, state)
+        new, metrics = core(full, batch, reduce)
+        keep_shards(state, new)
+        return state, metrics
+
     return train_step
+
+
+def batch_split_axes(cfg: ModelConfig, batch: Dict[str, Any], mesh) -> tuple:
+    """The mesh axes ``batch_shardings`` splits the batch's rows over (those
+    of ``frames`` or ``tokens``), major first; () where it stays whole."""
+    first = "frames" if "frames" in batch else "tokens"
+    spec = {first: (tuple(batch[first].shape), batch[first].dtype)}
+    spec.update((k, (tuple(v.shape), v.dtype)) for k, v in batch.items() if k != first)
+    return batch_shardings(cfg, spec, mesh)[first].axes(0)
+
+
+def split_batch(batch: Dict[str, Any], axes, mesh, coords) -> Dict[str, Any]:
+    """This rank's rows of each input (dim 1 of ``positions3``): the
+    ranks along ``axes`` cut the rows into equal runs, major first."""
+    sizes = mesh_shape(mesh).shape
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * sizes[a], i * sizes[a] + coords[a]
+
+    def rows(name, v):
+        dim = 1 if name == "positions3" else 0
+        size = v.shape[dim] // n
+        return v.narrow(dim, i * size, size)
+
+    return {k: rows(k, v) for k, v in batch.items()}
+
+
+def _reduce_over(cfg: ModelConfig, groups, batch):
+    """The reduce of :func:`make_sharded_train_step` over ``groups``."""
+    def all_sum(t):
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+    n = loss_tokens(cfg, batch).float()
+    w = n.clamp(min=1.0) / all_sum(n.clone()).clamp(min=1.0)
+
+    def reduce(loss, aux, grads):
+        grads = [all_sum(g.float() * w).to(g.dtype) for g in grads]
+        ce = all_sum(aux["ce"].float() * w)
+        return all_sum(loss.float() * w), {"ce": ce, "aux": aux["aux"]}, grads
+
+    return reduce
 
 
 def _square_sum(g: torch.Tensor) -> torch.Tensor:

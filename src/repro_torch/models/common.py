@@ -1,7 +1,8 @@
 """Shared model building blocks: plain functions on tensors over a params dict.
 
 Counterpart of the JAX package's ``models/common.py``. Initializers draw from
-an explicit ``torch.Generator`` on the generator's device.
+an explicit ``torch.Generator`` on the generator's device, or build shapes
+only from :data:`SHAPES_ONLY`.
 """
 from __future__ import annotations
 
@@ -42,6 +43,24 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 INIT_PIECE = 1 << 30
 
 
+class _ShapesOnly:
+    """Stands where an initializer takes a ``torch.Generator``: the tree is
+    built on the meta device, shapes and dtypes only, nothing drawn or
+    allocated (the dry-run's abstract state; ``torch.Generator("meta")``
+    does not exist)."""
+
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
+
+
+def _randn(gen, shape):
+    if gen is SHAPES_ONLY:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype, fan_in: int):
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     if math.prod(shape) > INIT_PIECE and len(shape) > 1:
@@ -49,13 +68,11 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype, fan_in: int)
         for i in range(shape[0]):
             out[i] = dense_init(gen, shape[1:], dtype, fan_in)
         return out
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return (_randn(gen, shape) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Tuple[int, ...], dtype):
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * 0.02).to(dtype)
+    return (_randn(gen, shape) * 0.02).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -190,7 +207,7 @@ def attend(
         if causal:
             mask = qpos_b[:, None, :, None] >= kv_positions[:, None, None, :]
         else:
-            mask = torch.ones((b, 1, qb.shape[1], kv_positions.shape[1]), dtype=torch.bool)
+            mask = torch.ones((b, 1, qb.shape[1], kv_positions.shape[1]), dtype=torch.bool, device=q.device)
         if window is not None:
             near = (qpos_b[:, None, :, None] - kv_positions[:, None, None, :]) < window
             mask = mask & near

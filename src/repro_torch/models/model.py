@@ -126,6 +126,16 @@ def cross_entropy(logits, labels, ignore: int = -1):
     return ((lse - ll) * maskf).sum() / maskf.sum().clamp(min=1.0)
 
 
+def loss_tokens(cfg: ModelConfig, batch) -> torch.Tensor:
+    """How many labels ``loss``'s cross-entropy averages over (before its
+    clamp to 1), a 0-d int64 tensor: labels other than -1, for the audio
+    family only where ``frame_mask``."""
+    labels = batch["labels"]
+    if cfg.family == "audio" and "frame_mask" in batch:
+        labels = torch.where(batch["frame_mask"], labels, -1)
+    return (labels != -1).sum()
+
+
 def _load_balance_loss(router_logits, cfg: ModelConfig):
     """MoE's auxiliary term, the reference's ``_load_balance_loss``: E times
     the sum over experts of (the share of tokens whose top choice it is) x

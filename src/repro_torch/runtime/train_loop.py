@@ -6,14 +6,21 @@ failure injection, the JAX package's ``runtime/train_loop.py`` on the port.
   survives injected faults and resumes with the same losses, because the
   data pipeline is a pure function of the step;
 * straggler counting: a step that takes more than ``straggler_factor``
-  times the median of the last 20 is counted.
+  times the median of the last 20 is counted;
+* elastic re-mesh: checkpoints hold whole arrays, so ``run`` can be
+  invoked again with another mesh, or none, and continue.
 
 The step runs eagerly (the reference jits it; capturing it is ROADMAP.md §1
-item 3), on ``cuda`` unless the caller passes ``device="cpu"``. A mesh and
-shardings (the reference's elastic re-mesh) raise until ROADMAP.md §1 item 7.
+item 3), on ``cuda`` unless the caller passes ``device="cpu"``. With a
+``mesh`` (a ``DeviceMesh`` over the process group this rank belongs to) and
+its ``shardings`` (``sharding.specs.state_shardings``), the state is placed
+as DTensors, the step is ``make_sharded_train_step`` under
+``use_activation_mesh``, rank 0 writes the checkpoints and every rank
+restores its shards from them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import statistics
 import time
@@ -24,8 +31,10 @@ import torch
 from repro_torch.checkpointing.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import TokenPipeline, pipeline_for
-from repro_torch.launch.steps import make_train_state, make_train_step
+from repro_torch.launch.steps import make_sharded_train_step, make_train_state, make_train_step
 from repro_torch.models.common import resolve_device
+from repro_torch.sharding.act import use_activation_mesh
+from repro_torch.sharding.specs import place
 
 
 @dataclasses.dataclass
@@ -64,12 +73,13 @@ class TrainSupervisor:
         seed: int = 0,
         device="cuda",
     ):
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError("TrainSupervisor: meshes and shardings are not ported yet "
-                                      "(ROADMAP.md §1 item 7)")
+        if (mesh is None) != (shardings is None):
+            raise ValueError("TrainSupervisor: pass a mesh and its shardings together")
         self.cfg = cfg
         self.shape = shape
         self.ckpt_dir = ckpt_dir
+        self.mesh = mesh
+        self.shardings = shardings
         self.ckpt_every = ckpt_every
         self.straggler_factor = straggler_factor
         self.pipeline: TokenPipeline = pipeline_for(cfg, shape, seed)
@@ -77,7 +87,8 @@ class TrainSupervisor:
         self.device = resolve_device(device)
 
     def _init_state(self):
-        return make_train_state(self.cfg, torch.Generator(self.device).manual_seed(self.seed))
+        state = make_train_state(self.cfg, torch.Generator(self.device).manual_seed(self.seed))
+        return state if self.shardings is None else place(state, self.shardings)
 
     def run(self, total_steps: int, injector: Optional[FailureInjector] = None,
             max_restarts: int = 3) -> TrainReport:
@@ -95,7 +106,7 @@ class TrainSupervisor:
 
     def _run_once(self, total_steps, injector, report: TrainReport) -> None:
         ckpt = AsyncCheckpointer(self.ckpt_dir)
-        step_fn = make_train_step(self.cfg)
+        step_fn = make_train_step(self.cfg) if self.mesh is None else make_sharded_train_step(self.cfg, self.mesh)
         start = latest_step(self.ckpt_dir)
         state = self._init_state()
         if start is not None:  # the fresh state is the target the checkpoint fills
@@ -111,7 +122,8 @@ class TrainSupervisor:
                     injector.maybe_fail(step)
                 batch = {k: torch.from_numpy(v).to(self.device) for k, v in self.pipeline.batch(step).items()}
                 t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch)
+                with contextlib.nullcontext() if self.mesh is None else use_activation_mesh(self.mesh):
+                    state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])  # waits for the step, as the reference's float() does
                 dt = time.perf_counter() - t0
                 durations.append(dt)

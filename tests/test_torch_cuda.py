@@ -9,7 +9,10 @@ the f32 gradients), ``stream_matmul``'s gradients in both weight layouts,
 the backward's tensor-core route (GQA ratios 1-8) and the forward's row
 statistics that it reads, the expert-batched form's gradients on its three
 routes, the wrappers that have no backward raising under grad, and train
-steps on the card against the CPU (the MoE pair too) without a host sync.
+steps on the card against the CPU (the MoE pair too) without a host sync;
+the one-rank NCCL mesh's train steps equal to the meshless ones bit for bit,
+checkpoints crossing between them, and ``examples/port_train_lm.py``'s
+restart giving the uninterrupted run's losses bit for bit.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -1054,3 +1057,59 @@ def test_train_step_has_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(metrics["loss"]).all()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_step_equals_the_meshless_step(cuda, tmp_path):
+    """A one-rank NCCL group (a FileStore, no network) under a 1 x 1 mesh: the
+    reduced qwen3-1.7b (bf16) through ``TrainSupervisor`` with the state
+    placed as DTensors gives the meshless run's losses bit for bit, and a
+    checkpoint written under the mesh restores without one, and the other
+    way round, to the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpointing.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.steps import abstract_train_state, make_train_state
+    from repro_torch.runtime.train_loop import TrainSupervisor
+    from repro_torch.sharding.specs import gather, place, state_shardings
+    from repro_torch.tree import flatten
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    shape = ShapeSpec("t", 64, 4, "train")
+    base = TrainSupervisor(cfg, shape, str(tmp_path / "plain"), ckpt_every=2, device=cuda).run(4)
+    init_ranks(0, 1, str(tmp_path / "store"), cuda)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), cuda)
+        shardings = state_shardings(cfg, abstract_train_state(cfg), mesh)
+        meshed = TrainSupervisor(cfg, shape, str(tmp_path / "mesh"), mesh=mesh, shardings=shardings,
+                                 ckpt_every=2, device=cuda).run(4)
+        fresh = make_train_state(cfg, torch.Generator(cuda).manual_seed(1))
+        into_mesh = restore(str(tmp_path / "plain"), 4, place(fresh, shardings))
+        from_mesh = restore(str(tmp_path / "mesh"), 4, make_train_state(cfg, torch.Generator(cuda).manual_seed(2)))
+        plain = restore(str(tmp_path / "plain"), 4, make_train_state(cfg, torch.Generator(cuda).manual_seed(3)))
+        for (path, a), (_, b), (_, c) in zip(flatten(plain), flatten(from_mesh), flatten(into_mesh)):
+            assert torch.equal(a, b) and torch.equal(a, gather(c)), path
+    finally:
+        dist.destroy_process_group()
+    assert meshed.losses == base.losses and len(base.losses) == 4
+
+
+@pytest.mark.cuda
+def test_port_train_lm_restart_is_bit_equal(cuda, tmp_path):
+    """``examples/port_train_lm.py`` at its published config, 20 steps with
+    checkpoints every 5: a failure at step 12 restarts from step 10 and
+    gives the uninterrupted run's losses bit for bit."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "port_train_lm.py"
+    spec = importlib.util.spec_from_file_location("port_train_lm", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    base, _ = example.run(20, None, str(tmp_path / "base"), 5, cuda)
+    killed, _ = example.run(20, 12, str(tmp_path / "killed"), 5, cuda)
+    assert killed.restarts == 1 and len(killed.losses) == 12 + 10
+    assert killed.losses[12:] == base.losses[10:]

@@ -35,11 +35,15 @@ for name in names:
 for want in ("repro_torch.launch.specs", "repro_torch.launch.train", "repro_torch.optim.optimizers",
              "repro_torch.optim.schedules", "repro_torch.data.pipeline", "repro_torch.runtime.compression",
              "repro_torch.runtime.train_loop", "repro_torch.checkpointing.checkpoint",
-             "repro_torch.checkpointing.manifest", "repro_torch.tree"):
+             "repro_torch.checkpointing.manifest", "repro_torch.tree", "repro_torch.launch.mesh",
+             "repro_torch.launch.dryrun", "repro_torch.sharding.act", "repro_torch.sharding.specs",
+             "repro_torch.roofline.costs"):
     assert want in names, (want, names)
 import chip_smoke  # noqa: F401  (the module does nothing on import)
 sys.path.insert(0, "examples")
 import port_multitask_oversubscription  # noqa: F401  (runs only as a script)
+import port_quickstart  # noqa: F401
+import port_train_lm  # noqa: F401
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
@@ -74,7 +78,8 @@ def test_source_imports_no_jax_or_reference(path):
 
 
 def test_port_examples_exist():
-    assert (ROOT / "examples" / "port_multitask_oversubscription.py").is_file()
+    for name in ("port_multitask_oversubscription", "port_quickstart", "port_train_lm"):
+        assert (ROOT / "examples" / f"{name}.py").is_file(), name
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -121,8 +121,10 @@ def test_stream_matmul_cpu_dispatch_takes_plain_path():
 
 
 def test_stream_matmul_off_cpu_never_falls_back():
+    # all on meta takes the plain version (shapes only, test_torch_meta.py);
+    # a tensor off the CPU beside one on it is neither case and raises
     x = torch.empty((1, 8), device="meta")
-    w = torch.empty((8, 4), device="meta")
+    w = torch.empty((8, 4))
     with pytest.raises(ValueError):
         mm_ops.stream_matmul(x, w)
 
@@ -311,5 +313,6 @@ def test_flash_attention_cpu_dispatch_takes_plain_path():
 
 def test_flash_attention_off_cpu_never_falls_back():
     q = torch.empty((1, 2, 2, 8), device="meta")
+    kv = torch.empty((1, 2, 2, 8))
     with pytest.raises(ValueError):
-        fa_ops.flash_attention(q, q, q)
+        fa_ops.flash_attention(q, kv, kv)

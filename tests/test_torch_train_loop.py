@@ -3,8 +3,10 @@ injected failure restarts from the latest checkpoint and resumes with the
 uninterrupted run's losses, as the reference's
 ``tests/test_substrate.py::test_train_restart_resumes_identically`` holds
 its own, also when the latest save is still in flight at the failure;
-stragglers are counted; meshes and shardings raise; the launcher
-trains, resumes, and raises without a card unless asked for the CPU."""
+stragglers are counted; a mesh without its shardings (or the other way
+round) raises; the launcher trains, resumes, and raises without a card
+unless asked for the CPU, and for a mesh that the card cannot hold. The
+mesh runs themselves are in ``test_torch_distributed.py``."""
 import time
 
 import numpy as np
@@ -96,7 +98,7 @@ def test_the_checkpoint_holds_the_final_state(tmp_path):
 def test_meshes_and_shardings_raise(tmp_path):
     cfg = get_config("qwen3-1.7b").reduced()
     for kw in ({"mesh": object()}, {"shardings": {}}):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="together"):
             TrainSupervisor(cfg, SMOKE, str(tmp_path), device="cpu", **kw)
 
 
@@ -116,6 +118,10 @@ def test_launcher_needs_a_card_or_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
-    for extra in (["--devices", "8"], ["--mesh", "2x4"]):
-        with pytest.raises(SystemExit, match="item 7"):
-            train_cli.main(["--reduced", "--device", "cpu", *extra])
+    with pytest.raises(SystemExit, match="needs --mesh"):
+        train_cli.main(["--reduced", "--device", "cpu", "--devices", "8"])
+    with pytest.raises(SystemExit, match="needs 8 ranks"):
+        train_cli.main(["--reduced", "--device", "cpu", "--devices", "4", "--mesh", "2x4"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="one card"):
+        train_cli.main(["--reduced", "--mesh", "2x4"])
