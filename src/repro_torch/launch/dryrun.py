@@ -17,8 +17,9 @@ the single H100 the port runs on. A record keeps the reference's fields:
   ``batch_bytes``); ``output_bytes`` its outputs and ``alias_bytes`` those
   updated in place (the train state, the decode cache); ``temp_bytes`` what
   the port's sharded scheme holds beside them as far as it can be stated:
-  the gathered copies of leaves split over some axis and, for training, the
-  whole gradients. Activations are not counted, so ``fits_h100``
+  the gathered copies of leaves split over some axis (for training the
+  parameters: the optimizer updates its state on the shards) and, for
+  training, the whole gradients. Activations are not counted, so ``fits_h100``
   (argument + temp + output - alias within 80 GiB) is a necessary
   condition, not a sufficient one.
 * ``hlo_costs``: the port's counts (``roofline/costs.py``): the products'
@@ -99,6 +100,25 @@ def _local_batch(cfg: ModelConfig, shape: ShapeSpec, mesh: MeshShape):
     return shape.global_batch // n, local, batch_bytes, axes
 
 
+def _adafactor_reductions(plan: Plan, shape, sharding) -> None:
+    """The all-reduces of Adafactor's update on the shards of one leaf
+    (``optim.optimizers.adafactor`` with its ``LeafSplit``): for each (K, N)
+    slice the row sums over the axes that split N, the column sums and the
+    row statistic's mean over those that split K (the mean twice for a
+    leaf of three or more axes, whose update takes u again), and the RMS
+    over every axis that splits the leaf."""
+    local = sharding.shard_shape(shape)
+    every = [a for d in range(len(shape)) for a in sharding.axes(d)]
+    if len(shape) >= 2:
+        lead = math.prod(local[:-2])
+        for _ in range(lead):
+            plan.all_reduce(4 * local[-2], sharding.axes(len(shape) - 1))
+            plan.all_reduce(4 * local[-1], sharding.axes(len(shape) - 2))
+            for _ in range(2 if len(shape) >= 3 else 1):
+                plan.all_reduce(4, sharding.axes(len(shape) - 2))
+    plan.all_reduce(4, every)
+
+
 def build_cell(arch, shape, mesh) -> Cell:
     """The cell of ``arch`` (a name or a ``ModelConfig``) at ``shape`` (a
     name in ``SHAPES`` or a ``ShapeSpec``) on ``mesh`` (a name such as
@@ -117,11 +137,12 @@ def build_cell(arch, shape, mesh) -> Cell:
         state_bytes = _shard_bytes(state, shardings)
         specs = dict(flatten(shardings))
         temp = 0
-        for path, t in flatten(state):
-            temp += plan.gather(tuple(t.shape), t.dtype, specs[path])
-        for _, p in flatten(state["params"]):
+        for path, p in flatten(state["params"]):
+            temp += plan.gather(tuple(p.shape), p.dtype, specs["params/" + path])
             temp += p.numel() * p.element_size()  # the whole gradient
             plan.all_reduce(4 * p.numel(), axes)  # reduced in f32
+            if cfg.optimizer == "adafactor":
+                _adafactor_reductions(plan, tuple(p.shape), specs["params/" + path])
         for _ in range(3):  # the label count, the loss and ce
             plan.all_reduce(4, axes)
         mem = {"state_bytes": state_bytes, "batch_bytes": batch_bytes, "argument_bytes": state_bytes + batch_bytes,

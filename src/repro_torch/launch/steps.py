@@ -24,7 +24,7 @@ from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.common import SHAPES_ONLY
 from repro_torch.models.model import build_model, loss_tokens
 from repro_torch.optim import get_optimizer, get_schedule
-from repro_torch.sharding.specs import batch_shardings, gather, keep_shards
+from repro_torch.sharding.specs import batch_shardings, gather, leaf_split, local, shard_of
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
@@ -75,18 +75,21 @@ def make_train_step(
 
     With microbatches the reference reports ``ce`` as 0: its scan carries
     the loss but not the aux dict, and the port reports the same."""
-    core = _train_step_core(cfg, peak_lr, warmup, total_steps, microbatches)
+    gradients, apply = _train_step_parts(cfg, peak_lr, warmup, total_steps, microbatches)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
-        return core(state, batch, None)
+        loss, aux, grads = gradients(state["params"], batch)
+        return apply(state, loss, aux, grads, grad_norm(grads))
 
     return train_step
 
 
-def _train_step_core(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatches):
-    """``step(state, batch, reduce)``: :func:`make_train_step`'s step, with
-    ``reduce(loss, aux, grads)`` (None: none) applied to the batch's loss,
-    aux dict and gradients before the update."""
+def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatches):
+    """(gradients, apply) of :func:`make_train_step`'s step:
+    ``gradients(params, batch) -> (loss, aux, grads)`` (grads in flatten
+    order) and ``apply(state, loss, aux, grads, gnorm, splits=None) ->
+    (state, metrics)``, the optimizer at the schedule's learning rate
+    (``splits``: the optimizer's, for a state of shards)."""
     fns = build_model(cfg)
     opt = get_optimizer(cfg.optimizer)
     sched = get_schedule(cfg.schedule, peak_lr, warmup, total_steps)
@@ -104,27 +107,31 @@ def _train_step_core(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatche
 
         return {k: per(v) for k, v in batch.items()}
 
-    def step(state: Dict[str, Any], batch: Dict[str, Any], reduce):
+    def gradients(params, batch):
+        if n_micro <= 1:
+            return value_and_grad(fns, params, batch)
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
+        loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        aux = {"ce": torch.zeros_like(loss), "aux": torch.zeros_like(loss)}
+        for i in range(n_micro):
+            loss_i, _, g = value_and_grad(fns, params, _split(batch, i))
+            grads = [a + gi.to(a.dtype) / n_micro for a, gi in zip(grads, g)]
+            loss = loss + loss_i / n_micro
+        return loss, aux, grads
+
+    def apply(state, loss, aux, grads, gnorm, splits=None):
         params = state["params"]
-        if n_micro > 1:
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=state["step"].device)
-            aux = {"ce": torch.zeros_like(loss), "aux": torch.zeros_like(loss)}
-            for i in range(n_micro):
-                loss_i, _, g = value_and_grad(fns, params, _split(batch, i))
-                grads = [a + gi.to(a.dtype) / n_micro for a, gi in zip(grads, g)]
-                loss = loss + loss_i / n_micro
-        else:
-            loss, aux, grads = value_and_grad(fns, params, batch)
-        if reduce is not None:
-            loss, aux, grads = reduce(loss, aux, grads)
         lr = sched(state["step"])
-        gnorm = torch.sqrt(sum(_square_sum(g) for g in grads))
-        new_params, new_opt = opt.update(unflatten_like(params, grads), state["opt"], params, lr)
+        new_params, new_opt = opt.update(unflatten_like(params, grads), state["opt"], params, lr, splits)
         metrics = {"loss": loss.float(), "ce": aux["ce"].float(), "grad_norm": gnorm, "lr": lr}
         return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
 
-    return step
+    return gradients, apply
+
+
+def grad_norm(grads) -> torch.Tensor:
+    """The f32 norm of the gradients in flatten order."""
+    return torch.sqrt(sum(_square_sum(g) for g in grads))
 
 
 def make_sharded_train_step(
@@ -139,8 +146,9 @@ def make_sharded_train_step(
     ``mesh`` (a ``DeviceMesh``; ``sharding.specs.place``), the global
     function of :func:`make_train_step` on every rank:
 
-    * each leaf is gathered to full before use (on a one-rank mesh its local
-      tensor, so the step is the unsharded one, bit for bit);
+    * the parameters are gathered to full for the products (on a one-rank
+      mesh each is its local tensor, so the step is the unsharded one, bit
+      for bit); the optimizer state is never gathered;
     * each rank takes its rows of the global ``batch`` along the axes that
       ``batch_shardings`` splits it over (pod and data, or data alone);
     * the loss, ``ce`` and every gradient are reduced over those axes as the
@@ -148,16 +156,20 @@ def make_sharded_train_step(
       share of the labels (:func:`loss_tokens`, summed over the ranks), so
       the sum is the global token-mean, not a mean of the ranks' means; the
       gradients reduce in f32 and return to the leaves' dtypes;
-    * the optimizer runs on the gathered leaves (the reduced gradients are
-      whole on every rank, so Adafactor's row and column statistics and its
-      RMS are those of the whole leaf), and each rank keeps its shard.
+    * ``grad_norm`` is taken over the reduced, whole gradients; each is then
+      cut to this rank's shard, the whole one dropped leaf by leaf, and the
+      optimizer updates this rank's shards of the parameters and of its
+      state in place (Adafactor sums its row and column statistics and its
+      RMS over the ranks that split a leaf: ``sharding.specs.LeafSplit``).
 
     No product is split over ``model``: ranks that share a batch slice
-    compute the same thing (tensor-parallel compute is ROADMAP.md §1 item 16).
-    MoE raises NotImplementedError where the batch is split: its capacity
-    and load-balance term are functions of all the call's tokens, which a
-    rank's dispatch does not see."""
-    core = _train_step_core(cfg, peak_lr, warmup, total_steps, microbatches)
+    compute the same thing (tensor-parallel compute is ROADMAP.md §1 item 16),
+    and the whole parameters and gradients are held at once (gathering one
+    layer at a time is ROADMAP.md §1 item 17). MoE raises
+    NotImplementedError where the batch is split: its capacity and
+    load-balance term are functions of all the call's tokens, which a rank's
+    dispatch does not see."""
+    gradients, apply = _train_step_parts(cfg, peak_lr, warmup, total_steps, microbatches)
     ms = mesh_shape(mesh)
     coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
 
@@ -171,9 +183,16 @@ def make_sharded_train_step(
                     "term follow all tokens of the call; ROADMAP.md §3)")
             batch = split_batch(batch, axes, ms, coords)
             reduce = _reduce_over(cfg, [mesh.get_group(a) for a in axes if ms.shape[a] > 1], batch)
-        full = tree_map(gather, state)
-        new, metrics = core(full, batch, reduce)
-        keep_shards(state, new)
+        loss, aux, grads = gradients(tree_map(gather, state["params"]), batch)
+        if reduce is not None:
+            loss, aux, grads = reduce(loss, aux, grads)
+        gnorm = grad_norm(grads)
+        placed = leaves(state["params"])
+        for i, t in enumerate(placed):
+            grads[i] = shard_of(grads[i], t)
+        shards = tree_map(local, state)
+        new, metrics = apply(shards, loss, aux, grads, gnorm, [leaf_split(t) for t in placed])
+        shards["step"].copy_(new["step"])
         return state, metrics
 
     return train_step
@@ -215,7 +234,8 @@ def _reduce_over(cfg: ModelConfig, groups, batch):
     w = n.clamp(min=1.0) / all_sum(n.clone()).clamp(min=1.0)
 
     def reduce(loss, aux, grads):
-        grads = [all_sum(g.float() * w).to(g.dtype) for g in grads]
+        for i, g in enumerate(grads):  # in place, so one leaf's f32 copy at a time
+            grads[i] = all_sum(g.float() * w).to(g.dtype)
         ce = all_sum(aux["ce"].float() * w)
         return all_sum(loss.float() * w), {"ce": ce, "aux": aux["aux"]}, grads
 

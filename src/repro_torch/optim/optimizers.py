@@ -9,10 +9,19 @@ term. ``update(grads, state, params, lr)`` writes the new params and state
 into the tensors it was given and returns them: the reference's jitted step
 donates its state, and in place the card holds one copy of params and
 moments (AdamW's moments of a 2 B-parameter model are 16 GB in f32).
+
+``update`` also takes ``splits``, one entry per leaf in flatten order, for
+a state cut over ranks (the sharded train step): the tensors are then each
+rank's shards, and an entry that is not None says how its leaf is cut
+(``sharding.specs.LeafSplit``). AdamW and SGD are elementwise and ignore
+it; Adafactor sums its row and column statistics and its RMS over the
+ranks that hold the rest of the leaf. A leaf whose entry is None takes the
+unsharded arithmetic, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -41,7 +50,7 @@ def sgd(momentum: float = 0.0) -> Optimizer:
         return {"mu": _zeros_f32(params)} if momentum else {}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, splits=None):
         if momentum:
             for p, g, mu in zip(leaves(params), leaves(grads), leaves(state["mu"])):
                 mu.copy_(momentum * mu + g.float())
@@ -59,7 +68,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, weight_decay: fl
         return {"m": _zeros_f32(params), "v": _zeros_f32(params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, splits=None):
         count = state["count"].add_(1)
         c = count.float()
         bc1 = 1 - b1**c
@@ -96,14 +105,21 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
 
         return {"state": tree_map(per_leaf, params), "count": _count(params)}
 
-    def _factored_u(g, vr, vc):
-        rfac = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True) + eps)
+    def _mean(x, dim, split, pdim, keepdim=False):
+        """The mean of x over its dim ``dim``, which is the leaf's dim
+        ``pdim``, over the whole leaf where ranks split that dim."""
+        if split is None or not split.groups[pdim]:
+            return x.mean(dim=dim, keepdim=keepdim)
+        return split.reduce(x.sum(dim=dim, keepdim=keepdim), (pdim,)) / split.shape[pdim]
+
+    def _factored_u(g, vr, vc, split):
+        rfac = torch.rsqrt(vr / _mean(vr, -1, split, -2, keepdim=True) + eps)
         cfac = torch.rsqrt(vc + eps)
         return g * rfac[..., None] * cfac[..., None, :]
 
-    def _update_stats(g2, vr, vc, beta):
-        vr.copy_(beta * vr + (1 - beta) * g2.mean(dim=-1))
-        vc.copy_(beta * vc + (1 - beta) * g2.mean(dim=-2))
+    def _update_stats(g2, vr, vc, beta, split):
+        vr.copy_(beta * vr + (1 - beta) * _mean(g2, -1, split, -1))
+        vc.copy_(beta * vc + (1 - beta) * _mean(g2, -2, split, -2))
 
     def _apply(p, u, denom, lr):
         newp = p.float() - lr * (u / denom)
@@ -112,27 +128,32 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
         p.copy_(newp)
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, splits=None):
         count = state["count"].add_(1)
         beta = 1.0 - count.float() ** (-decay)
         per_leaf_state = _leaf_states(params, state["state"])
-        for p, g, s in zip(leaves(params), leaves(grads), per_leaf_state):
+        splits = splits or [None] * len(per_leaf_state)
+        for p, g, s, split in zip(leaves(params), leaves(grads), per_leaf_state, splits):
             if p.dim() >= 3:
-                _sliced_update(p, g, s, beta, lr)
+                _sliced_update(p, g, s, beta, lr, split)
                 continue
             g = g.float()
             g2 = g * g + eps
             if p.dim() >= 2:
-                _update_stats(g2, s["vr"], s["vc"], beta)
-                u = _factored_u(g, s["vr"], s["vc"])
+                _update_stats(g2, s["vr"], s["vc"], beta, split)
+                u = _factored_u(g, s["vr"], s["vc"], split)
             else:
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g * torch.rsqrt(s["v"] + eps)
-            rms = torch.sqrt((u * u).mean() + eps)  # update clipping: RMS(u) <= clip_threshold
+            # update clipping: RMS(u) <= clip_threshold
+            if split is None:
+                rms = torch.sqrt((u * u).mean() + eps)
+            else:
+                rms = torch.sqrt(split.reduce((u * u).sum()) / math.prod(split.shape) + eps)
             _apply(p, u, torch.clamp(rms / clip_threshold, min=1.0), lr)
         return params, state
 
-    def _sliced_update(p, g, s, beta, lr):
+    def _sliced_update(p, g, s, beta, lr, split):
         """One leaf of three or more axes, one (K, N) slice at a time: first
         the statistics and the sum of u's squares, then the clipped update
         (u again from this step's statistics)."""
@@ -141,13 +162,16 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
         u2 = 0.0
         for _, gi, vr, vc in slices:
             gi = gi.float()
-            _update_stats(gi * gi + eps, vr, vc, beta)
-            u = _factored_u(gi, vr, vc)
+            _update_stats(gi * gi + eps, vr, vc, beta, split)
+            u = _factored_u(gi, vr, vc, split)
             u2 = u2 + (u * u).sum()
-        rms = torch.sqrt(u2 / p.numel() + eps)
+        if split is None:
+            rms = torch.sqrt(u2 / p.numel() + eps)
+        else:
+            rms = torch.sqrt(split.reduce(u2) / math.prod(split.shape) + eps)
         denom = torch.clamp(rms / clip_threshold, min=1.0)
         for pi, gi, vr, vc in slices:
-            _apply(pi, _factored_u(gi.float(), vr, vc), denom, lr)
+            _apply(pi, _factored_u(gi.float(), vr, vc, split), denom, lr)
 
     return Optimizer("adafactor", init, update)
 

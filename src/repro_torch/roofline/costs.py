@@ -111,7 +111,7 @@ class Plan:
         return moved
 
     def all_reduce(self, nbytes: int, axes) -> None:
-        """One ring all-reduce per dp axis of size > 1: twice the operand."""
+        """One ring all-reduce per axis of size > 1 in ``axes``: twice the operand."""
         for a in axes:
             if self.sizes[a] > 1:
                 self.bytes["all-reduce"] += 2 * nbytes

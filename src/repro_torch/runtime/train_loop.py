@@ -14,8 +14,9 @@ The step runs eagerly (the reference jits it; capturing it is ROADMAP.md §1
 item 3), on ``cuda`` unless the caller passes ``device="cpu"``. With a
 ``mesh`` (a ``DeviceMesh`` over the process group this rank belongs to) and
 its ``shardings`` (``sharding.specs.state_shardings``), the state is placed
-as DTensors, the step is ``make_sharded_train_step`` under
-``use_activation_mesh``, rank 0 writes the checkpoints and every rank
+as DTensors, the step is ``make_sharded_train_step``, the loop runs under
+``use_activation_mesh`` (installed once; no module of the port reads it
+yet), rank 0 writes the checkpoints and every rank
 restores its shards from them.
 """
 from __future__ import annotations
@@ -117,27 +118,27 @@ class TrainSupervisor:
 
         durations: List[float] = []
         try:
-            while step < total_steps:
-                if injector is not None:
-                    injector.maybe_fail(step)
-                batch = {k: torch.from_numpy(v).to(self.device) for k, v in self.pipeline.batch(step).items()}
-                t0 = time.perf_counter()
-                with contextlib.nullcontext() if self.mesh is None else use_activation_mesh(self.mesh):
+            with contextlib.nullcontext() if self.mesh is None else use_activation_mesh(self.mesh):
+                while step < total_steps:
+                    if injector is not None:
+                        injector.maybe_fail(step)
+                    batch = {k: torch.from_numpy(v).to(self.device) for k, v in self.pipeline.batch(step).items()}
+                    t0 = time.perf_counter()
                     state, metrics = step_fn(state, batch)
-                loss = float(metrics["loss"])  # waits for the step, as the reference's float() does
-                dt = time.perf_counter() - t0
-                durations.append(dt)
-                if len(durations) >= 5:
-                    med = statistics.median(durations[-20:])
-                    if dt > self.straggler_factor * med:
-                        report.straggler_steps += 1
-                report.losses.append(loss)
-                report.steps_run += 1
-                step += 1
-                report.final_step = step
-                if step % self.ckpt_every == 0 or step == total_steps:
-                    ckpt.save_async(step, state)
-                    report.checkpoints += 1
+                    loss = float(metrics["loss"])  # waits for the step, as the reference's float() does
+                    dt = time.perf_counter() - t0
+                    durations.append(dt)
+                    if len(durations) >= 5:
+                        med = statistics.median(durations[-20:])
+                        if dt > self.straggler_factor * med:
+                            report.straggler_steps += 1
+                    report.losses.append(loss)
+                    report.steps_run += 1
+                    step += 1
+                    report.final_step = step
+                    if step % self.ckpt_every == 0 or step == total_steps:
+                        ckpt.save_async(step, state)
+                        report.checkpoints += 1
         finally:
             # a save still in flight when a step fails lands before the
             # restart looks for the latest checkpoint, which it would

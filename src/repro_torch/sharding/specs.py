@@ -16,8 +16,10 @@ names, major first), as a ``PartitionSpec`` does. The rules read only the
 mesh's axis names and sizes, so they take a ``DeviceMesh`` or a
 ``MeshShape`` alike. :func:`place` puts a tree on a ``DeviceMesh`` as
 DTensors with these placements, so that each rank holds exactly the
-shard the reference's ``NamedSharding`` gives its device; :func:`gather`
-and :func:`keep_shards` are the sharded train step's way back and forth.
+shard the reference's ``NamedSharding`` gives its device; :func:`gather`,
+:func:`shard_of` and :func:`leaf_split` are the sharded train step's: the
+full parameters for the products, each gradient's shard, and how the
+optimizer sums over a leaf's shards.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
@@ -266,17 +269,47 @@ def gather(t):
     return t.to_local() if _whole_locally(t) else t.full_tensor()
 
 
-def keep_shards(placed: Any, full: Any) -> None:
-    """Writes this rank's shard of each tensor of ``full`` into the matching
-    DTensor of ``placed``; nothing where the full tensor is that DTensor's
-    local one (:func:`gather` gave it and it was updated in place)."""
-    with torch.no_grad():
-        for (_, t), (_, f) in zip(flatten(placed), flatten(full)):
-            if not isinstance(t, DTensor):
-                continue
-            local = t.to_local()
-            if _whole_locally(t):
-                if f.data_ptr() != local.data_ptr():
-                    local.copy_(f)
-            else:
-                local.copy_(distribute_tensor(f, t.device_mesh, t.placements, src_data_rank=None).to_local())
+def local(t):
+    """A DTensor's local shard, a view that an update in place writes
+    through; a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def shard_of(full: torch.Tensor, placed) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``placed``'s placements, cut
+    locally with no communication (a copy, so that ``full`` can go); where
+    no axis splits the leaf, ``full`` itself."""
+    if not isinstance(placed, DTensor) or _whole_locally(placed):
+        return full
+    cut = distribute_tensor(full, placed.device_mesh, placed.placements, src_data_rank=None).to_local()
+    return cut.clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSplit:
+    """How one leaf is cut over the ranks: its full ``shape`` and, for each
+    of its dims, the process groups of the mesh axes of size > 1 that split
+    it. The optimizer's reductions over a split leaf read it."""
+
+    shape: Tuple[int, ...]
+    groups: Tuple[Tuple[Any, ...], ...]
+
+    def reduce(self, x: torch.Tensor, dims=None) -> torch.Tensor:
+        """Sums x over the ranks that split the leaf's ``dims`` (default
+        all), in place; returns x."""
+        for d in range(len(self.shape)) if dims is None else dims:
+            for g in self.groups[d]:
+                dist.all_reduce(x, group=g)
+        return x
+
+
+def leaf_split(t) -> "LeafSplit | None":
+    """The :class:`LeafSplit` of a DTensor; None where no axis splits it."""
+    if not isinstance(t, DTensor) or _whole_locally(t):
+        return None
+    mesh = t.device_mesh
+    groups = [[] for _ in t.shape]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and mesh.size(i) > 1:
+            groups[p.dim].append(mesh.get_group(i))
+    return LeafSplit(tuple(t.shape), tuple(tuple(g) for g in groups))

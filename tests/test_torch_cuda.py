@@ -334,6 +334,9 @@ WGMMA_FA_CASES = [
     (4, 1024, 1024, 28, 4, 128, True, 0),
     (1, 300, 300, 28, 4, 128, True, 0),
     (4, 1024, 1024, 36, 36, 64, True, 0),
+    # examples/port_train_lm.py's call (g = 5: 12 positions and 4 padding
+    # rows a 64-row tile)
+    (4, 128, 128, 10, 2, 64, True, 0),
 ]
 
 
@@ -803,7 +806,7 @@ WGMMA_BWD_MASKS = {"causal": (True, 0), "window": (True, 48), "bidirectional": (
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv", WGMMA_BWD_SIZES)
 @pytest.mark.parametrize("mask", sorted(WGMMA_BWD_MASKS))
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 7, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_backward_wgmma_route(cuda, b, sq, skv, mask, g, d):
     from repro_torch.kernels.flash_attention.ref import attention_ref_backward

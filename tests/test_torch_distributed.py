@@ -37,8 +37,10 @@ from repro_torch.launch.steps import (
     value_and_grad)
 from repro_torch.models.model import build_model
 from repro_torch.sharding.act import axis_size, use_activation_mesh
-from repro_torch.sharding.specs import gather, place, state_shardings
-from repro_torch.tree import flatten, leaves
+from repro_torch.optim.optimizers import adafactor, adamw, sgd
+from repro_torch.sharding.specs import (
+    LeafSharding, gather, leaf_split, local, opt_state_shardings, place, state_shardings)
+from repro_torch.tree import flatten, leaves, tree_map
 
 SHAPE = ShapeSpec("t", 64, 4, "train")
 
@@ -97,6 +99,32 @@ def case_sharded_step(mesh, out):
                adafactor_rel=max(rel(got_a, want_a), max_rel_leaf(st_a, ref_a)),
                local_shapes={p: list(t.to_local().shape) for p, t in flatten(st["params"])
                              if p in ("head/embed", "layers/attn/wq")})
+
+
+def case_sharded_optim(mesh, out):
+    """(2, 4): each optimizer (SGD with momentum) updates this rank's shards
+    of the params and of its state, with the leaves' splits, and gives the
+    whole update's values: a leaf split over model, one over data and model, a stack of
+    experts over model and one with its last two dims split."""
+    specs = {"norm": ("model",), "w": ("data", "model"), "experts": ("model", "data", None),
+             "stack": (None, "data", "model")}
+    shapes = {"norm": (64,), "w": (32, 48), "experts": (4, 32, 16), "stack": (3, 16, 24)}
+    gen = torch.Generator().manual_seed(0)
+    params = {k: torch.randn(shapes[k], generator=gen) for k in sorted(shapes)}
+    grads = [{k: torch.randn(shapes[k], generator=gen) for k in sorted(shapes)} for _ in range(3)]
+    pspecs = {k: LeafSharding(mesh, specs[k]) for k in specs}
+    for name, opt in (("adamw", adamw()), ("adafactor", adafactor()), ("sgd", sgd(momentum=0.9))):
+        whole = tree_map(torch.clone, params)
+        whole_state = opt.init(whole)
+        placed = place(tree_map(torch.clone, params), pspecs)
+        state = place(opt.init(tree_map(torch.clone, params)), opt_state_shardings(None, whole_state, pspecs, mesh))
+        splits = [leaf_split(t) for t in leaves(placed)]
+        for g in grads:
+            opt.update(g, whole_state, whole, torch.tensor(1e-2))
+            cut = {k: place(g[k], pspecs[k]).to_local() for k in g}
+            opt.update(cut, tree_map(local, state), tree_map(local, placed), torch.tensor(1e-2), splits)
+        out[name] = max_rel_leaf(placed, whole)
+    out["split_dims"] = {p: [len(g) for g in s.groups] for (p, _), s in zip(flatten(placed), splits)}
 
 
 def case_remesh(mesh, out, ckpt):
@@ -203,6 +231,17 @@ def test_sharded_train_step_runs(tmp_path):
     assert out["adafactor_rel"] <= 1e-6
     # reduced qwen3: embed (512, 128) over model, wq (L, 128, 128) over data x model
     assert out["local_shapes"] == {"head/embed": [128, 128], "layers/attn/wq": [2, 64, 32]}
+
+
+def test_optimizers_update_shards(tmp_path):
+    """8 ranks over (data=2, model=4): AdamW and SGD update each rank's
+    shards elementwise and equal the whole update exactly; Adafactor sums
+    its row and column statistics and its RMS over the ranks that split a
+    leaf and equals it within 1e-6."""
+    out = run_ranks(tmp_path, "sharded_optim", "2x4")
+    assert out["adamw"] == 0.0 and out["sgd"] == 0.0, out
+    assert out["adafactor"] <= 1e-6, out
+    assert out["split_dims"] == {"experts": [1, 1, 0], "norm": [1], "stack": [0, 1, 1], "w": [1, 1]}
 
 
 def test_elastic_remesh_resumes(tmp_path):

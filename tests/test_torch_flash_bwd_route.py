@@ -47,12 +47,12 @@ def _chip_smoke():
 SMOKE_BWD_CASES = _chip_smoke().FA_BWD_CASES
 # the route of each chip_smoke case in bf16: qwen3 (D 128, g 2), minicpm-2b
 # (D 64, MHA), llama3.2-3b (g 3), qwen2-vl-7b and arctic-480b (g 7) and
-# grok-1-314b (g 6) on the tensor cores; hubert's D = 80 and
-# recurrentgemma's D = 256 on simt
+# grok-1-314b (g 6) and examples/port_train_lm.py (D 64, g 5) on the tensor
+# cores; hubert's D = 80 and recurrentgemma's D = 256 on simt
 SMOKE_BF16_ROUTES = {"qwen3": "wgmma", "minicpm-2b": "wgmma", "hubert-xlarge": "simt",
                      "recurrentgemma-9b": "simt", "recurrentgemma-9b S=4096": "simt", "g=4 D=80": "simt",
                      "llama3.2-3b": "wgmma", "qwen2-vl-7b": "wgmma", "grok-1-314b": "wgmma",
-                     "arctic-480b": "wgmma"}
+                     "arctic-480b": "wgmma", "port_train_lm": "wgmma"}
 
 
 def test_every_smoke_case_has_an_expected_route():
@@ -212,3 +212,15 @@ def test_plain_statistics_give_the_softmax():
     p = torch.where(seen, torch.exp2(s * math.log2(math.e) - lse[..., None]), torch.zeros(()))
     out = torch.einsum("bhqt,bthd->bqhd", p, v.repeat_interleave(2, dim=2))
     torch.testing.assert_close(out, attention_ref(q, k, v, causal=True, window=9), rtol=1e-5, atol=1e-5)
+
+
+def test_the_train_lm_case_is_the_examples_call():
+    """chip_smoke's port_train_lm row is the attention call of
+    examples/port_train_lm.py's step (g = 5 on the wgmma route)."""
+    spec = importlib.util.spec_from_file_location("port_train_lm", ROOT / "examples" / "port_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg, shape = example.build_cfg(), example.SHAPE
+    (row,) = [c for c in SMOKE_BWD_CASES if c[0] == "port_train_lm"]
+    assert row[1:8] == (shape.global_batch, shape.seq_len, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.resolved_head_dim(), True, 0)
