@@ -130,7 +130,16 @@
    rounding allowed), and its products' FLOPs of phase 8's step against ``train_bounds``' operations, at the
    ratio :func:`predicted_dot_flops` gives; every launch of 9a-9c gated
    exactly;
-10. prints the kernels line and, last, the device line.
+10. runs the simulator path (``examples/port_serve_trace.py``'s ``run`` at
+   its defaults, each backend's run traced by a full telemetry hub: metrics,
+   prediction audit, stall ledger) on this machine's host, with no JAX and
+   no ``repro`` in ``sys.modules``. The simulator models a ``Platform`` (the
+   paper's RTX5080) in host Python and launches no kernel. Both scoreboards
+   are gated against SIM_REFERENCE, the JAX package's values for the same
+   call: integers exactly, floats at SIM_RTOL. ``validate_trace`` must find
+   no error in either exported trace, and the phase must end within
+   SIM_MAX_S;
+11. prints the kernels line and, last, the device line.
 
 Any failure raises, so the exit code is not 0; so is a run without a card or
 without ``src/repro_torch`` beside this file. Needs no network and no JAX.
@@ -341,6 +350,32 @@ TRAIN_LM_STEPS, TRAIN_LM_KILL, TRAIN_LM_CKPT = 200, 130, 40
 # layers) is written and read back within a few seconds
 MESH_LAYERS, MESH_STEPS = 2, 3
 DRYRUN_MESHES = ("16x16", "2x16x16", "1x1")
+# Phase 10: the simulator path. SIM_REFERENCE is the scoreboard of the JAX
+# package's examples/serve_trace.py at its defaults (integers, then floats
+# as repr writes them); tests/test_torch_serving.py holds it to the
+# reference's own run on the CPU. The integers are gated exactly and the
+# floats at SIM_RTOL: bursty_trace draws through random.lognormvariate and
+# gammavariate, whose math.log / math.exp may round the last bit otherwise
+# on another machine's libm.
+SIM_INT_KEYS = ("n_requests", "n_finished", "n_rejected", "faults", "migrated_bytes", "capacity_bytes", "switches")
+SIM_FLOAT_KEYS = ("offered_rps", "oversubscription", "ttft_p50_us", "ttft_p99_us", "tpot_p50_us", "tpot_p99_us",
+                  "latency_p99_us", "goodput_per_s", "throughput_per_s")
+SIM_REFERENCE = {
+    "um": {"n_requests": 14, "n_finished": 6, "n_rejected": 0, "faults": 175832, "migrated_bytes": 184373215232,
+           "capacity_bytes": 4650106880, "switches": 2700, "offered_rps": 7.132529412357349,
+           "oversubscription": 4.984782608695652, "ttft_p50_us": 1334777.8963980214,
+           "ttft_p99_us": 1652013.248483295, "tpot_p50_us": 56764.482620133786, "tpot_p99_us": 1644526.1499792682,
+           "latency_p99_us": 8943653.127097672, "goodput_per_s": 1.5283991597908606,
+           "throughput_per_s": 3.056798319581721},
+    "msched": {"n_requests": 14, "n_finished": 14, "n_rejected": 0, "faults": 0, "migrated_bytes": 29007806464,
+               "capacity_bytes": 4650106880, "switches": 14, "offered_rps": 7.132529412357349,
+               "oversubscription": 0.5038968360228314, "ttft_p50_us": 359090.4558833982,
+               "ttft_p99_us": 881014.5852142877, "tpot_p50_us": 3047.436136290431, "tpot_p99_us": 3081.842536297341,
+               "latency_p99_us": 976551.7038395053, "goodput_per_s": 7.132529412357349,
+               "throughput_per_s": 7.132529412357349},
+}
+SIM_RTOL = 1e-9
+SIM_MAX_S = 30.0
 # the caching allocator rounds every request up to a multiple of 512 B, and
 # leaves a request above 1 MiB the rest of its block where that rest is 1
 # MiB or less (it splits a block only for a larger rest)
@@ -385,7 +420,7 @@ def main() -> None:
 
 
 def run_phases(torch, dev) -> None:
-    """Phases 3 to 9d."""
+    """Phases 3 to 10."""
     bench = Bench(torch, dev)
     usage = ptxas_usage()
     t_run = time.perf_counter()
@@ -441,6 +476,8 @@ def run_phases(torch, dev) -> None:
     phase_done("9c. mesh")
     dryrun_on_card(torch, dev)
     phase_done("9d. dry-run")
+    simulator_on_host()
+    phase_done("10. simulator")
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
     recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches,
@@ -3581,6 +3618,50 @@ def dryrun_on_card(torch, dev) -> None:
     (rec,) = [r for r in ok if (r["arch"], r["shape"], r["mesh"]) == (TRAIN_ARCH, "train_4k", "1x1")]
     if rec["mem"]["state_bytes"] != state_bytes:
         raise AssertionError(f"dry-run: the 1x1 record's state bytes {rec['mem']['state_bytes']} != {state_bytes}")
+
+
+def sim_scoreboard(report) -> dict:
+    """A ``ServeReport``'s gated numbers: SIM_INT_KEYS, then SIM_FLOAT_KEYS."""
+    board = {k: (report.result.switches if k == "switches" else getattr(report, k)) for k in SIM_INT_KEYS}
+    board.update((k, getattr(report, k)) for k in SIM_FLOAT_KEYS)
+    return board
+
+
+def simulator_on_host() -> None:
+    """Phase 10: ``examples/port_serve_trace.py``'s ``run`` at its defaults,
+    each backend traced by a full hub. Gated: no JAX and no ``repro`` loaded,
+    each scoreboard against SIM_REFERENCE (integers exactly, floats at
+    SIM_RTOL), ``validate_trace`` clean on each exported trace, the phase
+    within SIM_MAX_S of wall time."""
+    from repro_torch.telemetry import Telemetry, validate_trace
+
+    t0 = time.perf_counter()
+    hubs = {backend: Telemetry(sample_stride=1, metrics=True, audit=True) for backend in SIM_REFERENCE}
+    reports = example_module("port_serve_trace").run(telemetry=hubs)
+    # each trace as a file holds it (write_chrome's JSON), read back
+    traces = {backend: json.loads(json.dumps(hub.chrome_trace())) for backend, hub in hubs.items()}
+    wall = time.perf_counter() - t0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if loaded:
+        raise AssertionError(f"simulator: the reference is loaded: {loaded[:5]}")
+    for backend, want in SIM_REFERENCE.items():
+        got = sim_scoreboard(reports[backend])
+        wrong = [k for k in SIM_INT_KEYS if got[k] != want[k]]
+        wrong += [k for k in SIM_FLOAT_KEYS if not math.isclose(got[k], want[k], rel_tol=SIM_RTOL, abs_tol=0.0)]
+        errors = validate_trace(traces[backend])
+        hub = hubs[backend]
+        audit = hub.audit.summary()["fleet"]
+        log(f"simulator {backend}: {json.dumps(got)}; {len(hub.events)} events, {len(traces[backend]['traceEvents'])} "
+            f"in the chrome trace, {len(hub.metrics_report().metrics)} metrics, prediction audit F- "
+            f"{audit['false_negative_pct']} % F+ {audit['false_positive_pct']} %, stall totals "
+            f"{json.dumps({k: round(v, 3) for k, v in hub.stall_totals().items()})}")
+        if wrong:
+            raise AssertionError(f"simulator {backend}: {[(k, got[k], want[k]) for k in wrong]} against the reference")
+        if errors:
+            raise AssertionError(f"simulator {backend}: validate_trace: {errors[:5]}")
+    log(f"simulator: {wall:.3f} s wall for both runs, traced (limit {SIM_MAX_S} s)")
+    if wall > SIM_MAX_S:
+        raise AssertionError(f"simulator: {wall:.1f} s > {SIM_MAX_S} s")
 
 
 if __name__ == "__main__":

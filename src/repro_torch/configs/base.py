@@ -2,8 +2,14 @@
 
 Every assigned architecture is expressed as a frozen ``ModelConfig``, a copy
 of the JAX package's configuration so that both packages build the same
-shapes. In this package the config drives model construction
-(``repro_torch.models.model.build_model``) and the live runtime's tasks.
+shapes. In this package the same config object drives:
+  * model construction (``repro_torch.models.model.build_model``) and the
+    live runtime's tasks,
+  * sharding rules (``repro_torch.sharding.specs``),
+  * the dry-run input specs (``repro_torch.launch.specs``),
+  * the MSched workload generators (``repro_torch.core.workloads``) — each
+    config deterministically yields the command stream + ground-truth
+    working sets that the paper's predictor/scheduler operate on.
 """
 from __future__ import annotations
 

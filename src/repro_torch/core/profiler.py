@@ -10,11 +10,12 @@ from __future__ import annotations
 from typing import Sequence
 
 from repro_torch.core.trace import TraceStore
+from repro_torch.core.workloads import TaskProgram
 
 
-def profile_programs(programs: Sequence, iters: int = 4) -> TraceStore:
-    """``programs`` are tasks with an address space ``.space`` and a command
-    stream ``.iteration(it)``."""
+def profile_programs(
+    programs: Sequence[TaskProgram], iters: int = 4
+) -> TraceStore:
     store = TraceStore()
     for prog in programs:
         for it in range(iters):

@@ -24,6 +24,8 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.common import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshShape:
@@ -72,21 +74,22 @@ def mesh_shape(mesh) -> MeshShape:
     return MeshShape(tuple(mesh.mesh_dim_names), tuple(int(n) for n in mesh.shape))
 
 
-def init_ranks(rank: int, world_size: int, store_path: str, device="cpu") -> None:
+def init_ranks(rank: int, world_size: int, store_path: str, device="cuda") -> None:
     """Joins this process to a group of ``world_size`` ranks through a
-    ``FileStore`` at ``store_path`` (no network): gloo on the CPU, NCCL on
-    the card (``device``, made the current one)."""
-    dev = torch.device(device)
+    ``FileStore`` at ``store_path`` (no network): NCCL on the card
+    (``device``, made the current one), gloo when ``device="cpu"``."""
+    dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             store=dist.FileStore(store_path, world_size), rank=rank, world_size=world_size)
 
 
-def make_mesh(shape, axes, device="cpu"):
+def make_mesh(shape, axes, device="cuda"):
     """A ``DeviceMesh`` of ``shape`` over the initialised group, whose size
     must be the mesh's (elastic re-mesh, tests on gloo ranks, the card's
     1 x 1)."""
+    dev = resolve_device(device)
     shape, axes = tuple(shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh {shape} with axes {axes}")
@@ -94,10 +97,10 @@ def make_mesh(shape, axes, device="cpu"):
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks; the group has {dist.get_world_size()}")
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=axes)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cpu"):
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     """The production mesh over a group of 256 (512) ranks."""
     ms = production_mesh_shape(multi_pod=multi_pod)
     return make_mesh(ms.sizes, ms.axis_names, device)

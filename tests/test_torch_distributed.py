@@ -172,7 +172,7 @@ def case_pod(mesh, out):
         out["moe_split"] = "ran"
     except NotImplementedError as e:
         out["moe_split"] = "raised: " + str(e)[:60]
-    flat = make_mesh((1, 8), ("data", "model"))
+    flat = make_mesh((1, 8), ("data", "model"), "cpu")
     _, got = run(moe, flat, 2)
     _, want = run(moe, None, 2)
     out.update(moe_unsplit=got, moe_unsplit_ref=want)
@@ -180,9 +180,9 @@ def case_pod(mesh, out):
 
 if __name__ == "__main__":
     rank, world, store, case, mesh_dims, result = sys.argv[1:7]
-    init_ranks(int(rank), int(world), store)
+    init_ranks(int(rank), int(world), store, "cpu")
     dims = tuple(int(x) for x in mesh_dims.split("x"))
-    mesh = make_mesh(dims, ("data", "model") if len(dims) == 2 else ("pod", "data", "model"))
+    mesh = make_mesh(dims, ("data", "model") if len(dims) == 2 else ("pod", "data", "model"), "cpu")
     out = {}
     fn = globals()["case_" + case]
     fn(mesh, out, *sys.argv[7:])

@@ -37,13 +37,19 @@ for want in ("repro_torch.launch.specs", "repro_torch.launch.train", "repro_torc
              "repro_torch.runtime.train_loop", "repro_torch.checkpointing.checkpoint",
              "repro_torch.checkpointing.manifest", "repro_torch.tree", "repro_torch.launch.mesh",
              "repro_torch.launch.dryrun", "repro_torch.sharding.act", "repro_torch.sharding.specs",
-             "repro_torch.roofline.costs"):
+             "repro_torch.roofline.costs", "repro_torch.core.workloads", "repro_torch.core.demand_paging",
+             "repro_torch.core.simulator", "repro_torch.core.invariants", "repro_torch.control.deadline",
+             "repro_torch.cluster.aggregate", "repro_torch.serving", "repro_torch.serving.traces",
+             "repro_torch.serving.lifecycle", "repro_torch.serving.admission", "repro_torch.serving.engine",
+             "repro_torch.telemetry", "repro_torch.telemetry.hub", "repro_torch.telemetry.metrics",
+             "repro_torch.telemetry.audit", "repro_torch.telemetry.export"):
     assert want in names, (want, names)
 import chip_smoke  # noqa: F401  (the module does nothing on import)
 sys.path.insert(0, "examples")
 import port_multitask_oversubscription  # noqa: F401  (runs only as a script)
 import port_quickstart  # noqa: F401
 import port_train_lm  # noqa: F401
+import port_serve_trace  # noqa: F401
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
@@ -78,12 +84,13 @@ def test_source_imports_no_jax_or_reference(path):
 
 
 def test_port_examples_exist():
-    for name in ("port_multitask_oversubscription", "port_quickstart", "port_train_lm"):
+    for name in ("port_multitask_oversubscription", "port_quickstart", "port_train_lm", "port_serve_trace"):
         assert (ROOT / "examples" / f"{name}.py").is_file(), name
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
     from repro_torch.core.runtime import LiveModelTask
+    from repro_torch.launch.mesh import init_ranks, make_mesh, make_production_mesh
     from repro_torch.runtime.serve_loop import MultiModelServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -91,3 +98,9 @@ def test_default_device_raises_without_a_card(monkeypatch):
         LiveModelTask(0, "qwen3-1.7b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MultiModelServer(["qwen3-1.7b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_ranks(0, 1, "unused-store")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh()
