@@ -139,7 +139,20 @@
    call: integers exactly, floats at SIM_RTOL. ``validate_trace`` must find
    no error in either exported trace, and the phase must end within
    SIM_MAX_S;
-11. prints the kernels line and, last, the device line.
+11. runs the cluster and the control plane on this machine's host, with no
+   JAX and no ``repro`` in ``sys.modules``: ``examples/port_cluster_serve.py``'s
+   ``run`` over CLUSTER_GPUS GPUs (``A100_40G`` and ``A100_80G`` alternating)
+   with rebalancing, three placements, and ``scripts/port_msctl.py``'s crash
+   demo fleet (2 x ``RTX5080`` on NVLink: a coordinator crash and journal
+   replay, a GPU failure and recovery, an operator cancel, the replay
+   checked). The cluster models its GPUs and links as ``Platform``s in host
+   Python and launches no kernel. Every report is gated against
+   CLUSTER_REFERENCE, the JAX package's values for the same calls: integers,
+   strings and lists exactly, floats at CLUSTER_RTOL, the demo's journal
+   length and lifecycle summary exactly. The runs in CLUSTER_TRACED carry a
+   full telemetry hub and ``validate_trace`` must find no error in their
+   traces; the phase must end within CLUSTER_MAX_S;
+12. prints the kernels line and, last, the device line.
 
 Any failure raises, so the exit code is not 0; so is a run without a card or
 without ``src/repro_torch`` beside this file. Needs no network and no JAX.
@@ -376,6 +389,87 @@ SIM_REFERENCE = {
 }
 SIM_RTOL = 1e-9
 SIM_MAX_S = 30.0
+# Phase 11: the cluster and the control plane. CLUSTER_REFERENCE holds the
+# JAX package's answers for the same calls (cluster_scoreboard of each report;
+# for the demo also its journal length and lifecycle summary): its
+# examples/cluster_serve.py --gpus 4 --migrate and the crash demo fleet of its
+# scripts/msctl.py. tests/test_torch_cluster_table.py holds the table to the
+# reference's own run on the CPU. 4 GPUs at 1.5x oversubscription is the
+# middle of benchmarks/cluster_oversub.py's 2 / 4 / 8 sweep. Only the msched
+# placement and the demo are traced: the reference's stall ledger refuses the
+# traced round-robin and least-loaded runs (LedgerConservationError: a
+# migrated request's transit wait is counted past its wall), and the port,
+# a copy, refuses them alike (ROADMAP.md §3).
+CLUSTER_GPUS = 4
+CLUSTER_TRACED = ("msched", "demo")
+CLUSTER_RTOL = 1e-9
+CLUSTER_MAX_S = 90.0
+CLUSTER_REFERENCE = {
+    "roundrobin": {
+        "backend": "msched", "placement": "roundrobin", "n_gpus": 4, "total_capacity_bytes": 18567397376,
+        "oversubscription": 0.8805344562255574, "offered_rps": 15.224030999420172, "ttft_slo_us": 3000000.0,
+        "tpot_slo_us": 100000.0, "migrations": 7, "migrated_requests": 5, "deferred_migrations": 0,
+        "peer_fetches": 0, "peer_fetch_bytes": 0, "peer_fallback_pages": 0, "linger_finish_reaped": 0,
+        "faults_applied": 0, "recoveries": 0, "recoveries_by_kind": {"checkpoint": 0, "linger": 0, "cold": 0,
+        "requeue": 0}, "replayed_iters": 0, "shed_requests": 0, "lost_requests": 0, "retry_exhausted": 0,
+        "checkpoints": 0, "checkpoint_bytes": 0, "journal_len": 0, "journal_replays": 0, "coordinator_crashes":
+        0, "deadline_misses": 0, "preemptions": 0, "deadline_sheds": 0, "planned_transfers": 0,
+        "planner_replans": 0, "planner_deferred": 0, "n_requests": 56, "n_finished": 56, "n_rejected": 0,
+        "ttft_p50_us": 482497.7134902389, "ttft_p99_us": 1518115.901069615, "tpot_p50_us": 3047.775952593501,
+        "tpot_p99_us": 16215.00376052741, "latency_p50_us": 695965.6324788048, "latency_p99_us":
+        2328615.8634149814, "goodput_per_s": 15.224030999420172, "throughput_per_s": 15.224030999420172,
+        "gpu_placed": [14, 14, 14, 14], "gpu_finished": [13, 15, 13, 15], "gpu_faults": [0, 0, 0, 0],
+        "gpu_migrated_bytes": [31136415744, 29095886848, 26967277568, 29037166592], "gpu_switches": [17, 20, 15,
+        18]},
+    "leastloaded": {
+        "backend": "msched", "placement": "leastloaded", "n_gpus": 4, "total_capacity_bytes": 18567397376,
+        "oversubscription": 0.7542929096838865, "offered_rps": 15.224030999420172, "ttft_slo_us": 3000000.0,
+        "tpot_slo_us": 100000.0, "migrations": 9, "migrated_requests": 9, "deferred_migrations": 0,
+        "peer_fetches": 0, "peer_fetch_bytes": 0, "peer_fallback_pages": 0, "linger_finish_reaped": 0,
+        "faults_applied": 0, "recoveries": 0, "recoveries_by_kind": {"checkpoint": 0, "linger": 0, "cold": 0,
+        "requeue": 0}, "replayed_iters": 0, "shed_requests": 0, "lost_requests": 0, "retry_exhausted": 0,
+        "checkpoints": 0, "checkpoint_bytes": 0, "journal_len": 0, "journal_replays": 0, "coordinator_crashes":
+        0, "deadline_misses": 0, "preemptions": 0, "deadline_sheds": 0, "planned_transfers": 0,
+        "planner_replans": 0, "planner_deferred": 0, "n_requests": 56, "n_finished": 56, "n_rejected": 0,
+        "ttft_p50_us": 785823.4101163954, "ttft_p99_us": 2827205.0392067963, "tpot_p50_us": 3047.775952586982,
+        "tpot_p99_us": 5752.783808874131, "latency_p50_us": 979697.2062542522, "latency_p99_us":
+        2851555.9837283054, "goodput_per_s": 15.224030999420172, "throughput_per_s": 15.224030999420172,
+        "gpu_placed": [21, 15, 13, 7], "gpu_finished": [15, 18, 13, 10], "gpu_faults": [0, 0, 0, 0],
+        "gpu_migrated_bytes": [35246833664, 37346082816, 22915579904, 20728250368], "gpu_switches": [21, 21, 16,
+        11]},
+    "msched": {
+        "backend": "msched", "placement": "msched", "n_gpus": 4, "total_capacity_bytes": 18567397376,
+        "oversubscription": 0.7544349771986051, "offered_rps": 15.224030999420172, "ttft_slo_us": 3000000.0,
+        "tpot_slo_us": 100000.0, "migrations": 7, "migrated_requests": 7, "deferred_migrations": 0,
+        "peer_fetches": 0, "peer_fetch_bytes": 0, "peer_fallback_pages": 0, "linger_finish_reaped": 0,
+        "faults_applied": 0, "recoveries": 0, "recoveries_by_kind": {"checkpoint": 0, "linger": 0, "cold": 0,
+        "requeue": 0}, "replayed_iters": 0, "shed_requests": 0, "lost_requests": 0, "retry_exhausted": 0,
+        "checkpoints": 0, "checkpoint_bytes": 0, "journal_len": 0, "journal_replays": 0, "coordinator_crashes":
+        0, "deadline_misses": 0, "preemptions": 0, "deadline_sheds": 0, "planned_transfers": 0,
+        "planner_replans": 0, "planner_deferred": 0, "n_requests": 56, "n_finished": 56, "n_rejected": 0,
+        "ttft_p50_us": 737877.3051655316, "ttft_p99_us": 2910964.9498409643, "tpot_p50_us": 3046.501641480718,
+        "tpot_p99_us": 5752.783808874131, "latency_p50_us": 929552.0137075223, "latency_p99_us":
+        2910964.9498409643, "goodput_per_s": 15.224030999420172, "throughput_per_s": 15.224030999420172,
+        "gpu_placed": [9, 22, 11, 14], "gpu_finished": [9, 22, 10, 15], "gpu_faults": [0, 0, 0, 0],
+        "gpu_migrated_bytes": [20728250368, 45596278784, 18775801856, 31136415744], "gpu_switches": [13, 25, 13,
+        18]},
+    "demo": {
+        "backend": "msched", "placement": "leastloaded", "n_gpus": 2, "total_capacity_bytes": 8589934592,
+        "oversubscription": 0.8133907318115234, "offered_rps": 13.448315782274639, "ttft_slo_us": 3000000.0,
+        "tpot_slo_us": 100000.0, "migrations": 0, "migrated_requests": 0, "deferred_migrations": 0,
+        "peer_fetches": 0, "peer_fetch_bytes": 0, "peer_fallback_pages": 0, "linger_finish_reaped": 0,
+        "faults_applied": 4, "recoveries": 1, "recoveries_by_kind": {"checkpoint": 0, "linger": 0, "cold": 1,
+        "requeue": 0}, "replayed_iters": 94, "shed_requests": 0, "lost_requests": 0, "retry_exhausted": 0,
+        "checkpoints": 0, "checkpoint_bytes": 0, "journal_len": 74, "journal_replays": 1, "coordinator_crashes":
+        1, "deadline_misses": 0, "preemptions": 0, "deadline_sheds": 0, "planned_transfers": 0,
+        "planner_replans": 0, "planner_deferred": 0, "n_requests": 16, "n_finished": 15, "n_rejected": 1,
+        "ttft_p50_us": 955784.3314654466, "ttft_p99_us": 3290469.735602394, "tpot_p50_us": 3040.5548562969925,
+        "tpot_p99_us": 34553.391938487024, "latency_p50_us": 1186861.978162728, "latency_p99_us":
+        3707109.3998498106, "goodput_per_s": 11.76727630949031, "throughput_per_s": 12.607796045882473,
+        "gpu_placed": [12, 4], "gpu_finished": [11, 4], "gpu_faults": [0, 0], "gpu_migrated_bytes":
+        [24868028416, 8308916224], "gpu_switches": [17, 7], "journal": 74, "lifecycle": {"FINISHED": 15,
+        "CANCELLED": 1}},
+}
 # the caching allocator rounds every request up to a multiple of 512 B, and
 # leaves a request above 1 MiB the rest of its block where that rest is 1
 # MiB or less (it splits a block only for a larger rest)
@@ -420,7 +514,7 @@ def main() -> None:
 
 
 def run_phases(torch, dev) -> None:
-    """Phases 3 to 10."""
+    """Phases 3 to 11."""
     bench = Bench(torch, dev)
     usage = ptxas_usage()
     t_run = time.perf_counter()
@@ -478,6 +572,8 @@ def run_phases(torch, dev) -> None:
     phase_done("9d. dry-run")
     simulator_on_host()
     phase_done("10. simulator")
+    cluster_on_host()
+    phase_done("11. cluster")
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
     recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches,
@@ -3354,10 +3450,10 @@ def start_dryrun(out: Path):
     return procs
 
 
-def example_module(name: str):
+def example_module(name: str, folder: str = "examples"):
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, ROOT / folder / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -3662,6 +3758,76 @@ def simulator_on_host() -> None:
     log(f"simulator: {wall:.3f} s wall for both runs, traced (limit {SIM_MAX_S} s)")
     if wall > SIM_MAX_S:
         raise AssertionError(f"simulator: {wall:.1f} s > {SIM_MAX_S} s")
+
+
+
+def cluster_scoreboard(report) -> dict:
+    """A ``ClusterReport``'s gated numbers: its ``to_row()``, the per-GPU rows
+    as one list a column (``gpu_placed``, ...)."""
+    row = report.to_row()
+    gpus = row.pop("per_gpu")
+    for key in ("placed", "finished", "faults", "migrated_bytes", "switches"):
+        row[f"gpu_{key}"] = [g[key] for g in gpus]
+    return row
+
+
+def lifecycle_summary(control, order) -> dict:
+    """Each lifecycle state's task count, in ``order``, as ``msctl demo``
+    prints it."""
+    states = list(control.lifecycle.states().values())
+    return {s: states.count(s) for s in order if states.count(s)}
+
+
+def cluster_mismatches(got: dict, want: dict) -> list:
+    """(key, got, want) where a float differs beyond CLUSTER_RTOL or anything
+    else differs at all, the key sets included."""
+    def close(a, b):
+        if isinstance(b, float):
+            return isinstance(a, float) and math.isclose(a, b, rel_tol=CLUSTER_RTOL, abs_tol=0.0)
+        return type(a) is type(b) and a == b
+
+    keys = sorted(set(got) | set(want))
+    return [(k, got.get(k), want.get(k)) for k in keys if k not in got or k not in want or not close(got[k], want[k])]
+
+
+def cluster_on_host() -> None:
+    """Phase 11: ``examples/port_cluster_serve.py``'s ``run`` over
+    CLUSTER_GPUS GPUs with rebalancing, and ``scripts/port_msctl.py``'s crash
+    demo fleet, the runs in CLUSTER_TRACED traced by a full hub. Nothing here
+    launches a kernel: the cluster models its GPUs in host Python. Gated: no
+    JAX and no ``repro`` loaded, every scoreboard against CLUSTER_REFERENCE
+    (floats at CLUSTER_RTOL, all else exactly), ``validate_trace`` clean on
+    each exported trace, the phase within CLUSTER_MAX_S of wall time."""
+    from repro_torch.telemetry import Telemetry, validate_trace
+
+    t0 = time.perf_counter()
+    hubs = {name: Telemetry(sample_stride=1, metrics=True, audit=True) for name in CLUSTER_TRACED}
+    reports = example_module("port_cluster_serve").run(gpus=CLUSTER_GPUS, migrate=True, telemetry=hubs)
+    msctl = example_module("port_msctl", "scripts")
+    reports["demo"], control = msctl._run_demo_fleet(True, telemetry=hubs["demo"])
+    traces = {name: json.loads(json.dumps(hub.chrome_trace())) for name, hub in hubs.items()}
+    wall = time.perf_counter() - t0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if loaded:
+        raise AssertionError(f"cluster: the reference is loaded: {loaded[:5]}")
+    for name, want in CLUSTER_REFERENCE.items():
+        got = cluster_scoreboard(reports[name])
+        if name == "demo":
+            got["journal"] = len(control.journal)
+            got["lifecycle"] = lifecycle_summary(control, msctl._ORDER)
+        log(f"cluster {name}: {json.dumps(got)}")
+        wrong = cluster_mismatches(got, want)
+        if wrong:
+            raise AssertionError(f"cluster {name}: {wrong[:8]} against the reference")
+    for name, hub in hubs.items():
+        errors = validate_trace(traces[name])
+        log(f"cluster {name} traced: {len(hub.events)} events, {len(traces[name]['traceEvents'])} in the chrome trace, "
+            f"{len(hub.metrics_report().metrics)} metrics")
+        if errors:
+            raise AssertionError(f"cluster {name}: validate_trace: {errors[:5]}")
+    log(f"cluster: {wall:.3f} s wall for the four runs, two traced (limit {CLUSTER_MAX_S} s)")
+    if wall > CLUSTER_MAX_S:
+        raise AssertionError(f"cluster: {wall:.1f} s > {CLUSTER_MAX_S} s")
 
 
 if __name__ == "__main__":

@@ -33,7 +33,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpointing import manifest
 from repro_torch.sharding.specs import gather
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, tree_map
 
 MANIFEST = "manifest.msgpack"
 
@@ -120,27 +120,43 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, step: int, target: Any) -> Any:
-    """Fills ``target``, a tree of tensors or DTensors, from the checkpoint of
-    ``step``: each leaf, found by its path, is copied into the target's
-    tensor on that tensor's device (a DTensor gets this rank's shard of it,
-    under the target's placements). Raises where a path is missing or a
-    shape or dtype differs. Returns the target."""
+    """Fills ``target``, a tree of tensors, DTensors or numpy arrays, from the
+    checkpoint of ``step``: each leaf, found by its path, is copied into the
+    target's tensor on that tensor's device (a DTensor gets this rank's shard
+    of it, under the target's placements). A numpy leaf (a host target) comes
+    back as a new array of the checkpoint's dtype, as the reference's
+    ``restore`` keeps it: int64 stays int64. Raises where a path is missing,
+    a shape differs, a tensor's dtype differs, or a numpy leaf would be
+    bf16. Returns a tree of the target's paths holding the restored leaves
+    (the target's own tensors)."""
     d = _final(ckpt_dir, step)
     with open(os.path.join(d, MANIFEST), "rb") as f:
         meta = manifest.unpackb(f.read())
     by_path = {e["path"]: e for e in meta["leaves"]}
+    out = []
     for path, leaf in flatten(target):
         entry = by_path[path]
-        src = _tensor(np.load(os.path.join(d, entry["file"])), entry["dtype"])
+        arr = np.load(os.path.join(d, entry["file"]))
+        if isinstance(leaf, (np.ndarray, np.generic)):
+            # a bf16 leaf is stored as a uint16 view, and numpy has no bf16
+            if arr.shape != leaf.shape or arr.dtype.name != entry["dtype"]:
+                raise ValueError(f"restore {path}: checkpoint {arr.shape} {entry['dtype']}, "
+                                 f"target {leaf.shape} {leaf.dtype}")
+            out.append(arr)
+            continue
+        src = _tensor(arr, entry["dtype"])
         if src.shape != leaf.shape or src.dtype != leaf.dtype:
             raise ValueError(f"restore {path}: checkpoint {tuple(src.shape)} {src.dtype}, "
                              f"target {tuple(leaf.shape)} {leaf.dtype}")
         with torch.no_grad():
+            local = leaf
             if isinstance(leaf, DTensor):
                 src = distribute_tensor(src, leaf.device_mesh, leaf.placements, src_data_rank=None).to_local()
-                leaf = leaf.to_local()
-            leaf.copy_(src)
-    return target
+                local = leaf.to_local()
+            local.copy_(src)
+        out.append(leaf)
+    restored = iter(out)
+    return tree_map(lambda _: next(restored), target)
 
 
 class AsyncCheckpointer:

@@ -145,3 +145,58 @@ def test_async_saver_raises_the_worker_s_error(tmp_path):
     with pytest.raises(OSError):
         saver.wait()
     saver.wait()  # the error is raised once
+
+
+def _host_manifest(n=3, seed=0):
+    """``cluster/migration.pack_working_set``'s five leaves: int64 scalars
+    and run bounds, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.integers(0, 1 << 40, n)).astype(np.int64)
+    return {"task_id": np.int64(7), "completed": np.int64(94), "page_size": np.int64(1 << 20),
+            "resident_starts": starts, "resident_stops": starts + rng.integers(1, 1 << 20, n).astype(np.int64)}
+
+
+def _host_target(n=3):
+    return {"task_id": np.zeros((), np.int64), "completed": np.zeros((), np.int64),
+            "page_size": np.zeros((), np.int64), "resident_starts": np.zeros((n,), np.int64),
+            "resident_stops": np.zeros((n,), np.int64)}
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+@pytest.mark.parametrize("reader", ["port", "reference"])
+def test_restore_into_a_numpy_host_target(tmp_path, writer, reader):
+    """A numpy target stays on the host: each leaf comes back as a new numpy
+    array of the checkpoint's dtype and shape (int64 stays int64; the target
+    is not written), as the reference restores one, in both directions
+    between the packages."""
+    tree = _host_manifest()
+    {"port": ckpt, "reference": ref_ckpt}[writer].save(str(tmp_path), 4, tree, keep=4)
+    target = _host_target()
+    out = {"port": ckpt, "reference": ref_ckpt}[reader].restore(str(tmp_path), 4, target)
+    assert sorted(out) == sorted(tree)
+    for key, want in tree.items():
+        got = out[key]
+        assert isinstance(got, np.ndarray) and got.dtype == np.int64 and got.shape == np.shape(want), key
+        assert got.tolist() == np.asarray(want).tolist(), key
+        assert not np.any(target[key]), key
+
+
+def test_restore_keeps_a_numpy_leaf_beside_tensors(tmp_path):
+    """A mixed tree: the tensor is filled in place on its device, the numpy
+    leaf comes back as a new array, the returned tree holds both."""
+    ckpt.save(str(tmp_path), 1, {"w": torch.arange(6, dtype=torch.float32), "n": np.arange(3, dtype=np.int64) + 40})
+    target = {"w": torch.zeros(6), "n": np.zeros(3, np.int64)}
+    out = ckpt.restore(str(tmp_path), 1, target)
+    assert out["w"] is target["w"] and torch.equal(target["w"], torch.arange(6, dtype=torch.float32))
+    assert out["n"] is not target["n"] and out["n"].tolist() == [40, 41, 42] and out["n"].dtype == np.int64
+
+
+def test_restore_into_numpy_raises_on_another_shape(tmp_path):
+    """A numpy leaf of another shape raises, and so does a bf16 leaf (stored
+    as a uint16 view; numpy has no bf16 to give it back as)."""
+    ckpt.save(str(tmp_path), 1, _host_manifest(n=3))
+    with pytest.raises(ValueError, match="restore resident_starts"):
+        ckpt.restore(str(tmp_path), 1, _host_target(n=2))
+    ckpt.save(str(tmp_path), 2, {"w": torch.ones(4, dtype=torch.bfloat16)})
+    with pytest.raises(ValueError, match="restore w: checkpoint .* bfloat16"):
+        ckpt.restore(str(tmp_path), 2, {"w": np.zeros(4, np.uint16)})

@@ -42,7 +42,11 @@ for want in ("repro_torch.launch.specs", "repro_torch.launch.train", "repro_torc
              "repro_torch.cluster.aggregate", "repro_torch.serving", "repro_torch.serving.traces",
              "repro_torch.serving.lifecycle", "repro_torch.serving.admission", "repro_torch.serving.engine",
              "repro_torch.telemetry", "repro_torch.telemetry.hub", "repro_torch.telemetry.metrics",
-             "repro_torch.telemetry.audit", "repro_torch.telemetry.export"):
+             "repro_torch.telemetry.audit", "repro_torch.telemetry.export", "repro_torch.cluster",
+             "repro_torch.cluster.topology", "repro_torch.cluster.placement", "repro_torch.cluster.transfer_plan",
+             "repro_torch.cluster.migration", "repro_torch.cluster.prefetch", "repro_torch.cluster.faults",
+             "repro_torch.cluster.engine", "repro_torch.control", "repro_torch.control.journal",
+             "repro_torch.control.lifecycle", "repro_torch.control.plane"):
     assert want in names, (want, names)
 import chip_smoke  # noqa: F401  (the module does nothing on import)
 sys.path.insert(0, "examples")
@@ -50,6 +54,9 @@ import port_multitask_oversubscription  # noqa: F401  (runs only as a script)
 import port_quickstart  # noqa: F401
 import port_train_lm  # noqa: F401
 import port_serve_trace  # noqa: F401
+import port_cluster_serve  # noqa: F401
+sys.path.insert(0, "scripts")
+import port_msctl  # noqa: F401  (runs only as a script)
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
@@ -76,7 +83,8 @@ def test_every_module_imports_with_jax_blocked():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py"] + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("port_*.py")),
+    + ["chip_smoke.py"] + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("port_*.py"))
+    + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("port_*.py")),
 )
 def test_source_imports_no_jax_or_reference(path):
     text = (ROOT / path).read_text()
@@ -84,8 +92,10 @@ def test_source_imports_no_jax_or_reference(path):
 
 
 def test_port_examples_exist():
-    for name in ("port_multitask_oversubscription", "port_quickstart", "port_train_lm", "port_serve_trace"):
+    for name in ("port_multitask_oversubscription", "port_quickstart", "port_train_lm", "port_serve_trace",
+                 "port_cluster_serve"):
         assert (ROOT / "examples" / f"{name}.py").is_file(), name
+    assert (ROOT / "scripts" / "port_msctl.py").is_file()
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
