@@ -122,10 +122,15 @@
    (9c) qwen3-1.7b at published width (MESH_LAYERS layers) through
    ``TrainSupervisor`` on a one-rank NCCL group (a FileStore) and a 1 x 1
    mesh, the state placed as DTensors: the losses of the same run without a
-   mesh, bit for bit, and checkpoints that cross between the two; (9d) the
-   dry-run of every applicable cell on the 16x16, 2x16x16 and 1x1 meshes (a
-   subprocess an arch on the host, started after the timed phases, meta
-   tensors only), its 1x1 record of qwen3-1.7b's train state against the
+   mesh, bit for bit, and checkpoints that cross between the two; then
+   grok-1-314b at 1 layer, published width, Adafactor, through
+   ``make_sharded_train_step`` on the same group (its per-layer gathers
+   and dp-group routing) beside ``make_train_step``, the losses bit for
+   bit; (9d) the dry-run of every applicable cell on the 16x16, 2x16x16
+   and 1x1 meshes (a subprocess an arch on the host, started after the
+   timed phases, meta tensors only; the MoE pair's and qwen1.5-110b's train
+   records on the production meshes logged whole), its 1x1 record of
+   qwen3-1.7b's train state against the
    bytes ``make_train_state`` really takes of the card's allocator (its
    rounding allowed), and its products' FLOPs of phase 8's step against ``train_bounds``' operations, at the
    ratio :func:`predicted_dot_flops` gives; every launch of 9a-9c gated
@@ -362,6 +367,13 @@ TRAIN_LM_STEPS, TRAIN_LM_KILL, TRAIN_LM_CKPT = 200, 130, 40
 # that each run's checkpoint (4.1 GB of bf16 parameters and f32 moments at 2
 # layers) is written and read back within a few seconds
 MESH_LAYERS, MESH_STEPS = 2, 3
+# the MoE model on the same one-rank group: grok-1-314b at published width,
+# 1 layer (bf16 parameters 13.1 GB, and as much again of gradients), through
+# make_sharded_train_step beside make_train_step
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "grok-1-314b", 1
+# the train cells the per-layer gathers bring under the card's 80 GiB on the
+# production meshes; phase 9d logs their records
+DRYRUN_FSDP_CELLS = ("grok-1-314b", "arctic-480b", "qwen1.5-110b")
 DRYRUN_MESHES = ("16x16", "2x16x16", "1x1")
 # Phase 10: the simulator path. SIM_REFERENCE is the scoreboard of the JAX
 # package's examples/serve_trace.py at its defaults (integers, then floats
@@ -566,7 +578,7 @@ def run_phases(torch, dev) -> None:
     phase_done("9a. quickstart")
     paths["train_lm"] = train_lm_on_card(torch, dev)
     phase_done("9b. train_lm")
-    paths["mesh"] = mesh_on_card(torch, dev)
+    paths["mesh"], paths["mesh_moe"] = mesh_on_card(torch, dev)
     phase_done("9c. mesh")
     dryrun_on_card(torch, dev)
     phase_done("9d. dry-run")
@@ -576,10 +588,13 @@ def run_phases(torch, dev) -> None:
     phase_done("11. cluster")
 
     recs["stream_matmul"]["extra"]["nk_launches"] = {"families": nk_launches}
+    mesh_batched = paths["mesh_moe"][3]
+    paths["mesh_moe"] = paths["mesh_moe"][:3]
     recs["stream_matmul"]["extra"]["batched_launches"] = {"moe": batched_launches,
-                                                          "train_moe": sum(r["batched"][0] for r in moe_runs.values())}
+                                                          "train_moe": sum(r["batched"][0] for r in moe_runs.values()),
+                                                          "mesh_moe": mesh_batched[0]}
     recs["stream_matmul"]["extra"]["batched_grad_launches"] = {
-        "train_moe": sum(r["batched"][1] for r in moe_runs.values())}
+        "train_moe": sum(r["batched"][1] for r in moe_runs.values()), "mesh_moe": mesh_batched[1]}
     kernels = kernels_line(recs, paths)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -3546,8 +3561,10 @@ def mesh_on_card(torch, dev):
     same launches, exactly those of the steps (:func:`train_launches`); a
     one-element NCCL all-reduce on the group; the mesh run's checkpoint
     restored without a mesh, and the meshless run's restored into the placed
-    state, both equal to the meshless state bit for bit. Returns the mesh
-    run's launches, steps and tensor-core launches."""
+    state, both equal to the meshless state bit for bit. Then, on the same
+    group, :func:`moe_on_mesh`. Returns the mesh run's launches, steps and
+    tensor-core launches, and the MoE mesh run's with its expert-batched
+    launches."""
     import torch.distributed as dist
 
     from repro_torch.checkpointing.checkpoint import restore
@@ -3594,6 +3611,7 @@ def mesh_on_card(torch, dev):
                             place(make_train_state(cfg, torch.Generator(dev).manual_seed(3)), shardings))
             same_into = all(torch.equal(a, gather(b)) for (_, a), (_, b) in zip(flatten(plain), flatten(other)))
             del plain, other
+            moe = moe_on_mesh(torch, dev, mesh)
         finally:
             dist.destroy_process_group()
     (base, base_launches, _), (meshed, launches, wgmma) = runs["plain"], runs["mesh"]
@@ -3603,7 +3621,71 @@ def mesh_on_card(torch, dev):
         raise AssertionError(f"mesh path: losses {meshed.losses} vs {base.losses}, launches {launches} vs "
                              f"{base_launches}, checkpoints across {same_from} / {same_into}")
     torch.cuda.empty_cache()
-    return launches, MESH_STEPS, wgmma
+    return (launches, MESH_STEPS, wgmma), moe
+
+
+def moe_on_mesh(torch, dev, mesh):
+    """Phase 9c's MoE model: MESH_MOE_ARCH at published width and
+    MESH_MOE_LAYERS layers, Adafactor and remat as published, capacity factor
+    1.25, MESH_STEPS steps of one TRAIN_B x TRAIN_S batch through
+    ``make_train_step``, then through ``make_sharded_train_step`` on ``mesh``
+    (the one-rank group) with the state placed as DTensors. Nothing splits
+    there, so the per-layer gathers and the dp group's routing run none of
+    their collectives. Gated: the same losses bit for bit; every step's
+    launches exactly, for both (:func:`train_launches`, :func:`train_wgmma`,
+    :func:`train_batched`). Returns the mesh run's launches, steps,
+    tensor-core and expert-batched launches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.kernels.streammm.ops import stream_matmul
+    from repro_torch.launch.steps import make_sharded_train_step, make_train_state, make_train_step
+    from repro_torch.sharding.specs import place, state_shardings
+
+    cfg = moe_config(MESH_MOE_ARCH, MESH_MOE_LAYERS)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipeline_for(cfg, ShapeSpec("mesh", TRAIN_S, TRAIN_B, "train"), seed=7).batch(0).items()}
+    want, want_wgmma = train_launches(cfg, cfg.remat), train_wgmma(cfg, cfg.remat)
+    want_batched = train_batched(cfg, cfg.remat)
+    runs = {}
+    for name in ("plain", "mesh"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = make_train_state(cfg, torch.Generator(dev).manual_seed(11))
+        if name == "mesh":
+            state = place(state, state_shardings(cfg, state, mesh))
+            step = make_sharded_train_step(cfg, mesh, warmup=1, total_steps=100)
+        else:
+            step = make_train_step(cfg, warmup=1, total_steps=100)
+        total = ({k: 0 for k in KERNELS}, {k: 0 for k in WGMMA_KERNELS}, [0, 0])
+        losses, t0 = [], time.perf_counter()
+        for i in range(MESH_STEPS):
+            torch.cuda.synchronize(dev)
+            zero_launches()
+            stream_matmul.batched_launches = stream_matmul.batched_grad_launches = 0
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize(dev)
+            launches, wgmma = read_launches(), read_wgmma()
+            batched = (stream_matmul.batched_launches, stream_matmul.batched_grad_launches)
+            if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()) or batched != want_batched:
+                raise AssertionError(f"mesh path, {cfg.name} {name} step {i}: launches {launches} != {want}, or "
+                                     f"tensor-core {wgmma} against {want_wgmma}, or expert-batched {batched} != "
+                                     f"{want_batched}")
+            losses.append(float(metrics["loss"]))
+            total = ({k: total[0][k] + launches[k] for k in KERNELS},
+                     {k: total[1][k] + wgmma[k] for k in WGMMA_KERNELS},
+                     [total[2][0] + batched[0], total[2][1] + batched[1]])
+        wall = time.perf_counter() - t0
+        runs[name] = (losses, total)
+        log(f"mesh path, {cfg.name} {name}: {cfg.num_layers} layer at published width, {MESH_STEPS} steps of "
+            f"{TRAIN_B} x {TRAIN_S} tokens in {wall:.2f} s; losses {losses}; launches {total[0]}, tensor-core "
+            f"{total[1]}, expert-batched {total[2]}")
+        del state, metrics, step
+    (base, _), (got, (launches, wgmma, batched)) = runs["plain"], runs["mesh"]
+    log(f"mesh path, {cfg.name}: losses bit-identical {got == base}")
+    if got != base:
+        raise AssertionError(f"mesh path, {cfg.name}: losses {got} vs {base}")
+    torch.cuda.empty_cache()
+    return launches, MESH_STEPS, wgmma, tuple(batched)
 
 
 def allocated_bytes(torch, dev) -> int:
@@ -3701,13 +3783,25 @@ def dryrun_on_card(torch, dev) -> None:
     ok = [r for r in records if r["status"] == "ok"]
     log(f"dry-run: {len(records)} records ({len(ok)} ok, waited {time.perf_counter() - t0:.1f} s); per device: "
         "arch shape mesh | argument GiB (state or params, cache, batch) | temp GiB | output - alias GiB | "
-        "dot FLOPs | all-gather / all-reduce GB | fits 80 GiB")
+        "dot FLOPs | all-gather / reduce-scatter / all-reduce GB | fits 80 GiB")
     for r in ok:
         m, c = r["mem"], r["hlo_costs"]
         log(f"  {r['arch']} {r['shape']} {r['mesh']} | {m['argument_bytes'] / 2**30:.3f} | "
             f"{m['temp_bytes'] / 2**30:.3f} | {(m['output_bytes'] - m['alias_bytes']) / 2**30:.3f} | "
             f"{c['dot_flops']:.4e} | {c['collective_bytes']['all-gather'] / 1e9:.3f} / "
+            f"{c['collective_bytes']['reduce-scatter'] / 1e9:.3f} / "
             f"{c['collective_bytes']['all-reduce'] / 1e9:.3f} | {r['fits_h100']}")
+    log("dry-run: the train cells of the per-layer gathers on the production meshes, per device (GiB; the "
+        "records as JSON after each line):")
+    for arch in DRYRUN_FSDP_CELLS:
+        for mesh in DRYRUN_MESHES[:2]:
+            (r,) = [r for r in ok if (r["arch"], r["shape"], r["mesh"]) == (arch, "train_4k", mesh)]
+            m = r["mem"]
+            total = m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"] - m["alias_bytes"]
+            log(f"  {arch} train_4k {mesh}: argument {m['argument_bytes'] / 2**30:.3f} + temp "
+                f"{m['temp_bytes'] / 2**30:.3f} + output {m['output_bytes'] / 2**30:.3f} - alias "
+                f"{m['alias_bytes'] / 2**30:.3f} = {total / 2**30:.3f}, fits_h100 {r['fits_h100']}")
+            log("  " + json.dumps({k: r[k] for k in ("arch", "shape", "mesh", "mem", "fits_h100", "hlo_costs")}))
     if len(ok) != want * len(DRYRUN_MESHES) or any(r["status"] not in ("ok", "skipped") for r in records):
         raise AssertionError(f"dry-run: {len(ok)} cells ok of {want * len(DRYRUN_MESHES)}: "
                              f"{[r.get('error') for r in records if r['status'] == 'error'][:3]}")

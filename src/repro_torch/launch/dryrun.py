@@ -16,12 +16,17 @@ the single H100 the port runs on. A record keeps the reference's fields:
   arguments (``state_bytes`` or ``param_bytes``, ``cache_bytes``,
   ``batch_bytes``); ``output_bytes`` its outputs and ``alias_bytes`` those
   updated in place (the train state, the decode cache); ``temp_bytes`` what
-  the port's sharded scheme holds beside them as far as it can be stated:
-  the gathered copies of leaves split over some axis (for training the
-  parameters: the optimizer updates its state on the shards) and, for
-  training, the whole gradients. Activations are not counted, so ``fits_h100``
-  (argument + temp + output - alias within 80 GiB) is a necessary
-  condition, not a sufficient one.
+  the port's sharded scheme holds beside them as far as it can be stated.
+  For training, the most the per-layer gathers hold at once
+  (:func:`_fsdp_temp`): one layer's gathered leaves (one hybrid group's;
+  outside remat, every layer's so far), the whole gradients one gather's
+  backward receives, the gradient shards made so far, and the head's
+  gathered leaves and whole gradients in their turn; the optimizer updates
+  its state on the shards. MoE's dispatch buffer (under a batch split E x
+  min(capacity, the rank's tokens) x d a layer) is an activation. For
+  serving, the gathered copies of split leaves. Activations are not
+  counted, so ``fits_h100`` (argument + temp + output - alias within 80
+  GiB) is a necessary condition, not a sufficient one.
 * ``hlo_costs``: the port's counts (``roofline/costs.py``): the products'
   FLOPs of one device's step (the rank's rows of the batch; ranks along
   ``model`` compute the same products) and the collectives of the port's
@@ -37,7 +42,7 @@ import json
 import math
 import time
 import traceback
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -119,6 +124,156 @@ def _adafactor_reductions(plan: Plan, shape, sharding) -> None:
     plan.all_reduce(4, every)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """One leaf as one gather sees it (a layer of a stacked leaf): its shape,
+    dtype and placement, whether the gather handles it (split, or the batch
+    split), and ``key``, the local shard whose gradient it makes."""
+
+    shape: tuple
+    dtype: torch.dtype
+    sharding: Any
+    split: bool
+    handled: bool
+    key: tuple
+
+    @property
+    def whole(self) -> int:
+        return math.prod(self.shape) * torch.empty((), dtype=self.dtype).element_size()
+
+    @property
+    def shard(self) -> int:
+        return math.prod(self.sharding.shard_shape(self.shape)) * torch.empty((), dtype=self.dtype).element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Group:
+    """One call of ``sharding.fsdp.gather`` in the sharded step's forward:
+    ``kind`` "head" (the embedding, the LM head) or "layer" (a layer, a
+    hybrid group or trailing layer), ``remat`` whether it runs under remat
+    (its gathered leaves die with the call and the replay gathers them
+    again), else kept for the backward."""
+
+    kind: str
+    remat: bool
+    leaves: Tuple[_Leaf, ...]
+
+    def total(self, what: str, only=None) -> int:
+        return sum(getattr(leaf, what) for leaf in self.leaves if only is None or getattr(leaf, only))
+
+
+def _gather_groups(cfg: ModelConfig, params, specs, ms: MeshShape, batch_axes, batch) -> list:
+    """The sharded step's gathers in the order of the forward (``models/model.py``):
+    the embedding where the inputs use it, each layer (a hybrid group of
+    (rec, rec, attn), then its trailing recurrent layers outside remat),
+    then the LM head's final norm with ``lm_head`` or, tied, ``embed`` again."""
+    names = dict(flatten(params))
+
+    def leaf(path, layer=None):
+        t, s = names[path], specs["params/" + path]
+        shape, spec = (tuple(t.shape), s.spec) if layer is None else (tuple(t.shape[1:]), s.spec[1:])
+        sharding = sh.LeafSharding(ms, spec)
+        split = any(ms.shape[a] > 1 for d in range(len(shape)) for a in sharding.axes(d))
+        return _Leaf(shape, t.dtype, sharding, split, split or bool(batch_axes), (path, layer))
+
+    def stack(prefix, i):
+        return [leaf(p, i) for p in names if p.startswith(prefix + "/")]
+
+    groups = []
+    if cfg.family != "audio" or "frame_mask" in batch:
+        groups.append(_Group("head", False, (leaf("head/embed"),)))
+    if cfg.family == "hybrid":
+        n_groups = cfg.num_layers // len(cfg.rglru.pattern)
+        n_rec = sum(1 for k in cfg.layer_kinds() if k == "rec")
+        for g in range(n_groups):
+            groups.append(_Group("layer", cfg.remat, tuple(
+                stack("rec_layers", 2 * g) + stack("rec_layers", 2 * g + 1) + stack("attn_layers", g))))
+        for i in range(2 * n_groups, n_rec):
+            groups.append(_Group("layer", False, tuple(stack("rec_layers", i))))
+    else:
+        for layer in range(cfg.num_layers):
+            groups.append(_Group("layer", cfg.remat, tuple(stack("layers", layer))))
+    head = "head/embed" if cfg.tie_embeddings else "head/lm_head"
+    groups.append(_Group("head", False, (leaf("head/final_norm"), leaf(head))))
+    return groups
+
+
+def _fsdp_temp(groups) -> int:
+    """The most the sharded step holds beside its arguments, by
+    ``sharding.fsdp``'s gathers, at each gather's end and each gather
+    backward's start and end: the gathered leaves (a group under remat only
+    during its call and its replay; one outside remat until its backward),
+    the whole gradients a gather backward receives, and the gradient shards
+    made so far (a shard a local tensor: the tied head's two gathers of
+    ``embed`` make one). The backward runs the groups in reverse; a group's
+    gathered leaves are gone when its backward starts (their last user has
+    run). Not counted: activations; the shards stacked into a stacked
+    leaf's gradient beside themselves for a moment; within a layer's
+    backward, a leaf both gathered and whole for the op that computes its
+    gradient; and, outside remat, that leaves no op saves (norms, biases)
+    die before the backward: so trailing layers are counted whole."""
+    peak = kept = 0
+    for g in groups:
+        if g.kind == "layer" and not g.remat:
+            kept += g.total("whole", "split")
+            peak = max(peak, kept)
+        else:
+            peak = max(peak, kept + g.total("whole", "split"))
+    held, seen = 0, set()
+    for g in reversed(groups):
+        if g.kind == "layer":
+            if g.remat:
+                peak = max(peak, g.total("whole", "split") + held)
+            else:
+                kept -= g.total("whole", "split")
+        whole = g.total("whole", "handled")
+        peak = max(peak, kept + whole + held)
+        for leaf in g.leaves:
+            if leaf.key not in seen:
+                seen.add(leaf.key)
+                held += leaf.shard
+        peak = max(peak, kept + whole + held)
+    return peak
+
+
+def _gradient_reduction(plan: Plan, leaf: _Leaf, batch_axes) -> None:
+    """The collectives of ``sharding.fsdp.reduce_leaf`` on one leaf's whole
+    gradient: the slices over axes that split only the leaf first, a
+    reduce-scatter over each batch axis that splits it, an all-reduce of
+    the shard over each that does not."""
+    sizes = plan.sizes
+    dims = [[a for a in leaf.sharding.axes(d) if sizes[a] > 1] for d in range(len(leaf.shape))]
+    itemsize = torch.empty((), dtype=leaf.dtype).element_size()
+    cur = list(leaf.shape)
+    for d in sorted(range(len(cur)), key=lambda d: any(a in batch_axes for a in dims[d])):
+        for a in dims[d]:
+            before = math.prod(cur) * itemsize
+            cur[d] //= sizes[a]
+            if a in batch_axes:
+                plan.reduce_scatter(before, math.prod(cur) * itemsize)
+    own = {a for on in dims for a in on}
+    plan.all_reduce(math.prod(cur) * itemsize, [a for a in batch_axes if a not in own])
+
+
+def _moe_collectives(plan: Plan, cfg: ModelConfig, batch_axes) -> None:
+    """MoE under a batch split, each layer: the (k, E) int32 count table
+    all-gathered over the dp group (``layers.moe_dispatch``) and the
+    load-balance term's two (E,) f32 sums all-reduced, each again in
+    remat's replay, and the gradient of the router probabilities' sum
+    all-reduced in the backward."""
+    m = cfg.moe
+    runs = 1 + cfg.remat
+    for _ in range(cfg.num_layers):
+        for _ in range(runs):
+            held = 4 * m.top_k * m.num_experts
+            for a in reversed(batch_axes):  # minor first
+                plan.all_gather((plan.sizes[a] - 1) * held)
+                held *= plan.sizes[a]
+            for _ in range(2):
+                plan.all_reduce(4 * m.num_experts, batch_axes)
+        plan.all_reduce(4 * m.num_experts, batch_axes)
+
+
 def build_cell(arch, shape, mesh) -> Cell:
     """The cell of ``arch`` (a name or a ``ModelConfig``) at ``shape`` (a
     name in ``SHAPES`` or a ``ShapeSpec``) on ``mesh`` (a name such as
@@ -136,17 +291,26 @@ def build_cell(arch, shape, mesh) -> Cell:
         shardings = sh.state_shardings(cfg, state, ms)
         state_bytes = _shard_bytes(state, shardings)
         specs = dict(flatten(shardings))
-        temp = 0
+        batch_axes = tuple(a for a in axes if ms.shape[a] > 1)
+        groups = _gather_groups(cfg, state["params"], specs, ms, batch_axes, batch)
+        for g in groups:
+            for leaf in g.leaves:
+                if leaf.handled:
+                    for _ in range(2 if g.remat else 1):  # remat's replay gathers the layer again
+                        plan.gather(leaf.shape, leaf.dtype, leaf.sharding)
+                    _gradient_reduction(plan, leaf, batch_axes)
         for path, p in flatten(state["params"]):
-            temp += plan.gather(tuple(p.shape), p.dtype, specs["params/" + path])
-            temp += p.numel() * p.element_size()  # the whole gradient
-            plan.all_reduce(4 * p.numel(), axes)  # reduced in f32
+            split = [a for d in range(p.dim()) for a in specs["params/" + path].axes(d) if ms.shape[a] > 1]
+            for a in split:  # grad_norm: the shard's sum of squares over the ranks that split it
+                plan.all_reduce(4, (a,))
             if cfg.optimizer == "adafactor":
                 _adafactor_reductions(plan, tuple(p.shape), specs["params/" + path])
+        if cfg.moe is not None and batch_axes:
+            _moe_collectives(plan, cfg, batch_axes)
         for _ in range(3):  # the label count, the loss and ce
             plan.all_reduce(4, axes)
         mem = {"state_bytes": state_bytes, "batch_bytes": batch_bytes, "argument_bytes": state_bytes + batch_bytes,
-               "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": temp}
+               "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": _fsdp_temp(groups)}
 
         def count(c):
             return dot_flops(value_and_grad, build_model(c), abstract_train_state(c)["params"], batch)

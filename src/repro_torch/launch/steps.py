@@ -12,19 +12,19 @@ The train step runs eagerly: it is not compiled as the reference's
 """
 from __future__ import annotations
 
-import math
+import dataclasses
 import os
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.common import SHAPES_ONLY
 from repro_torch.models.model import build_model, loss_tokens
 from repro_torch.optim import get_optimizer, get_schedule
-from repro_torch.sharding.specs import batch_shardings, gather, leaf_split, local, shard_of
+from repro_torch.sharding import fsdp
+from repro_torch.sharding.specs import batch_shardings, leaf_split, local
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
@@ -44,15 +44,52 @@ def abstract_train_state(cfg: ModelConfig):
     return make_train_state(cfg, SHAPES_ONLY)
 
 
-def value_and_grad(fns, params, batch):
+def value_and_grad(fns, params, batch, split=None):
     """(loss, aux dict, gradients in flatten order) of ``fns.loss`` at
     ``params``, all detached; the gradients come out in the params' dtypes,
     zeros where a leaf took no part (the reference's ``jax.value_and_grad``
-    with ``has_aux``)."""
+    with ``has_aux``).
+
+    ``split`` (:class:`_Split`, the sharded step's): ``params`` are local
+    shards and the gradients come out as shards (``sharding.fsdp``). Where
+    it splits the batch, the loss is over this rank's rows, weighted before
+    the backward by the rank's share of the labels (:func:`loss_tokens`
+    over their sum on the dp group), so that the gradients' sums over the
+    group, and the returned loss and ``ce``, are the global token-mean's."""
     flat = [p.detach().requires_grad_() for p in leaves(params)]
-    loss, aux = fns.loss(unflatten_like(params, flat), batch)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
-    return loss.detach(), {k: v.detach() for k, v in aux.items()}, list(grads)
+    if split is None:
+        loss, aux = fns.loss(unflatten_like(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, list(grads)
+    axes = split.batch
+    if axes:
+        batch = split.rows(batch)
+    with fsdp.use_fsdp(fsdp.Fsdp(flat, split.leaves, axes)):
+        loss, aux = fns.loss(unflatten_like(params, flat), batch)
+        w = None
+        if axes:
+            n = loss_tokens(fns.cfg, batch).float()
+            w = n / fsdp.batch_sum(n, axes).clamp(min=1.0)
+        grads = torch.autograd.grad(loss if w is None else loss * w, flat, allow_unused=True,
+                                    materialize_grads=True)
+    if w is None:
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, list(grads)
+
+    def total(t):
+        return fsdp.batch_sum(t.detach().float() * w, axes)
+
+    return total(loss), {"ce": total(aux["ce"]), "aux": aux["aux"].detach()}, list(grads)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """How the sharded step cuts one call: each param leaf's
+    ``fsdp.LeafAxes`` in flatten order, the axes of size > 1 that split the
+    batch (major first), and ``rows(batch)``, this rank's rows."""
+
+    leaves: tuple
+    batch: tuple
+    rows: Callable
 
 
 def make_train_step(
@@ -86,10 +123,11 @@ def make_train_step(
 
 def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatches):
     """(gradients, apply) of :func:`make_train_step`'s step:
-    ``gradients(params, batch) -> (loss, aux, grads)`` (grads in flatten
-    order) and ``apply(state, loss, aux, grads, gnorm, splits=None) ->
-    (state, metrics)``, the optimizer at the schedule's learning rate
-    (``splits``: the optimizer's, for a state of shards)."""
+    ``gradients(params, batch, split=None) -> (loss, aux, grads)`` (grads in
+    flatten order; ``split`` as :func:`value_and_grad`'s) and
+    ``apply(state, loss, aux, grads, gnorm, splits=None) -> (state,
+    metrics)``, the optimizer at the schedule's learning rate (``splits``:
+    the optimizer's, for a state of shards)."""
     fns = build_model(cfg)
     opt = get_optimizer(cfg.optimizer)
     sched = get_schedule(cfg.schedule, peak_lr, warmup, total_steps)
@@ -107,14 +145,14 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
 
         return {k: per(v) for k, v in batch.items()}
 
-    def gradients(params, batch):
+    def gradients(params, batch, split=None):
         if n_micro <= 1:
-            return value_and_grad(fns, params, batch)
+            return value_and_grad(fns, params, batch, split)
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
         loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         aux = {"ce": torch.zeros_like(loss), "aux": torch.zeros_like(loss)}
-        for i in range(n_micro):
-            loss_i, _, g = value_and_grad(fns, params, _split(batch, i))
+        for i in range(n_micro):  # under a split, each rank takes its rows of the reference's microbatch i
+            loss_i, _, g = value_and_grad(fns, params, _split(batch, i), split)
             grads = [a + gi.to(a.dtype) / n_micro for a, gi in zip(grads, g)]
             loss = loss + loss_i / n_micro
         return loss, aux, grads
@@ -129,9 +167,12 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
     return gradients, apply
 
 
-def grad_norm(grads) -> torch.Tensor:
-    """The f32 norm of the gradients in flatten order."""
-    return torch.sqrt(sum(_square_sum(g) for g in grads))
+def grad_norm(grads, splits=None) -> torch.Tensor:
+    """The f32 norm of the gradients in flatten order; with ``splits``
+    (``sharding.specs.LeafSplit`` or None a leaf) each gradient is a shard,
+    its sum of squares summed over the ranks that split its leaf."""
+    splits = splits or [None] * len(grads)
+    return torch.sqrt(sum(_square_sum(g) if s is None else s.reduce(_square_sum(g)) for g, s in zip(grads, splits)))
 
 
 def make_sharded_train_step(
@@ -144,58 +185,57 @@ def make_sharded_train_step(
 ):
     """``train_step(state, batch) -> (state, metrics)`` over a state placed on
     ``mesh`` (a ``DeviceMesh``; ``sharding.specs.place``), the global
-    function of :func:`make_train_step` on every rank:
+    function of :func:`make_train_step` on every rank, holding what the
+    reference's FSDP holds:
 
-    * the parameters are gathered to full for the products (on a one-rank
-      mesh each is its local tensor, so the step is the unsharded one, bit
-      for bit); the optimizer state is never gathered;
-    * each rank takes its rows of the global ``batch`` along the axes that
-      ``batch_shardings`` splits it over (pod and data, or data alone);
-    * the loss, ``ce`` and every gradient are reduced over those axes as the
-      loss over the global batch: each rank's token-mean weighted by its
-      share of the labels (:func:`loss_tokens`, summed over the ranks), so
-      the sum is the global token-mean, not a mean of the ranks' means; the
-      gradients reduce in f32 and return to the leaves' dtypes;
-    * ``grad_norm`` is taken over the reduced, whole gradients; each is then
-      cut to this rank's shard, the whole one dropped leaf by leaf, and the
+    * the model's ``loss`` gets each parameter's local shard and gathers one
+      layer's leaves (one hybrid group's) at a time, inside remat's unit, so
+      that the replay gathers them again; the head's leaves where they are
+      used (``sharding.fsdp``). Each gathered leaf's gradient is cut to this
+      rank's shard and summed over the batch axes as its backward ends, so
+      that no rank holds the whole parameters or gradients;
+    * each rank takes its rows of the global ``batch`` (of each of the
+      reference's microbatches) along the axes that ``batch_shardings``
+      splits it over (pod and data, or data alone), and weights its loss by
+      its share of the labels before the backward (:func:`value_and_grad`):
+      the sums over the ranks are the global token-mean's, not a mean of the
+      ranks' means. MoE routes over the dp group's tokens and takes its
+      load-balance term over them (``models/layers.moe_dispatch``);
+    * microbatches accumulate the f32 gradient on the shards; ``grad_norm``
+      sums the shards' squares over the ranks that split each leaf; the
       optimizer updates this rank's shards of the parameters and of its
       state in place (Adafactor sums its row and column statistics and its
       RMS over the ranks that split a leaf: ``sharding.specs.LeafSplit``).
 
     No product is split over ``model``: ranks that share a batch slice
-    compute the same thing (tensor-parallel compute is ROADMAP.md §1 item 16),
-    and the whole parameters and gradients are held at once (gathering one
-    layer at a time is ROADMAP.md §1 item 17). MoE raises
-    NotImplementedError where the batch is split: its capacity and
-    load-balance term are functions of all the call's tokens, which a rank's
-    dispatch does not see."""
+    compute the same thing (tensor-parallel compute is ROADMAP.md §1 item
+    16). Where nothing splits the batch or a leaf, as on a one-rank mesh,
+    the step is the unsharded one, bit for bit."""
     gradients, apply = _train_step_parts(cfg, peak_lr, warmup, total_steps, microbatches)
-    ms = mesh_shape(mesh)
-    coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
-        axes = batch_split_axes(cfg, batch, ms)
-        reduce = None
-        if math.prod(ms.shape[a] for a in axes) > 1:
-            if cfg.moe is not None:
-                raise NotImplementedError(
-                    f"{cfg.name}: MoE under a batch split over {axes} (capacity and the load-balance "
-                    "term follow all tokens of the call; ROADMAP.md §3)")
-            batch = split_batch(batch, axes, ms, coords)
-            reduce = _reduce_over(cfg, [mesh.get_group(a) for a in axes if ms.shape[a] > 1], batch)
-        loss, aux, grads = gradients(tree_map(gather, state["params"]), batch)
-        if reduce is not None:
-            loss, aux, grads = reduce(loss, aux, grads)
-        gnorm = grad_norm(grads)
         placed = leaves(state["params"])
-        for i, t in enumerate(placed):
-            grads[i] = shard_of(grads[i], t)
+        loss, aux, grads = gradients(tree_map(local, state["params"]), batch,
+                                     sharded_split(cfg, mesh, state["params"], batch))
+        splits = [leaf_split(t) for t in placed]
         shards = tree_map(local, state)
-        new, metrics = apply(shards, loss, aux, grads, gnorm, [leaf_split(t) for t in placed])
+        new, metrics = apply(shards, loss, aux, grads, grad_norm(grads, splits), splits)
         shards["step"].copy_(new["step"])
         return state, metrics
 
     return train_step
+
+
+def sharded_split(cfg: ModelConfig, mesh, params, batch: Dict[str, Any]) -> "_Split | None":
+    """The :class:`_Split` of one call of :func:`make_sharded_train_step`'s
+    gradients over ``params`` placed on ``mesh`` and the global ``batch``;
+    None where nothing splits the batch or a leaf."""
+    ms = mesh_shape(mesh)
+    coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
+    axes = batch_split_axes(cfg, batch, ms)
+    split = _Split(tuple(fsdp.leaf_axes(t) for t in leaves(params)), fsdp.mesh_axes(mesh, axes),
+                   lambda b: split_batch(b, axes, ms, coords))
+    return split if split.batch or any(a.split for a in split.leaves) else None
 
 
 def batch_split_axes(cfg: ModelConfig, batch: Dict[str, Any], mesh) -> tuple:
@@ -209,7 +249,8 @@ def batch_split_axes(cfg: ModelConfig, batch: Dict[str, Any], mesh) -> tuple:
 
 def split_batch(batch: Dict[str, Any], axes, mesh, coords) -> Dict[str, Any]:
     """This rank's rows of each input (dim 1 of ``positions3``): the
-    ranks along ``axes`` cut the rows into equal runs, major first."""
+    ranks along ``axes`` cut the rows into equal runs, major first. Raises
+    ValueError where an input's rows do not divide."""
     sizes = mesh_shape(mesh).shape
     n, i = 1, 0
     for a in axes:
@@ -217,29 +258,12 @@ def split_batch(batch: Dict[str, Any], axes, mesh, coords) -> Dict[str, Any]:
 
     def rows(name, v):
         dim = 1 if name == "positions3" else 0
+        if v.shape[dim] % n:
+            raise ValueError(f"{name}: {v.shape[dim]} rows do not split {n} ways over {tuple(axes)}")
         size = v.shape[dim] // n
         return v.narrow(dim, i * size, size)
 
     return {k: rows(k, v) for k, v in batch.items()}
-
-
-def _reduce_over(cfg: ModelConfig, groups, batch):
-    """The reduce of :func:`make_sharded_train_step` over ``groups``."""
-    def all_sum(t):
-        for g in groups:
-            dist.all_reduce(t, group=g)
-        return t
-
-    n = loss_tokens(cfg, batch).float()
-    w = n.clamp(min=1.0) / all_sum(n.clone()).clamp(min=1.0)
-
-    def reduce(loss, aux, grads):
-        for i, g in enumerate(grads):  # in place, so one leaf's f32 copy at a time
-            grads[i] = all_sum(g.float() * w).to(g.dtype)
-        ce = all_sum(aux["ce"].float() * w)
-        return all_sum(loss.float() * w), {"ce": ce, "aux": aux["aux"]}, grads
-
-    return reduce
 
 
 def _square_sum(g: torch.Tensor) -> torch.Tensor:

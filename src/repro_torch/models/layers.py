@@ -25,6 +25,7 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.streammm.ops import stream_matmul
 from repro_torch.models import common
 from repro_torch.models.common import apply_mrope, apply_rope, attend, dense_init, rms_norm
+from repro_torch.sharding import fsdp
 
 
 def linear(x, w, w_layout: str = "kn"):
@@ -247,8 +248,13 @@ class Dispatch(NamedTuple):
     assignments, choice-major (every token's first choice before any second
     one): ``idx`` (n, k) experts, best first; ``gates`` (k * n,) renormalised
     f32 gates; ``posn`` its position in its expert; ``keep`` whether that is
-    below ``cap``; ``slot`` ``e * cap + posn`` (``e * cap`` where dropped);
-    ``rows`` (E,) int32, each expert's filled slots, clamped to ``cap``."""
+    below the capacity; ``slot`` its row in the (E * ``cap``, d) dispatch
+    buffer (``e * cap`` where dropped); ``rows`` (E,) int32, each expert's
+    filled slots; ``cap`` the buffer's slots an expert. Unsplit, ``cap`` is
+    the capacity and ``slot`` is ``e * cap + posn``. Under a batch split
+    ``posn`` and ``keep`` are those of the dp group's tokens, the rank's
+    rows in their place; the buffer holds only this rank's kept
+    assignments, ``cap = min(capacity, n)``."""
 
     idx: torch.Tensor
     gates: torch.Tensor
@@ -259,11 +265,21 @@ class Dispatch(NamedTuple):
     cap: int
 
 
-def moe_dispatch(router_logits, m: MoEConfig) -> Dispatch:
+def moe_dispatch(router_logits, m: MoEConfig, batch=()) -> Dispatch:
     """The reference's routing of (n, E) f32 router logits: softmax, top-k,
     gates renormalised with ``+ 1e-9``, a choice-major capacity sort. Integer
     work on the device and no host sync: no boolean indexing, no
-    ``bincount``; the counts are the last row of the one-hot cumsum."""
+    ``bincount``; the counts are the last row of the one-hot cumsum.
+
+    Under a batch split (``batch``: ``sharding.fsdp`` axes) the reference's
+    call sees the dp group's n * n_dp tokens, the ranks' rows in rank order.
+    So the capacity is ``moe_capacity(m, n * n_dp)``, and an assignment's
+    place in its expert counts every earlier one of the group: those of
+    earlier choices on every rank, then those of its own choice on earlier
+    ranks, then its own rank's. Each rank all-gathers a (k, E) int32 table
+    of its counts a choice, not its tokens. The rank's kept assignments of an
+    expert are the first of its own in its order, and a token picks an
+    expert once, so they fit ``min(capacity, n)`` slots."""
     n, e = router_logits.shape
     probs = torch.softmax(router_logits, dim=-1)
     # jax.lax.top_k puts the lower index first on an exact tie: a stable sort
@@ -271,15 +287,29 @@ def moe_dispatch(router_logits, m: MoEConfig) -> Dispatch:
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[:, : m.top_k], idx[:, : m.top_k]
     gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
-    cap = moe_capacity(m, n)
     flat_e = idx.T.reshape(-1)
     one_hot = (flat_e[:, None] == torch.arange(e, device=flat_e.device)).to(torch.int32)
     seen = torch.cumsum(one_hot, dim=0, dtype=torch.int32)  # (k n, E), inclusive
     posn = seen.gather(1, flat_e[:, None]).squeeze(1) - 1  # the reference's exclusive cumsum
-    keep = posn < cap
+    if not batch:
+        cap = moe_capacity(m, n)
+        keep = posn < cap
+        slot = flat_e * cap + torch.where(keep, posn, 0)
+        rows = seen[-1].clamp(max=cap).to(torch.int32)
+        return Dispatch(idx, gates.T.reshape(-1), posn, keep, slot, rows, cap)
+    capacity = moe_capacity(m, n * fsdp.batch_size(batch))
+    counts = one_hot.view(m.top_k, n, e).sum(dim=1, dtype=torch.int32)  # (k, E)
+    table = fsdp.batch_all_gather(counts, batch)  # (n_dp, k, E)
+    others = table.sum(dim=0, dtype=torch.int32) - counts
+    before = torch.cumsum(others, dim=0, dtype=torch.int32) - others  # other ranks' earlier choices
+    before = before + table[: fsdp.batch_index(batch)].sum(dim=0, dtype=torch.int32)  # earlier ranks
+    choice = torch.arange(m.top_k, device=flat_e.device).repeat_interleave(n)
+    place = posn + before[choice, flat_e]
+    keep = place < capacity
+    cap = min(capacity, n)
     slot = flat_e * cap + torch.where(keep, posn, 0)
-    rows = seen[-1].clamp(max=cap).to(torch.int32)
-    return Dispatch(idx, gates.T.reshape(-1), posn, keep, slot, rows, cap)
+    rows = (one_hot * keep[:, None]).sum(dim=0, dtype=torch.int32)
+    return Dispatch(idx, gates.T.reshape(-1), place, keep, slot, rows, cap)
 
 
 def moe_apply(p, x, cfg: ModelConfig):
@@ -292,13 +322,15 @@ def moe_apply(p, x, cfg: ModelConfig):
     zero rows are the reference's ``expert_out`` bit for bit. Nothing here
     waits for the device: ``cap`` is a function of the shape. The
     reference's sharding constraints do nothing on one card and are
-    dropped."""
+    dropped. Under the sharded step's batch split the routing is the dp
+    group's (:func:`moe_dispatch`) and the experts run on this rank's kept
+    assignments only: no token leaves its rank."""
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
     tokens = x.reshape(n, d)
     router_logits = stream_matmul(tokens.float(), p["router"], out_dtype=torch.float32)
-    route = moe_dispatch(router_logits, m)
+    route = moe_dispatch(router_logits, m, fsdp.batch_axes())
     cap, e = route.cap, m.num_experts
 
     # Scatter the k copies of each token into its slot. A kept assignment owns

@@ -38,7 +38,11 @@ vision prefix carries no labels, and audio labels are ignored where
 ``frame_mask`` is False. With ``cfg.remat`` each layer (the hybrid: each
 (rec, rec, attn) group) runs under ``torch.utils.checkpoint``, as the
 reference's ``_remat`` wraps its scan body: the numbers do not change, the
-activations kept for the backward do.
+activations kept for the backward do. Under the sharded train step
+``loss`` gets each leaf's local shard and gathers a layer's leaves (a
+group's) inside that unit and the head's where they are used
+(``sharding/fsdp.py``); with nothing installed the gathers are the leaves
+themselves.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     moe_apply,
 )
+from repro_torch.sharding import fsdp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +92,15 @@ def _init_head(gen: torch.Generator, cfg: ModelConfig):
     return p
 
 
+def _embed_table(params):
+    """``params``' embedding table, gathered under the sharded step."""
+    return fsdp.gather({"embed": params["head"]["embed"]})["embed"]
+
+
 def _logits(p, x, cfg: ModelConfig):
+    """The LM head over x; under the sharded step its leaves are gathered
+    here (``sharding.fsdp``), the tied head's ``embed`` a second time."""
+    p = fsdp.gather({k: p[k] for k in ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")})
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:  # x @ embed^T, embed (V, d) read in place
         return linear(x, p["embed"], w_layout="nk")
@@ -98,17 +111,22 @@ def _layer_views(tree, n: int):
     """The ``n`` layers of a stacked tree as views, one ``unbind`` a leaf:
     under autograd the leaf's gradient is then one stack of the layers'
     gradients, where indexing ``[l]`` would add a zero tensor of the whole
-    leaf for every layer."""
-    split = {k: _layer_views(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    leaf for every layer. Under the sharded step the views are the
+    layers' shards (``sharding.fsdp.unbind``)."""
+    split = {k: _layer_views(v, n) if isinstance(v, dict) else fsdp.unbind(v) for k, v in tree.items()}
     return [{k: v[l] for k, v in split.items()} for l in range(n)]
 
 
 def _remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``: the
     reference's ``_remat`` (``jax.checkpoint``) around a scan body. The
-    model draws no random numbers, so no RNG state is kept for the replay."""
+    model draws no random numbers, so no RNG state is kept for the replay.
+    Under the sharded step the replay sees its split too (it gathers the
+    layer again)."""
     if cfg.remat:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        ctx = fsdp.current()
+        kw = {} if ctx is None else {"context_fn": fsdp.remat_contexts(ctx)}
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
     return fn(*args)
 
 
@@ -139,11 +157,18 @@ def loss_tokens(cfg: ModelConfig, batch) -> torch.Tensor:
 def _load_balance_loss(router_logits, cfg: ModelConfig):
     """MoE's auxiliary term, the reference's ``_load_balance_loss``: E times
     the sum over experts of (the share of tokens whose top choice it is) x
-    (its mean router probability)."""
+    (its mean router probability). Under a batch split both means are over
+    the dp group's tokens, as the reference's global call takes them: the
+    rank's sums summed over the group (``sharding.fsdp.batch_sum``)."""
     e = cfg.moe.num_experts
     probs = torch.softmax(router_logits.float(), dim=-1)
-    frac = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0)
-    return e * (frac * probs.mean(dim=0)).sum()
+    batch = fsdp.batch_axes()
+    if not batch:
+        frac = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0)
+        return e * (frac * probs.mean(dim=0)).sum()
+    n = probs.shape[0] * fsdp.batch_size(batch)
+    frac = fsdp.batch_sum(F.one_hot(probs.argmax(dim=-1), e).float().sum(dim=0), batch) / n
+    return e * (frac * (fsdp.batch_sum(probs.sum(dim=0), batch) / n)).sum()
 
 
 def _transformer_fns(cfg: ModelConfig) -> ModelFns:
@@ -180,8 +205,10 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         return x, kv, router_logits
 
     def _loss_layer(lp, x, positions, positions3):
-        """One layer of ``loss``: (x, its load-balance term, 0 if dense)."""
-        x, _, router_logits = _layer(lp, x, positions, positions3)
+        """One layer of ``loss``: (x, its load-balance term, 0 if dense).
+        Under the sharded step the layer's leaves are gathered here, inside
+        remat's unit."""
+        x, _, router_logits = _layer(fsdp.gather(lp), x, positions, positions3)
         if router_logits is None:
             return x, torch.zeros((), dtype=torch.float32, device=x.device)
         return x, _load_balance_loss(router_logits, cfg)
@@ -193,15 +220,14 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         token embeddings at 0..S-1. On CUDA the flash kernel masks by index,
         so there a VLM batch whose temporal positions are not 0..S-1 in every
         row raises ValueError (one check, one sync, a call)."""
-        embed = params["head"]["embed"]
         if cfg.family == "audio":
             x = batch["frames"].to(common.dtype_of(cfg))
             if "frame_mask" in batch:
-                x = torch.where(batch["frame_mask"][..., None], embed[0], x)
+                x = torch.where(batch["frame_mask"][..., None], _embed_table(params)[0], x)
             b, s = x.shape[:2]
             return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s), None
         tokens = batch["tokens"]
-        x = embed[tokens]
+        x = _embed_table(params)[tokens]
         if cfg.family == "vlm":
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
             positions3 = batch["positions3"]
@@ -337,10 +363,11 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         return _logits(params["head"], _run_layers(params, batch["tokens"]), cfg)
 
     def _loss_layer(lp, x):
+        lp = fsdp.gather(lp)
         return x + ssm.ssm_apply(lp["mixer"], rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
 
     def loss(params, batch):
-        x = params["head"]["embed"][batch["tokens"]]
+        x = _embed_table(params)[batch["tokens"]]
         for lp in _layer_views(params["layers"], L):
             x = _remat(cfg, _loss_layer, lp, x)
         ce = cross_entropy(_logits(params["head"], x, cfg), batch["labels"])
@@ -479,21 +506,23 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         return _logits(params["head"], _run_full(params, batch["tokens"]), cfg)
 
     def _loss_group(r0, r1, attn, x, positions):
-        """One (rec, rec, attn) group of ``loss``, the reference's remat unit."""
-        x = _rec_apply(r0, x)[0]
-        x = _rec_apply(r1, x)[0]
-        return _attn_apply(attn, x, positions)[0]
+        """One (rec, rec, attn) group of ``loss``, the reference's remat unit,
+        its leaves gathered together under the sharded step."""
+        g = fsdp.gather({"r0": r0, "r1": r1, "attn": attn})
+        x = _rec_apply(g["r0"], x)[0]
+        x = _rec_apply(g["r1"], x)[0]
+        return _attn_apply(g["attn"], x, positions)[0]
 
     def loss(params, batch):
         tokens = batch["tokens"]
-        x = params["head"]["embed"][tokens]
+        x = _embed_table(params)[tokens]
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         recs, attns = _views(params)
         for g in range(n_groups):
             x = _remat(cfg, _loss_group, recs[2 * g], recs[2 * g + 1], attns[g], x, positions)
         for i in range(n_rem):  # the trailing recurrent layers, outside the reference's remat scan
-            x = _rec_apply(recs[2 * n_groups + i], x)[0]
+            x = _rec_apply(fsdp.gather(recs[2 * n_groups + i]), x)[0]
         ce = cross_entropy(_logits(params["head"], x, cfg), batch["labels"])
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 

@@ -13,13 +13,17 @@ the port's own scheme, not XLA's:
   :func:`depth_flops` counts the model at one and two periods (with any
   trailing layers) and extends that line to the published depth.
 * collective bytes and counts by kind, from the placements and what the
-  sharded train step does with them (``launch/steps.py``): one all-gather
-  of each leaf split over some axis, per axis, moving its whole size less
-  its shard; for training, the optimizer state gathered likewise, and one
-  f32 all-reduce of each gradient (and of the label count, loss and ``ce``)
-  per dp axis the batch is split over, moving twice the operand (a ring,
-  the reference's model). No reduce-scatter: each rank keeps its shard of
-  the whole update. Serving steps gather the parameters and, for decode,
+  sharded train step does with them (``launch/steps.py``,
+  ``sharding/fsdp.py``): each leaf split over some axis all-gathered where
+  it is used, one all-gather an axis, moving its whole size less its shard
+  (a layer's leaves twice under remat: the replay gathers them again); each
+  gradient sliced over the axes that split only it, reduce-scattered over
+  each batch axis that splits it (moving the input less the part kept) and
+  all-reduced over each that does not; MoE's count tables and load-balance
+  sums over the dp group; the optimizer's and the clip norm's sums over a
+  leaf's shards; the label count, loss and ``ce``. An all-reduce moves
+  twice its operand (a ring, the reference's model). The optimizer state
+  is never gathered. Serving steps gather the parameters and, for decode,
   each rank's rows of the cache along the axes that split its sequence or
   heads; the port has no sharded serving step, so these are the figures of
   the same gather-before-use scheme applied to it.
@@ -109,6 +113,17 @@ class Plan:
         self.bytes["all-gather"] += moved
         self.counts["all-gather"] += len(axes)
         return moved
+
+    def all_gather(self, moved: int) -> None:
+        """One all-gather that brings ``moved`` bytes to the device."""
+        self.bytes["all-gather"] += moved
+        self.counts["all-gather"] += 1
+
+    def reduce_scatter(self, nbytes_in: int, nbytes_out: int) -> None:
+        """One ring reduce-scatter of ``nbytes_in`` to ``nbytes_out``: the
+        input less the part the device keeps."""
+        self.bytes["reduce-scatter"] += nbytes_in - nbytes_out
+        self.counts["reduce-scatter"] += 1
 
     def all_reduce(self, nbytes: int, axes) -> None:
         """One ring all-reduce per axis of size > 1 in ``axes``: twice the operand."""

@@ -6,9 +6,10 @@ In the reference, launchers install the mesh with
 ``constrain`` over logical axes, "dp" (the batch: pod and data), "tp"
 (model) or None; the marks guide GSPMD and change no value. The port's
 sharded step computes every product whole on each rank (its batch split
-over the dp axes, ``launch/steps.py``), so here :func:`constrain` checks
-its axes and returns ``x`` itself, and :func:`axis_size` answers what the
-reference's answers, for code that picks a layout by it.
+over the dp axes, ``launch/steps.py``), so here :func:`constrain` returns
+``x`` itself, and :func:`axis_size` answers what the reference's answers,
+for code that picks a layout by it. What the step gathers, and the dp
+group MoE routes over, it installs itself (``sharding/fsdp.py``).
 """
 from __future__ import annotations
 

@@ -16,10 +16,10 @@ names, major first), as a ``PartitionSpec`` does. The rules read only the
 mesh's axis names and sizes, so they take a ``DeviceMesh`` or a
 ``MeshShape`` alike. :func:`place` puts a tree on a ``DeviceMesh`` as
 DTensors with these placements, so that each rank holds exactly the
-shard the reference's ``NamedSharding`` gives its device; :func:`gather`,
-:func:`shard_of` and :func:`leaf_split` are the sharded train step's: the
-full parameters for the products, each gradient's shard, and how the
-optimizer sums over a leaf's shards.
+shard the reference's ``NamedSharding`` gives its device; :func:`gather`
+is a placed tree's whole values (the checkpoint's), and :func:`leaf_split`
+how the sharded train step's optimizer sums over a leaf's shards (its
+per-layer gathers are ``sharding/fsdp.py``'s).
 """
 from __future__ import annotations
 
@@ -273,16 +273,6 @@ def local(t):
     """A DTensor's local shard, a view that an update in place writes
     through; a plain tensor as it is."""
     return t.to_local() if isinstance(t, DTensor) else t
-
-
-def shard_of(full: torch.Tensor, placed) -> torch.Tensor:
-    """This rank's shard of ``full`` under ``placed``'s placements, cut
-    locally with no communication (a copy, so that ``full`` can go); where
-    no axis splits the leaf, ``full`` itself."""
-    if not isinstance(placed, DTensor) or _whole_locally(placed):
-        return full
-    cut = distribute_tensor(full, placed.device_mesh, placed.placements, src_data_rank=None).to_local()
-    return cut.clone()
 
 
 @dataclasses.dataclass(frozen=True)

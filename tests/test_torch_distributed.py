@@ -33,7 +33,7 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.data.pipeline import pipeline_for
 from repro_torch.launch.mesh import dp_axes, init_ranks, make_mesh, mesh_shape
 from repro_torch.launch.steps import (
-    _reduce_over, batch_split_axes, make_sharded_train_step, make_train_state, make_train_step, split_batch,
+    batch_split_axes, make_sharded_train_step, make_train_state, make_train_step, sharded_split, split_batch,
     value_and_grad)
 from repro_torch.models.model import build_model
 from repro_torch.sharding.act import axis_size, use_activation_mesh
@@ -147,31 +147,32 @@ def case_resume(mesh, out, ckpt):
 
 
 def case_pod(mesh, out):
-    """(2, 2, 2): dp_axes, and gradients reduced over pod x data equal the
-    full batch's; MoE raises under the split, and runs on (1, 8) unsplit."""
+    """(2, 2, 2): dp_axes, and the sharded step's gradients (its rows of the
+    batch, weighted by its share of the labels, summed over pod x data and
+    cut to its shards) equal the full batch's; MoE under that split equals
+    the unsharded step, and runs bit for bit on (1, 8) unsplit."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), dtype="float32")
     ms = mesh_shape(mesh)
     coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
     state = make_train_state(cfg, torch.Generator().manual_seed(0))
+    placed = place(state["params"], state_shardings(cfg, state, mesh)["params"])
     batch = batches(cfg, 1)[0]
     axes = batch_split_axes(cfg, batch, ms)
-    local = split_batch(batch, axes, ms, coords)
     fns = build_model(cfg)
-    loss, aux, grads = value_and_grad(fns, state["params"], local)
-    loss, _, grads = _reduce_over(cfg, [mesh.get_group(a) for a in axes], local)(loss, aux, grads)
+    loss, _, grads = value_and_grad(fns, tree_map(local, placed), batch, sharded_split(cfg, mesh, placed, batch))
     want_loss, _, want = value_and_grad(fns, state["params"], batch)
+    want = [place(w, s).to_local() for w, s in zip(want, leaves(state_shardings(cfg, state, mesh)["params"]))]
     with use_activation_mesh(mesh):
         tp, dp = axis_size("tp"), axis_size("dp")
-    out.update(dp_axes=list(dp_axes(mesh)), axes=list(axes), rows=int(local["tokens"].shape[0]), tp=tp, dp=dp,
+    rows = int(split_batch(batch, axes, ms, coords)["tokens"].shape[0])
+    out.update(dp_axes=list(dp_axes(mesh)), axes=list(axes), rows=rows, tp=tp, dp=dp,
                loss_rel=rel([float(loss)], [float(want_loss)]),
                grad_rel=max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
                             for g, w in zip(grads, want)))
     moe = dataclasses.replace(get_config("grok-1-314b").reduced(), dtype="float32")
-    try:
-        run(moe, mesh, 1)
-        out["moe_split"] = "ran"
-    except NotImplementedError as e:
-        out["moe_split"] = "raised: " + str(e)[:60]
+    st, got = run(moe, mesh, 2)
+    ref, want = run(moe, None, 2)
+    out.update(moe_split=rel(got, want), moe_split_params=max_rel_leaf(st["params"], ref["params"]))
     flat = make_mesh((1, 8), ("data", "model"), "cpu")
     _, got = run(moe, flat, 2)
     _, want = run(moe, None, 2)
@@ -194,11 +195,11 @@ if __name__ == "__main__":
 '''
 
 
-def run_ranks(tmp_path, case, mesh, *extra, timeout=240):
-    """Runs ``case`` on one gloo rank a process over ``mesh`` ("2x4");
-    returns rank 0's results."""
-    script = tmp_path / "rank.py"
-    script.write_text(_RANK)
+def run_ranks(tmp_path, case, mesh, *extra, timeout=240, script_text=_RANK):
+    """Runs ``case`` of ``script_text`` on one gloo rank a process over
+    ``mesh`` ("2x4"); returns rank 0's results."""
+    script = tmp_path / f"rank_{case}.py"
+    script.write_text(script_text)
     world = 1
     for n in mesh.split("x"):
         world *= int(n)
@@ -256,13 +257,14 @@ def test_elastic_remesh_resumes(tmp_path):
 
 def test_multipod_gradient_reduction_over_pod_axis(tmp_path):
     """(pod=2, data=2, model=2): the batch splits over pod x data, one row a
-    rank, and the reduced gradients are the full batch's. MoE raises under
-    that split and runs, bit for bit, where nothing splits the batch."""
+    rank, and the reduced gradients are the full batch's. MoE under that
+    split gives the unsharded step's losses and parameters within 1e-5, and
+    bit for bit where nothing splits the batch."""
     out = run_ranks(tmp_path, "pod", "2x2x2")
     assert out["dp_axes"] == ["pod", "data"] == out["axes"] and out["rows"] == 1
     assert out["tp"] == 2 and out["dp"] == 4
     assert out["loss_rel"] <= 1e-5 and out["grad_rel"] <= 1e-5, out
-    assert out["moe_split"].startswith("raised"), out["moe_split"]
+    assert out["moe_split"] <= 1e-5 and out["moe_split_params"] <= 1e-5, out
     assert out["moe_unsplit"] == out["moe_unsplit_ref"]
 
 

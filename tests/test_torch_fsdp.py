@@ -1,0 +1,214 @@
+"""The sharded train step's per-layer gathers (``sharding/fsdp.py``,
+``launch/steps.make_sharded_train_step``) on 8 gloo ranks on the CPU, one
+process a rank (``run_ranks`` of ``tests/test_torch_distributed.py``).
+
+* Memory: with remat, a rank holds at most one layer's gathered leaves (one
+  hybrid group's) beside the head's, and the peak of what the gathers hold
+  (gathered leaves, the whole gradients their backward receives, the
+  gradient shards made so far; weakrefs note each tensor's end) equals the
+  dry-run's ``temp_bytes`` for the same config, shape and mesh.
+* Each family's sharded step equals the unsharded one within 1e-5 (losses,
+  and parameters by ``max_rel_leaf``) over 4 steps in f32 on (2, 4): the
+  gradients are summed over the ranks in another order.
+* Where nothing splits the batch, (1, 8), the step keeps the unsharded
+  step's bits: the gathers copy, the backward slices.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_distributed import _RANK, run_ranks  # noqa: E402
+
+_CASES = _RANK.split('\nif __name__ == "__main__":')[0] + r'''
+import weakref
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import make_concrete_batch
+from repro_torch.sharding import fsdp
+
+FAMILIES = {"dense": "qwen3-1.7b", "ssm": "mamba2-1.3b", "hybrid": "recurrentgemma-9b",
+            "audio": "hubert-xlarge", "vlm": "qwen2-vl-7b"}
+HEAD = {"embed", "lm_head", "final_norm"}
+
+
+def family_batches(cfg, n):
+    """The pipeline's tokens for the token families; for audio and the VLM
+    the reference's random batches (frame masks at 30%, so each rank's rows
+    carry another number of labels)."""
+    if cfg.family in ("audio", "vlm"):
+        return [make_concrete_batch(cfg, SHAPE, seed=i, device="cpu") for i in range(n)]
+    return batches(cfg, n)
+
+
+def steps(cfg, mesh, data, **kw):
+    sched = {"peak_lr": 1e-3, "warmup": 5, "total_steps": 30}
+    step = make_train_step(cfg, **sched, **kw) if mesh is None else make_sharded_train_step(cfg, mesh, **sched, **kw)
+    state = fresh(cfg, mesh)
+    losses = []
+    for b in data:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+class Tracker:
+    """Wraps ``fsdp.gather`` and ``fsdp._Gather``'s forward and backward.
+    Live: each gathered leaf (a tensor the forward makes) and each whole
+    gradient the backward receives, until weakref's finalize says it is
+    gone; held: each gradient shard the backward returns, once a local
+    shard (every one is kept to the optimizer, alone or stacked). Samples
+    at each forward's end and each backward's start and end."""
+
+    def __init__(self):
+        self.live, self.shards, self.owners = {}, {}, []
+        self.peak = self.most_layers = self.calls = self.n = 0
+        self.label = None
+        gather, forward, backward = fsdp.gather, fsdp._Gather.forward, fsdp._Gather.backward
+        tracker = self
+
+        def gather_(tree):
+            tracker.label = "head" if HEAD & set(tree) else tracker.calls
+            tracker.calls += 1
+            return gather(tree)
+
+        def forward_(ctx, spec, *shards):
+            outs = forward(ctx, spec, *shards)
+            ctx.owners = [id(t) for t in shards]
+            tracker.owners.extend(shards)  # the local shards' ids stay theirs
+            for t, o in zip(shards, outs):
+                if o.untyped_storage().data_ptr() != t.untyped_storage().data_ptr():
+                    tracker.add(o, "gathered")
+            tracker.sample()
+            return outs
+
+        def backward_(ctx, *grads):
+            for g in grads:
+                tracker.add(g, "whole")
+            tracker.sample()
+            res = backward(ctx, *grads)
+            for owner, g in zip(ctx.owners, res[1:]):
+                tracker.shards.setdefault(owner, g.numel() * g.element_size())
+            tracker.sample()
+            return res
+
+        fsdp.gather = gather_
+        fsdp._Gather.forward = staticmethod(forward_)
+        fsdp._Gather.backward = staticmethod(backward_)
+
+    def add(self, t, kind):
+        self.n += 1
+        self.live[self.n] = (t.numel() * t.element_size(), kind, self.label)
+        weakref.finalize(t, self.live.pop, self.n, None)
+
+    def sample(self):
+        layers = {label for _, kind, label in self.live.values() if kind == "gathered" and label != "head"}
+        self.most_layers = max(self.most_layers, len(layers))
+        self.peak = max(self.peak, sum(b for b, _, _ in self.live.values()) + sum(self.shards.values()))
+
+
+def case_memory(mesh, out, arch):
+    """(2, 4): one step of ``arch`` reduced, f32, remat on, tracked."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32", remat=True)
+    tracker = Tracker()
+    steps(cfg, mesh, batches(cfg, 1))
+    out.update(peak=tracker.peak, most_layers=tracker.most_layers, calls=tracker.calls,
+               temp=dryrun.build_cell(cfg, SHAPE, "2x4").mem["temp_bytes"])
+
+
+def split_order(cfg, data, n):
+    """The unsharded step in one process with each batch's gradient summed
+    from its n runs of rows in order, each weighted by its share of the
+    labels: a batch split's order of sums, and nothing distributed."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import _train_step_parts, grad_norm
+    from repro_torch.models.model import loss_tokens
+
+    _, apply = _train_step_parts(cfg, 1e-3, 5, 30, 0)
+    fns, state = build_model(cfg), fresh(cfg)
+    ms = MeshShape(("data", "model"), (n, 1))
+    for b in data:
+        runs = [split_batch(b, ("data",), ms, {"data": i}) for i in range(n)]
+        total = sum(loss_tokens(cfg, r).float() for r in runs)
+        grads = None
+        for r in runs:
+            loss, aux, g = value_and_grad(fns, state["params"], r)
+            g = [x * (loss_tokens(cfg, r).float() / total) for x in g]
+            grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+        state, _ = apply(state, loss, aux, grads, grad_norm(grads))
+    return state
+
+
+def case_families(mesh, out):
+    """(2, 4): 4 f32 steps of each family, sharded, unsharded, and unsharded
+    in the split's order of sums."""
+    for family, arch in FAMILIES.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        data = family_batches(cfg, 4)
+        st, got = steps(cfg, mesh, data)
+        ref, want = steps(cfg, None, data)
+        by_leaf = {p: max_rel_leaf({"x": a}, {"x": b}) for (p, a), (_, b) in zip(flatten(st["params"]),
+                                                                                flatten(ref["params"]))}
+        out[family] = {"loss_rel": rel(got, want), "params_rel": max_rel_leaf(st["params"], ref["params"]),
+                       "beyond": sorted(p for p, r in by_leaf.items() if r > 1e-5),
+                       "split_order_rel": max_rel_leaf(st["params"], split_order(cfg, data, 2)["params"])}
+
+
+def case_unsplit(mesh, out):
+    """(1, 8): the dense model in f32 and bf16 and the MoE model, sharded and not."""
+    for name, arch, dtype in (("dense", "qwen3-1.7b", "float32"), ("dense_bf16", "qwen3-1.7b", "bfloat16"),
+                              ("moe", "grok-1-314b", "float32")):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+        st, got = steps(cfg, mesh, batches(cfg, 3))
+        ref, want = steps(cfg, None, batches(cfg, 3))
+        out[name] = {"losses": got, "ref": want, "params_rel": max_rel_leaf(st["params"], ref["params"])}
+''' + '\nif __name__ == "__main__":' + _RANK.split('\nif __name__ == "__main__":')[1]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-9b", "grok-1-314b"])
+def test_one_layer_gathered_at_a_time(tmp_path, arch):
+    """(2, 4), remat on: never more than one layer's (one hybrid group's)
+    gathered leaves beside the head's, and the peak of the gathers' bytes is
+    the dry-run's ``temp_bytes``."""
+    out = run_ranks(tmp_path, "memory", "2x4", arch, script_text=_CASES)
+    assert out["most_layers"] == 1, out
+    assert out["peak"] == out["temp"] > 0, out
+
+
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    return run_ranks(tmp_path_factory.mktemp("families"), "families", "2x4", script_text=_CASES, timeout=400)
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm", "hybrid", "audio", "vlm"])
+def test_each_family_equals_the_unsharded_step(families, family):
+    """qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b (3 layers), hubert-xlarge
+    (frame masks: each rank's rows another label count) and qwen2-vl-7b:
+    losses within 1e-5 of the unsharded step's, and parameters within 1e-5
+    of it and of the unsharded step summing the same runs of rows in one
+    process. The VLM's ``bk`` and one element of its ``embed`` move with the
+    order of the sums alone, the same in one process: ``bk``'s gradient is
+    zero in exact arithmetic (softmax does not see a bias every key of a
+    query shares), the element's a sum that cancels, and AdamW divides each
+    by its own RMS. So the VLM's parameters are held to the second
+    reference, and its leaves beyond 1e-5 of the first are named."""
+    out = families[family]
+    assert out["loss_rel"] <= 1e-5 and out["split_order_rel"] <= 1e-5, out
+    assert set(out["beyond"]) <= ({"head/embed", "layers/attn/bk"} if family == "vlm" else set()), out
+    if family != "vlm":
+        assert out["params_rel"] <= 1e-5, out
+
+
+@pytest.fixture(scope="module")
+def unsplit(tmp_path_factory):
+    return run_ranks(tmp_path_factory.mktemp("unsplit"), "unsplit", "1x8", script_text=_CASES)
+
+
+@pytest.mark.parametrize("name", ["dense", "dense_bf16", "moe"])
+def test_nothing_split_keeps_the_bits(unsplit, name):
+    """(1, 8): the batch is whole on every rank; the leaves split over model
+    are gathered and their gradients sliced. Losses bit for bit; with AdamW
+    (dense) the parameters too; Adafactor (MoE) sums its statistics over the
+    shards in another order."""
+    out = unsplit[name]
+    assert out["losses"] == out["ref"], out
+    if name != "moe":
+        assert out["params_rel"] == 0.0, out
