@@ -127,14 +127,18 @@
    ``make_sharded_train_step`` on the same group (its per-layer gathers
    and dp-group routing) beside ``make_train_step``, the losses bit for
    bit; (9d) the dry-run of every applicable cell on the 16x16, 2x16x16
-   and 1x1 meshes (a subprocess an arch on the host, started after the
-   timed phases, meta tensors only; the MoE pair's and qwen1.5-110b's train
-   records on the production meshes logged whole), its 1x1 record of
-   qwen3-1.7b's train state against the
-   bytes ``make_train_state`` really takes of the card's allocator (its
-   rounding allowed), and its products' FLOPs of phase 8's step against ``train_bounds``' operations, at the
-   ratio :func:`predicted_dot_flops` gives; every launch of 9a-9c gated
-   exactly;
+   and 1x1 meshes (a subprocess an arch and mesh on the host, started
+   after 9c, meta tensors only; the MoE pair's and qwen1.5-110b's train
+   records on the production meshes logged whole, with the bytes by kind
+   at the peak), its 1x1 record of qwen3-1.7b's train
+   state against the bytes ``make_train_state`` really takes of the card's
+   allocator (its rounding allowed), its products' FLOPs of phase 8's step
+   against ``train_bounds``' operations, at the ratio
+   :func:`predicted_dot_flops` gives, and its 1x1 count (argument + temp +
+   output - alias, the memory pass of ``roofline/memory.py``) of phase 8's
+   three train runs and of qwen3-1.7b's prefill in phase 6 against the
+   peak the card's allocator reached there, within MEMORY_BAND; every
+   launch of 9a-9c gated exactly;
 10. runs the simulator path (``examples/port_serve_trace.py``'s ``run`` at
    its defaults, each backend's run traced by a full telemetry hub: metrics,
    prediction audit, stall ledger) on this machine's host, with no JAX and
@@ -375,6 +379,10 @@ MESH_MOE_ARCH, MESH_MOE_LAYERS = "grok-1-314b", 1
 # production meshes; phase 9d logs their records
 DRYRUN_FSDP_CELLS = ("grok-1-314b", "arctic-480b", "qwen1.5-110b")
 DRYRUN_MESHES = ("16x16", "2x16x16", "1x1")
+# the dry-run's 1x1 count of a run that phases 6 and 8 measured (argument +
+# temp + output - alias) lies within this share of the allocator's peak there
+MEMORY_BAND = 0.10
+MEMORY_GATED = ("train qwen3-1.7b", "train grok-1-314b", "train arctic-480b", "prefill qwen3-1.7b")
 # Phase 10: the simulator path. SIM_REFERENCE is the scoreboard of the JAX
 # package's examples/serve_trace.py at its defaults (integers, then floats
 # as repr writes them); tests/test_torch_serving.py holds it to the
@@ -549,7 +557,8 @@ def run_phases(torch, dev) -> None:
     # each path: its launches, read with every count set to 0 just before it
     paths = {"serve": serve_slice(torch, dev)}
     phase_done("5. serve")
-    paths.update(decode_slice(torch, dev))
+    decode_paths, peaks = decode_slice(torch, dev)
+    paths.update(decode_paths)
     phase_done("6. prefill and decode")
     check_families_against_cpu(torch, dev)
     paths["families"], nk_launches = families_slice(torch, dev)
@@ -569,10 +578,12 @@ def run_phases(torch, dev) -> None:
     phase_done("8. gradient kernels")
     check_train_against_cpu(torch, dev)
     phase_done("8. training against the CPU")
-    paths["train"], _ = train_slice(torch, dev)
+    paths["train"], train_run_numbers = train_slice(torch, dev)
     phase_done("8. train")
     paths["train_moe"], moe_runs = train_moe_slice(torch, dev)
     phase_done("8. train_moe")
+    for name, run in ((TRAIN_ARCH, train_run_numbers), *moe_runs.items()):
+        peaks[f"train {name}"] = run["peak_allocated_bytes"] - run["base_allocated_bytes"]
     supervisor_on_card(torch, dev)
     paths["quickstart"] = quickstart_on_card(torch, dev)
     phase_done("9a. quickstart")
@@ -580,7 +591,15 @@ def run_phases(torch, dev) -> None:
     phase_done("9b. train_lm")
     paths["mesh"], paths["mesh_moe"] = mesh_on_card(torch, dev)
     phase_done("9c. mesh")
-    dryrun_on_card(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = start_dryrun(Path(tmp))
+        try:
+            dryrun_on_card(torch, dev, Path(tmp), dry, peaks)
+        finally:
+            for proc in dry.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     phase_done("9d. dry-run")
     simulator_on_host()
     phase_done("10. simulator")
@@ -1840,7 +1859,10 @@ def decode_slice(torch, dev):
     """Phase 6, the decode path of every model at its published widths and
     depths, random weights from a seed. Returns each path's launches and
     steps and tensor-core launches: {"prefill": (launches, prefills, wgmma),
-    "decode": (launches, steps, wgmma)}."""
+    "decode": (launches, steps, wgmma)}; and, by "prefill <arch>", the most
+    the card's allocator held from before the parameters were made to the
+    end of the prefill (the parameters, the prompts and the prefill's
+    peak), which phase 9d holds against the dry-run's count."""
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import flatten
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -1848,6 +1870,7 @@ def decode_slice(torch, dev):
 
     paths = {path: ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
              for path in ("prefill", "decode")}
+    peaks = {}
 
     def add(path, launches, wgmma):
         total, n, total_wgmma = paths[path]
@@ -1860,15 +1883,19 @@ def decode_slice(torch, dev):
         fns = build_model(cfg)
         prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
         with torch.inference_mode():
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.memory_allocated(dev)
             params = fns.init(torch.Generator(dev).manual_seed(seed))
             prompts = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT), device=dev,
                                     generator=torch.Generator(dev).manual_seed(100 + seed))
             torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
             zero_launches()
             t0 = time.perf_counter()
             logits, cache = prefill_step(params, {"tokens": prompts}, max_seq=DECODE_SMAX)
             torch.cuda.synchronize(dev)
             prefill_s = time.perf_counter() - t0
+            peaks[f"prefill {arch}"] = torch.cuda.max_memory_allocated(dev) - start
             prefill_launches, prefill_wgmma = read_launches(), read_wgmma()
             want = step_launches(cfg, "prefill")
             if prefill_launches != want:
@@ -1960,7 +1987,7 @@ def decode_slice(torch, dev):
             profile_steps(torch, dev, f"{arch} decode", step, med)
             del params, cache, state, outs, fed, logits
         torch.cuda.empty_cache()
-    return paths
+    return paths, peaks
 
 
 def ssm_decode_f32(torch, cfg, params, prompts, fed):
@@ -3309,7 +3336,9 @@ def train_run(torch, dev, cfg, seed):
     equal to those with remat on, bit for bit (remat on's gradients held on
     the host meanwhile). Reported: the median step, tokens/s, the device's
     idle share and top kernels (torch.profiler), the peak of allocated
-    memory, and the operations and bytes bounds of a step
+    memory over the state's making and the steps (and what was allocated
+    before: phase 9d holds the difference to the dry-run's count), and the
+    operations and bytes bounds of a step
     (:func:`train_bounds`, the experts over the first step's kept
     assignments). Returns the launches, steps and tensor-core launches, and
     the run's numbers."""
@@ -3325,6 +3354,7 @@ def train_run(torch, dev, cfg, seed):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed))
     batch = {k: torch.from_numpy(v).to(dev)
@@ -3377,7 +3407,8 @@ def train_run(torch, dev, cfg, seed):
         f"operations bound {ops_ms:.1f} ms ({ops:.4e} operations at the bf16 peak"
         + (f", the experts over {kept} kept assignments a layer" if kept else "")
         + f"), bytes bound {bytes_ms:.1f} ms ({nbytes:.4e} B at {HBM_BYTES_PER_S:.3g} B/s); "
-        f"{100 * max(ops_ms, bytes_ms) / (1e3 * med):.1f}% of the step; peak allocated {peak} B")
+        f"{100 * max(ops_ms, bytes_ms) / (1e3 * med):.1f}% of the step; peak allocated {peak} B ({base} B before "
+        "the state was made)")
     profile_steps(torch, dev, f"{name} train step", lambda i: step_fn(state, batch), med, n=2, top=12)
 
     # remat off against remat on: the loss and every gradient, bit for bit
@@ -3411,7 +3442,7 @@ def train_run(torch, dev, cfg, seed):
     torch.cuda.empty_cache()
     return total, {"losses": losses, "median_step_ms": 1e3 * med, "tokens_per_s": tokens / med,
                    "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, "kept": kept, "peak_allocated_bytes": peak,
-                   "batched": batched_total}
+                   "base_allocated_bytes": base, "batched": batched_total}
 
 
 def supervisor_on_card(torch, dev):
@@ -3445,11 +3476,12 @@ def supervisor_on_card(torch, dev):
 
 
 def start_dryrun(out: Path):
-    """Phase 9d's dry-run on the host, one subprocess an assigned arch (a
-    thread each): every cell on DRYRUN_MESHES, each arch's records to
-    ``out/<arch>.jsonl`` and its own output beside them in ``.log``.
-    Started after the last timed phase, so that no time is taken beside
-    it. Returns the processes by arch."""
+    """Phase 9d's dry-run on the host, one subprocess an assigned arch and
+    mesh of DRYRUN_MESHES: its records to ``out/<arch>_<mesh>.jsonl`` and
+    its own output beside them in ``.log``. Started after 9c, the last
+    phase timed on the card, so that no time is taken beside it; phases 10
+    and 11, timed on the host, come after it has ended. Returns the
+    processes by (arch, mesh)."""
     import os
 
     from repro_torch.configs import ASSIGNED
@@ -3457,11 +3489,12 @@ def start_dryrun(out: Path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = {}
     for arch in ASSIGNED:
-        with open(out / f"{arch}.log", "w") as log_file:
-            procs[arch] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--meshes",
-                 ",".join(DRYRUN_MESHES), "--out", str(out / f"{arch}.jsonl")], env=env, cwd=ROOT,
-                stdout=log_file, stderr=subprocess.STDOUT)
+        for mesh in DRYRUN_MESHES:
+            with open(out / f"{arch}_{mesh}.log", "w") as log_file:
+                procs[arch, mesh] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--meshes", mesh,
+                     "--out", str(out / f"{arch}_{mesh}.jsonl")], env=env, cwd=ROOT,
+                    stdout=log_file, stderr=subprocess.STDOUT)
     return procs
 
 
@@ -3715,17 +3748,54 @@ def predicted_dot_flops(cfg, b: int, s: int) -> int:
     return products + (12 + 4 * r) * b * h * s * s * hd * n_layers
 
 
-def dryrun_on_card(torch, dev) -> None:
-    """Phase 9d: the dry-run, started on the host after the last timed
-    phase, an arch a process; while it runs, its ``1x1`` count of qwen3-1.7b's train state (28
-    layers, AdamW) is held against the bytes ``make_train_state`` takes of
-    the card's allocator, and its count of phase 8's step against the
-    prediction. Logs each cell's per-device bytes, products' FLOPs and
-    collective bytes. Gated: every applicable cell ok on every mesh; the
+def memory_counts(torch):
+    """The dry-run's 1x1 count (argument + temp + output - alias, and temp's
+    bytes by kind at the peak) of each run phases 6 and 8 measured: the
+    train step of qwen3-1.7b at 28 layers and of the MoE pair at
+    TRAIN_MOE_DEPTHS over TRAIN_B x TRAIN_S tokens (``build_cell``), and
+    the prefill of 4 x 1024 tokens into DECODE_SMAX slots of each decode
+    model (``roofline.memory.count`` of ``prefill``, the kernels' CUDA
+    paths, on meta): the parameters, the prompts, the peak and the logits
+    and cache it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import SHAPES_ONLY
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline import memory
+    from repro_torch.tree import leaves
+
+    counts = {}
+    shape = ShapeSpec("train", TRAIN_S, TRAIN_B, "train")
+    for cfg in (get_config(TRAIN_ARCH), *(moe_config(a, n) for a, n in TRAIN_MOE_DEPTHS.items())):
+        m = dryrun.build_cell(cfg, shape, "1x1").mem
+        counts[f"train {cfg.name}"] = (m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"] - m["alias_bytes"],
+                                       m["temp_breakdown"])
+    for arch in ARCHS:
+        fns = build_model(get_config(arch))
+        params = fns.init(SHAPES_ONLY)
+        tokens = torch.empty((DECODE_B, PROMPT), dtype=torch.int64, device="meta")
+        _, c = memory.count(fns.prefill, params, {"tokens": tokens}, max_seq=DECODE_SMAX, card=True)
+        given = sum(t.numel() * t.element_size() for t in leaves(params)) + tokens.numel() * tokens.element_size()
+        counts[f"prefill {arch}"] = (given + c.peak + c.output, c.breakdown)
+    return counts
+
+
+def dryrun_on_card(torch, dev, out: Path, dry, peaks) -> None:
+    """Phase 9d: the dry-run, started after 9c (:func:`start_dryrun`, its
+    processes ``dry`` writing into ``out``); while it runs, its ``1x1``
+    count of qwen3-1.7b's train state (28 layers, AdamW) is held against
+    the bytes ``make_train_state`` takes of the card's allocator, its
+    count of phase 8's step against the prediction, and its memory counts
+    (:func:`memory_counts`) against ``peaks``, the allocator's peaks that
+    phases 6 and 8 read. Logs each cell's per-device bytes, products' FLOPs
+    and collective bytes, and each measured run's count, peak, margin and
+    bytes by kind. Gated: every applicable cell ok on every mesh; the
     allocated bytes at least the record's state bytes and at most
     :func:`alloc_slack` a tensor above them; the step's products' FLOPs
     equal to :func:`predicted_dot_flops`, logged beside ``train_bounds``'
-    operations."""
+    operations; each run of MEMORY_GATED counted within MEMORY_BAND of
+    its peak, on either side."""
     from repro_torch.configs import ASSIGNED, get_config
     from repro_torch.configs.base import SHAPE_ORDER, SHAPES, ShapeSpec, cell_applicable
     from repro_torch.launch import dryrun
@@ -3734,51 +3804,58 @@ def dryrun_on_card(torch, dev) -> None:
     from repro_torch.tree import flatten
 
     cfg = get_config(TRAIN_ARCH)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp)
-        dry = start_dryrun(out)
-        try:
-            state_bytes = dryrun.build_cell(cfg, SHAPES["train_4k"], "1x1").mem["state_bytes"]
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.synchronize(dev)
-            before = allocated_bytes(torch, dev)
-            state = make_train_state(cfg, torch.Generator(dev).manual_seed(0))
-            torch.cuda.synchronize(dev)
-            allocated = allocated_bytes(torch, dev) - before
-            sizes = [t.numel() * t.element_size() for _, t in flatten(state)]
-            del state
-            torch.cuda.empty_cache()
-            over, slack = allocated - state_bytes, sum(alloc_slack(n) for n in sizes)
-            log(f"dry-run 1x1 {TRAIN_ARCH} train state: {state_bytes} B in {len(sizes)} tensors ({sum(sizes)} B "
-                f"by their shapes); make_train_state took {allocated} B of the card's allocator ({over} B above, at "
-                f"most {slack}: {ALLOC_ROUND} B a tensor, and {ALLOC_LARGE} B more for each of the "
-                f"{sum(n > ALLOC_LARGE for n in sizes)} above {ALLOC_LARGE} B)")
-            if not 0 <= over <= slack:
-                raise AssertionError(f"dry-run state bytes {state_bytes} against {allocated} allocated")
+    state_bytes = dryrun.build_cell(cfg, SHAPES["train_4k"], "1x1").mem["state_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    before = allocated_bytes(torch, dev)
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    allocated = allocated_bytes(torch, dev) - before
+    sizes = [t.numel() * t.element_size() for _, t in flatten(state)]
+    del state
+    torch.cuda.empty_cache()
+    over, slack = allocated - state_bytes, sum(alloc_slack(n) for n in sizes)
+    log(f"dry-run 1x1 {TRAIN_ARCH} train state: {state_bytes} B in {len(sizes)} tensors ({sum(sizes)} B "
+        f"by their shapes); make_train_state took {allocated} B of the card's allocator ({over} B above, at "
+        f"most {slack}: {ALLOC_ROUND} B a tensor, and {ALLOC_LARGE} B more for each of the "
+        f"{sum(n > ALLOC_LARGE for n in sizes)} above {ALLOC_LARGE} B)")
+    if not 0 <= over <= slack:
+        raise AssertionError(f"dry-run state bytes {state_bytes} against {allocated} allocated")
 
-            cell = dryrun.build_cell(cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"), "1x1")
-            flops = depth_flops(cfg, cell.count)
-            ops, _ = train_bounds(cfg, abstract_train_state(cfg)["params"], TRAIN_B * TRAIN_S, [])
-            predicted = predicted_dot_flops(cfg, TRAIN_B, TRAIN_S)
-            log(f"dry-run of phase 8's step ({TRAIN_ARCH}, {TRAIN_B} x {TRAIN_S} tokens, remat): {flops:.6e} "
-                f"products' FLOPs, predicted {predicted:.6e}; train_bounds' operations {ops:.6e}: ratio "
-                f"{flops / ops:.4f}, predicted {predicted / ops:.4f}")
-            if flops != predicted:
-                raise AssertionError(f"dry-run: {flops} products' FLOPs, predicted {predicted}")
+    cell = dryrun.build_cell(cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"), "1x1")
+    flops = depth_flops(cfg, cell.count)
+    ops, _ = train_bounds(cfg, abstract_train_state(cfg)["params"], TRAIN_B * TRAIN_S, [])
+    predicted = predicted_dot_flops(cfg, TRAIN_B, TRAIN_S)
+    log(f"dry-run of phase 8's step ({TRAIN_ARCH}, {TRAIN_B} x {TRAIN_S} tokens, remat): {flops:.6e} "
+        f"products' FLOPs, predicted {predicted:.6e}; train_bounds' operations {ops:.6e}: ratio "
+        f"{flops / ops:.4f}, predicted {predicted / ops:.4f}")
+    if flops != predicted:
+        raise AssertionError(f"dry-run: {flops} products' FLOPs, predicted {predicted}")
 
-            t0 = time.perf_counter()
-            records = []
-            for arch, proc in dry.items():
-                if proc.wait(timeout=600) != 0:
-                    raise AssertionError(f"dry-run of {arch} exited {proc.returncode}: "
-                                         f"{(out / f'{arch}.log').read_text()[-2000:]}")
-                records += [json.loads(line) for line in (out / f"{arch}.jsonl").read_text().splitlines()]
-        finally:
-            for proc in dry.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+    t0 = time.perf_counter()
+    counts = memory_counts(torch)
+    log(f"dry-run memory counts against the card's peaks ({time.perf_counter() - t0:.1f} s; 1x1, argument + "
+        f"temp + output - alias; gated within {MEMORY_BAND:.0%}: {', '.join(MEMORY_GATED)}):")
+    missed = []
+    for label, (count, breakdown) in counts.items():
+        peak = peaks[label]
+        margin = (count - peak) / peak
+        log(f"  {label}: count {count} B ({count / 1e9:.3f} GB), peak allocated {peak} B ({peak / 1e9:.3f} GB), "
+            f"margin {100 * margin:+.2f}%{'' if label in MEMORY_GATED else ' (not gated)'}; temp by kind at its "
+            "peak (GB): " + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in breakdown.items() if v))
+        if label in MEMORY_GATED and abs(margin) > MEMORY_BAND:
+            missed.append(label)
+    if missed:
+        raise AssertionError(f"dry-run memory counts outside {MEMORY_BAND:.0%} of the card's peaks: {missed}")
+
+    t0 = time.perf_counter()
+    records = []
+    for (arch, mesh), proc in dry.items():
+        if proc.wait(timeout=600) != 0:
+            raise AssertionError(f"dry-run of {arch} on {mesh} exited {proc.returncode}: "
+                                 f"{(out / f'{arch}_{mesh}.log').read_text()[-2000:]}")
+        records += [json.loads(line) for line in (out / f"{arch}_{mesh}.jsonl").read_text().splitlines()]
     want = sum(cell_applicable(get_config(a), SHAPES[s])[0] for a in ASSIGNED for s in SHAPE_ORDER)
     ok = [r for r in records if r["status"] == "ok"]
     log(f"dry-run: {len(records)} records ({len(ok)} ok, waited {time.perf_counter() - t0:.1f} s); per device: "
@@ -3800,7 +3877,8 @@ def dryrun_on_card(torch, dev) -> None:
             total = m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"] - m["alias_bytes"]
             log(f"  {arch} train_4k {mesh}: argument {m['argument_bytes'] / 2**30:.3f} + temp "
                 f"{m['temp_bytes'] / 2**30:.3f} + output {m['output_bytes'] / 2**30:.3f} - alias "
-                f"{m['alias_bytes'] / 2**30:.3f} = {total / 2**30:.3f}, fits_h100 {r['fits_h100']}")
+                f"{m['alias_bytes'] / 2**30:.3f} = {total / 2**30:.3f}, fits_h100 {r['fits_h100']}; temp by kind "
+                "at its peak: " + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in m["temp_breakdown"].items() if v))
             log("  " + json.dumps({k: r[k] for k in ("arch", "shape", "mesh", "mem", "fits_h100", "hlo_costs")}))
     if len(ok) != want * len(DRYRUN_MESHES) or any(r["status"] not in ("ok", "skipped") for r in records):
         raise AssertionError(f"dry-run: {len(ok)} cells ok of {want * len(DRYRUN_MESHES)}: "

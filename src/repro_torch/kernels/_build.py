@@ -104,8 +104,14 @@ def function(lib: str, name: str, argtypes: Sequence) -> Callable[..., int]:
     return fn
 
 
+H100_SMS = 132  # the SMs a meta tensor's route rules see (the dry-run's memory pass)
+
+
 def sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device, read once a device."""
+    """The SM count of a CUDA device, read once a device; the H100's for a
+    meta tensor."""
+    if device.type == "meta":
+        return H100_SMS
     dev = device.index if device.index is not None else torch.cuda.current_device()
     if dev not in _sm_counts:
         _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count

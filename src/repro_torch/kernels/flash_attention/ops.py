@@ -1,7 +1,10 @@
 """Wrapper of the CUDA online-softmax attention (``csrc/flash_attention.cu``).
 
 A CPU or meta tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel on the current stream or raises. ``flash_attention.launches``
+the kernel on the current stream or raises. Under the dry-run's memory pass
+(``roofline/memory.py``) a meta tensor takes the CUDA path instead, up to
+the launch: it allocates what the launch would, by the same route rules,
+and launches nothing. ``flash_attention.launches``
 counts the kernel's launches, ``flash_attention.wgmma_launches`` those of
 them that took the tensor-core route.
 
@@ -38,8 +41,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, takes_plain
+from repro_torch.kernels import _build, on_card, takes_plain
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_backward
+from repro_torch.roofline import memory
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # the simt route; the wgmma route takes WGMMA_HEAD_DIMS
@@ -88,7 +92,7 @@ def flash_attention(
 
 def _check(q, k, v, window, sm_scale) -> float:
     """Raises on what the CUDA kernels do not take; returns the scale."""
-    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+    if not all(on_card(t) and t.device == q.device for t in (q, k, v)):
         raise ValueError(f"flash_attention: q/k/v on {q.device}, {k.device}, {v.device}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -139,6 +143,9 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, lse: Optional[tor
             raise ValueError("flash_attention: only the wgmma route writes the rows' statistics")
         _check_lse(lse, q, "flash_attention")
     out = torch.empty_like(q)
+    if out.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
+        memory.mark((out, lse), "attention")
+        return out
     fn = _build.function("flash_attention", "flash_attention", _ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
@@ -205,7 +212,7 @@ def flash_attention_backward(
     if takes_plain(*tensors):
         return attention_ref_backward(q, k, v, dout, causal=causal, window=window, sm_scale=sm_scale)
     scale = _check(q, k, v, window, sm_scale)
-    if not all(t.is_cuda and t.device == q.device for t in (out, dout)):
+    if not all(on_card(t) and t.device == q.device for t in (out, dout)):
         raise ValueError(f"flash_attention_backward: out on {out.device}, dout on {dout.device}")
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attention_backward: out {tuple(out.shape)} {out.dtype}, dout "
@@ -222,6 +229,9 @@ def flash_attention_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # simt: row m, l, delta; wgmma: lse2 (unless given), delta
     work = torch.empty((3 if route == "simt" else 2, b * h * sq), dtype=torch.float32, device=q.device)
+    if work.is_meta:
+        memory.mark(work, "workspace")
+        return dq, dk, dv
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),

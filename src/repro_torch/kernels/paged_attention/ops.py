@@ -1,7 +1,10 @@
 """Wrapper of the CUDA paged-KV decode attention (``csrc/paged_attention.cu``).
 
 A CPU or meta tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel on the current stream or raises. ``paged_attention.launches``
+the kernel on the current stream or raises. Under the dry-run's memory pass
+(``roofline/memory.py``) a meta tensor takes the CUDA path instead, up to
+the launch: it allocates what the launch would, by the same route rules,
+and launches nothing. ``paged_attention.launches``
 counts the wrapper's calls on the card: a call is one kernel launch when
 :func:`pa_splits` gives one split, else two (the split kernel and the merge
 of the splits). Head dims up to MAX_HEAD_DIM. The kernel has no backward: on
@@ -15,8 +18,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, takes_plain
+from repro_torch.kernels import _build, on_card, takes_plain
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.roofline import memory
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -51,7 +55,7 @@ def paged_attention(
     tensors = (q, pool_k, pool_v, page_table, lengths)
     if takes_plain(*tensors):
         return paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not all(on_card(t) and t.device == q.device for t in tensors):
         raise ValueError(
             "paged_attention: q, pools, table and lengths on "
             + ", ".join(str(t.device) for t in tensors)
@@ -80,6 +84,9 @@ def paged_attention(
     splits = pa_splits(b, hkv, max_pages, _build.sm_count(q.device))
     out = torch.empty_like(q)
     work = torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
+    if q.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
+        memory.mark(work, "workspace")
+        return out
     fn = _build.function("paged_attention", "paged_attention", _ARGTYPES)
     err = fn(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),

@@ -2,7 +2,10 @@
 ``csrc/streammm_int8.cu``).
 
 A CPU or meta tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel on the current stream or raises. ``stream_matmul.launches`` and
+the kernel on the current stream or raises. Under the dry-run's memory pass
+(``roofline/memory.py``) a meta tensor takes the CUDA path instead, up to
+the launch: it allocates what the launch would, by the same route rules,
+and launches nothing. ``stream_matmul.launches`` and
 ``stream_matmul_int8.launches`` count the kernels' launches;
 ``stream_matmul.wgmma_launches`` and ``stream_matmul_int8.wgmma_launches``
 count those of them that took the tensor-core route.
@@ -63,8 +66,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, takes_plain
+from repro_torch.kernels import _build, on_card, takes_plain
 from repro_torch.kernels.streammm.ref import stream_matmul_int8_ref, stream_matmul_ref
+from repro_torch.roofline import memory
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMV_MAX_M = 8  # rows of x the kernel's gemv path takes (kGemvMaxM)
@@ -143,7 +147,7 @@ def _mkn(x, w, w_layout, x_layout):
 
 def _stream_matmul_2d(x, w, out_dtype, w_layout, x_layout="mk"):
     """The 2-D form on CUDA: checks, the route and one launch."""
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
+    if not (on_card(x) and on_card(w) and x.device == w.device):
         raise ValueError(f"stream_matmul: x on {x.device}, w on {w.device}")
     m, k, n, kw = _mkn(x, w, w_layout, x_layout)
     if x.dim() != 2 or w.dim() != 2 or k != kw or 0 in (*x.shape, *w.shape):
@@ -222,7 +226,7 @@ def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout):
     N) form."""
     tensors = (x, w) if rows is None else (x, w, rows)
     plain = takes_plain(*tensors)
-    if not plain and not all(t.is_cuda and t.device == x.device for t in tensors):
+    if not plain and not all(on_card(t) and t.device == x.device for t in tensors):
         raise ValueError("stream_matmul: x, w, rows on " + ", ".join(str(t.device) for t in tensors))
     m, k, n, kw = _mkn(x, w, w_layout, x_layout)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or k != kw or 0 in (*x.shape, *w.shape):
@@ -276,6 +280,9 @@ def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
     """One call of the C entry point, with a split-K workspace where the gemv
     route cuts K; raises on a CUDA error; counts the launch."""
     work = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+    if x.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
+        memory.mark(work, "workspace")
+        return
     fn = _build.function("streammm", "stream_matmul", _ARGTYPES)
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -348,7 +355,7 @@ def stream_matmul_int8(
     dropped. Any M and N. The checks run on both devices."""
     tensors = (x, w_q, scales)
     plain = takes_plain(*tensors)
-    if not plain and not all(t.is_cuda and t.device == x.device for t in tensors):
+    if not plain and not all(on_card(t) and t.device == x.device for t in tensors):
         raise ValueError("stream_matmul_int8: x, w_q, scales on " + ", ".join(str(t.device) for t in tensors))
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0] or 0 in (*x.shape, w_q.shape[1]):
         raise ValueError(f"stream_matmul_int8: shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
@@ -376,6 +383,9 @@ def stream_matmul_int8(
         splits = 1
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+    if x.is_meta:
+        memory.mark(work, "workspace")
+        return out
     fn = _build.function("streammm_int8", "stream_matmul_int8", _INT8_ARGTYPES)
     err = fn(
         x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),

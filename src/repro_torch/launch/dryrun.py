@@ -15,18 +15,23 @@ the single H100 the port runs on. A record keeps the reference's fields:
 * ``mem``: per device. ``argument_bytes`` the shards of the step's
   arguments (``state_bytes`` or ``param_bytes``, ``cache_bytes``,
   ``batch_bytes``); ``output_bytes`` its outputs and ``alias_bytes`` those
-  updated in place (the train state, the decode cache); ``temp_bytes`` what
-  the port's sharded scheme holds beside them as far as it can be stated.
-  For training, the most the per-layer gathers hold at once
-  (:func:`_fsdp_temp`): one layer's gathered leaves (one hybrid group's;
-  outside remat, every layer's so far), the whole gradients one gather's
-  backward receives, the gradient shards made so far, and the head's
-  gathered leaves and whole gradients in their turn; the optimizer updates
-  its state on the shards. MoE's dispatch buffer (under a batch split E x
-  min(capacity, the rank's tokens) x d a layer) is an activation. For
-  serving, the gathered copies of split leaves. Activations are not
-  counted, so ``fits_h100`` (argument + temp + output - alias within 80
-  GiB) is a necessary condition, not a sufficient one.
+  updated in place (the train state, the decode cache); ``temp_bytes`` the
+  most the step holds at once beside them, as the reference's
+  ``temp_size_in_bytes``, and ``temp_breakdown`` those bytes by kind.
+  The memory pass (``roofline/memory.py``) runs the step itself on meta
+  over one rank's rows and counts each storage an op makes while it
+  lives: for training ``make_sharded_train_step``'s step (gradients, the
+  clip norm, the optimizer; ``REPRO_MICROBATCH`` as the step reads it),
+  its per-layer gathers and MoE's dispatch buffer included; for serving
+  ``prefill`` and ``decode_step`` on the whole parameters (and, for
+  decode, the rank's rows of the whole cache), whose gathered copies the
+  ``gathers`` kind adds. The kernels count what their CUDA path allocates
+  (outputs, flash attention's saved statistics, split-K workspaces), by
+  their route rules at the H100's 132 SMs, not their plain versions'
+  intermediates. ``fits_h100`` is argument + temp + output - alias within
+  80 GiB. Not counted: what a kernel or library call allocates inside
+  itself (a sort's scratch, NCCL's buffers) and the caching allocator's
+  rounding (512 B a block, up to 1 MiB more for a large one).
 * ``hlo_costs``: the port's counts (``roofline/costs.py``): the products'
   FLOPs of one device's step (the rank's rows of the batch; ranks along
   ``model`` compute the same products) and the collectives of the port's
@@ -50,13 +55,23 @@ from repro_torch.configs import ASSIGNED, get_config
 from repro_torch.configs.base import SHAPE_ORDER, SHAPES, ModelConfig, ShapeSpec, cell_applicable
 from repro_torch.launch.mesh import MeshShape, parse_mesh
 from repro_torch.launch.specs import batch_spec
-from repro_torch.launch.steps import abstract_train_state, make_prefill_step, make_serve_step, value_and_grad
+from repro_torch.launch.steps import (
+    _Split,
+    abstract_train_state,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+    shard_step,
+    value_and_grad,
+)
 from repro_torch.models import common
 from repro_torch.models.common import SHAPES_ONLY
 from repro_torch.models.model import build_model
+from repro_torch.roofline import memory
 from repro_torch.roofline.costs import Plan, depth_flops, dot_flops
+from repro_torch.sharding import fsdp
 from repro_torch.sharding import specs as sh
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, leaves, tree_map
 
 MESHES = ("16x16", "2x16x16", "1x1")
 H100_BYTES = 80 * 2**30  # the card's 80 GB of HBM
@@ -70,7 +85,7 @@ class Cell:
 
     mesh: MeshShape
     rows: int  # the batch rows of one device's step
-    mem: Dict[str, int]
+    mem: Dict[str, Any]
     plan: Plan
     count: Callable[[ModelConfig], int]
 
@@ -127,39 +142,24 @@ def _adafactor_reductions(plan: Plan, shape, sharding) -> None:
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     """One leaf as one gather sees it (a layer of a stacked leaf): its shape,
-    dtype and placement, whether the gather handles it (split, or the batch
-    split), and ``key``, the local shard whose gradient it makes."""
+    dtype and placement, and whether the gather handles it (split, or the
+    batch split)."""
 
     shape: tuple
     dtype: torch.dtype
     sharding: Any
-    split: bool
     handled: bool
-    key: tuple
-
-    @property
-    def whole(self) -> int:
-        return math.prod(self.shape) * torch.empty((), dtype=self.dtype).element_size()
-
-    @property
-    def shard(self) -> int:
-        return math.prod(self.sharding.shard_shape(self.shape)) * torch.empty((), dtype=self.dtype).element_size()
 
 
 @dataclasses.dataclass(frozen=True)
 class _Group:
-    """One call of ``sharding.fsdp.gather`` in the sharded step's forward:
-    ``kind`` "head" (the embedding, the LM head) or "layer" (a layer, a
-    hybrid group or trailing layer), ``remat`` whether it runs under remat
-    (its gathered leaves die with the call and the replay gathers them
-    again), else kept for the backward."""
+    """One call of ``sharding.fsdp.gather`` in the sharded step's forward
+    (the embedding, a layer, a hybrid group or trailing layer, the LM
+    head): its leaves, and ``remat``, whether the call runs under remat
+    (the replay gathers its leaves again)."""
 
-    kind: str
     remat: bool
     leaves: Tuple[_Leaf, ...]
-
-    def total(self, what: str, only=None) -> int:
-        return sum(getattr(leaf, what) for leaf in self.leaves if only is None or getattr(leaf, only))
 
 
 def _gather_groups(cfg: ModelConfig, params, specs, ms: MeshShape, batch_axes, batch) -> list:
@@ -174,66 +174,57 @@ def _gather_groups(cfg: ModelConfig, params, specs, ms: MeshShape, batch_axes, b
         shape, spec = (tuple(t.shape), s.spec) if layer is None else (tuple(t.shape[1:]), s.spec[1:])
         sharding = sh.LeafSharding(ms, spec)
         split = any(ms.shape[a] > 1 for d in range(len(shape)) for a in sharding.axes(d))
-        return _Leaf(shape, t.dtype, sharding, split, split or bool(batch_axes), (path, layer))
+        return _Leaf(shape, t.dtype, sharding, split or bool(batch_axes))
 
     def stack(prefix, i):
         return [leaf(p, i) for p in names if p.startswith(prefix + "/")]
 
     groups = []
     if cfg.family != "audio" or "frame_mask" in batch:
-        groups.append(_Group("head", False, (leaf("head/embed"),)))
+        groups.append(_Group(False, (leaf("head/embed"),)))
     if cfg.family == "hybrid":
         n_groups = cfg.num_layers // len(cfg.rglru.pattern)
         n_rec = sum(1 for k in cfg.layer_kinds() if k == "rec")
         for g in range(n_groups):
-            groups.append(_Group("layer", cfg.remat, tuple(
+            groups.append(_Group(cfg.remat, tuple(
                 stack("rec_layers", 2 * g) + stack("rec_layers", 2 * g + 1) + stack("attn_layers", g))))
         for i in range(2 * n_groups, n_rec):
-            groups.append(_Group("layer", False, tuple(stack("rec_layers", i))))
+            groups.append(_Group(False, tuple(stack("rec_layers", i))))
     else:
         for layer in range(cfg.num_layers):
-            groups.append(_Group("layer", cfg.remat, tuple(stack("layers", layer))))
+            groups.append(_Group(cfg.remat, tuple(stack("layers", layer))))
     head = "head/embed" if cfg.tie_embeddings else "head/lm_head"
-    groups.append(_Group("head", False, (leaf("head/final_norm"), leaf(head))))
+    groups.append(_Group(False, (leaf("head/final_norm"), leaf(head))))
     return groups
 
 
-def _fsdp_temp(groups) -> int:
-    """The most the sharded step holds beside its arguments, by
-    ``sharding.fsdp``'s gathers, at each gather's end and each gather
-    backward's start and end: the gathered leaves (a group under remat only
-    during its call and its replay; one outside remat until its backward),
-    the whole gradients a gather backward receives, and the gradient shards
-    made so far (a shard a local tensor: the tied head's two gathers of
-    ``embed`` make one). The backward runs the groups in reverse; a group's
-    gathered leaves are gone when its backward starts (their last user has
-    run). Not counted: activations; the shards stacked into a stacked
-    leaf's gradient beside themselves for a moment; within a layer's
-    backward, a leaf both gathered and whole for the op that computes its
-    gradient; and, outside remat, that leaves no op saves (norms, biases)
-    die before the backward: so trailing layers are counted whole."""
-    peak = kept = 0
-    for g in groups:
-        if g.kind == "layer" and not g.remat:
-            kept += g.total("whole", "split")
-            peak = max(peak, kept)
-        else:
-            peak = max(peak, kept + g.total("whole", "split"))
-    held, seen = 0, set()
-    for g in reversed(groups):
-        if g.kind == "layer":
-            if g.remat:
-                peak = max(peak, g.total("whole", "split") + held)
-            else:
-                kept -= g.total("whole", "split")
-        whole = g.total("whole", "handled")
-        peak = max(peak, kept + whole + held)
-        for leaf in g.leaves:
-            if leaf.key not in seen:
-                seen.add(leaf.key)
-                held += leaf.shard
-        peak = max(peak, kept + whole + held)
-    return peak
+def _meta_axes(ms: MeshShape, sharding, ndim: int) -> fsdp.LeafAxes:
+    """A leaf's cut as the sharded step sees it on rank 0 of ``ms``, with
+    no process group: the memory pass's (``sharding.fsdp`` runs no
+    collective on meta)."""
+    return fsdp.LeafAxes(tuple(tuple(fsdp.Axis(a, None, ms.shape[a], 0) for a in sharding.axes(d)
+                                     if ms.shape[a] > 1) for d in range(ndim)))
+
+
+def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bool = True) -> memory.Count:
+    """The memory pass of one rank's train step on ``ms`` over its ``batch``
+    (on meta): ``make_sharded_train_step``'s step (``shard_step``;
+    ``make_train_step``'s where nothing is split), under
+    ``roofline.memory.count``, the kernels on their CUDA paths (``card``)
+    or their plain versions. The state's shards and the batch are its
+    arguments; the metrics (and the new ``step``) its outputs."""
+    state = abstract_train_state(cfg)
+    shardings = sh.state_shardings(cfg, state, ms)
+    shards = tree_map(lambda t, s: torch.empty(s.shard_shape(tuple(t.shape)), dtype=t.dtype, device="meta"),
+                      state, shardings)
+    cuts = [_meta_axes(ms, s, t.dim()) for t, s in zip(leaves(state["params"]), leaves(shardings["params"]))]
+    axes = tuple(fsdp.Axis(a, None, ms.shape[a], 0) for a in batch_axes)
+    if not axes and not any(c.split for c in cuts):
+        return memory.count(make_train_step(cfg), shards, batch, card=card)[1]
+    splits = [sh.LeafSplit(tuple(t.shape), tuple(tuple(a.name for a in d) for d in c.dims)) if c.split else None
+              for t, c in zip(leaves(state["params"]), cuts)]
+    return memory.count(shard_step(cfg), shards, batch, _Split(tuple(cuts), axes, lambda b: b), splits,
+                        card=card)[1]
 
 
 def _gradient_reduction(plan: Plan, leaf: _Leaf, batch_axes) -> None:
@@ -274,10 +265,11 @@ def _moe_collectives(plan: Plan, cfg: ModelConfig, batch_axes) -> None:
         plan.all_reduce(4 * m.num_experts, batch_axes)
 
 
-def build_cell(arch, shape, mesh) -> Cell:
+def build_cell(arch, shape, mesh, card: bool = True) -> Cell:
     """The cell of ``arch`` (a name or a ``ModelConfig``) at ``shape`` (a
     name in ``SHAPES`` or a ``ShapeSpec``) on ``mesh`` (a name such as
-    ``"2x4"`` or a MeshShape)."""
+    ``"2x4"`` or a MeshShape). ``card=False`` counts the kernels' plain
+    versions, as a CPU step runs them (its tests hold the count to one)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     ms = mesh if isinstance(mesh, MeshShape) else parse_mesh(mesh)
@@ -309,25 +301,35 @@ def build_cell(arch, shape, mesh) -> Cell:
             _moe_collectives(plan, cfg, batch_axes)
         for _ in range(3):  # the label count, the loss and ce
             plan.all_reduce(4, axes)
+        held = train_memory(cfg, ms, batch, batch_axes, card)
         mem = {"state_bytes": state_bytes, "batch_bytes": batch_bytes, "argument_bytes": state_bytes + batch_bytes,
-               "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": _fsdp_temp(groups)}
+               "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": held.peak,
+               "temp_breakdown": held.breakdown}
 
         def count(c):
             return dot_flops(value_and_grad, build_model(c), abstract_train_state(c)["params"], batch)
 
         return Cell(ms, rows, mem, plan, count)
 
-    params = build_model(cfg).init(SHAPES_ONLY)
+    fns = build_model(cfg)
+    params = fns.init(SHAPES_ONLY)
     pspecs = sh.param_shardings(cfg, params, ms)
     param_bytes = _shard_bytes(params, pspecs)
     specs = dict(flatten(pspecs))
-    temp = sum(plan.gather(tuple(t.shape), t.dtype, specs[p]) for p, t in flatten(params))
+    gathered = sum(plan.gather(tuple(t.shape), t.dtype, specs[p]) for p, t in flatten(params))
     mem = {"param_bytes": param_bytes, "batch_bytes": batch_bytes}
 
+    def serve_temp(step, *args):
+        """temp_bytes and temp_breakdown: the gathered copies beside the
+        memory pass of ``step`` on this rank's rows, its arguments whole."""
+        held = memory.count(step, *args, card=card)[1]
+        return {"temp_bytes": gathered + held.peak,
+                "temp_breakdown": dict(held.breakdown, gathers=held.breakdown["gathers"] + gathered)}
+
     if shape.kind == "prefill":
-        cache_bytes = _whole_bytes(build_model(cfg).init_cache(rows, shape.seq_len, device="meta"))
+        cache_bytes = _whole_bytes(fns.init_cache(rows, shape.seq_len, device="meta"))
         mem.update(argument_bytes=param_bytes + batch_bytes, output_bytes=logits_bytes + cache_bytes,
-                   alias_bytes=0, temp_bytes=temp)
+                   alias_bytes=0, **serve_temp(fns.prefill, params, batch))
 
         def count(c):
             return dot_flops(make_prefill_step(c), build_model(c).init(SHAPES_ONLY), batch)
@@ -335,14 +337,15 @@ def build_cell(arch, shape, mesh) -> Cell:
         return Cell(ms, rows, mem, plan, count)
 
     # decode: one token against a seq_len-sized cache
-    cache = build_model(cfg).init_cache(shape.global_batch, shape.seq_len, device="meta")
+    cache = fns.init_cache(shape.global_batch, shape.seq_len, device="meta")
     cspecs = dict(flatten(sh.cache_shardings(cfg, cache, ms, shape.global_batch)))
     cache_bytes = _shard_bytes(cache, sh.cache_shardings(cfg, cache, ms, shape.global_batch))
     for p, t in flatten(cache):
         if isinstance(t, torch.Tensor):
-            temp += plan.gather(tuple(t.shape), t.dtype, cspecs[p], keep_dims=(1,))  # this rank's rows
+            gathered += plan.gather(tuple(t.shape), t.dtype, cspecs[p], keep_dims=(1,))  # this rank's rows
     mem.update(cache_bytes=cache_bytes, argument_bytes=param_bytes + cache_bytes + batch_bytes,
-               output_bytes=logits_bytes + cache_bytes, alias_bytes=cache_bytes, temp_bytes=temp)
+               output_bytes=logits_bytes + cache_bytes, alias_bytes=cache_bytes,
+               **serve_temp(fns.decode_step, params, fns.init_cache(rows, shape.seq_len, "meta"), batch))
 
     def count(c):
         fns = build_model(c)

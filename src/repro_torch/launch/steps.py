@@ -23,6 +23,7 @@ from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.common import SHAPES_ONLY
 from repro_torch.models.model import build_model, loss_tokens
 from repro_torch.optim import get_optimizer, get_schedule
+from repro_torch.roofline import memory
 from repro_torch.sharding import fsdp
 from repro_torch.sharding.specs import batch_shardings, leaf_split, local
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -127,7 +128,9 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
     flatten order; ``split`` as :func:`value_and_grad`'s) and
     ``apply(state, loss, aux, grads, gnorm, splits=None) -> (state,
     metrics)``, the optimizer at the schedule's learning rate (``splits``:
-    the optimizer's, for a state of shards)."""
+    the optimizer's, for a state of shards). For the dry-run's memory pass
+    (``roofline/memory.py``) the gradients are ``gradients`` and the
+    optimizer's temporaries ``optimizer``."""
     fns = build_model(cfg)
     opt = get_optimizer(cfg.optimizer)
     sched = get_schedule(cfg.schedule, peak_lr, warmup, total_steps)
@@ -146,6 +149,11 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
         return {k: per(v) for k, v in batch.items()}
 
     def gradients(params, batch, split=None):
+        loss, aux, grads = _gradients(params, batch, split)
+        memory.mark(grads, "gradients")
+        return loss, aux, grads
+
+    def _gradients(params, batch, split):
         if n_micro <= 1:
             return value_and_grad(fns, params, batch, split)
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
@@ -157,6 +165,7 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
             loss = loss + loss_i / n_micro
         return loss, aux, grads
 
+    @memory.kind("optimizer")
     def apply(state, loss, aux, grads, gnorm, splits=None):
         params = state["params"]
         lr = sched(state["step"])
@@ -167,6 +176,7 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
     return gradients, apply
 
 
+@memory.kind("optimizer")
 def grad_norm(grads, splits=None) -> torch.Tensor:
     """The f32 norm of the gradients in flatten order; with ``splits``
     (``sharding.specs.LeafSplit`` or None a leaf) each gradient is a shard,
@@ -211,19 +221,32 @@ def make_sharded_train_step(
     compute the same thing (tensor-parallel compute is ROADMAP.md §1 item
     16). Where nothing splits the batch or a leaf, as on a one-rank mesh,
     the step is the unsharded one, bit for bit."""
-    gradients, apply = _train_step_parts(cfg, peak_lr, warmup, total_steps, microbatches)
+    step = shard_step(cfg, peak_lr, warmup, total_steps, microbatches)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
-        placed = leaves(state["params"])
-        loss, aux, grads = gradients(tree_map(local, state["params"]), batch,
-                                     sharded_split(cfg, mesh, state["params"], batch))
-        splits = [leaf_split(t) for t in placed]
-        shards = tree_map(local, state)
-        new, metrics = apply(shards, loss, aux, grads, grad_norm(grads, splits), splits)
-        shards["step"].copy_(new["step"])
+        splits = [leaf_split(t) for t in leaves(state["params"])]
+        metrics = step(tree_map(local, state), batch, sharded_split(cfg, mesh, state["params"], batch), splits)
         return state, metrics
 
     return train_step
+
+
+def shard_step(cfg: ModelConfig, peak_lr=3e-4, warmup=100, total_steps=10_000, microbatches=0):
+    """``step(shards, batch, split, splits) -> metrics``, the body of
+    :func:`make_sharded_train_step`'s step: the gradients over a state of
+    this rank's shards with its ``split`` (:class:`_Split`), ``grad_norm``
+    and the optimizer over the shards with their ``splits``, the state
+    updated in place. The dry-run's memory pass runs it on meta shards
+    with the cuts of a mesh that has no process group."""
+    gradients, apply = _train_step_parts(cfg, peak_lr, warmup, total_steps, microbatches)
+
+    def step(shards: Dict[str, Any], batch: Dict[str, Any], split, splits):
+        loss, aux, grads = gradients(shards["params"], batch, split)
+        new, metrics = apply(shards, loss, aux, grads, grad_norm(grads, splits), splits)
+        shards["step"].copy_(new["step"])
+        return metrics
+
+    return step
 
 
 def sharded_split(cfg: ModelConfig, mesh, params, batch: Dict[str, Any]) -> "_Split | None":

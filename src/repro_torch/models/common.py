@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import on_card
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 
@@ -183,13 +184,14 @@ def attend(
     q_positions: (B, Sq) int32; kv_positions: (B, Skv) int32 (-1 = invalid
     slot); ``None`` means 0..S-1 on that side, which is what ``forward``
     builds. On CUDA tensors this is the ``flash_attention`` kernel, which takes
-    only those positions. On the CPU it is the plain version, which loops over
+    only those positions (meta tensors too under the dry-run's memory pass:
+    ``kernels.on_card``). On the CPU it is the plain version, which loops over
     query blocks when S_q is large so the (B, H, Sq, Skv) score tensor never
     materializes in full.
     """
     b, sq, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if q.is_cuda:
+    if on_card(q):
         if q_positions is not None or kv_positions is not None:
             raise ValueError("attend on CUDA: the kernel takes positions 0..S-1 (pass None)")
         return flash_attention(q, k, v, causal=causal, window=window or 0, sm_scale=scale)

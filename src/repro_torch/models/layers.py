@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.kernels import on_card
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.streammm.ops import stream_matmul
 from repro_torch.models import common
@@ -96,7 +97,7 @@ def attention_apply(
     index, so ``positions`` must be 0..S-1 in every row there (``forward`` and
     ``prefill`` build or check that). Returns (out, (k, v))."""
     q, k, v = _project_qkv(p, x, cfg, positions, positions3)
-    mask_positions = None if q.is_cuda else positions
+    mask_positions = None if on_card(q) else positions
     out = attend(q, k, v, q_positions=mask_positions, kv_positions=mask_positions,
                  causal=cfg.causal, window=window)
     b, s, _, _ = out.shape

@@ -50,12 +50,12 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, rglru, ssm
 from repro_torch.models.common import resolve_device, rms_norm
+from repro_torch.roofline import memory
 from repro_torch.models.layers import (
     attention_apply,
     attention_decode,
@@ -97,6 +97,7 @@ def _embed_table(params):
     return fsdp.gather({"embed": params["head"]["embed"]})["embed"]
 
 
+@memory.kind("logits")
 def _logits(p, x, cfg: ModelConfig):
     """The LM head over x; under the sharded step its leaves are gathered
     here (``sharding.fsdp``), the tied head's ``embed`` a second time."""
@@ -122,14 +123,17 @@ def _remat(cfg: ModelConfig, fn, *args):
     reference's ``_remat`` (``jax.checkpoint``) around a scan body. The
     model draws no random numbers, so no RNG state is kept for the replay.
     Under the sharded step the replay sees its split too (it gathers the
-    layer again)."""
+    layer again). The tensors the unit keeps for its replay are the
+    dry-run's ``residuals`` (``roofline.memory``)."""
     if cfg.remat:
+        memory.mark(args, "residuals")
         ctx = fsdp.current()
         kw = {} if ctx is None else {"context_fn": fsdp.remat_contexts(ctx)}
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
     return fn(*args)
 
 
+@memory.kind("logits")
 def cross_entropy(logits, labels, ignore: int = -1):
     """Token-mean cross-entropy in f32, the reference's: the max taken without
     a gradient, labels equal to ``ignore`` masked out. The label's logit is
@@ -159,15 +163,19 @@ def _load_balance_loss(router_logits, cfg: ModelConfig):
     the sum over experts of (the share of tokens whose top choice it is) x
     (its mean router probability). Under a batch split both means are over
     the dp group's tokens, as the reference's global call takes them: the
-    rank's sums summed over the group (``sharding.fsdp.batch_sum``)."""
+    rank's sums summed over the group (``sharding.fsdp.batch_sum``). The
+    one-hot of the top choices is a comparison, as ``moe_dispatch``'s: no
+    bounds check reads the indices on the host, and the op allocates the
+    same on every device (the dry-run's memory pass)."""
     e = cfg.moe.num_experts
     probs = torch.softmax(router_logits.float(), dim=-1)
+    top = (probs.argmax(dim=-1)[:, None] == torch.arange(e, device=probs.device)).float()
     batch = fsdp.batch_axes()
     if not batch:
-        frac = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0)
+        frac = top.mean(dim=0)
         return e * (frac * probs.mean(dim=0)).sum()
     n = probs.shape[0] * fsdp.batch_size(batch)
-    frac = fsdp.batch_sum(F.one_hot(probs.argmax(dim=-1), e).float().sum(dim=0), batch) / n
+    frac = fsdp.batch_sum(top.sum(dim=0), batch) / n
     return e * (frac * (fsdp.batch_sum(probs.sum(dim=0), batch) / n)).sum()
 
 

@@ -34,6 +34,11 @@ gather over the dp group: MoE routes over all of its tokens with them
 (``models/layers.moe_dispatch``) and takes its load-balance term over them
 (``models/model._load_balance_loss``); ``batch_sum``'s backward is an
 all-reduce too. Nothing here reads a tensor's values on the host.
+
+On meta tensors (the dry-run's memory pass, whose axes have no process
+group) every buffer is made as on a rank and no collective runs: the
+gathered leaves are the dry-run's ``gathers``, the shards of the gradients
+its ``gradients`` (``roofline/memory.py``).
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.roofline import memory
 from repro_torch.tree import flatten, unflatten
 
 
@@ -167,9 +173,16 @@ def batch_index(axes) -> int:
     return i
 
 
+def _collective(fn, out: torch.Tensor, *args, **kwargs) -> None:
+    """``fn(out, *args, **kwargs)``, a collective into ``out``; on meta
+    nothing runs."""
+    if not out.is_meta:
+        fn(out, *args, **kwargs)
+
+
 def _all_gather(t: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     out = t.new_empty((axis.size * t.shape[0], *t.shape[1:]))
-    dist.all_gather_into_tensor(out, t.contiguous(), group=axis.group)
+    _collective(dist.all_gather_into_tensor, out, t.contiguous(), group=axis.group)
     if dim == 0:
         return out
     out = out.view(axis.size, *t.shape).movedim(0, dim)
@@ -180,7 +193,7 @@ def _reduce_scatter(g: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     n = axis.size
     src = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0).contiguous()
     out = g.new_empty(src.shape[1:])
-    dist.reduce_scatter_tensor(out, src.view(n * out.shape[0], *out.shape[1:]), group=axis.group)
+    _collective(dist.reduce_scatter_tensor, out, src.view(n * out.shape[0], *out.shape[1:]), group=axis.group)
     return out
 
 
@@ -211,7 +224,7 @@ def reduce_leaf(g: torch.Tensor, axes: LeafAxes, batch: Tuple[Axis, ...]) -> tor
         g = g.clone(memory_format=torch.contiguous_format)
     for axis in batch:
         if axis.name not in own:
-            dist.all_reduce(g, group=axis.group)
+            _collective(dist.all_reduce, g, group=axis.group)
     return g
 
 
@@ -233,7 +246,10 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         spec = ctx.spec
-        return (None, *(reduce_leaf(g, a, spec.batch) for g, a in zip(grads, spec.leaves)))
+        memory.mark(grads, "gathers")
+        shards = tuple(reduce_leaf(g, a, spec.batch) for g, a in zip(grads, spec.leaves))
+        memory.mark(shards, "gradients")
+        return (None, *shards)
 
 
 def gather(tree):
@@ -249,7 +265,8 @@ def gather(tree):
     if not todo:
         return tree
     spec = _Spec(tuple(ctx.axes[pairs[i][1]] for i in todo), ctx.batch)
-    whole = _Gather.apply(spec, *(pairs[i][1] for i in todo))
+    with memory.kind("gathers"):
+        whole = _Gather.apply(spec, *(pairs[i][1] for i in todo))
     for i, t in zip(todo, whole):
         pairs[i] = (pairs[i][0], t)
     return unflatten(pairs)
@@ -258,7 +275,7 @@ def gather(tree):
 def _sum_over(x: torch.Tensor, axes) -> torch.Tensor:
     x = x.clone()
     for a in axes:
-        dist.all_reduce(x, group=a.group)
+        _collective(dist.all_reduce, x, group=a.group)
     return x
 
 
@@ -284,6 +301,6 @@ def batch_all_gather(x: torch.Tensor, axes) -> torch.Tensor:
     out = x[None]
     for a in reversed(tuple(axes)):  # minor first
         buf = out.new_empty((a.size * out.shape[0], *out.shape[1:]))
-        dist.all_gather_into_tensor(buf, out.contiguous(), group=a.group)
+        _collective(dist.all_gather_into_tensor, buf, out.contiguous(), group=a.group)
         out = buf
     return out

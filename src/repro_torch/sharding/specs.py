@@ -286,7 +286,9 @@ class LeafSplit:
 
     def reduce(self, x: torch.Tensor, dims=None) -> torch.Tensor:
         """Sums x over the ranks that split the leaf's ``dims`` (default
-        all), in place; returns x."""
+        all), in place; returns x. On meta (the dry-run) nothing runs."""
+        if x.is_meta:
+            return x
         for d in range(len(self.shape)) if dims is None else dims:
             for g in self.groups[d]:
                 dist.all_reduce(x, group=g)

@@ -3,10 +3,15 @@
 process a rank (``run_ranks`` of ``tests/test_torch_distributed.py``).
 
 * Memory: with remat, a rank holds at most one layer's gathered leaves (one
-  hybrid group's) beside the head's, and the peak of what the gathers hold
-  (gathered leaves, the whole gradients their backward receives, the
-  gradient shards made so far; weakrefs note each tensor's end) equals the
-  dry-run's ``temp_bytes`` for the same config, shape and mesh.
+  hybrid group's), and one layer's whole gradients, beside the head's, and
+  the peak of what the gathers hold (gathered leaves, the whole gradients
+  their backward receives, the gradient shards made so far; weakrefs note
+  each tensor's end) is what the order of the gathers gives. And
+  ``roofline.memory.count`` over a rank's real step (every storage an op
+  makes, while it lives) equals the dry-run's count on meta for the same
+  config, shape and mesh: ``temp_bytes``, and the bytes by kind at the
+  peak, the gathered leaves and whole gradients (``gathers``) and the
+  gradient shards (``gradients``) among them.
 * Each family's sharded step equals the unsharded one within 1e-5 (losses,
   and parameters by ``max_rel_leaf``) over 4 steps in f32 on (2, 4): the
   gradients are summed over the ranks in another order.
@@ -23,6 +28,7 @@ _CASES = _RANK.split('\nif __name__ == "__main__":')[0] + r'''
 import weakref
 from repro_torch.launch import dryrun
 from repro_torch.launch.specs import make_concrete_batch
+from repro_torch.roofline import memory
 from repro_torch.sharding import fsdp
 
 FAMILIES = {"dense": "qwen3-1.7b", "ssm": "mamba2-1.3b", "hybrid": "recurrentgemma-9b",
@@ -53,14 +59,17 @@ def steps(cfg, mesh, data, **kw):
 class Tracker:
     """Wraps ``fsdp.gather`` and ``fsdp._Gather``'s forward and backward.
     Live: each gathered leaf (a tensor the forward makes) and each whole
-    gradient the backward receives, until weakref's finalize says it is
-    gone; held: each gradient shard the backward returns, once a local
-    shard (every one is kept to the optimizer, alone or stacked). Samples
-    at each forward's end and each backward's start and end."""
+    gradient the backward receives, with the gather call it belongs to,
+    until weakref's finalize says it is gone; held: each gradient shard the
+    backward returns, once a local shard (every one is kept to the
+    optimizer, alone or stacked). Samples at each forward's end and each
+    backward's start and end: the bytes, and how many layers' (hybrid
+    groups') gathered leaves and whole gradients are live beside the
+    head's."""
 
     def __init__(self):
         self.live, self.shards, self.owners = {}, {}, []
-        self.peak = self.most_layers = self.calls = self.n = 0
+        self.peak = self.most_layers = self.most_whole = self.calls = self.n = 0
         self.label = None
         gather, forward, backward = fsdp.gather, fsdp._Gather.forward, fsdp._Gather.backward
         tracker = self
@@ -72,17 +81,17 @@ class Tracker:
 
         def forward_(ctx, spec, *shards):
             outs = forward(ctx, spec, *shards)
-            ctx.owners = [id(t) for t in shards]
+            ctx.owners, ctx.label = [id(t) for t in shards], tracker.label
             tracker.owners.extend(shards)  # the local shards' ids stay theirs
             for t, o in zip(shards, outs):
                 if o.untyped_storage().data_ptr() != t.untyped_storage().data_ptr():
-                    tracker.add(o, "gathered")
+                    tracker.add(o, "gathered", ctx.label)
             tracker.sample()
             return outs
 
         def backward_(ctx, *grads):
             for g in grads:
-                tracker.add(g, "whole")
+                tracker.add(g, "whole", ctx.label)
             tracker.sample()
             res = backward(ctx, *grads)
             for owner, g in zip(ctx.owners, res[1:]):
@@ -94,24 +103,90 @@ class Tracker:
         fsdp._Gather.forward = staticmethod(forward_)
         fsdp._Gather.backward = staticmethod(backward_)
 
-    def add(self, t, kind):
+    def add(self, t, kind, label):
         self.n += 1
-        self.live[self.n] = (t.numel() * t.element_size(), kind, self.label)
+        self.live[self.n] = (t.numel() * t.element_size(), kind, label)
         weakref.finalize(t, self.live.pop, self.n, None)
 
     def sample(self):
-        layers = {label for _, kind, label in self.live.values() if kind == "gathered" and label != "head"}
-        self.most_layers = max(self.most_layers, len(layers))
+        def layers(kind):
+            return len({label for _, k, label in self.live.values() if k == kind and label != "head"})
+
+        self.most_layers = max(self.most_layers, layers("gathered"))
+        self.most_whole = max(self.most_whole, layers("whole"))
         self.peak = max(self.peak, sum(b for b, _, _ in self.live.values()) + sum(self.shards.values()))
 
 
+def gathers_peak(cfg, mesh):
+    """What the tracker's peak should be, from the step's order of gathers
+    (``dryrun._gather_groups``) alone: the most held at each gather's end
+    and each gather backward's start and end, of the gathered leaves (a
+    group under remat only during its call and its replay; one outside
+    remat until its backward), the whole gradients a gather backward
+    receives, and the gradient shards made so far (the tied head's second
+    gather of ``embed`` makes no new one). The backward runs the groups in
+    reverse; a group's gathered leaves are gone when its backward starts."""
+    from repro_torch.sharding import specs as sh
+    from repro_torch.launch.steps import abstract_train_state
+
+    ms = mesh_shape(mesh)
+    _, batch, _, axes = dryrun._local_batch(cfg, SHAPE, ms)
+    state = abstract_train_state(cfg)
+    specs = dict(flatten(sh.state_shardings(cfg, state, ms)))
+    groups = dryrun._gather_groups(cfg, state["params"], specs, ms,
+                                   tuple(a for a in axes if ms.shape[a] > 1), batch)
+    embed = cfg.family != "audio" or "frame_mask" in batch
+
+    def nbytes(shape, leaf):
+        return math.prod(shape) * torch.empty((), dtype=leaf.dtype).element_size()
+
+    def whole(g, only_split):
+        return sum(nbytes(leaf.shape, leaf) for leaf in g.leaves if leaf.handled and (
+            not only_split or any(ms.shape[a] > 1 for d in range(len(leaf.shape)) for a in leaf.sharding.axes(d))))
+
+    def layer(i):
+        return (i > 0 or not embed) and i < len(groups) - 1
+
+    peak = kept = 0
+    for i, g in enumerate(groups):
+        if layer(i) and not g.remat:
+            kept += whole(g, True)
+            peak = max(peak, kept)
+        else:
+            peak = max(peak, kept + whole(g, True))
+    held = 0
+    for i in reversed(range(len(groups))):
+        g = groups[i]
+        if layer(i):
+            if g.remat:
+                peak = max(peak, whole(g, True) + held)
+            else:
+                kept -= whole(g, True)
+        w = whole(g, False)
+        peak = max(peak, kept + w + held)
+        tied = i == len(groups) - 1 and embed and cfg.tie_embeddings
+        held += sum(nbytes(leaf.sharding.shard_shape(leaf.shape), leaf)
+                    for leaf in (g.leaves[:-1] if tied else g.leaves))
+        peak = max(peak, kept + w + held)
+    return peak
+
+
 def case_memory(mesh, out, arch):
-    """(2, 4): one step of ``arch`` reduced, f32, remat on, tracked."""
+    """(2, 4): one step of ``arch`` reduced, f32, remat on, with the gathers
+    tracked; then one under ``roofline.memory.count``, each rank's count
+    beside the dry-run's for the same config, shape and mesh, on meta with
+    the kernels' plain versions (the CPU's)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32", remat=True)
     tracker = Tracker()
-    steps(cfg, mesh, batches(cfg, 1))
-    out.update(peak=tracker.peak, most_layers=tracker.most_layers, calls=tracker.calls,
-               temp=dryrun.build_cell(cfg, SHAPE, "2x4").mem["temp_bytes"])
+    state, _ = steps(cfg, mesh, batches(cfg, 1))
+    out.update(peak=tracker.peak, most_layers=tracker.most_layers, most_whole=tracker.most_whole,
+               calls=tracker.calls, expected_peak=gathers_peak(cfg, mesh))
+    step = make_sharded_train_step(cfg, mesh, peak_lr=1e-3, warmup=5, total_steps=30)
+    _, held = memory.count(step, state, batches(cfg, 1, start=1)[0])
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, dataclasses.asdict(held))
+    mem = dryrun.build_cell(cfg, SHAPE, "2x4", card=False).mem
+    out.update(counts=counts, temp=mem["temp_bytes"], temp_breakdown=mem["temp_breakdown"])
 
 
 def split_order(cfg, data, n):
@@ -166,11 +241,20 @@ def case_unsplit(mesh, out):
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-9b", "grok-1-314b"])
 def test_one_layer_gathered_at_a_time(tmp_path, arch):
     """(2, 4), remat on: never more than one layer's (one hybrid group's)
-    gathered leaves beside the head's, and the peak of the gathers' bytes is
-    the dry-run's ``temp_bytes``."""
+    gathered leaves, nor one layer's whole gradients, beside the head's; the
+    tracked peak of the gathers (gathered leaves, whole gradients, gradient
+    shards) is what the order of the gathers gives, and no more than the
+    gathers' and the gradients' kinds hold in the count; and every rank's
+    count of the whole step is the dry-run's ``temp_bytes``, and what it
+    held then, kind by kind, its ``temp_breakdown``."""
     out = run_ranks(tmp_path, "memory", "2x4", arch, script_text=_CASES)
-    assert out["most_layers"] == 1, out
-    assert out["peak"] == out["temp"] > 0, out
+    assert out["most_layers"] == 1 and out["most_whole"] == 1, out
+    assert out["peak"] == out["expected_peak"] > 0, out
+    assert out["temp_breakdown"]["gathers"] > 0 and out["temp_breakdown"]["gradients"] > 0, out
+    for count in out["counts"]:
+        assert out["peak"] <= count["held"]["gathers"] + count["held"]["gradients"], out
+        assert count["peak"] == out["temp"] > 0, out
+        assert count["breakdown"] == out["temp_breakdown"], out
 
 
 @pytest.fixture(scope="module")
