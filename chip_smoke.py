@@ -122,7 +122,8 @@
    (9c) qwen3-1.7b at published width (MESH_LAYERS layers) through
    ``TrainSupervisor`` on a one-rank NCCL group (a FileStore) and a 1 x 1
    mesh, the state placed as DTensors: the losses of the same run without a
-   mesh, bit for bit, and checkpoints that cross between the two; then
+   mesh, bit for bit (the step's split over ``model`` has one rank there and
+   runs as the unsharded step), and checkpoints that cross between the two; then
    grok-1-314b at 1 layer, published width, Adafactor, through
    ``make_sharded_train_step`` on the same group (its per-layer gathers
    and dp-group routing) beside ``make_train_step``, the losses bit for
@@ -137,8 +138,14 @@
    :func:`predicted_dot_flops` gives, and its 1x1 count (argument + temp +
    output - alias, the memory pass of ``roofline/memory.py``) of phase 8's
    three train runs and of qwen3-1.7b's prefill in phase 6 against the
-   peak the card's allocator reached there, within MEMORY_BAND; every
-   launch of 9a-9c gated exactly;
+   peak the card's allocator reached there, within MEMORY_BAND; (9e) one
+   rank of the 16x16 mesh on a fake process group of 256 (its collectives
+   return at once): qwen3-1.7b at published depth and grok-1-314b at 1
+   layer take a train_4k step through ``make_sharded_train_step``, each
+   product on the rank's ``model`` shard, the allocator's peak within
+   RANK_BAND of the dry-run's count of the same rank, cell and depth, and
+   every (kernel, route, shapes) the step met checked again against its
+   plain version; every launch of 9a-9c and 9e gated exactly;
 10. runs the simulator path (``examples/port_serve_trace.py``'s ``run`` at
    its defaults, each backend's run traced by a full telemetry hub: metrics,
    prediction audit, stall ledger) on this machine's host, with no JAX and
@@ -383,6 +390,18 @@ DRYRUN_MESHES = ("16x16", "2x16x16", "1x1")
 # temp + output - alias) lies within this share of the allocator's peak there
 MEMORY_BAND = 0.10
 MEMORY_GATED = ("train qwen3-1.7b", "train grok-1-314b", "train arctic-480b", "prefill qwen3-1.7b")
+# Phase 9e: one rank of the production 16x16 mesh on the card, its 255 peers
+# stood in for by PyTorch's fake process group (every collective returns at
+# once, so the values are not checked): the products split over model at
+# the shard shapes the production mesh gives them. Each cell is (arch, layers;
+# None for the published depth): qwen3-1.7b's train_4k step at 28 layers
+# (the dry-run counts 17.8 GiB a device), grok-1-314b at 1 of 64.
+RANK_MESH = (16, 16)
+RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
+RANK_BAND = 0.05  # the dry-run's count of the same rank, cell and depth against the allocator's peak
+# stream_matmul at a shard shape against its plain version, relative L2 by the
+# inputs' dtype: bf16 rounds the output once (~2e-3), f32 sums in another order
+MM_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 # Phase 10: the simulator path. SIM_REFERENCE is the scoreboard of the JAX
 # package's examples/serve_trace.py at its defaults (integers, then floats
 # as repr writes them); tests/test_torch_serving.py holds it to the
@@ -594,6 +613,9 @@ def run_phases(torch, dev) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         dry = start_dryrun(Path(tmp))
         try:
+            # 9e times nothing: it runs while the dry-run's processes take the host
+            paths["rank"] = rank_on_card(torch, dev)
+            phase_done("9e. one rank of 16x16")
             dryrun_on_card(torch, dev, Path(tmp), dry, peaks)
         finally:
             for proc in dry.values():
@@ -3719,6 +3741,224 @@ def moe_on_mesh(torch, dev, mesh):
         raise AssertionError(f"mesh path, {cfg.name}: losses {got} vs {base}")
     torch.cuda.empty_cache()
     return launches, MESH_STEPS, wgmma, tuple(batched)
+
+
+def rank_state(torch, cfg, mesh, dev):
+    """The train state of ``cfg`` as this rank's shards on ``mesh`` (the
+    placements of ``sharding.specs``), made on the card shard by shard:
+    parameters drawn at 0.02, the optimizer's state 0. No whole leaf is
+    ever made."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.steps import abstract_train_state
+    from repro_torch.sharding.specs import state_shardings
+    from repro_torch.tree import tree_map
+
+    state = abstract_train_state(cfg)
+
+    def shard(t, s, draw):
+        local = torch.empty(s.shard_shape(tuple(t.shape)), dtype=t.dtype, device=dev)
+        local.normal_(std=0.02) if draw and t.is_floating_point() else local.zero_()
+        return DTensor.from_local(local, mesh, s.placements(), run_check=False, shape=t.shape,
+                                  stride=torch.empty(t.shape, device="meta").stride())
+
+    shardings = state_shardings(cfg, state, mesh)
+    return {key: tree_map(lambda t, s: shard(t, s, key == "params"), state[key], shardings[key]) for key in state}
+
+
+def kernel_calls(calls):
+    """Wraps each kernel's launch (``streammm.ops._launch``, ``flash_attention.
+    ops._forward`` and ``flash_attention_backward``) so that every call
+    notes, in ``calls``, its kernel, route and shapes; returns the undo."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.streammm import ops as mm_ops
+
+    launch, forward, backward = mm_ops._launch, fa_ops._forward, fa_ops.flash_attention_backward
+
+    def launch_(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
+        key = ("stream_matmul", route, x.dim() == 3, e, m, n, k, w_layout, x_layout, str(x.dtype), str(out.dtype),
+               rows is not None, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+        calls[key] = calls.get(key, 0) + 1
+        return launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout)
+
+    def forward_(q, k, v, causal, window, scale, lse=None):
+        b, sq, h, d = q.shape
+        route = fa_ops.fa_route(b, sq, k.shape[1], h, k.shape[2], d, q.dtype, fa_ops._aligned(q, k, v))
+        key = ("flash_attention", route, b, sq, k.shape[1], h, k.shape[2], d, str(q.dtype), causal, window, scale)
+        calls[key] = calls.get(key, 0) + 1
+        return forward(q, k, v, causal, window, scale, lse)
+
+    def backward_(q, k, v, out, dout, *, lse=None, causal=True, window=0, sm_scale=None):
+        b, sq, h, d = q.shape
+        route = fa_ops.fa_bwd_route(b, sq, k.shape[1], h, k.shape[2], d, q.dtype,
+                                    fa_ops._aligned(q, k, v, out, dout))
+        key = ("flash_attention_backward", route, b, sq, k.shape[1], h, k.shape[2], d, str(q.dtype), causal,
+               window, sm_scale, lse is not None)
+        calls[key] = calls.get(key, 0) + 1
+        return backward(q, k, v, out, dout, lse=lse, causal=causal, window=window, sm_scale=sm_scale)
+
+    mm_ops._launch, fa_ops._forward, fa_ops.flash_attention_backward = launch_, forward_, backward_
+
+    def undo():
+        mm_ops._launch, fa_ops._forward, fa_ops.flash_attention_backward = launch, forward, backward
+
+    return undo
+
+
+def check_kernel_call(torch, dev, key) -> float:
+    """One call of a kernel noted by :func:`kernel_calls`, on fresh random
+    inputs of its shapes (misaligned where the noted call's were), against
+    its plain version, its route held against the noted one. Returns the
+    relative L2 (the largest of dQ, dK, dV for the backward)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_backward
+    from repro_torch.kernels.streammm.ops import stream_matmul
+    from repro_torch.kernels.streammm.ref import stream_matmul_ref
+
+    gen = torch.Generator(dev).manual_seed(len(key))
+    dtypes = {"torch.bfloat16": torch.bfloat16, "torch.float32": torch.float32}
+
+    def randn(shape, dtype, scale=1.0, aligned=True):
+        n = math.prod(shape)
+        buf = torch.randn(n + 8, generator=gen, device=dev).mul_(scale).to(dtype)
+        return (buf[:n] if aligned else buf[1 : n + 1]).view(shape)
+
+    kernel, route = key[0], key[1]
+    if kernel == "stream_matmul":
+        _, _, batched, e, m, n, k, w_layout, x_layout, x_dtype, out_dtype, has_rows, aligned = key
+        lead = (e,) if batched else ()
+        dtype = dtypes[x_dtype]
+        x = randn((*lead, *((k, m) if x_layout == "km" else (m, k))), dtype, 1.0, aligned)
+        w = randn((*lead, *((n, k) if w_layout == "nk" else (k, n))), dtype, k ** -0.5)
+        rows = torch.randint(1, m + 1, (e,), generator=gen, device=dev, dtype=torch.int32) if has_rows else None
+        kw = dict(out_dtype=dtypes[out_dtype], w_layout=w_layout, rows=rows, x_layout=x_layout)
+        before = stream_matmul.wgmma_launches
+        with torch.no_grad():
+            out = stream_matmul(x, w, **kw)
+        took = stream_matmul.wgmma_launches - before
+        rel = rel_l2(out, stream_matmul_ref(x.float(), w.float(), **dict(kw, out_dtype=torch.float32)))
+        tol = MM_REL_L2[x_dtype]
+    else:
+        b, sq, skv, h, hkv, d, dtype, causal, window, scale = key[2:12]
+        dtype = dtypes[dtype]
+        q, do = randn((b, sq, h, d), dtype), randn((b, sq, h, d), dtype)
+        k, v = randn((b, skv, hkv, d), dtype), randn((b, skv, hkv, d), dtype)
+        kw = dict(causal=causal, window=window, sm_scale=scale)
+        if kernel == "flash_attention":
+            before = fa_ops.flash_attention.wgmma_launches
+            with torch.no_grad():
+                out = fa_ops.flash_attention(q, k, v, **kw)
+            took = fa_ops.flash_attention.wgmma_launches - before
+            rel = rel_l2(out, attention_ref(q.float(), k.float(), v.float(), **kw))
+            tol = FA_REL_L2
+        else:
+            with torch.no_grad():
+                out = fa_ops.flash_attention(q, k, v, **kw)
+            lse = None
+            if key[12]:
+                lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+                fa_ops._forward(q, k, v, causal, window, scale, lse)
+            before = fa_ops.flash_attention.bwd_wgmma_launches
+            grads = fa_ops.flash_attention_backward(q, k, v, out, do, lse=lse, **kw)
+            took = fa_ops.flash_attention.bwd_wgmma_launches - before
+            want = attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **kw)
+            rel = max(rel_l2(g, w) for g, w in zip(grads, want))
+            tol = FA_BWD_REL_L2[str(dtype)]
+    if took != (route == "wgmma") or not rel <= tol:
+        raise AssertionError(f"{key}: route {route}, tensor-core launches rose by {took}; relative L2 {rel:.2e} "
+                             f"against the plain version (at most {tol})")
+    return rel
+
+
+def rank_on_card(torch, dev):
+    """Phase 9e: one rank of the production 16x16 mesh on the card. A
+    ``fake`` process group of 256 ranks (``torch.testing._internal.
+    distributed.fake_pg``; this process is rank 0, its collectives return
+    at once and leave their outputs as they were) carries the mesh of
+    ``make_mesh``; each cell of RANK_CELLS takes one train_4k step through
+    ``make_sharded_train_step`` on its state's shards (:func:`rank_state`)
+    and the global batch, of which the step takes the rank's 16 rows.
+    Gated: the allocator's peak over the step (its state's shards
+    included) within RANK_BAND of the dry-run's count of the same rank,
+    cell and depth (``build_cell``: argument + temp + output - alias); the
+    launches exactly those of a train step of the model
+    (:func:`train_launches`, :func:`train_batched`); and each (kernel,
+    route, shapes) the step met, once more on fresh inputs against its
+    plain version (:func:`check_kernel_call`). Returns the path's launches,
+    steps and tensor-core launches."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.kernels.streammm.ops import stream_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step
+
+    shape = SHAPES["train_4k"]
+    total = ({k: 0 for k in KERNELS}, {k: 0 for k in WGMMA_KERNELS})
+    calls, missed = {}, []
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(RANK_MESH))
+    try:
+        mesh = make_mesh(RANK_MESH, ("data", "model"), dev)
+        log(f"rank path: rank 0 of {dict(zip(mesh.mesh_dim_names, mesh.shape))} on a {dist.get_backend()} group "
+            f"of {dist.get_world_size()}")
+        for arch, layers in RANK_CELLS:
+            cfg = get_config(arch) if layers is None else dataclasses.replace(get_config(arch), num_layers=layers)
+            t0 = time.perf_counter()
+            mem = dryrun.build_cell(cfg, shape, "x".join(map(str, RANK_MESH))).mem
+            count = mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
+            t_count = time.perf_counter() - t0
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in pipeline_for(cfg, shape, seed=9).batch(0).items()}
+            step = make_sharded_train_step(cfg, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize(dev)
+            base = allocated_bytes(torch, dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = rank_state(torch, cfg, mesh, dev)
+            zero_launches()
+            stream_matmul.batched_launches = stream_matmul.batched_grad_launches = 0
+            undo = kernel_calls(calls)
+            t0 = time.perf_counter()
+            try:
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize(dev)
+            finally:
+                undo()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            launches, wgmma = read_launches(), read_wgmma()
+            batched = (stream_matmul.batched_launches, stream_matmul.batched_grad_launches)
+            del state, metrics, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            margin = (count - peak) / peak
+            log(f"rank path, {arch} at {cfg.num_layers} layers, train_4k on {RANK_MESH}: one step in {wall:.2f} s; "
+                f"dry-run count {count} B ({count / 2**30:.3f} GiB, counted in {t_count:.1f} s), allocator's peak "
+                f"{peak} B ({peak / 2**30:.3f} GiB), margin {100 * margin:+.2f}%; temp by kind at its peak (GiB): "
+                + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in mem["temp_breakdown"].items() if v)
+                + f"; launches {launches}, tensor-core {wgmma}, expert-batched {batched}")
+            if abs(margin) > RANK_BAND:
+                missed.append(f"{arch}: count {count} B against the peak {peak} B ({100 * margin:+.2f}%)")
+            if launches != train_launches(cfg, cfg.remat) or batched != train_batched(cfg, cfg.remat):
+                missed.append(f"{arch}: launches {launches} != {train_launches(cfg, cfg.remat)} or expert-batched "
+                              f"{batched} != {train_batched(cfg, cfg.remat)}")
+            total = ({k: total[0][k] + launches[k] for k in KERNELS},
+                     {k: total[1][k] + wgmma[k] for k in WGMMA_KERNELS})
+    finally:
+        dist.destroy_process_group()
+    log(f"rank path: {len(calls)} (kernel, route, shapes) at the shard shapes, each against its plain version "
+        "(relative L2):")
+    for key, n in calls.items():
+        rel = check_kernel_call(torch, dev, key)
+        log(f"  {key}: {n} calls a step's worth; relative L2 {rel:.2e}")
+        torch.cuda.empty_cache()
+    if missed:
+        raise AssertionError(f"rank path: {missed}")
+    return total[0], len(RANK_CELLS), total[1]
 
 
 def allocated_bytes(torch, dev) -> int:

@@ -14,7 +14,8 @@ JSON line:
 * prefill cells: ``prefill_calls``, the least number of calls the rank's
   rows split into under which one call's count fits, and its total;
 * MoE cells: ``moe_buffer_GiB``, one layer's dispatch buffer as the step
-  makes it (E x min(capacity, the rank's tokens) x d) beside one sized to
+  makes it (E x min(capacity, the rank's tokens) x d; E / model experts a
+  rank where a train step splits them over ``model``) beside one sized to
   the rank's k x tokens assignments;
 * ``state_alone``: true where the arguments and outputs alone exceed
   80 GiB, so that no split of the batch can help.
@@ -65,7 +66,9 @@ def cell_fit(cfg, shape, ms, mem) -> dict:
         n_dp = shape.global_batch // rows  # the ranks that split the batch (layers.moe_dispatch)
         cap = min(moe_capacity(m, n * n_dp), n) if n_dp > 1 else moe_capacity(m, n)
         item = dtype_of(cfg).itemsize
-        rec["moe_buffer_GiB"] = [m.num_experts * cap * cfg.d_model * item / GIB,
+        split = shape.kind == "train" and m.num_experts % ms.shape["model"] == 0
+        experts = m.num_experts // ms.shape["model"] if split else m.num_experts
+        rec["moe_buffer_GiB"] = [experts * cap * cfg.d_model * item / GIB,
                                  m.top_k * n * cfg.d_model * item / GIB]
     divisors = [k for k in range(2, rows + 1) if rows % k == 0]
     if rec["state_alone"] or not divisors:

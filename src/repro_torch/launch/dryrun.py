@@ -20,9 +20,10 @@ the single H100 the port runs on. A record keeps the reference's fields:
   ``temp_size_in_bytes``, and ``temp_breakdown`` those bytes by kind.
   The memory pass (``roofline/memory.py``) runs the step itself on meta
   over one rank's rows and counts each storage an op makes while it
-  lives: for training ``make_sharded_train_step``'s step (gradients, the
-  clip norm, the optimizer; ``REPRO_MICROBATCH`` as the step reads it),
-  its per-layer gathers and MoE's dispatch buffer included; for serving
+  lives: for training ``make_sharded_train_step``'s step on rank 0
+  (gradients, the clip norm, the optimizer; ``REPRO_MICROBATCH`` as the
+  step reads it), its per-layer gathers, its parts of the products split
+  over ``model`` and MoE's dispatch buffer included; for serving
   ``prefill`` and ``decode_step`` on the whole parameters (and, for
   decode, the rank's rows of the whole cache), whose gathered copies the
   ``gathers`` kind adds. The kernels count what their CUDA path allocates
@@ -33,21 +34,22 @@ the single H100 the port runs on. A record keeps the reference's fields:
   itself (a sort's scratch, NCCL's buffers) and the caching allocator's
   rounding (512 B a block, up to 1 MiB more for a large one).
 * ``hlo_costs``: the port's counts (``roofline/costs.py``): the products'
-  FLOPs of one device's step (the rank's rows of the batch; ranks along
-  ``model`` compute the same products) and the collectives of the port's
-  scheme, not XLA's. ``cost_analysis.flops_raw`` repeats the products'
+  FLOPs of one device's step (rank 0's rows of the batch and its part of
+  each product that ``model`` splits) and the collectives that step
+  issues, the port's scheme, not XLA's. ``cost_analysis.flops_raw`` repeats the products'
   FLOPs; ``bytes_raw`` is null (nothing is compiled to report them).
 * ``model``: the config's parameter counts.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import time
 import traceback
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -120,84 +122,6 @@ def _local_batch(cfg: ModelConfig, shape: ShapeSpec, mesh: MeshShape):
     return shape.global_batch // n, local, batch_bytes, axes
 
 
-def _adafactor_reductions(plan: Plan, shape, sharding) -> None:
-    """The all-reduces of Adafactor's update on the shards of one leaf
-    (``optim.optimizers.adafactor`` with its ``LeafSplit``): for each (K, N)
-    slice the row sums over the axes that split N, the column sums and the
-    row statistic's mean over those that split K (the mean twice for a
-    leaf of three or more axes, whose update takes u again), and the RMS
-    over every axis that splits the leaf."""
-    local = sharding.shard_shape(shape)
-    every = [a for d in range(len(shape)) for a in sharding.axes(d)]
-    if len(shape) >= 2:
-        lead = math.prod(local[:-2])
-        for _ in range(lead):
-            plan.all_reduce(4 * local[-2], sharding.axes(len(shape) - 1))
-            plan.all_reduce(4 * local[-1], sharding.axes(len(shape) - 2))
-            for _ in range(2 if len(shape) >= 3 else 1):
-                plan.all_reduce(4, sharding.axes(len(shape) - 2))
-    plan.all_reduce(4, every)
-
-
-@dataclasses.dataclass(frozen=True)
-class _Leaf:
-    """One leaf as one gather sees it (a layer of a stacked leaf): its shape,
-    dtype and placement, and whether the gather handles it (split, or the
-    batch split)."""
-
-    shape: tuple
-    dtype: torch.dtype
-    sharding: Any
-    handled: bool
-
-
-@dataclasses.dataclass(frozen=True)
-class _Group:
-    """One call of ``sharding.fsdp.gather`` in the sharded step's forward
-    (the embedding, a layer, a hybrid group or trailing layer, the LM
-    head): its leaves, and ``remat``, whether the call runs under remat
-    (the replay gathers its leaves again)."""
-
-    remat: bool
-    leaves: Tuple[_Leaf, ...]
-
-
-def _gather_groups(cfg: ModelConfig, params, specs, ms: MeshShape, batch_axes, batch) -> list:
-    """The sharded step's gathers in the order of the forward (``models/model.py``):
-    the embedding where the inputs use it, each layer (a hybrid group of
-    (rec, rec, attn), then its trailing recurrent layers outside remat),
-    then the LM head's final norm with ``lm_head`` or, tied, ``embed`` again."""
-    names = dict(flatten(params))
-
-    def leaf(path, layer=None):
-        t, s = names[path], specs["params/" + path]
-        shape, spec = (tuple(t.shape), s.spec) if layer is None else (tuple(t.shape[1:]), s.spec[1:])
-        sharding = sh.LeafSharding(ms, spec)
-        split = any(ms.shape[a] > 1 for d in range(len(shape)) for a in sharding.axes(d))
-        return _Leaf(shape, t.dtype, sharding, split or bool(batch_axes))
-
-    def stack(prefix, i):
-        return [leaf(p, i) for p in names if p.startswith(prefix + "/")]
-
-    groups = []
-    if cfg.family != "audio" or "frame_mask" in batch:
-        groups.append(_Group(False, (leaf("head/embed"),)))
-    if cfg.family == "hybrid":
-        n_groups = cfg.num_layers // len(cfg.rglru.pattern)
-        n_rec = sum(1 for k in cfg.layer_kinds() if k == "rec")
-        for g in range(n_groups):
-            groups.append(_Group(cfg.remat, tuple(
-                stack("rec_layers", 2 * g) + stack("rec_layers", 2 * g + 1) + stack("attn_layers", g))))
-        for i in range(2 * n_groups, n_rec):
-            groups.append(_Group(False, tuple(stack("rec_layers", i))))
-    else:
-        for layer in range(cfg.num_layers):
-            groups.append(_Group(cfg.remat, tuple(stack("layers", layer))))
-    head = "head/embed" if cfg.tie_embeddings else "head/lm_head"
-    groups.append(_Group(False, (leaf("head/final_norm"), leaf(head))))
-    return groups
-
-
 def _meta_axes(ms: MeshShape, sharding, ndim: int) -> fsdp.LeafAxes:
     """A leaf's cut as the sharded step sees it on rank 0 of ``ms``, with
     no process group: the memory pass's (``sharding.fsdp`` runs no
@@ -206,13 +130,11 @@ def _meta_axes(ms: MeshShape, sharding, ndim: int) -> fsdp.LeafAxes:
                                      if ms.shape[a] > 1) for d in range(ndim)))
 
 
-def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bool = True) -> memory.Count:
-    """The memory pass of one rank's train step on ``ms`` over its ``batch``
-    (on meta): ``make_sharded_train_step``'s step (``shard_step``;
-    ``make_train_step``'s where nothing is split), under
-    ``roofline.memory.count``, the kernels on their CUDA paths (``card``)
-    or their plain versions. The state's shards and the batch are its
-    arguments; the metrics (and the new ``step``) its outputs."""
+def _meta_split(cfg: ModelConfig, ms: MeshShape, batch_axes=()):
+    """(the train state's shards on rank 0 of ``ms``, on meta; the
+    ``_Split`` of its step, with no process group; the optimizer's
+    ``LeafSplit`` a leaf, with axis names for groups), or None for the
+    last two where nothing splits a leaf, the batch or ``model``."""
     state = abstract_train_state(cfg)
     shardings = sh.state_shardings(cfg, state, ms)
     shards = tree_map(lambda t, s: torch.empty(s.shard_shape(tuple(t.shape)), dtype=t.dtype, device="meta"),
@@ -220,49 +142,28 @@ def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bo
     cuts = [_meta_axes(ms, s, t.dim()) for t, s in zip(leaves(state["params"]), leaves(shardings["params"]))]
     axes = tuple(fsdp.Axis(a, None, ms.shape[a], 0) for a in batch_axes)
     if not axes and not any(c.split for c in cuts):
-        return memory.count(make_train_step(cfg), shards, batch, card=card)[1]
+        return shards, None, None
+    tp = fsdp.Axis("model", None, ms.shape["model"], 0) if ms.shape["model"] > 1 else None
     splits = [sh.LeafSplit(tuple(t.shape), tuple(tuple(a.name for a in d) for d in c.dims)) if c.split else None
               for t, c in zip(leaves(state["params"]), cuts)]
-    return memory.count(shard_step(cfg), shards, batch, _Split(tuple(cuts), axes, lambda b: b), splits,
-                        card=card)[1]
+    return shards, _Split(tuple(cuts), axes, lambda b: b, tp), splits
 
 
-def _gradient_reduction(plan: Plan, leaf: _Leaf, batch_axes) -> None:
-    """The collectives of ``sharding.fsdp.reduce_leaf`` on one leaf's whole
-    gradient: the slices over axes that split only the leaf first, a
-    reduce-scatter over each batch axis that splits it, an all-reduce of
-    the shard over each that does not."""
-    sizes = plan.sizes
-    dims = [[a for a in leaf.sharding.axes(d) if sizes[a] > 1] for d in range(len(leaf.shape))]
-    itemsize = torch.empty((), dtype=leaf.dtype).element_size()
-    cur = list(leaf.shape)
-    for d in sorted(range(len(cur)), key=lambda d: any(a in batch_axes for a in dims[d])):
-        for a in dims[d]:
-            before = math.prod(cur) * itemsize
-            cur[d] //= sizes[a]
-            if a in batch_axes:
-                plan.reduce_scatter(before, math.prod(cur) * itemsize)
-    own = {a for on in dims for a in on}
-    plan.all_reduce(math.prod(cur) * itemsize, [a for a in batch_axes if a not in own])
-
-
-def _moe_collectives(plan: Plan, cfg: ModelConfig, batch_axes) -> None:
-    """MoE under a batch split, each layer: the (k, E) int32 count table
-    all-gathered over the dp group (``layers.moe_dispatch``) and the
-    load-balance term's two (E,) f32 sums all-reduced, each again in
-    remat's replay, and the gradient of the router probabilities' sum
-    all-reduced in the backward."""
-    m = cfg.moe
-    runs = 1 + cfg.remat
-    for _ in range(cfg.num_layers):
-        for _ in range(runs):
-            held = 4 * m.top_k * m.num_experts
-            for a in reversed(batch_axes):  # minor first
-                plan.all_gather((plan.sizes[a] - 1) * held)
-                held *= plan.sizes[a]
-            for _ in range(2):
-                plan.all_reduce(4 * m.num_experts, batch_axes)
-        plan.all_reduce(4 * m.num_experts, batch_axes)
+def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bool = True,
+                 plan: "Plan | None" = None) -> memory.Count:
+    """The memory pass of one rank's train step on ``ms`` over its ``batch``
+    (on meta): ``make_sharded_train_step``'s step (``shard_step``;
+    ``make_train_step``'s where nothing is split), under
+    ``roofline.memory.count``, the kernels on their CUDA paths (``card``)
+    or their plain versions. The state's shards and the batch are its
+    arguments; the metrics (and the new ``step``) its outputs. With
+    ``plan``, every collective the step issues is noted in it
+    (``sharding.fsdp.recording``)."""
+    shards, split, splits = _meta_split(cfg, ms, batch_axes)
+    with fsdp.recording(plan) if plan is not None else contextlib.nullcontext():
+        if split is None:
+            return memory.count(make_train_step(cfg), shards, batch, card=card)[1]
+        return memory.count(shard_step(cfg), shards, batch, split, splits, card=card)[1]
 
 
 def build_cell(arch, shape, mesh, card: bool = True) -> Cell:
@@ -282,32 +183,14 @@ def build_cell(arch, shape, mesh, card: bool = True) -> Cell:
         state = abstract_train_state(cfg)
         shardings = sh.state_shardings(cfg, state, ms)
         state_bytes = _shard_bytes(state, shardings)
-        specs = dict(flatten(shardings))
-        batch_axes = tuple(a for a in axes if ms.shape[a] > 1)
-        groups = _gather_groups(cfg, state["params"], specs, ms, batch_axes, batch)
-        for g in groups:
-            for leaf in g.leaves:
-                if leaf.handled:
-                    for _ in range(2 if g.remat else 1):  # remat's replay gathers the layer again
-                        plan.gather(leaf.shape, leaf.dtype, leaf.sharding)
-                    _gradient_reduction(plan, leaf, batch_axes)
-        for path, p in flatten(state["params"]):
-            split = [a for d in range(p.dim()) for a in specs["params/" + path].axes(d) if ms.shape[a] > 1]
-            for a in split:  # grad_norm: the shard's sum of squares over the ranks that split it
-                plan.all_reduce(4, (a,))
-            if cfg.optimizer == "adafactor":
-                _adafactor_reductions(plan, tuple(p.shape), specs["params/" + path])
-        if cfg.moe is not None and batch_axes:
-            _moe_collectives(plan, cfg, batch_axes)
-        for _ in range(3):  # the label count, the loss and ce
-            plan.all_reduce(4, axes)
-        held = train_memory(cfg, ms, batch, batch_axes, card)
+        held = train_memory(cfg, ms, batch, tuple(a for a in axes if ms.shape[a] > 1), card, plan)
         mem = {"state_bytes": state_bytes, "batch_bytes": batch_bytes, "argument_bytes": state_bytes + batch_bytes,
                "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": held.peak,
                "temp_breakdown": held.breakdown}
 
         def count(c):
-            return dot_flops(value_and_grad, build_model(c), abstract_train_state(c)["params"], batch)
+            shards, split, _ = _meta_split(c, ms, tuple(a for a in axes if ms.shape[a] > 1))
+            return dot_flops(value_and_grad, build_model(c), shards["params"], batch, split)
 
         return Cell(ms, rows, mem, plan, count)
 

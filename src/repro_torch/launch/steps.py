@@ -65,7 +65,7 @@ def value_and_grad(fns, params, batch, split=None):
     axes = split.batch
     if axes:
         batch = split.rows(batch)
-    with fsdp.use_fsdp(fsdp.Fsdp(flat, split.leaves, axes)):
+    with fsdp.use_fsdp(fsdp.Fsdp(flat, split.leaves, axes, split.tp)):
         loss, aux = fns.loss(unflatten_like(params, flat), batch)
         w = None
         if axes:
@@ -86,11 +86,13 @@ def value_and_grad(fns, params, batch, split=None):
 class _Split:
     """How the sharded step cuts one call: each param leaf's
     ``fsdp.LeafAxes`` in flatten order, the axes of size > 1 that split the
-    batch (major first), and ``rows(batch)``, this rank's rows."""
+    batch (major first), ``rows(batch)``, this rank's rows, and ``tp``,
+    the ``model`` axis where it has more than one rank (else None)."""
 
     leaves: tuple
     batch: tuple
     rows: Callable
+    tp: Any = None
 
 
 def make_train_step(
@@ -180,7 +182,11 @@ def _train_step_parts(cfg: ModelConfig, peak_lr, warmup, total_steps, microbatch
 def grad_norm(grads, splits=None) -> torch.Tensor:
     """The f32 norm of the gradients in flatten order; with ``splits``
     (``sharding.specs.LeafSplit`` or None a leaf) each gradient is a shard,
-    its sum of squares summed over the ranks that split its leaf."""
+    its sum of squares summed over the ranks that split its leaf: each holds
+    a distinct part of it. A rank holds the whole gradient of a leaf that
+    an axis does not split (the sharded step's gathers sum it over the
+    batch and ``model``), so that axis is not summed over: the leaf counts
+    once."""
     splits = splits or [None] * len(grads)
     return torch.sqrt(sum(_square_sum(g) if s is None else s.reduce(_square_sum(g)) for g, s in zip(grads, splits)))
 
@@ -211,16 +217,31 @@ def make_sharded_train_step(
       the sums over the ranks are the global token-mean's, not a mean of the
       ranks' means. MoE routes over the dp group's tokens and takes its
       load-balance term over them (``models/layers.moe_dispatch``);
+    * the products of the attention families' layers (``models/model.py``'s
+      ``_transformer_fns``: dense, VLM, audio, MoE) and of every family's
+      head are split over ``model`` as the reference's GSPMD splits them:
+      a layer's leaves that ``model`` splits are gathered over ``data``
+      only, each rank computes its part (its attention heads, its slice of
+      the FFN hidden, its experts or its slice of each expert's hidden, its
+      slice of the vocabulary) and the parts are summed, or gathered, over
+      ``model`` (``sharding.fsdp``'s modes and conjugates,
+      ``models/layers.tp_modes``); the cross-entropy is taken over the
+      vocabulary's slices (``models/model.cross_entropy``). A leaf that
+      ``model`` does not split (``sharding.specs``' ``tp_ok``), and the SSM
+      and RG-LRU blocks, are gathered whole and computed alike on every
+      rank of ``model``, as before;
     * microbatches accumulate the f32 gradient on the shards; ``grad_norm``
-      sums the shards' squares over the ranks that split each leaf; the
-      optimizer updates this rank's shards of the parameters and of its
-      state in place (Adafactor sums its row and column statistics and its
-      RMS over the ranks that split a leaf: ``sharding.specs.LeafSplit``).
+      sums the shards' squares over the ranks that hold distinct parts of
+      each leaf, and takes a leaf that ``model`` does not split once (every
+      rank along it holds its whole gradient); the optimizer updates this
+      rank's shards of the parameters and of its state in place (Adafactor
+      sums its row and column statistics and its RMS over the same ranks:
+      ``sharding.specs.LeafSplit``).
 
-    No product is split over ``model``: ranks that share a batch slice
-    compute the same thing (tensor-parallel compute is ROADMAP.md §1 item
-    16). Where nothing splits the batch or a leaf, as on a one-rank mesh,
-    the step is the unsharded one, bit for bit."""
+    Where nothing splits the batch or a leaf, as on a one-rank mesh, the
+    step is the unsharded one, bit for bit; where ``model`` splits a
+    product, the ranks' parts are summed in another order than the
+    unsharded product's."""
     step = shard_step(cfg, peak_lr, warmup, total_steps, microbatches)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
@@ -256,8 +277,9 @@ def sharded_split(cfg: ModelConfig, mesh, params, batch: Dict[str, Any]) -> "_Sp
     ms = mesh_shape(mesh)
     coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
     axes = batch_split_axes(cfg, batch, ms)
+    tp = fsdp.mesh_axes(mesh, ("model",))
     split = _Split(tuple(fsdp.leaf_axes(t) for t in leaves(params)), fsdp.mesh_axes(mesh, axes),
-                   lambda b: split_batch(b, axes, ms, coords))
+                   lambda b: split_batch(b, axes, ms, coords), tp[0] if tp else None)
     return split if split.batch or any(a.split for a in split.leaves) else None
 
 

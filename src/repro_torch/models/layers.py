@@ -11,6 +11,12 @@ dense residual) dispatches tokens into expert slots as the reference does and
 runs the expert products through ``stream_matmul``'s expert-batched form. The
 hybrid family's local-attention layers decode against a ring of ``w`` slots
 (``ring=True``), still through ``paged_attention``.
+
+Under the sharded train step's ``model`` axis (``sharding/fsdp.py``) the
+attention, MLP and MoE layers compute the rank's part of each product
+whose weight that axis splits, as the reference's GSPMD does with its
+placements (``sharding/specs.py``): :func:`tp_modes` says which leaves a
+rank keeps as its shard; the layers see it through ``fsdp.is_tp_shard``.
 """
 from __future__ import annotations
 
@@ -64,6 +70,40 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...]
     return p
 
 
+def tp_modes(dims: dict) -> dict:
+    """The gather modes (``sharding.fsdp.gather``) of a layer's leaves, or
+    the head's, from ``dims`` (path -> the dim the ``model`` axis splits, or
+    None; ``fsdp.model_dims``): every leaf that ``model`` splits is kept as
+    the rank's shard (``local``), but for an expert ``w2`` that it splits
+    by columns (the reference's rule when d_model = moe.d_ff): that one,
+    and the per-head norms beside a split ``wq``, are gathered whole and
+    read on the rank's hidden slice or heads only (``sum``)."""
+    modes = {p: "local" for p, d in dims.items() if d is not None}
+    for p, d in dims.items():
+        prefix, _, leaf = p.rpartition("/")
+        pre = prefix + "/" if prefix else ""
+        if leaf == "w2" and d == 2 and dims.get(pre + "w1") is not None:  # (E, F, D) split by columns
+            modes[p] = "sum"
+        elif leaf in ("q_norm", "k_norm") and dims.get(pre + "wq") is not None:
+            modes[p] = "sum"
+    return modes
+
+
+def _position(q, k, p, cfg: ModelConfig, positions, positions3):
+    """The per-head norms and RoPE (or M-RoPE) of ``_project_qkv``."""
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.mrope_sections is not None:
+        assert positions3 is not None
+        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.causal:  # encoder (hubert) backbone: no rope on bidirectional attn
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
 def _project_qkv(p, x, cfg: ModelConfig, positions, positions3=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
@@ -75,16 +115,7 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, positions3=None):
     q = q.reshape(b, s, cfg.num_heads, hd)
     k = k.reshape(b, s, cfg.num_kv_heads, hd)
     v = v.reshape(b, s, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.mrope_sections is not None:
-        assert positions3 is not None
-        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.causal:  # encoder (hubert) backbone: no rope on bidirectional attn
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _position(q, k, p, cfg, positions, positions3)
     return q, k, v
 
 
@@ -95,13 +126,64 @@ def attention_apply(
     S)) reads ``positions`` (B, S). On the CPU, ``attend`` masks by
     ``positions`` as the reference does; on CUDA the flash kernel masks by
     index, so ``positions`` must be 0..S-1 in every row there (``forward`` and
-    ``prefill`` build or check that). Returns (out, (k, v))."""
-    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
+    ``prefill`` build or check that). Returns (out, (k, v)) of the heads the
+    rank attends with.
+
+    On this rank's ``model`` shard, ``wq`` / ``bq`` hold columns [r W, (r +
+    1) W) of the heads' (H * Dh), ``wo`` the same rows. The rank attends
+    with the query heads those columns touch (all ranks' projections
+    gathered where its columns cut a head, as qwen2-vl-7b's 28 heads on 16
+    ranks do) and the KV heads they read, in GQA order: its own ``wk`` /
+    ``wv`` columns where they are exactly those heads, else every rank's
+    gathered (a KV head that several ranks' query heads share: every
+    published config's on 16). Its columns of the attention's output times
+    its rows of ``wo`` are its part of the output, summed over ``model``.
+    Unsplit, r = 0 and W = H * Dh: every head, and nothing gathered."""
+    b, s, _ = x.shape
+    hd, h, hkv = cfg.resolved_head_dim(), cfg.num_heads, cfg.num_kv_heads
+    group = h // hkv
+    split = fsdp.is_tp_shard(p["wq"])
+    r = fsdp.tp().index if split else 0
+    if split:
+        x = fsdp.tp_copy(x)
+    width = p["wq"].shape[-1]
+    lo, hi = r * width // hd, ((r + 1) * width - 1) // hd + 1
+    q = linear(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if width % hd or r * width % hd:  # the columns cut a head: take the heads whole
+        q = fsdp.tp_all_gather(q, -1)[..., lo * hd : hi * hd]
+    kv = [(lo + j) // group for j in range(hi - lo)]  # the KV head of each query head
+    klo, khi = kv[0], kv[-1] + 1
+
+    def project(w, bias):
+        assert fsdp.is_tp_shard(p[w]) == split, f"{w} is split over model where wq is not, or whole where it is"
+        out = linear(x, p[w])
+        if cfg.qkv_bias:
+            out = out + p[bias]
+        n = p[w].shape[-1]
+        if r * n == klo * hd and (r + 1) * n == khi * hd:  # exactly the KV heads the rank reads
+            return out
+        return fsdp.tp_all_gather(out, -1)[..., klo * hd : khi * hd]
+
+    k, v = project("wk", "bk"), project("wv", "bv")
+    nq, nk = hi - lo, khi - klo
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nk, hd)
+    v = v.reshape(b, s, nk, hd)
+    if nq % nk or any(kv[j] - klo != j // (nq // nk) for j in range(nq)):  # no GQA grouping: a KV head a query head
+        idx = torch.tensor([i - klo for i in kv], device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    q, k = _position(q, k, p, cfg, positions, positions3)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask_positions = None if on_card(q) else positions
     out = attend(q, k, v, q_positions=mask_positions, kv_positions=mask_positions,
                  causal=cfg.causal, window=window)
-    b, s, _, _ = out.shape
-    return linear(out.reshape(b, s, -1), p["wo"]), (k, v)
+    off = r * width - lo * hd
+    out = linear(out.reshape(b, s, nq * hd)[..., off : off + width].contiguous(), p["wo"])
+    if split:
+        out = fsdp.tp_sum(out)
+    return out, (k, v)
 
 
 def kv_page_tokens(smax: int) -> int:
@@ -207,10 +289,18 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = (),
     }
 
 
-def mlp_apply(p, x):
+def _mlp(p, x):
     h = F.silu(linear(x, p["w1"]))
     h = h * linear(x, p["w3"])
     return linear(h, p["w2"])
+
+
+def mlp_apply(p, x):
+    """The gated MLP; on this rank's ``model`` shard (``w1`` / ``w3`` by
+    columns, ``w2`` by rows of the hidden) its part, summed over ``model``."""
+    if fsdp.is_tp_shard(p["w1"]):
+        return fsdp.tp_sum(_mlp(p, fsdp.tp_copy(x)))
+    return _mlp(p, x)
 
 
 # --------------------------------------------------------------------------
@@ -325,36 +415,64 @@ def moe_apply(p, x, cfg: ModelConfig):
     reference's sharding constraints do nothing on one card and are
     dropped. Under the sharded step's batch split the routing is the dp
     group's (:func:`moe_dispatch`) and the experts run on this rank's kept
-    assignments only: no token leaves its rank."""
+    assignments only: no token leaves its rank.
+
+    On this rank's ``model`` shard of the experts, every rank of ``model``
+    routes the same tokens alike and computes its part: with E / ``model``
+    experts a rank (expert parallelism: arctic-480b's 128 on 16), the
+    assignments to its experts; with each expert's hidden cut (grok-1-314b's
+    8 experts on 16), its slice of every expert's hidden. The gates pass
+    through ``fsdp.tp_copy`` (a rank's part of the combine reads them) and
+    the combined parts are summed over ``model``; the dense residual is
+    :func:`mlp_apply`'s."""
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
     tokens = x.reshape(n, d)
     router_logits = stream_matmul(tokens.float(), p["router"], out_dtype=torch.float32)
     route = moe_dispatch(router_logits, m, fsdp.batch_axes())
-    cap, e = route.cap, m.num_experts
+    cap = route.cap
+    split = fsdp.is_tp_shard(p["w1"])
+    e = p["w1"].shape[0]  # this rank's experts: E, or E / model under expert parallelism
+    keep, slot, rows, gates, w2 = route.keep, route.slot, route.rows, route.gates, p["w2"]
+    if split:
+        tokens, gates = fsdp.tp_copy(tokens), fsdp.tp_copy(gates)
+        r = fsdp.tp().index
+        if e != m.num_experts:  # only the assignments to its experts
+            flat_e = route.idx.T.reshape(-1)
+            keep = keep & (flat_e >= r * e) & (flat_e < (r + 1) * e)
+            slot = torch.where(keep, slot - r * e * cap, 0)
+            rows = rows[r * e : (r + 1) * e]
+        elif w2.shape[1] == m.d_ff:  # w2 split by columns: its rows of the rank's hidden slice
+            f = p["w1"].shape[-1]
+            w2 = w2[:, r * f : (r + 1) * f].contiguous()
 
     # Scatter the k copies of each token into its slot. A kept assignment owns
-    # its slot; a dropped one adds an exact zero row into slot e * cap. So each
-    # slot receives at most one non-zero row, every sum is exact, and the
-    # index_add_ (atomics on CUDA) gives the same bits in any order.
+    # its slot; a dropped one adds an exact zero row into its expert's first
+    # slot (flat_e * cap), and under expert parallelism one to another rank's
+    # expert adds it into slot 0. So each slot receives at most one non-zero
+    # row, every sum is exact, and the index_add_ (atomics on CUDA) gives the
+    # same bits in any order.
     token_rep = tokens.repeat(m.top_k, 1)  # (k n, d), jnp.tile
     buf = torch.zeros((e * cap, d), dtype=tokens.dtype, device=tokens.device)
-    buf.index_add_(0, route.slot, torch.where(route.keep[:, None], token_rep, 0))
+    buf.index_add_(0, slot, torch.where(keep[:, None], token_rep, 0))
     expert_in = buf.view(e, cap, d)
 
-    h = F.silu(stream_matmul(expert_in, p["w1"], out_dtype=x.dtype, rows=route.rows))
-    h = h * stream_matmul(expert_in, p["w3"], out_dtype=x.dtype, rows=route.rows)
-    expert_out = stream_matmul(h, p["w2"], out_dtype=x.dtype, rows=route.rows)  # (E, cap, d)
+    h = F.silu(stream_matmul(expert_in, p["w1"], out_dtype=x.dtype, rows=rows))
+    h = h * stream_matmul(expert_in, p["w3"], out_dtype=x.dtype, rows=rows)
+    expert_out = stream_matmul(h, w2, out_dtype=x.dtype, rows=rows)  # (E, cap, d)
 
     # Under grad, index_select's backward is an index_add_ (atomics on CUDA)
     # into the (E * cap, d) gradient: a kept slot receives its one row, and a
-    # dropped assignment adds an exact zero row into slot e * cap (the where
-    # below passes it no gradient), so that sum too has the same bits in any
-    # order, and remat off gives remat on's gradients bit for bit.
-    out_rep = expert_out.view(e * cap, d).index_select(0, route.slot)
-    out_rep = torch.where(route.keep[:, None], out_rep, 0) * route.gates[:, None].to(out_rep.dtype)
+    # row that is not kept adds an exact zero row into the slot it reads
+    # (flat_e * cap, or slot 0; the where below passes it no gradient), so
+    # that sum too has the same bits in any order, and remat off gives remat
+    # on's gradients bit for bit.
+    out_rep = expert_out.view(e * cap, d).index_select(0, slot)
+    out_rep = torch.where(keep[:, None], out_rep, 0) * gates[:, None].to(out_rep.dtype)
     out = out_rep.view(m.top_k, n, d).sum(dim=0)
+    if split:
+        out = fsdp.tp_sum(out)
     if m.dense_residual:
         out = out + mlp_apply(p["dense"], x).reshape(n, d)
     return out.reshape(b, s, d), router_logits

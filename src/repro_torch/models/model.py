@@ -42,7 +42,12 @@ activations kept for the backward do. Under the sharded train step
 ``loss`` gets each leaf's local shard and gathers a layer's leaves (a
 group's) inside that unit and the head's where they are used
 (``sharding/fsdp.py``); with nothing installed the gathers are the leaves
-themselves.
+themselves. Under its ``model`` axis the attention families' layers
+(``_transformer_fns``) and every family's embedding, head and
+cross-entropy compute this rank's part of each product that axis splits
+(``models/layers.tp_modes``); the SSM and RG-LRU blocks, and the hybrid's
+attention and MLP layers gathered with them, compute with whole leaves
+(ROADMAP.md §1 item 16b).
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from repro_torch.models.layers import (
     linear,
     mlp_apply,
     moe_apply,
+    tp_modes,
 )
 from repro_torch.sharding import fsdp
 
@@ -92,20 +98,56 @@ def _init_head(gen: torch.Generator, cfg: ModelConfig):
     return p
 
 
-def _embed_table(params):
-    """``params``' embedding table, gathered under the sharded step."""
-    return fsdp.gather({"embed": params["head"]["embed"]})["embed"]
+def _gather_tp(tree):
+    """``fsdp.gather`` of a layer's or the head's leaves, each ``model``
+    shard kept where the layer computes its part with it (``tp_modes``)."""
+    return fsdp.gather(tree, tp_modes(fsdp.model_dims(tree)))
+
+
+def _embed(params, ids):
+    """The embeddings of ``ids`` (an int64 tensor of any shape, or one int).
+    Under the sharded step the table is gathered here; where ``model``
+    splits its rows, each rank looks up the ids among its rows (zeros for
+    the others) and the rows are summed over ``model``."""
+    table = _gather_tp({"embed": params["head"]["embed"]})["embed"]
+    if not fsdp.is_tp_shard(table):
+        return table[ids]
+    n = table.shape[0]
+    local = ids - fsdp.tp().index * n
+    if isinstance(ids, int):
+        return fsdp.tp_sum(table[local] if 0 <= local < n else table.new_zeros(table.shape[1:]))
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, 0)]
+    return fsdp.tp_sum(torch.where(mine[..., None], rows, 0))
 
 
 @memory.kind("logits")
-def _logits(p, x, cfg: ModelConfig):
-    """The LM head over x; under the sharded step its leaves are gathered
-    here (``sharding.fsdp``), the tied head's ``embed`` a second time."""
-    p = fsdp.gather({k: p[k] for k in ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")})
+def _head(p, x, cfg: ModelConfig):
+    """The LM head over x: (logits, the ``model`` axis that splits their
+    vocabulary, or None). Under the sharded step its leaves are gathered
+    here (``sharding.fsdp``), the tied head's ``embed`` a second time, and
+    where ``model`` splits the vocabulary each rank's logits are its slice
+    of it (:func:`cross_entropy` takes them so, with that axis)."""
+    p = _gather_tp({k: p[k] for k in ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")})
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    head = p["embed"] if cfg.tie_embeddings else p["lm_head"]
+    axis = fsdp.tp() if fsdp.is_tp_shard(head) else None
+    if axis is not None:
+        x = fsdp.tp_copy(x)
     if cfg.tie_embeddings:  # x @ embed^T, embed (V, d) read in place
-        return linear(x, p["embed"], w_layout="nk")
-    return linear(x, p["lm_head"])
+        return linear(x, head, w_layout="nk"), axis
+    return linear(x, head), axis
+
+
+def _logits(p, x, cfg: ModelConfig):
+    return _head(p, x, cfg)[0]
+
+
+def _head_loss(p, x, labels, cfg: ModelConfig):
+    """:func:`cross_entropy` of the head's logits over x: over the
+    vocabulary's slices where ``model`` splits it."""
+    logits, axis = _head(p, x, cfg)
+    return cross_entropy(logits, labels, axis=axis)
 
 
 def _layer_views(tree, n: int):
@@ -133,17 +175,56 @@ def _remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
+class _PickLogit(torch.autograd.Function):
+    """``logits.gather(-1, idx[..., None])[..., 0]``, keeping only ``idx``
+    for the backward, which writes the gradient into zeros in place.
+    Autograd's own gather keeps the whole (f32) logits for its backward,
+    and that backward scatters out of place under any dispatch mode (the
+    dry-run's memory pass), so that a count of it would hold a buffer of
+    the logits' size that the card's step does not."""
+
+    @staticmethod
+    def forward(ctx, logits, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = logits.shape
+        return logits.gather(-1, idx[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        grad = g.new_zeros(ctx.shape)
+        grad.scatter_(-1, idx[..., None], g[..., None])
+        return grad, None
+
+
 @memory.kind("logits")
-def cross_entropy(logits, labels, ignore: int = -1):
+def cross_entropy(logits, labels, ignore: int = -1, axis=None):
     """Token-mean cross-entropy in f32, the reference's: the max taken without
     a gradient, labels equal to ``ignore`` masked out. The label's logit is
     gathered (the reference selects it with an iota compare and a sum over
-    V, which adds only zeros to it: the same value)."""
+    V, which adds only zeros to it: the same value). The exponentials are
+    taken in place of the shifted logits, so that one (rows, V) f32 buffer
+    fewer is live at once.
+
+    With ``axis`` (``sharding.fsdp``'s installed ``model`` axis), ``logits``
+    are this rank's slice of the vocabulary, columns [i n, (i + 1) n) at
+    its index i: the max is taken over the ranks, the sum of exponentials
+    and the label's logit (0 on every rank but its owner's) summed over
+    them (``fsdp.tp_max``, ``fsdp.tp_sum``)."""
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     mask = labels != ignore
-    ll = logits.gather(-1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
+    if axis is None:
+        lse = torch.log((logits - m).exp_().sum(dim=-1)) + m[..., 0]
+        ll = _PickLogit.apply(logits, torch.where(mask, labels, 0).long())
+    else:
+        m = fsdp.tp_max(m)
+        lse = torch.log(fsdp.tp_sum((logits - m).exp_().sum(dim=-1))) + m[..., 0]
+        n = logits.shape[-1]
+        local = labels.long() - axis.index * n
+        mine = mask & (local >= 0) & (local < n)
+        ll = _PickLogit.apply(logits, torch.where(mine, local, 0))
+        ll = fsdp.tp_sum(torch.where(mine, ll, 0))
     maskf = mask.float()
     return ((lse - ll) * maskf).sum() / maskf.sum().clamp(min=1.0)
 
@@ -216,7 +297,7 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         """One layer of ``loss``: (x, its load-balance term, 0 if dense).
         Under the sharded step the layer's leaves are gathered here, inside
         remat's unit."""
-        x, _, router_logits = _layer(fsdp.gather(lp), x, positions, positions3)
+        x, _, router_logits = _layer(_gather_tp(lp), x, positions, positions3)
         if router_logits is None:
             return x, torch.zeros((), dtype=torch.float32, device=x.device)
         return x, _load_balance_loss(router_logits, cfg)
@@ -231,11 +312,11 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         if cfg.family == "audio":
             x = batch["frames"].to(common.dtype_of(cfg))
             if "frame_mask" in batch:
-                x = torch.where(batch["frame_mask"][..., None], _embed_table(params)[0], x)
+                x = torch.where(batch["frame_mask"][..., None], _embed(params, 0), x)
             b, s = x.shape[:2]
             return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s), None
         tokens = batch["tokens"]
-        x = _embed_table(params)[tokens]
+        x = _embed(params, tokens)
         if cfg.family == "vlm":
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
             positions3 = batch["positions3"]
@@ -275,11 +356,10 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         aux = aux / L
         if cfg.family == "vlm":  # only text positions carry labels
             x = x[:, batch["vision_embeds"].shape[1] :, :]
-        logits = _logits(params["head"], x, cfg)
         labels = batch["labels"]
         if cfg.family == "audio" and "frame_mask" in batch:
             labels = torch.where(batch["frame_mask"], labels, -1)
-        ce = cross_entropy(logits, labels)
+        ce = _head_loss(params["head"], x, labels, cfg)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
@@ -375,10 +455,10 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         return x + ssm.ssm_apply(lp["mixer"], rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
 
     def loss(params, batch):
-        x = _embed_table(params)[batch["tokens"]]
+        x = _embed(params, batch["tokens"])
         for lp in _layer_views(params["layers"], L):
             x = _remat(cfg, _loss_layer, lp, x)
-        ce = cross_entropy(_logits(params["head"], x, cfg), batch["labels"])
+        ce = _head_loss(params["head"], x, batch["labels"], cfg)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
@@ -523,7 +603,7 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
 
     def loss(params, batch):
         tokens = batch["tokens"]
-        x = _embed_table(params)[tokens]
+        x = _embed(params, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         recs, attns = _views(params)
@@ -531,7 +611,7 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
             x = _remat(cfg, _loss_group, recs[2 * g], recs[2 * g + 1], attns[g], x, positions)
         for i in range(n_rem):  # the trailing recurrent layers, outside the reference's remat scan
             x = _rec_apply(fsdp.gather(recs[2 * n_groups + i]), x)[0]
-        ce = cross_entropy(_logits(params["head"], x, cfg), batch["labels"])
+        ce = _head_loss(params["head"], x, batch["labels"], cfg)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):

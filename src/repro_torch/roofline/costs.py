@@ -12,21 +12,24 @@ the port's own scheme, not XLA's:
   stacked tree, so each period of the layer pattern adds the same products:
   :func:`depth_flops` counts the model at one and two periods (with any
   trailing layers) and extends that line to the published depth.
-* collective bytes and counts by kind, from the placements and what the
-  sharded train step does with them (``launch/steps.py``,
-  ``sharding/fsdp.py``): each leaf split over some axis all-gathered where
-  it is used, one all-gather an axis, moving its whole size less its shard
-  (a layer's leaves twice under remat: the replay gathers them again); each
-  gradient sliced over the axes that split only it, reduce-scattered over
-  each batch axis that splits it (moving the input less the part kept) and
-  all-reduced over each that does not; MoE's count tables and load-balance
-  sums over the dp group; the optimizer's and the clip norm's sums over a
-  leaf's shards; the label count, loss and ``ce``. An all-reduce moves
-  twice its operand (a ring, the reference's model). The optimizer state
-  is never gathered. Serving steps gather the parameters and, for decode,
+* collective bytes and counts by kind. For training, every collective
+  that one rank's sharded train step issues (``launch/steps.py``,
+  ``sharding/fsdp.py``), noted as the dry-run's memory pass runs the step
+  on meta (``fsdp.recording`` into :meth:`Plan.note`), remat's replay and
+  its early stop included: the leaves' gathers (over ``data``, and over
+  ``model`` where a layer computes with the whole leaf), their gradients'
+  reduce-scatters and all-reduces, the activations' sums and gathers over
+  ``model`` where a product is split over it (two all-reduces a
+  transformer layer forward and two backward, the K/V gathers, the
+  embedding's and the cross-entropy's sums), MoE's count tables and
+  load-balance sums over the dp group, the optimizer's and the clip norm's
+  sums over a leaf's shards, the label count, loss and ``ce``. An
+  all-gather moves its result less its operand, a reduce-scatter its
+  operand less its result, an all-reduce twice its operand (a ring, the
+  reference's model). Serving steps gather the parameters and, for decode,
   each rank's rows of the cache along the axes that split its sequence or
-  heads; the port has no sharded serving step, so these are the figures of
-  the same gather-before-use scheme applied to it.
+  heads (:meth:`Plan.gather`); the port has no sharded serving step, so
+  these are the figures of a gather-before-use scheme applied to it.
 """
 from __future__ import annotations
 
@@ -114,23 +117,13 @@ class Plan:
         self.counts["all-gather"] += len(axes)
         return moved
 
-    def all_gather(self, moved: int) -> None:
-        """One all-gather that brings ``moved`` bytes to the device."""
-        self.bytes["all-gather"] += moved
-        self.counts["all-gather"] += 1
-
-    def reduce_scatter(self, nbytes_in: int, nbytes_out: int) -> None:
-        """One ring reduce-scatter of ``nbytes_in`` to ``nbytes_out``: the
-        input less the part the device keeps."""
-        self.bytes["reduce-scatter"] += nbytes_in - nbytes_out
-        self.counts["reduce-scatter"] += 1
-
-    def all_reduce(self, nbytes: int, axes) -> None:
-        """One ring all-reduce per axis of size > 1 in ``axes``: twice the operand."""
-        for a in axes:
-            if self.sizes[a] > 1:
-                self.bytes["all-reduce"] += 2 * nbytes
-                self.counts["all-reduce"] += 1
+    def note(self, kind: str, operand: int, result: int) -> None:
+        """One collective of ``kind`` over an axis of size > 1, from
+        ``operand`` bytes to ``result`` bytes on this device."""
+        moved = {"all-gather": result - operand, "reduce-scatter": operand - result,
+                 "all-reduce": 2 * operand}[kind]
+        self.bytes[kind] += moved
+        self.counts[kind] += 1
 
     def costs(self, flops: int) -> StepCosts:
         return StepCosts(float(flops), dict(self.bytes), dict(self.counts))

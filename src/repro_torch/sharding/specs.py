@@ -33,6 +33,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tenso
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import dp_axes, mesh_shape
+from repro_torch.sharding import fsdp
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
@@ -286,12 +287,13 @@ class LeafSplit:
 
     def reduce(self, x: torch.Tensor, dims=None) -> torch.Tensor:
         """Sums x over the ranks that split the leaf's ``dims`` (default
-        all), in place; returns x. On meta (the dry-run) nothing runs."""
-        if x.is_meta:
-            return x
+        all), in place; returns x. Each sum is noted for
+        ``sharding.fsdp.recording``; on meta (the dry-run) nothing runs."""
         for d in range(len(self.shape)) if dims is None else dims:
             for g in self.groups[d]:
-                dist.all_reduce(x, group=g)
+                fsdp.note("all-reduce", x, x)
+                if not x.is_meta:
+                    dist.all_reduce(x, group=g)
         return x
 
 

@@ -39,7 +39,7 @@ from repro_torch.models.model import build_model
 from repro_torch.sharding.act import axis_size, use_activation_mesh
 from repro_torch.optim.optimizers import adafactor, adamw, sgd
 from repro_torch.sharding.specs import (
-    LeafSharding, gather, leaf_split, local, opt_state_shardings, place, state_shardings)
+    LeafSharding, gather, leaf_split, local, opt_state_shardings, param_shardings, place, state_shardings)
 from repro_torch.tree import flatten, leaves, tree_map
 
 SHAPE = ShapeSpec("t", 64, 4, "train")
@@ -84,6 +84,55 @@ def max_rel_leaf(placed, plain):
     return out
 
 
+def grads_rel(cfg, mesh, params, batch, got):
+    """For each leaf, by path, the relative difference (max |a - b| over
+    max |b|) between the sharded step's gradient ``got`` at ``params``
+    (placed on ``mesh``; this rank's shards, in flatten order) and the
+    unsharded step's at their whole values, over this rank's shards; the
+    largest over the ranks."""
+    shardings = param_shardings(cfg, params, mesh)
+    _, _, want = value_and_grad(build_model(cfg), tree_map(gather, params), batch)
+    want = [place(w, s).to_local() for w, s in zip(want, leaves(shardings))]
+    worst = torch.tensor([float((g - w).abs().max() / w.abs().max().clamp(min=1e-30)) for g, w in zip(got, want)])
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return dict(zip((p for p, _ in flatten(params)), worst.tolist()))
+
+
+def checked_steps(cfg, mesh, data, grads=True):
+    """The sharded step over ``data`` from ``fresh``: (state, losses, grad
+    norms, for each leaf the largest :func:`grads_rel` at the state each
+    step starts from ({} without ``grads``), the largest relative
+    difference, leaf by leaf, between the state each step leaves and the
+    unsharded step's optimizer applied to the whole state it started from
+    with the sharded step's own gradients, gathered). Where ``model``
+    splits products their gradients differ from the unsharded ones in the
+    order of the sums; fed the same gradients, the optimizer on the shards
+    is held to the whole update alone."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.steps import _train_step_parts, grad_norm
+
+    sched = {"peak_lr": 1e-3, "warmup": 5, "total_steps": 30}
+    step = make_sharded_train_step(cfg, mesh, **sched)
+    _, apply = _train_step_parts(cfg, sched["peak_lr"], sched["warmup"], sched["total_steps"], 0)
+    fns, state = build_model(cfg), fresh(cfg, mesh)
+    shardings = leaves(param_shardings(cfg, state["params"], mesh))
+    losses, norms, worst_grads, worst = [], [], {}, 0.0
+    for b in data:
+        whole = tree_map(lambda t: gather(t).clone(), state)
+        loss, aux, g = value_and_grad(fns, tree_map(local, state["params"]), b,
+                                      sharded_split(cfg, mesh, state["params"], b))
+        if grads:
+            for p, r in grads_rel(cfg, mesh, state["params"], b, g).items():
+                worst_grads[p] = max(worst_grads.get(p, 0.0), r)
+        g = [DTensor.from_local(x, s.mesh, s.placements()).full_tensor() for x, s in zip(g, shardings)]
+        want, _ = apply(whole, loss, aux, g, grad_norm(g))
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        worst = max(worst, max_rel_leaf(state, want))
+    return state, losses, norms, worst_grads, worst
+
+
 def case_sharded_step(mesh, out):
     """(2, 4): bf16 losses fall; f32 AdamW and Adafactor equal the unsharded step."""
     base = get_config("qwen3-1.7b").reduced()
@@ -92,11 +141,11 @@ def case_sharded_step(mesh, out):
     st, got = run(f32, mesh, 8)
     ref_st, want = run(f32, None, 8)
     ada = dataclasses.replace(f32, optimizer="adafactor")
-    st_a, got_a = run(ada, mesh, 2)
-    ref_a, want_a = run(ada, None, 2)
+    _, got_a, _, _, state_rel = checked_steps(ada, mesh, batches(ada, 2), grads=False)
+    _, want_a = run(ada, None, 2)
     out.update(bf16=bf16, f32=got, f32_ref=want, f32_rel=rel(got, want),
                params_rel=max_rel_leaf(st["params"], ref_st["params"]),
-               adafactor_rel=max(rel(got_a, want_a), max_rel_leaf(st_a, ref_a)),
+               adafactor_rel=max(rel(got_a, want_a), state_rel),
                local_shapes={p: list(t.to_local().shape) for p, t in flatten(st["params"])
                              if p in ("head/embed", "layers/attn/wq")})
 
@@ -150,7 +199,7 @@ def case_pod(mesh, out):
     """(2, 2, 2): dp_axes, and the sharded step's gradients (its rows of the
     batch, weighted by its share of the labels, summed over pod x data and
     cut to its shards) equal the full batch's; MoE under that split equals
-    the unsharded step, and runs bit for bit on (1, 8) unsplit."""
+    the unsharded step, and so does it on (1, 8), the batch unsplit."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), dtype="float32")
     ms = mesh_shape(mesh)
     coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
@@ -176,7 +225,7 @@ def case_pod(mesh, out):
     flat = make_mesh((1, 8), ("data", "model"), "cpu")
     _, got = run(moe, flat, 2)
     _, want = run(moe, None, 2)
-    out.update(moe_unsplit=got, moe_unsplit_ref=want)
+    out.update(moe_unsplit=got, moe_unsplit_ref=want, moe_unsplit_rel=rel(got, want))
 
 
 if __name__ == "__main__":
@@ -223,7 +272,11 @@ def run_ranks(tmp_path, case, mesh, *extra, timeout=240, script_text=_RANK):
 
 def test_sharded_train_step_runs(tmp_path):
     """8 ranks over (data=2, model=4): each holds the reference's shard, the
-    bf16 loss falls, and in f32 the step is the unsharded step's."""
+    bf16 loss falls, and in f32 the step is the unsharded step's. Adafactor:
+    the losses within 1e-6, and each step's update on the shards within
+    1e-6 of the whole update from the same state and gradients (the
+    products split over ``model`` sum their gradients in another order, so
+    the two runs' gradients are not the same bits)."""
     out = run_ranks(tmp_path, "sharded_step", "2x4")
     assert out["bf16"][-1] < out["bf16"][0], out["bf16"]
     assert out["f32"][-1] < out["f32"][0]
@@ -259,13 +312,15 @@ def test_multipod_gradient_reduction_over_pod_axis(tmp_path):
     """(pod=2, data=2, model=2): the batch splits over pod x data, one row a
     rank, and the reduced gradients are the full batch's. MoE under that
     split gives the unsharded step's losses and parameters within 1e-5, and
-    bit for bit where nothing splits the batch."""
+    so does it on (1, 8), where nothing splits the batch and each expert's
+    hidden is cut over ``model`` (bit for bit on one rank:
+    ``tests/test_torch_fsdp.py``)."""
     out = run_ranks(tmp_path, "pod", "2x2x2")
     assert out["dp_axes"] == ["pod", "data"] == out["axes"] and out["rows"] == 1
     assert out["tp"] == 2 and out["dp"] == 4
     assert out["loss_rel"] <= 1e-5 and out["grad_rel"] <= 1e-5, out
     assert out["moe_split"] <= 1e-5 and out["moe_split_params"] <= 1e-5, out
-    assert out["moe_unsplit"] == out["moe_unsplit_ref"]
+    assert out["moe_unsplit_rel"] <= 1e-5, out
 
 
 def test_launcher_trains_on_a_mesh_and_re_meshes(tmp_path):

@@ -19,8 +19,10 @@ back).
 Also: the depth extrapolation equals a direct count, the per-device bytes
 are those of the real state, the collective plan is the sharded step's
 (one layer gathered at a time, its gradients reduce-scattered or
-all-reduced as its backward ends), and ``main`` writes every cell of an
-arch on the three meshes. ``temp_bytes`` against what the step holds on
+all-reduced as its backward ends, the products split over ``model`` and
+their activations summed and gathered over it), the products a device
+computes on (1, 4) are a quarter of the 1x1 count as under the reference's
+GSPMD, and ``main`` writes every cell of an arch on the three meshes. ``temp_bytes`` against what the step holds on
 gloo ranks: ``tests/test_torch_fsdp.py``."""
 import dataclasses
 import json
@@ -94,28 +96,41 @@ def test_state_bytes_are_the_real_state_and_the_plan_the_sharded_step():
     shard = sum(torch.Size(specs[p].shard_shape(tuple(t.shape))).numel() * t.element_size()
                 for p, t in flatten(state))
     assert cell.mem["state_bytes"] == shard < whole
-    params = [(specs["params/" + p], t) for p, t in flatten(state["params"])]
-    param_shard = sum(torch.Size(s.shard_shape(tuple(t.shape))).numel() * t.element_size() for s, t in params)
+    params = [(p.rsplit("/", 1)[-1], specs["params/" + p], t) for p, t in flatten(state["params"])]
     costs = cell.plan.costs(0)
-    # each split leaf gathered once a layer (remat off, embeddings untied), the
-    # optimizer's state never: the whole size less the shard
-    assert costs.collective_bytes["all-gather"] == sum(t.numel() * t.element_size() for _, t in params) - param_shard
-    # the batch of 4 splits over data = 2. Each gradient is sliced over model
-    # first, where model splits it; then a leaf split over data is
-    # reduce-scattered (the slice less its half), any other all-reduced
-    # (twice the slice); grad_norm all-reduces a 4-byte sum over each axis
-    # that splits a leaf, and the label count, loss and ce one over data
-    rs = ar = 0
-    for s, t in params:
+    # The batch of 4 splits over data = 2 (2 x 64 tokens a rank), the products
+    # over model = 4. Each leaf that model splits is kept as the rank's model
+    # shard: gathered over data where data splits it (the shard less its
+    # half), its gradient reduce-scattered there or else all-reduced over
+    # data (twice the shard); the per-head norms are gathered whole and their
+    # gradients all-reduced over data and model; grad_norm all-reduces a
+    # 4-byte sum over each axis that splits a leaf; the label count, loss
+    # and ce one over data.
+    ag = rs = ar = 0
+    for name, s, t in params:
         axes = [a for d in range(t.dim()) for a in s.axes(d)]
-        sliced = t.numel() * t.element_size() // (4 if "model" in axes else 1)
-        if "data" in axes:
-            rs += sliced - sliced // 2
+        held = t.numel() * t.element_size() // (4 if "model" in axes else 1)
+        if name in ("q_norm", "k_norm"):
+            ar += 2 * 2 * held
+        elif "data" in axes:
+            ag += held - held // 2
+            rs += held - held // 2
         else:
-            ar += 2 * sliced
+            ar += 2 * held
         ar += 2 * 4 * len(axes)
+    # Activations, bf16 (2, 64, 128) a rank: per layer the attention's and the
+    # MLP's parts summed forward and their inputs' gradients backward; the
+    # embedding's rows summed, the head's input gradient; the cross-entropy's
+    # max, sum of exponentials and label logit, f32 (2, 64); K and V: each
+    # rank's 16 columns (half a KV head) all-gathered to 64, reduce-scattered
+    # back.
+    act, kv_part, kv_whole = 2 * 64 * 128 * 2, 2 * 64 * 16 * 2, 2 * 64 * 64 * 2
+    ar += 2 * act * (4 * cfg.num_layers + 2) + 3 * 2 * (2 * 64 * 4) + 3 * 2 * 4
+    ag += 2 * cfg.num_layers * (kv_whole - kv_part)
+    rs += 2 * cfg.num_layers * (kv_whole - kv_part)
+    assert costs.collective_bytes["all-gather"] == ag > 0
     assert costs.collective_bytes["reduce-scatter"] == rs > 0
-    assert costs.collective_bytes["all-reduce"] == ar + 2 * 3 * 4
+    assert costs.collective_bytes["all-reduce"] == ar
     assert cell.rows == 2
 
 
@@ -134,5 +149,76 @@ def test_main_writes_every_cell_on_the_three_meshes(tmp_path):
     by_mesh = {r["mesh"]: r for r in ok if r["shape"] == "train_4k"}
     # 256 rows: 16 a device on 16x16, 8 on 2x16x16, all on the one card
     assert [by_mesh[m]["rows_per_device"] for m in dryrun.MESHES] == [16, 8, 256]
-    assert by_mesh["1x1"]["hlo_costs"]["dot_flops"] == 16 * by_mesh["16x16"]["hlo_costs"]["dot_flops"]
+    # a device of 16x16 takes 16 rows and splits every product but the head's
+    # over model's 16 ranks: hubert's 504 targets do not divide 16, so the
+    # head (forward, dX and dW over 16 x 4096 rows) is whole on every rank
+    cfg = get_config("hubert-xlarge")
+    rows16 = depth_flops(cfg, dryrun.build_cell(cfg, "train_4k", "16x1").count)
+    head = 6 * 16 * 4096 * cfg.d_model * cfg.vocab_size
+    assert by_mesh["1x1"]["hlo_costs"]["dot_flops"] == 16 * rows16
+    assert by_mesh["16x16"]["hlo_costs"]["dot_flops"] == head + (rows16 - head) / 16
     assert sum(by_mesh["1x1"]["hlo_costs"]["collective_bytes"].values()) == 0
+
+
+_GSPMD = r'''
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.configs.base import ShapeSpec
+from repro.launch import steps
+from repro.launch.mesh import make_mesh
+from repro.launch.specs import batch_spec
+from repro.roofline.hlo_costs import analyze_hlo
+from repro.sharding import specs as sh
+from repro.sharding.act import use_activation_mesh
+
+cfg = get_config(sys.argv[1]).reduced()
+shape = ShapeSpec("t", int(sys.argv[2]), int(sys.argv[3]), "train")
+out = {}
+for name, dims in (("1x1", (1, 1)), ("1x4", (1, 4))):
+    mesh = make_mesh(dims, ("data", "model"))
+    bspec = batch_spec(cfg, shape)
+    bshard = sh.batch_shardings(cfg, bspec, mesh)
+    batch = {k: jax.ShapeDtypeStruct(v.shape, v.dtype, sharding=bshard[k]) for k, v in bspec.items()}
+    state = jax.eval_shape(lambda: steps.make_train_state(cfg, jax.random.PRNGKey(0)))
+    pspecs = sh.param_shardings(cfg, state["params"], mesh)
+    sspecs = {"params": pspecs, "opt": sh.opt_state_shardings(cfg, state["opt"], pspecs, mesh),
+              "step": NamedSharding(mesh, P())}
+    state = jax.tree.map(lambda l, s: jax.ShapeDtypeStruct(l.shape, l.dtype, sharding=s), state, sspecs)
+    with use_activation_mesh(mesh):
+        hlo = jax.jit(steps.make_train_step(cfg), donate_argnums=(0,)).lower(state, batch).compile().as_text()
+    out[name] = analyze_hlo(hlo).dot_flops
+print(json.dumps(out))
+'''
+
+
+def test_split_products_on_1x4_beside_the_reference_gspmd():
+    """The reduced dense config on (1, 4), the batch whole on each device:
+    the placements split every product over model (4 heads, 2 KV heads, an
+    FFN of 256, a vocabulary of 512), so the port's dry-run gives a device
+    exactly a quarter of its 1x1 products. The reference's
+    ``jit(make_train_step)`` on 4 fake host devices (a subprocess: the
+    device count is fixed at JAX's start) gives the same: its per-device
+    ``analyze_hlo(...).dot_flops`` is a quarter of its 1x1 count, which is
+    the port's."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env.pop("XLA_FLAGS", None)
+    run = subprocess.run([sys.executable, "-c", _GSPMD, "qwen3-1.7b", str(S), str(2 * B)], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    ref = json.loads(run.stdout.strip().splitlines()[-1])
+    cfg = get_config("qwen3-1.7b").reduced()
+    shape = ShapeSpec("t", S, 2 * B, "train")
+    one, four = port_flops(cfg, shape), port_flops(cfg, shape, "1x4")
+    print(f"products' FLOPs a device, reduced qwen3-1.7b, {2 * B} x {S} tokens: port 1x1 {one}, 1x4 {four}; "
+          f"reference GSPMD 1x1 {ref['1x1']}, 1x4 {ref['1x4']}")
+    assert ref["1x1"] == one > 0
+    assert 4 * four == one == 4 * ref["1x4"]

@@ -13,10 +13,14 @@ process a rank (``run_ranks`` of ``tests/test_torch_distributed.py``).
   peak, the gathered leaves and whole gradients (``gathers``) and the
   gradient shards (``gradients``) among them.
 * Each family's sharded step equals the unsharded one within 1e-5 (losses,
-  and parameters by ``max_rel_leaf``) over 4 steps in f32 on (2, 4): the
-  gradients are summed over the ranks in another order.
-* Where nothing splits the batch, (1, 8), the step keeps the unsharded
-  step's bits: the gathers copy, the backward slices.
+  and parameters by ``max_rel_leaf``; the VLM's gradients at each step's
+  state) over 4 steps in f32 on (2, 4): the gradients are summed over the
+  ranks, and the products split over ``model`` summed, in another order.
+  Each step's new state is within 1e-6 of the unsharded optimizer fed the
+  step's own gradients.
+* On one rank, (1, 1), the step keeps the unsharded step's bits: nothing
+  is gathered or summed. (On (1, 8) the products split over ``model`` sum
+  their parts in another order: ``tests/test_torch_tensor_parallel.py``.)
 """
 import pytest
 
@@ -74,10 +78,10 @@ class Tracker:
         gather, forward, backward = fsdp.gather, fsdp._Gather.forward, fsdp._Gather.backward
         tracker = self
 
-        def gather_(tree):
+        def gather_(tree, modes=None):
             tracker.label = "head" if HEAD & set(tree) else tracker.calls
             tracker.calls += 1
-            return gather(tree)
+            return gather(tree, modes)
 
         def forward_(ctx, spec, *shards):
             outs = forward(ctx, spec, *shards)
@@ -117,9 +121,92 @@ class Tracker:
         self.peak = max(self.peak, sum(b for b, _, _ in self.live.values()) + sum(self.shards.values()))
 
 
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One leaf as one gather sees it (a layer of a stacked leaf): its shape
+    whole, its shard's, the shape the gather hands over (the ``model``
+    shard kept in mode ``local``), its dtype, and whether the gather
+    handles it (gathers it over some axis, or sums its gradient)."""
+
+    shape: tuple
+    shard: tuple
+    gathered: tuple
+    dtype: torch.dtype
+    handled: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One call of ``fsdp.gather`` in the sharded step's forward (the
+    embedding, a layer, a hybrid group or trailing layer, the LM head): its
+    leaves, and ``remat``, whether it runs under remat (the replay gathers
+    its leaves again)."""
+
+    remat: bool
+    leaves: tuple
+
+
+def gather_groups(cfg, params, specs, ms, batch_axes, batch):
+    """The sharded step's gathers in the order of the forward (``models/model.py``):
+    the embedding where the inputs use it, each layer (a hybrid group of
+    (rec, rec, attn), then its trailing recurrent layers outside remat),
+    then the LM head's final norm with ``lm_head`` or, tied, ``embed``
+    again; each leaf's mode by ``layers.tp_modes`` where the model computes
+    its part of the products (the attention families' layers and every
+    head), ``whole`` elsewhere."""
+    from repro_torch.models.layers import tp_modes
+    from repro_torch.sharding import specs as sh
+
+    names = dict(flatten(params))
+    model = ms.shape["model"]
+
+    def leaf(path, layer=None):
+        t, s = names[path], specs["params/" + path]
+        shape, spec = (tuple(t.shape), s.spec) if layer is None else (tuple(t.shape[1:]), s.spec[1:])
+        sharding = sh.LeafSharding(ms, spec)
+        return path, shape, sharding, t.dtype
+
+    def group(remat, items, tp):
+        """``items`` (path, shape, placement, dtype); ``tp``: whether the
+        model computes its part of these leaves' products."""
+        rel = [p.split("/", 2)[-1] if p.startswith("layers/") else p.split("/")[-1] for p, _, _, _ in items]
+        dims = [next((d for d in range(len(shape)) if "model" in s.axes(d)), None) for _, shape, s, _ in items]
+        modes = tp_modes(dict(zip(rel, dims))) if tp and model > 1 else {}
+        out = []
+        for r, dim, (_, shape, sharding, dtype) in zip(rel, dims, items):
+            shard = sharding.shard_shape(shape)
+            mode = modes.get(r, "whole")
+            gathered = tuple(shard[d] if mode == "local" and d == dim else n for d, n in enumerate(shape))
+            over = [a for d in range(len(shape)) for a in sharding.axes(d) if ms.shape[a] > 1
+                    and not (mode == "local" and a == "model")]
+            out.append(Leaf(shape, shard, gathered, dtype, bool(over or batch_axes or mode == "sum")))
+        return Group(remat, tuple(out))
+
+    def stack(prefix, i):
+        return [leaf(p, i) for p in names if p.startswith(prefix + "/")]
+
+    groups = []
+    if cfg.family != "audio" or "frame_mask" in batch:
+        groups.append(group(False, [leaf("head/embed")], True))
+    if cfg.family == "hybrid":
+        n_groups = cfg.num_layers // len(cfg.rglru.pattern)
+        n_rec = sum(1 for k in cfg.layer_kinds() if k == "rec")
+        for g in range(n_groups):
+            items = stack("rec_layers", 2 * g) + stack("rec_layers", 2 * g + 1) + stack("attn_layers", g)
+            groups.append(group(cfg.remat, items, False))
+        for i in range(2 * n_groups, n_rec):
+            groups.append(group(False, stack("rec_layers", i), False))
+    else:
+        for layer in range(cfg.num_layers):
+            groups.append(group(cfg.remat, stack("layers", layer), cfg.family != "ssm"))
+    head = "head/embed" if cfg.tie_embeddings else "head/lm_head"
+    groups.append(group(False, [leaf("head/final_norm"), leaf(head)], True))
+    return groups
+
+
 def gathers_peak(cfg, mesh):
     """What the tracker's peak should be, from the step's order of gathers
-    (``dryrun._gather_groups``) alone: the most held at each gather's end
+    (:func:`gather_groups`) alone: the most held at each gather's end
     and each gather backward's start and end, of the gathered leaves (a
     group under remat only during its call and its replay; one outside
     remat until its backward), the whole gradients a gather backward
@@ -133,16 +220,15 @@ def gathers_peak(cfg, mesh):
     _, batch, _, axes = dryrun._local_batch(cfg, SHAPE, ms)
     state = abstract_train_state(cfg)
     specs = dict(flatten(sh.state_shardings(cfg, state, ms)))
-    groups = dryrun._gather_groups(cfg, state["params"], specs, ms,
-                                   tuple(a for a in axes if ms.shape[a] > 1), batch)
+    groups = gather_groups(cfg, state["params"], specs, ms, tuple(a for a in axes if ms.shape[a] > 1), batch)
     embed = cfg.family != "audio" or "frame_mask" in batch
 
     def nbytes(shape, leaf):
         return math.prod(shape) * torch.empty((), dtype=leaf.dtype).element_size()
 
     def whole(g, only_split):
-        return sum(nbytes(leaf.shape, leaf) for leaf in g.leaves if leaf.handled and (
-            not only_split or any(ms.shape[a] > 1 for d in range(len(leaf.shape)) for a in leaf.sharding.axes(d))))
+        return sum(nbytes(leaf.gathered, leaf) for leaf in g.leaves
+                   if leaf.handled and (not only_split or leaf.gathered != leaf.shard))
 
     def layer(i):
         return (i > 0 or not embed) and i < len(groups) - 1
@@ -165,8 +251,7 @@ def gathers_peak(cfg, mesh):
         w = whole(g, False)
         peak = max(peak, kept + w + held)
         tied = i == len(groups) - 1 and embed and cfg.tie_embeddings
-        held += sum(nbytes(leaf.sharding.shard_shape(leaf.shape), leaf)
-                    for leaf in (g.leaves[:-1] if tied else g.leaves))
+        held += sum(nbytes(leaf.shard, leaf) for leaf in (g.leaves[:-1] if tied else g.leaves) if leaf.handled)
         peak = max(peak, kept + w + held)
     return peak
 
@@ -218,17 +303,18 @@ def case_families(mesh, out):
     for family, arch in FAMILIES.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         data = family_batches(cfg, 4)
-        st, got = steps(cfg, mesh, data)
+        st, got, _, grads, update = checked_steps(cfg, mesh, data)
         ref, want = steps(cfg, None, data)
         by_leaf = {p: max_rel_leaf({"x": a}, {"x": b}) for (p, a), (_, b) in zip(flatten(st["params"]),
                                                                                 flatten(ref["params"]))}
         out[family] = {"loss_rel": rel(got, want), "params_rel": max_rel_leaf(st["params"], ref["params"]),
-                       "beyond": sorted(p for p, r in by_leaf.items() if r > 1e-5),
+                       "beyond": sorted(p for p, r in by_leaf.items() if r > 1e-5), "grad_rel": grads,
+                       "update_rel": update,
                        "split_order_rel": max_rel_leaf(st["params"], split_order(cfg, data, 2)["params"])}
 
 
 def case_unsplit(mesh, out):
-    """(1, 8): the dense model in f32 and bf16 and the MoE model, sharded and not."""
+    """(1, 1): the dense model in f32 and bf16 and the MoE model, sharded and not."""
     for name, arch, dtype in (("dense", "qwen3-1.7b", "float32"), ("dense_bf16", "qwen3-1.7b", "bfloat16"),
                               ("moe", "grok-1-314b", "float32")):
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
@@ -268,31 +354,37 @@ def test_each_family_equals_the_unsharded_step(families, family):
     (frame masks: each rank's rows another label count) and qwen2-vl-7b:
     losses within 1e-5 of the unsharded step's, and parameters within 1e-5
     of it and of the unsharded step summing the same runs of rows in one
-    process. The VLM's ``bk`` and one element of its ``embed`` move with the
-    order of the sums alone, the same in one process: ``bk``'s gradient is
-    zero in exact arithmetic (softmax does not see a bias every key of a
-    query shares), the element's a sum that cancels, and AdamW divides each
-    by its own RMS. So the VLM's parameters are held to the second
-    reference, and its leaves beyond 1e-5 of the first are named."""
+    process. The VLM's ``bk`` and a few elements of its ``embed`` and
+    ``attn_norm`` move with the order of the sums alone: ``bk``'s gradient
+    is zero in exact arithmetic (softmax does not see a bias every key of a
+    query shares), the elements' gradients nearly cancel over the steps,
+    and AdamW divides each by its own RMS. With the batch split alone the
+    unsharded step summing the same runs of rows gave the same bits for
+    them; the products split over ``model`` sum in an order that no run in
+    one process repeats. So the VLM is held, at the state each step starts
+    from, by every gradient but ``bk``'s within 1e-5 of the unsharded
+    step's, and each family, each step, by the state it leaves: within
+    1e-6 of the unsharded optimizer applied to the whole state it started
+    from with its own gradients gathered (``checked_steps``)."""
     out = families[family]
-    assert out["loss_rel"] <= 1e-5 and out["split_order_rel"] <= 1e-5, out
-    assert set(out["beyond"]) <= ({"head/embed", "layers/attn/bk"} if family == "vlm" else set()), out
-    if family != "vlm":
-        assert out["params_rel"] <= 1e-5, out
+    assert out["loss_rel"] <= 1e-5 and out["update_rel"] <= 1e-6, out
+    if family == "vlm":
+        assert max(r for p, r in out["grad_rel"].items() if p != "layers/attn/bk") <= 1e-5, out
+    else:
+        assert out["split_order_rel"] <= 1e-5 and out["params_rel"] <= 1e-5 and not out["beyond"], out
 
 
 @pytest.fixture(scope="module")
 def unsplit(tmp_path_factory):
-    return run_ranks(tmp_path_factory.mktemp("unsplit"), "unsplit", "1x8", script_text=_CASES)
+    return run_ranks(tmp_path_factory.mktemp("unsplit"), "unsplit", "1x1", script_text=_CASES)
 
 
 @pytest.mark.parametrize("name", ["dense", "dense_bf16", "moe"])
 def test_nothing_split_keeps_the_bits(unsplit, name):
-    """(1, 8): the batch is whole on every rank; the leaves split over model
-    are gathered and their gradients sliced. Losses bit for bit; with AdamW
-    (dense) the parameters too; Adafactor (MoE) sums its statistics over the
-    shards in another order."""
+    """(1, 1): one rank holds the batch and every leaf whole; no collective
+    runs. Losses bit for bit, and the parameters too. (On (1, 8) ``model``
+    splits the products and their parts sum in another order: within 1e-5,
+    ``tests/test_torch_tensor_parallel.py``.)"""
     out = unsplit[name]
     assert out["losses"] == out["ref"], out
-    if name != "moe":
-        assert out["params_rel"] == 0.0, out
+    assert out["params_rel"] == 0.0, out
