@@ -129,7 +129,9 @@
    and dp-group routing) beside ``make_train_step``, the losses bit for
    bit; (9d) the dry-run of every applicable cell on the 16x16, 2x16x16
    and 1x1 meshes (a subprocess an arch and mesh on the host, started
-   after 9c, meta tensors only; the MoE pair's and qwen1.5-110b's train
+   after phase 8's train path at the lowest priority, so that it runs
+   beside phase 8's MoE path and phase 9 on the cores they leave idle, meta
+   tensors only; the MoE pair's and qwen1.5-110b's train
    records on the production meshes logged whole, with the bytes by kind
    at the peak), its 1x1 record of qwen3-1.7b's train
    state against the bytes ``make_train_state`` really takes of the card's
@@ -145,7 +147,18 @@
    product on the rank's ``model`` shard, the allocator's peak within
    RANK_BAND of the dry-run's count of the same rank, cell and depth, and
    every (kernel, route, shapes) the step met checked again against its
-   plain version; every launch of 9a-9c and 9e gated exactly;
+   plain version; (9f) prefill and decode on a mesh: on a one-rank NCCL
+   group qwen3-1.7b at published depth and grok-1-314b at 1 layer prefill
+   4 x 1024 tokens and decode 16 through ``make_sharded_prefill_step`` /
+   ``make_sharded_serve_step``, the logits the meshless steps' bit for bit;
+   then on 9e's fake group of 256, rank 0 of 16x16 takes a prefill_32k and
+   4 decode_32k steps of each (qwen3-1.7b at 28 layers, grok-1-314b at 1),
+   each product on its ``model`` shard and the cache's sequence cut over
+   ``model`` (the decode's ``paged_attention`` returning its log-sum-exp for
+   the merge), the allocator's peak within RANK_BAND of the dry-run's count
+   and every (kernel, route, shapes) met against its plain version
+   (``paged_attention`` with ``lse`` at a row of length 0 and at its split
+   count); every launch of 9a-9c, 9e and 9f gated exactly;
 10. runs the simulator path (``examples/port_serve_trace.py``'s ``run`` at
    its defaults, each backend's run traced by a full telemetry hub: metrics,
    prediction audit, stall ledger) on this machine's host, with no JAX and
@@ -399,6 +412,26 @@ MEMORY_GATED = ("train qwen3-1.7b", "train grok-1-314b", "train arctic-480b", "p
 RANK_MESH = (16, 16)
 RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
 RANK_BAND = 0.05  # the dry-run's count of the same rank, cell and depth against the allocator's peak
+# Phase 9f: prefill and decode on a mesh. On a one-rank NCCL group (as 9c's)
+# each model of SERVE_ONE_CELLS (arch, layers; None for the published depth)
+# prefills DECODE_B x PROMPT tokens and decodes SERVE_ONE_STEPS tokens
+# through the sharded serving steps beside the meshless ones, bit for bit;
+# on 9e's fake group of 256 rank 0 of RANK_MESH takes SERVE_RANK_CELLS'
+# prefill_32k and SERVE_RANK_STEPS decode_32k steps, each product on its
+# model shard, the cache's sequence cut over model.
+SERVE_ONE_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
+SERVE_ONE_STEPS = 16
+SERVE_RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
+SERVE_RANK_STEPS = 4
+# a flash call whose plain version would hold more than FA_CHECK_BYTES of
+# f32 scores (prefill_32k: 2 x 32,768² a head) is held against it on five
+# runs of FA_CHECK_ROWS query rows, starting at 0, S/4, S/2, 3S/4 and at
+# its last FA_CHECK_ROWS; every other call on every row
+FA_CHECK_BYTES = 4 << 30
+FA_CHECK_ROWS = 1024
+# paged_attention with lse at a shard shape: the log-sum-exp within this of
+# the plain version's (absolute; |lse| is a few units)
+PA_LSE_TOL = 1e-3
 # stream_matmul at a shard shape against its plain version, relative L2 by the
 # inputs' dtype: bf16 rounds the output once (~2e-3), f32 sums in another order
 MM_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
@@ -599,23 +632,26 @@ def run_phases(torch, dev) -> None:
     phase_done("8. training against the CPU")
     paths["train"], train_run_numbers = train_slice(torch, dev)
     phase_done("8. train")
-    paths["train_moe"], moe_runs = train_moe_slice(torch, dev)
-    phase_done("8. train_moe")
-    for name, run in ((TRAIN_ARCH, train_run_numbers), *moe_runs.items()):
-        peaks[f"train {name}"] = run["peak_allocated_bytes"] - run["base_allocated_bytes"]
-    supervisor_on_card(torch, dev)
-    paths["quickstart"] = quickstart_on_card(torch, dev)
-    phase_done("9a. quickstart")
-    paths["train_lm"] = train_lm_on_card(torch, dev)
-    phase_done("9b. train_lm")
-    paths["mesh"], paths["mesh_moe"] = mesh_on_card(torch, dev)
-    phase_done("9c. mesh")
     with tempfile.TemporaryDirectory() as tmp:
+        # 9d's dry-run takes the host's other cores from here on, at the lowest priority
         dry = start_dryrun(Path(tmp))
         try:
-            # 9e times nothing: it runs while the dry-run's processes take the host
+            paths["train_moe"], moe_runs = train_moe_slice(torch, dev)
+            phase_done("8. train_moe")
+            for name, run in ((TRAIN_ARCH, train_run_numbers), *moe_runs.items()):
+                peaks[f"train {name}"] = run["peak_allocated_bytes"] - run["base_allocated_bytes"]
+            supervisor_on_card(torch, dev)
+            paths["quickstart"] = quickstart_on_card(torch, dev)
+            phase_done("9a. quickstart")
+            paths["train_lm"] = train_lm_on_card(torch, dev)
+            phase_done("9b. train_lm")
+            paths["mesh"], paths["mesh_moe"] = mesh_on_card(torch, dev)
+            phase_done("9c. mesh")
+            # 9e and 9f time nothing
             paths["rank"] = rank_on_card(torch, dev)
             phase_done("9e. one rank of 16x16")
+            paths["serve_one"], paths["serve_rank"] = serve_on_mesh(torch, dev)
+            phase_done("9f. prefill and decode on a mesh")
             dryrun_on_card(torch, dev, Path(tmp), dry, peaks)
         finally:
             for proc in dry.values():
@@ -3499,11 +3535,16 @@ def supervisor_on_card(torch, dev):
 
 def start_dryrun(out: Path):
     """Phase 9d's dry-run on the host, one subprocess an assigned arch and
-    mesh of DRYRUN_MESHES: its records to ``out/<arch>_<mesh>.jsonl`` and
-    its own output beside them in ``.log``. Started after 9c, the last
-    phase timed on the card, so that no time is taken beside it; phases 10
-    and 11, timed on the host, come after it has ended. Returns the
-    processes by (arch, mesh)."""
+    mesh of DRYRUN_MESHES, each at the lowest priority (nice 19) and on one
+    thread: its records to ``out/<arch>_<mesh>.jsonl`` and its own output
+    beside them in ``.log``. Started after phase 8's train path, whose
+    qwen3-1.7b step the host's speed sets (on the H100's host a dry-run
+    beside it, even at nice 19, took it from 520.7-645.9 to 923.4 ms),
+    so that it runs on the cores that the phases after it leave idle: the
+    MoE train steps (grok-1-314b's set by the card, arctic-480b's read
+    up to ~15% slower beside it) and phase 9's paths, which are not
+    timed. Phases 10 and 11, timed on the host, come after it has ended.
+    Returns the processes by (arch, mesh)."""
     import os
 
     from repro_torch.configs import ASSIGNED
@@ -3514,8 +3555,9 @@ def start_dryrun(out: Path):
         for mesh in DRYRUN_MESHES:
             with open(out / f"{arch}_{mesh}.log", "w") as log_file:
                 procs[arch, mesh] = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--meshes", mesh,
-                     "--out", str(out / f"{arch}_{mesh}.jsonl")], env=env, cwd=ROOT,
+                    [sys.executable, "-c", "import os, runpy; os.nice(19); runpy.run_module("
+                     "'repro_torch.launch.dryrun', run_name='__main__', alter_sys=True)",
+                     "--arch", arch, "--meshes", mesh, "--out", str(out / f"{arch}_{mesh}.jsonl")], env=env, cwd=ROOT,
                     stdout=log_file, stderr=subprocess.STDOUT)
     return procs
 
@@ -3743,11 +3785,11 @@ def moe_on_mesh(torch, dev, mesh):
     return launches, MESH_STEPS, wgmma, tuple(batched)
 
 
-def rank_state(torch, cfg, mesh, dev):
-    """The train state of ``cfg`` as this rank's shards on ``mesh`` (the
-    placements of ``sharding.specs``), made on the card shard by shard:
-    parameters drawn at 0.02, the optimizer's state 0. No whole leaf is
-    ever made."""
+def rank_state(torch, cfg, mesh, dev, keys=None):
+    """The train state of ``cfg`` (its ``keys``, default all) as this rank's
+    shards on ``mesh`` (the placements of ``sharding.specs``), made on the
+    card shard by shard: parameters drawn at 0.02, the optimizer's state 0.
+    No whole leaf is ever made."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.steps import abstract_train_state
@@ -3763,17 +3805,32 @@ def rank_state(torch, cfg, mesh, dev):
                                   stride=torch.empty(t.shape, device="meta").stride())
 
     shardings = state_shardings(cfg, state, mesh)
-    return {key: tree_map(lambda t, s: shard(t, s, key == "params"), state[key], shardings[key]) for key in state}
+    return {key: tree_map(lambda t, s: shard(t, s, key == "params"), state[key], shardings[key])
+            for key in (keys or state)}
 
 
 def kernel_calls(calls):
     """Wraps each kernel's launch (``streammm.ops._launch``, ``flash_attention.
-    ops._forward`` and ``flash_attention_backward``) so that every call
-    notes, in ``calls``, its kernel, route and shapes; returns the undo."""
+    ops._forward`` and ``flash_attention_backward``) and the model's
+    ``paged_attention`` so that every call notes, in ``calls``, its kernel,
+    route and shapes; returns the undo."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention.ops import pa_splits
     from repro_torch.kernels.streammm import ops as mm_ops
+    from repro_torch.models import layers
 
     launch, forward, backward = mm_ops._launch, fa_ops._forward, fa_ops.flash_attention_backward
+    paged = layers.paged_attention
+
+    def paged_(q, pool_k, pool_v, table, lengths, **kw):
+        b, h, d = q.shape
+        _, pt, hkv, _ = pool_k.shape
+        splits = pa_splits(b, hkv, table.shape[1], _build.sm_count(q.device)) if q.is_cuda else 1
+        key = ("paged_attention", f"split-kv {splits}", b, h, hkv, d, pt, table.shape[1], str(q.dtype),
+               kw.get("return_lse", False))
+        calls[key] = calls.get(key, 0) + 1
+        return paged(q, pool_k, pool_v, table, lengths, **kw)
 
     def launch_(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
         key = ("stream_matmul", route, x.dim() == 3, e, m, n, k, w_layout, x_layout, str(x.dtype), str(out.dtype),
@@ -3798,9 +3855,11 @@ def kernel_calls(calls):
         return backward(q, k, v, out, dout, lse=lse, causal=causal, window=window, sm_scale=sm_scale)
 
     mm_ops._launch, fa_ops._forward, fa_ops.flash_attention_backward = launch_, forward_, backward_
+    layers.paged_attention = paged_
 
     def undo():
         mm_ops._launch, fa_ops._forward, fa_ops.flash_attention_backward = launch, forward, backward
+        layers.paged_attention = paged
 
     return undo
 
@@ -3824,6 +3883,8 @@ def check_kernel_call(torch, dev, key) -> float:
         return (buf[:n] if aligned else buf[1 : n + 1]).view(shape)
 
     kernel, route = key[0], key[1]
+    if kernel == "paged_attention":
+        return check_paged_call(torch, dev, key, randn)
     if kernel == "stream_matmul":
         _, _, batched, e, m, n, k, w_layout, x_layout, x_dtype, out_dtype, has_rows, aligned = key
         lead = (e,) if batched else ()
@@ -3849,7 +3910,12 @@ def check_kernel_call(torch, dev, key) -> float:
             with torch.no_grad():
                 out = fa_ops.flash_attention(q, k, v, **kw)
             took = fa_ops.flash_attention.wgmma_launches - before
-            rel = rel_l2(out, attention_ref(q.float(), k.float(), v.float(), **kw))
+            if causal and sq == skv and 4 * b * h * sq * skv > FA_CHECK_BYTES:  # five runs of its query rows
+                starts = (0, sq // 4, sq // 2, 3 * sq // 4, sq - FA_CHECK_ROWS)
+                rel = max(rel_l2(out[:, a : a + FA_CHECK_ROWS], attention_rows_ref(torch, q, k, v, a, FA_CHECK_ROWS,
+                                                                                   **kw)) for a in starts)
+            else:
+                rel = rel_l2(out, attention_ref(q.float(), k.float(), v.float(), **kw))
             tol = FA_REL_L2
         else:
             with torch.no_grad():
@@ -3868,6 +3934,74 @@ def check_kernel_call(torch, dev, key) -> float:
         raise AssertionError(f"{key}: route {route}, tensor-core launches rose by {took}; relative L2 {rel:.2e} "
                              f"against the plain version (at most {tol})")
     return rel
+
+
+def attention_rows_ref(torch, q, k, v, start, rows, causal=True, window=0, sm_scale=None):
+    """``attention_ref`` of query rows [start, start + rows) of a
+    self-attention (Sq = Skv) against the keys they can see (every key
+    before start + rows where causal, else every key), masked by the rows'
+    own positions: the plain version's arithmetic (f32 scores, -1e30 at
+    masked keys, softmax, GQA), without the other rows' scores."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    t = start + rows if causal else s
+    k, v = k[:, :t], v[:, :t]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf = q[:, start : start + rows].float().reshape(b, rows, hkv, g, d)
+    scores = torch.einsum("bqkgd,btkd->bkgqt", qf * scale, k.float())
+    qpos = torch.arange(start, start + rows, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((rows, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = qpos >= kpos
+    if window > 0:
+        mask = mask & ((qpos - kpos) < window)
+    scores = torch.where(mask[None, None, None], scores, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqt,btkd->bqkgd", p, v.float()).reshape(b, rows, h, d)
+
+
+def check_paged_call(torch, dev, key, randn) -> float:
+    """One ``paged_attention`` call noted by :func:`kernel_calls`, on fresh
+    inputs of its shapes (row 0 of length 0, the others random), with
+    ``lse`` where the noted call took it, against ``paged_attention_ref``;
+    then the same at one page a row (one split: the first kernel writes
+    ``lse``, not the merge). Gated: the output's largest error within
+    PA_REL of the plain version's RMS, exact zeros at length 0; ``lse``
+    within PA_LSE_TOL, -inf exactly where the plain version's is; one
+    launch a call. Returns the largest relative L2 of the outputs."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    _, _, b, h, hkv, d, pt, max_pages, dtype, lse = key
+    dtype = {"torch.bfloat16": torch.bfloat16, "torch.float32": torch.float32}[dtype]
+    worst = 0.0
+    for pages in (max_pages, 1):
+        q = randn((b, h, d), dtype)
+        pools = [randn((b * pages, pt, hkv, d), dtype) for _ in range(2)]
+        table = torch.arange(b * pages, dtype=torch.int32, device=dev).reshape(b, pages)
+        lengths = torch.randint(1, pages * pt + 1, (b,), dtype=torch.int32, device=dev)
+        lengths[0] = 0
+        args = (q, *pools, table, lengths)
+        before = paged_attention.launches
+        got = paged_attention(*args, return_lse=lse)
+        want = paged_attention_ref(*args, return_lse=lse)
+        (out, got_lse), (ref, want_lse) = (got, want) if lse else ((got, None), (want, None))
+        err = float((out.float() - ref.float()).abs().max())
+        worst = max(worst, rel_l2(out, ref))
+        bad = paged_attention.launches != before + 1 or err > PA_REL * float(ref.float().pow(2).mean().sqrt()) \
+            or out[0].any()
+        if lse:
+            finite = torch.isfinite(want_lse)
+            bad = bad or not torch.equal(finite, torch.isfinite(got_lse)) or \
+                float((got_lse[finite] - want_lse[finite]).abs().max()) > PA_LSE_TOL
+        if bad:
+            raise AssertionError(f"{key} at {pages} pages a row: max error {err:.3e} against the plain version, "
+                                 f"launches {paged_attention.launches - before}, zeros at length 0 "
+                                 f"{not out[0].any()}, lse {got_lse[:2] if lse else None} against "
+                                 f"{want_lse[:2] if lse else None}")
+    return worst
 
 
 def rank_on_card(torch, dev):
@@ -3961,6 +4095,213 @@ def rank_on_card(torch, dev):
     return total[0], len(RANK_CELLS), total[1]
 
 
+def serve_on_mesh(torch, dev):
+    """Phase 9f: prefill and decode on a mesh, each product on its ``model``
+    shard and the KV cache's sequence cut over ``model``
+    (``launch/steps.make_sharded_prefill_step`` and
+    ``make_sharded_serve_step``). Runs while 9d's dry-run takes the host:
+    :func:`serve_one_rank`, then :func:`serve_rank`. Returns their paths'
+    (launches, steps, tensor-core launches)."""
+    one = serve_one_rank(torch, dev)
+    return one, serve_rank(torch, dev)
+
+
+def serve_one_rank(torch, dev):
+    """A one-rank NCCL group (a FileStore, as 9c's) and a 1 x 1 mesh: each
+    cell of SERVE_ONE_CELLS at published width prefills DECODE_B x PROMPT
+    tokens into PROMPT + SERVE_ONE_STEPS slots and decodes SERVE_ONE_STEPS
+    greedy tokens, first through ``make_prefill_step`` / ``make_serve_step``
+    on whole parameters, then through the sharded steps on the same
+    parameters placed as DTensors (views of them: a rank holds every leaf
+    whole there). Gated: every logit bit for bit and the same tokens; each
+    run's launches exactly a prefill's and SERVE_ONE_STEPS decodes'
+    (:func:`step_launches`)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step, make_sharded_prefill_step,
+                                          make_sharded_serve_step)
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.specs import param_shardings
+    from repro_torch.tree import tree_map
+
+    total = ({k: 0 for k in KERNELS}, {k: 0 for k in WGMMA_KERNELS})
+    with tempfile.TemporaryDirectory() as tmp:
+        init_ranks(0, 1, f"{tmp}/store", dev)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            for arch, layers in SERVE_ONE_CELLS:
+                cfg = get_config(arch) if layers is None else dataclasses.replace(get_config(arch), num_layers=layers)
+                gc.collect()
+                torch.cuda.empty_cache()
+                params = build_model(cfg).init(torch.Generator(dev).manual_seed(13))
+                placed = tree_map(lambda t, sp: DTensor.from_local(t, mesh, sp.placements(), run_check=False),
+                                  params, param_shardings(cfg, params, mesh))
+                prompt = torch.randint(1, cfg.vocab_size, (DECODE_B, PROMPT), generator=torch.Generator(dev)
+                                       .manual_seed(14), device=dev)
+                want = step_launches(cfg, "prefill")
+                want = {k: n + SERVE_ONE_STEPS * step_launches(cfg, "decode")[k] for k, n in want.items()}
+                runs = {}
+                for name, prefill, serve, p in (
+                        ("meshless", make_prefill_step(cfg), make_serve_step(cfg), params),
+                        ("mesh", make_sharded_prefill_step(cfg, mesh), make_sharded_serve_step(cfg, mesh), placed)):
+                    torch.cuda.synchronize(dev)
+                    zero_launches()
+                    t0 = time.perf_counter()
+                    with torch.no_grad():
+                        logits, cache = prefill(p, {"tokens": prompt}, max_seq=PROMPT + SERVE_ONE_STEPS)
+                        outs = [logits]
+                        for _ in range(SERVE_ONE_STEPS):
+                            tok = outs[-1].argmax(-1)
+                            logits, cache = serve(p, cache, {"tokens": tok})
+                            outs.append(logits)
+                    torch.cuda.synchronize(dev)
+                    wall = time.perf_counter() - t0
+                    runs[name] = (torch.stack(outs), read_launches(), read_wgmma())
+                    log(f"serve on a mesh, {name}: {arch} at {cfg.num_layers} layers, published width, a prefill "
+                        f"of {DECODE_B} x {PROMPT} and {SERVE_ONE_STEPS} decode steps in {wall:.2f} s; launches "
+                        f"{runs[name][1]}")
+                    del cache, logits, outs
+                (base, base_launches, _), (got, launches, wgmma) = runs["meshless"], runs["mesh"]
+                same = torch.equal(got, base)
+                log(f"serve on a mesh, {arch}: logits bit-identical {same}, greedy tokens the same "
+                    f"{torch.equal(got.argmax(-1), base.argmax(-1))}")
+                if not same or launches != base_launches or launches != want:
+                    raise AssertionError(f"serve on a mesh, {arch}: bits {same}, launches {launches} against the "
+                                         f"meshless {base_launches} and {want}")
+                total = ({k: total[0][k] + launches[k] for k in KERNELS},
+                         {k: total[1][k] + wgmma[k] for k in WGMMA_KERNELS})
+                del params, placed, runs, got, base
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total[0], len(SERVE_ONE_CELLS), total[1]
+
+
+def rank_cache(torch, cfg, mesh, dev, batch: int, slots: int):
+    """A zero KV cache of ``batch`` rows and ``slots`` slots as this rank's
+    shards on ``mesh`` (``cache_shardings``), made on the card shard by
+    shard, at position 0 (rank 0 owns slot 0)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.specs import cache_shardings
+    from repro_torch.tree import tree_map
+
+    whole = build_model(cfg).init_cache(batch, slots, "meta")
+    specs = cache_shardings(cfg, whole, mesh, batch)
+
+    def shard(t, sp):
+        local = torch.zeros(sp.shard_shape(tuple(t.shape)), dtype=t.dtype, device=dev)
+        return DTensor.from_local(local, mesh, sp.placements(), run_check=False, shape=t.shape, stride=t.stride())
+
+    return dict(tree_map(shard, {k: whole[k] for k in specs}, specs), host_index=0)
+
+
+def serve_rank(torch, dev):
+    """Rank 0 of RANK_MESH on 9e's ``fake`` group of 256 (its collectives
+    return at once and leave their outputs as they were, so values are not
+    checked): each cell of SERVE_RANK_CELLS takes a prefill_32k (the rank's
+    2 rows of 32 x 32,768 tokens) through ``make_sharded_prefill_step`` on
+    its param shards (:func:`rank_state`), and SERVE_RANK_STEPS decode_32k
+    steps (its 8 rows of 128, a cache of 32,768 slots of which it holds
+    2,048 of every KV head, :func:`rank_cache`) through
+    ``make_sharded_serve_step``. Gated: each run's allocator peak (its
+    arguments included) within RANK_BAND of the dry-run's count of the same
+    rank, cell and depth (argument + temp + output - alias); the launches
+    exactly a prefill's and SERVE_RANK_STEPS decodes' (:func:`step_launches`:
+    the merge's ``lse`` adds none); and each (kernel, route, shapes) met,
+    once more on fresh inputs against its plain version
+    (:func:`check_kernel_call`; ``paged_attention`` with ``lse`` at a row of
+    length 0 and at its split count). Returns the path's launches, runs and
+    tensor-core launches."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_concrete_batch
+    from repro_torch.launch.steps import make_sharded_prefill_step, make_sharded_serve_step
+
+    total = ({k: 0 for k in KERNELS}, {k: 0 for k in WGMMA_KERNELS})
+    calls, missed, runs = {}, [], 0
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(RANK_MESH))
+    try:
+        mesh = make_mesh(RANK_MESH, ("data", "model"), dev)
+        for arch, layers in SERVE_RANK_CELLS:
+            cfg = get_config(arch) if layers is None else dataclasses.replace(get_config(arch), num_layers=layers)
+            for shape_name in ("prefill_32k", "decode_32k"):
+                shape = SHAPES[shape_name]
+                t0 = time.perf_counter()
+                mem = dryrun.build_cell(cfg, shape, "x".join(map(str, RANK_MESH))).mem
+                count = mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
+                t_count = time.perf_counter() - t0
+                batch = make_concrete_batch(cfg, shape, seed=15, device=dev)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize(dev)
+                base = allocated_bytes(torch, dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                params = rank_state(torch, cfg, mesh, dev, keys=("params",))["params"]
+                steps = 1 if shape.kind == "prefill" else SERVE_RANK_STEPS
+                want = step_launches(cfg, shape.kind)
+                want = {k: n * steps for k, n in want.items()}
+                zero_launches()
+                undo = kernel_calls(calls)
+                t0 = time.perf_counter()
+                try:
+                    with torch.no_grad():
+                        if shape.kind == "prefill":
+                            logits, cache = make_sharded_prefill_step(cfg, mesh)(params, batch)
+                            rows, local = logits.shape[0], cache["k"].to_local().shape
+                        else:
+                            cache = rank_cache(torch, cfg, mesh, dev, shape.global_batch, shape.seq_len)
+                            serve = make_sharded_serve_step(cfg, mesh)
+                            for _ in range(steps):
+                                logits, cache = serve(params, cache, batch)
+                            rows, local = logits.shape[0], cache["k"].to_local().shape
+                    torch.cuda.synchronize(dev)
+                finally:
+                    undo()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                launches, wgmma = read_launches(), read_wgmma()
+                del params, cache, logits, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+                margin = (count - peak) / peak
+                log(f"serve rank path, {arch} at {cfg.num_layers} layers, {shape_name} on {RANK_MESH}: {steps} "
+                    f"call(s) in {wall:.2f} s, the rank's {rows} rows, cache shard {tuple(local)}; dry-run count "
+                    f"{count} B ({count / 2**30:.3f} GiB, counted in {t_count:.1f} s), allocator's peak {peak} B "
+                    f"({peak / 2**30:.3f} GiB), margin {100 * margin:+.2f}%; temp by kind at its peak (GiB): "
+                    + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in mem["temp_breakdown"].items() if v)
+                    + f"; launches {launches}, tensor-core {wgmma}")
+                if abs(margin) > RANK_BAND:
+                    missed.append(f"{arch} {shape_name}: count {count} B against the peak {peak} B "
+                                  f"({100 * margin:+.2f}%)")
+                if launches != want:
+                    missed.append(f"{arch} {shape_name}: launches {launches} != {want}")
+                total = ({k: total[0][k] + launches[k] for k in KERNELS},
+                         {k: total[1][k] + wgmma[k] for k in WGMMA_KERNELS})
+                runs += 1
+    finally:
+        dist.destroy_process_group()
+    log(f"serve rank path: {len(calls)} (kernel, route, shapes) at the shard shapes, each against its plain "
+        "version (relative L2):")
+    for key, n in calls.items():
+        rel = check_kernel_call(torch, dev, key)
+        log(f"  {key}: {n} calls; relative L2 {rel:.2e}")
+        torch.cuda.empty_cache()
+    if missed:
+        raise AssertionError(f"serve rank path: {missed}")
+    return total[0], runs, total[1]
+
+
 def allocated_bytes(torch, dev) -> int:
     """The bytes of the blocks the caching allocator has given out, live on
     the card now."""
@@ -4022,7 +4363,8 @@ def memory_counts(torch):
 
 
 def dryrun_on_card(torch, dev, out: Path, dry, peaks) -> None:
-    """Phase 9d: the dry-run, started after 9c (:func:`start_dryrun`, its
+    """Phase 9d: the dry-run, started after phase 8's train path
+    (:func:`start_dryrun`, its
     processes ``dry`` writing into ``out``); while it runs, its ``1x1``
     count of qwen3-1.7b's train state (28 layers, AdamW) is held against
     the bytes ``make_train_state`` takes of the card's allocator, its

@@ -34,6 +34,11 @@
 // empty (length 0) gives acc / max(l, 1e-30) = 0, as the Pallas kernel does.
 // No atomics: the split count and every merge order depend on shapes only,
 // so a call gives the same bits on every run.
+// With an `lse` buffer (B * H floats) the call also writes each row and head's
+// log-sum-exp of the scaled scores over its valid slots, in natural log: ln 2
+// * (m + log2 l) from the final (m, l), written by the one-split kernel or by
+// the merge, and -inf for a row of length 0. The sharded decode merges the
+// outputs of the ranks' sequence shards with it (flash-decoding over ranks).
 // Head dims up to 256 (recurrentgemma) take a second instance of the kernel,
 // MD = 256: a warp covers a row (bf16), or each lane holds two 16-byte
 // vectors of it, 128 dims apart (f32); a block then serves at most 4 query
@@ -60,6 +65,14 @@ constexpr int kMaxG = 8;                      // query heads per block (4 at D >
 constexpr int kMaxSplitPages = 64;            // page ids a block holds (pa_splits caps pps)
 constexpr float kNegInf = -1e30f;             // the reference's masked-score sentinel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
+
+// ln of sum(2^s) from the running (m, l) in log2 units; -inf for no slot.
+__device__ __forceinline__ float natural_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : neg_inf();
+}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
@@ -93,14 +106,15 @@ __device__ __forceinline__ void unpack(uint4 u, float (&f)[8]) {
 
 // q: (B, H, D); pool_k, pool_v: (n_pages, pt, Hkv, D); page_table: (B, max_pages)
 // int32; lengths: (B,) int32; o like q; work: (B, H, splits, D + 2) f32 when
-// splits > 1, else unused. grid = (splits, Hkv * ceil(g / G), B). MD (128 or
-// 256) bounds D.
+// splits > 1, else unused; lse: (B, H) f32 or null, written here when splits
+// == 1. grid = (splits, Hkv * ceil(g / G), B). MD (128 or 256) bounds D.
 template <typename T, int G, bool kVec, int MD>
 __global__ void __launch_bounds__(kThreads)
 pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                 const T* __restrict__ pool_v, const int* __restrict__ page_table,
                 const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ work,
-                int H, int Hkv, int D, int pt, int max_pages, int pps, float scale) {
+                float* __restrict__ lse, int H, int Hkv, int D, int pt, int max_pages, int pps,
+                float scale) {
   constexpr int V = 16 / sizeof(T);           // head dims of one 16-byte vector
   constexpr int VPR = MD / V;                 // vectors across one row
   constexpr int NV = VPR > 32 ? VPR / 32 : 1; // vectors of a row a lane holds, LPR * V dims apart
@@ -135,6 +149,7 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       const int h = idx / D, d = idx % D;
       if (splits == 1) {
         store(o + (head0 + h) * D + d, 0.f);
+        if (lse != nullptr && d == 0) lse[head0 + h] = neg_inf();
       } else {
         float* w = work + ((head0 + h) * splits + split) * (D + 2);
         w[d] = 0.f;
@@ -287,6 +302,7 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     }
     if (splits == 1) {
       store(o + (head0 + h) * D + d, a / fmaxf(lsum, 1e-30f));
+      if (lse != nullptr && d == 0) lse[head0 + h] = natural_lse(mx, lsum);
     } else {
       float* w = work + ((head0 + h) * splits + split) * (D + 2);
       w[d] = a;
@@ -298,11 +314,12 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-// o[bh, d] = the splits of row bh merged in split order. grid = B * H,
-// block = MD threads (MD >= D: 128 or 256).
+// o[bh, d] = the splits of row bh merged in split order, and lse[bh] where
+// lse is not null. grid = B * H, block = MD threads (MD >= D: 128 or 256).
 template <typename T, int MD>
 __global__ void __launch_bounds__(MD)
-pa_merge_kernel(const float* __restrict__ work, T* __restrict__ o, int D, int splits) {
+pa_merge_kernel(const float* __restrict__ work, T* __restrict__ o, float* __restrict__ lse, int D,
+                int splits) {
   const int d = threadIdx.x;
   const float* w = work + (size_t)blockIdx.x * splits * (D + 2);
   float mx = kNegInf;
@@ -315,11 +332,12 @@ pa_merge_kernel(const float* __restrict__ work, T* __restrict__ o, int D, int sp
     if (d < D) a = fmaf(ws[d], f, a);
   }
   if (d < D) store(o + (size_t)blockIdx.x * D + d, a / fmaxf(lsum, 1e-30f));
+  if (lse != nullptr && d == 0) lse[blockIdx.x] = natural_lse(mx, lsum);
 }
 
 template <typename T, int G, int MD>
 int launch_g(const void* q, const void* k, const void* v, const int* table, const int* lens,
-             void* o, float* work, int B, int H, int Hkv, int D, int pt, int max_pages,
+             void* o, float* work, float* lse, int B, int H, int Hkv, int D, int pt, int max_pages,
              int splits, float scale, cudaStream_t stream) {
   const int g = H / Hkv;
   const int pps = (max_pages + splits - 1) / splits;
@@ -332,11 +350,11 @@ int launch_g(const void* q, const void* k, const void* v, const int* table, cons
   T* ot = static_cast<T*>(o);
   if (vec)
     pa_split_kernel<T, G, true, MD><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, table, lens, ot, work, H, Hkv, D, pt, max_pages, pps, scale);
+        qt, kt, vt, table, lens, ot, work, lse, H, Hkv, D, pt, max_pages, pps, scale);
   else
     pa_split_kernel<T, G, false, MD><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, table, lens, ot, work, H, Hkv, D, pt, max_pages, pps, scale);
-  if (splits > 1) pa_merge_kernel<T, MD><<<B * H, MD, 0, stream>>>(work, ot, D, splits);
+        qt, kt, vt, table, lens, ot, work, lse, H, Hkv, D, pt, max_pages, pps, scale);
+  if (splits > 1) pa_merge_kernel<T, MD><<<B * H, MD, 0, stream>>>(work, ot, lse, D, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,11 +362,11 @@ int launch_g(const void* q, const void* k, const void* v, const int* table, cons
 // for D <= 128; at most 4 (g > 4 in chunks of 4) for D <= 256.
 template <typename T>
 int run(const void* q, const void* k, const void* v, const int* table, const int* lens, void* o,
-        float* work, int B, int H, int Hkv, int D, int pt, int max_pages, int splits, float scale,
+        float* work, float* lse, int B, int H, int Hkv, int D, int pt, int max_pages, int splits, float scale,
         cudaStream_t s) {
   const int g = H / Hkv;
 #define PA_LAUNCH(GG, MD) \
-  launch_g<T, GG, MD>(q, k, v, table, lens, o, work, B, H, Hkv, D, pt, max_pages, splits, scale, s)
+  launch_g<T, GG, MD>(q, k, v, table, lens, o, work, lse, B, H, Hkv, D, pt, max_pages, splits, scale, s)
   if (D > 128) {
     if (g == 1) return PA_LAUNCH(1, 256);
     if (g == 2) return PA_LAUNCH(2, 256);
@@ -368,11 +386,12 @@ int run(const void* q, const void* k, const void* v, const int* table, const int
 // dtype codes: 0 = float32, 1 = bfloat16 (q, the pools and o share it);
 // page_table and lengths are int32; D <= 256. `splits` cuts each row's pages into runs
 // of ceil(max_pages / splits) <= 64 pages; splits > 1 needs a float32
-// workspace of B * H * splits * (D + 2). Returns cudaGetLastError() after the
+// workspace of B * H * splits * (D + 2). `lse`, null or B * H floats, takes
+// each row and head's log-sum-exp. Returns cudaGetLastError() after the
 // launches.
 extern "C" int paged_attention(const void* q, const void* pool_k, const void* pool_v,
                                const void* page_table, const void* lengths, void* o, void* work,
-                               int B, int H, int Hkv, int D, int page_tokens, int max_pages,
+                               void* lse, int B, int H, int Hkv, int D, int page_tokens, int max_pages,
                                int splits, float scale, int dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || H <= 0 || H % Hkv != 0 || D <= 0 || D > kMaxD ||
       page_tokens <= 0 || max_pages <= 0 || splits <= 0 || splits > max_pages ||
@@ -382,12 +401,13 @@ extern "C" int paged_attention(const void* q, const void* pool_k, const void* po
   const int* table = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(lengths);
   float* ws = static_cast<float*>(work);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return run<__nv_bfloat16>(q, pool_k, pool_v, table, lens, o, ws, B, H, Hkv, D, page_tokens,
+    return run<__nv_bfloat16>(q, pool_k, pool_v, table, lens, o, ws, ls, B, H, Hkv, D, page_tokens,
                               max_pages, splits, scale, s);
   if (dtype == 0)
-    return run<float>(q, pool_k, pool_v, table, lens, o, ws, B, H, Hkv, D, page_tokens,
+    return run<float>(q, pool_k, pool_v, table, lens, o, ws, ls, B, H, Hkv, D, page_tokens,
                       max_pages, splits, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

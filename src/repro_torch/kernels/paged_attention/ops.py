@@ -8,7 +8,9 @@ and launches nothing. ``paged_attention.launches``
 counts the wrapper's calls on the card: a call is one kernel launch when
 :func:`pa_splits` gives one split, else two (the split kernel and the merge
 of the splits). Head dims up to MAX_HEAD_DIM. The kernel has no backward: on
-CUDA under grad, with q or a pool requiring grad, the call raises.
+CUDA under grad, with q or a pool requiring grad, the call raises. With
+``return_lse`` the same launches also write each row and head's
+log-sum-exp (the sharded decode's merge over its sequence shards).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 PA_BLOCKS_PER_SM = 2  # blocks of (row, KV head, run) the rule aims for on each SM
 PA_MAX_SPLIT_PAGES = 64  # page ids one block holds (kMaxSplitPages)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def pa_splits(b: int, hkv: int, max_pages: int, sm_count: int) -> int:
@@ -48,13 +50,17 @@ def paged_attention(
     lengths: torch.Tensor,  # (B,) int32 current sequence lengths
     *,
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention of each sequence's query over the first ``lengths[b]`` slots
     of its pages ``page_table[b]``; a row of length 0 gives zeros. Table
-    entries must be valid pool indices: the kernel does not check them."""
+    entries must be valid pool indices: the kernel does not check them.
+    With ``return_lse``, (out, lse): lse (B, H) f32, the natural log of the
+    sum of exp(scale * q.k) over the valid slots, -inf for a row of length
+    0."""
     tensors = (q, pool_k, pool_v, page_table, lengths)
     if takes_plain(*tensors):
-        return paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale)
+        return paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale, return_lse=return_lse)
     if not all(on_card(t) and t.device == q.device for t in tensors):
         raise ValueError(
             "paged_attention: q, pools, table and lengths on "
@@ -84,19 +90,20 @@ def paged_attention(
     splits = pa_splits(b, hkv, max_pages, _build.sm_count(q.device))
     out = torch.empty_like(q)
     work = torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     if q.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
         memory.mark(work, "workspace")
-        return out
+        return (out, lse) if return_lse else out
     fn = _build.function("paged_attention", "paged_attention", _ARGTYPES)
     err = fn(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), work.data_ptr() if work is not None else None,
-        b, h, hkv, d, pt, max_pages, splits, scale,
+        lse.data_ptr() if lse is not None else None, b, h, hkv, d, pt, max_pages, splits, scale,
         DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention.launches = 0

@@ -2,13 +2,15 @@
 package's ``paged_attention/ref.py``): gather the pages, run exact masked
 attention. One change: a row with ``lengths <= 0`` returns zeros, as the
 Pallas kernel does (it walks no page and divides by ``max(l, 1e-30)``),
-where the JAX reference returns the mean of V over the table's slots."""
+where the JAX reference returns the mean of V over the table's slots. With
+``return_lse`` it also returns the log-sum-exp of the scaled scores over
+the valid slots, (B, H) f32, -inf for such a row."""
 import math
 
 import torch
 
 
-def paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=None):
+def paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=None, return_lse=False):
     b, h, d = q.shape
     n_pages, pt, hkv, _ = pool_k.shape
     g = h // hkv
@@ -26,4 +28,8 @@ def paged_attention_ref(q, pool_k, pool_v, page_table, lengths, sm_scale=None):
     p = p / p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgt,btkd->bkgd", p, v)
     o = torch.where(lens > 0, o, torch.zeros((), device=q.device))
-    return o.reshape(b, h, d).to(q.dtype)
+    o = o.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(lens[..., 0] > 0, torch.logsumexp(s, dim=-1), float("-inf"))
+    return o, lse.reshape(b, h)

@@ -23,7 +23,14 @@ the single H100 the port runs on. A record keeps the reference's fields:
   lives: for training ``make_sharded_train_step``'s step on rank 0
   (gradients, the clip norm, the optimizer; ``REPRO_MICROBATCH`` as the
   step reads it), its per-layer gathers, its parts of the products split
-  over ``model`` and MoE's dispatch buffer included; for serving
+  over ``model`` and MoE's dispatch buffer included; for the attention
+  families' serving cells ``make_sharded_prefill_step``'s and
+  ``make_sharded_serve_step``'s bodies on rank 0 (``shard_prefill``,
+  ``shard_decode``: its param shards gathered one layer at a time, its
+  parts of the split products, its rows and its shard of the cache placed
+  by ``cache_shardings``; arguments, outputs and aliases are the shards'
+  bytes). The SSM and hybrid serving cells, which have no sharded
+  serving step yet (ROADMAP.md §1 item 16b), keep the count of
   ``prefill`` and ``decode_step`` on the whole parameters (and, for
   decode, the rank's rows of the whole cache), whose gathered copies the
   ``gathers`` kind adds. The kernels count what their CUDA path allocates
@@ -63,6 +70,9 @@ from repro_torch.launch.steps import (
     make_prefill_step,
     make_serve_step,
     make_train_step,
+    shard_decode,
+    shard_prefill,
+    serve_rows,
     shard_step,
     value_and_grad,
 )
@@ -102,15 +112,16 @@ def _whole_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for _, t in flatten(tree) if isinstance(t, torch.Tensor))
 
 
-def _local_batch(cfg: ModelConfig, shape: ShapeSpec, mesh: MeshShape):
+def _local_batch(cfg: ModelConfig, shape: ShapeSpec, mesh: MeshShape, axes=None):
     """(rows of one device's step, its batch on meta, the global batch's
     shard bytes, the axes that split it): the rows ``batch_shardings`` gives
-    the first input, every input cut to them (``positions3`` along its dim
-    1, as the sharded step cuts it)."""
+    the first input, or those of ``axes`` where given, every input cut to
+    them (``positions3`` along its dim 1, as the sharded step cuts it)."""
     spec = batch_spec(cfg, shape)
     shardings = sh.batch_shardings(cfg, spec, mesh)
     first = next(iter(spec))
-    n = shape.global_batch // shardings[first].shard_shape(spec[first][0])[0]
+    axes = shardings[first].axes(0) if axes is None else tuple(axes)
+    n = math.prod(mesh.shape[a] for a in axes)
     local = {}
     for name, (shp, dtype) in spec.items():
         dim = 1 if name == "positions3" else 0
@@ -118,7 +129,6 @@ def _local_batch(cfg: ModelConfig, shape: ShapeSpec, mesh: MeshShape):
         local[name] = torch.empty(shp, dtype=dtype, device="meta")
     batch_bytes = sum(math.prod(shardings[k].shard_shape(shp)) * torch.empty((), dtype=dt).element_size()
                       for k, (shp, dt) in spec.items())
-    axes = shardings[first].axes(0)
     return shape.global_batch // n, local, batch_bytes, axes
 
 
@@ -130,23 +140,39 @@ def _meta_axes(ms: MeshShape, sharding, ndim: int) -> fsdp.LeafAxes:
                                      if ms.shape[a] > 1) for d in range(ndim)))
 
 
-def _meta_split(cfg: ModelConfig, ms: MeshShape, batch_axes=()):
+def _meta_split(ms: MeshShape, tree, shardings, batch_axes=(), seq: bool = False, share=()):
+    """(the shards of ``tree`` (params, or a train state and its
+    ``params``) placed by ``shardings`` on rank 0 of ``ms``, on meta; the
+    ``_Split`` of its step there, with no process group, its rows split over
+    ``batch_axes`` (major first; those in ``share`` along which the KV
+    cache is whole) and, with ``seq``, the cache's sequence over
+    ``model``), or None for the second where nothing splits a leaf, the
+    batch or the sequence (``launch.steps.serve_split``)."""
+    shards = tree_map(lambda t, s: torch.empty(s.shard_shape(tuple(t.shape)), dtype=t.dtype, device="meta"),
+                      tree, shardings)
+    params, pspecs = (tree["params"], shardings["params"]) if "params" in tree else (tree, shardings)
+    cuts = [_meta_axes(ms, s, t.dim()) for t, s in zip(leaves(params), leaves(pspecs))]
+    axes = tuple(fsdp.Axis(a, None, ms.shape[a], 0) for a in batch_axes)
+    if not axes and not seq and not any(c.split for c in cuts):
+        return shards, None
+    tp = fsdp.Axis("model", None, ms.shape["model"], 0) if ms.shape["model"] > 1 else None
+    return shards, _Split(tuple(cuts), axes, lambda b: b, tp, tp if seq else None,
+                          tuple(a for a in axes if a.name in share))
+
+
+def _meta_train(cfg: ModelConfig, ms: MeshShape, batch_axes=()):
     """(the train state's shards on rank 0 of ``ms``, on meta; the
-    ``_Split`` of its step, with no process group; the optimizer's
+    ``_Split`` of its step (:func:`_meta_split`); the optimizer's
     ``LeafSplit`` a leaf, with axis names for groups), or None for the
-    last two where nothing splits a leaf, the batch or ``model``."""
+    last two where nothing splits a leaf or the batch."""
     state = abstract_train_state(cfg)
     shardings = sh.state_shardings(cfg, state, ms)
-    shards = tree_map(lambda t, s: torch.empty(s.shard_shape(tuple(t.shape)), dtype=t.dtype, device="meta"),
-                      state, shardings)
-    cuts = [_meta_axes(ms, s, t.dim()) for t, s in zip(leaves(state["params"]), leaves(shardings["params"]))]
-    axes = tuple(fsdp.Axis(a, None, ms.shape[a], 0) for a in batch_axes)
-    if not axes and not any(c.split for c in cuts):
+    shards, split = _meta_split(ms, state, shardings, batch_axes)
+    if split is None:
         return shards, None, None
-    tp = fsdp.Axis("model", None, ms.shape["model"], 0) if ms.shape["model"] > 1 else None
     splits = [sh.LeafSplit(tuple(t.shape), tuple(tuple(a.name for a in d) for d in c.dims)) if c.split else None
-              for t, c in zip(leaves(state["params"]), cuts)]
-    return shards, _Split(tuple(cuts), axes, lambda b: b, tp), splits
+              for t, c in zip(leaves(state["params"]), split.leaves)]
+    return shards, split, splits
 
 
 def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bool = True,
@@ -159,11 +185,70 @@ def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bo
     arguments; the metrics (and the new ``step``) its outputs. With
     ``plan``, every collective the step issues is noted in it
     (``sharding.fsdp.recording``)."""
-    shards, split, splits = _meta_split(cfg, ms, batch_axes)
+    shards, split, splits = _meta_train(cfg, ms, batch_axes)
     with fsdp.recording(plan) if plan is not None else contextlib.nullcontext():
         if split is None:
             return memory.count(make_train_step(cfg), shards, batch, card=card)[1]
         return memory.count(shard_step(cfg), shards, batch, split, splits, card=card)[1]
+
+
+def _serve_cell(cfg: ModelConfig, shape: ShapeSpec, ms: MeshShape, card: bool) -> Cell:
+    """A prefill or decode cell of the attention families: the memory pass
+    of rank 0's sharded serving step (``launch.steps.shard_prefill`` /
+    ``shard_decode``; the unsharded step where nothing splits) on meta over
+    its param shards, its rows of the batch (``launch.steps.serve_rows``,
+    as the steps take them) and, for decode, its shard of a cache of
+    ``seq_len`` slots placed by ``cache_shardings``; the plan recorded from
+    it; the FLOPs its products'."""
+    fns = build_model(cfg)
+    b = shape.global_batch
+    whole = fns.init_cache(b, shape.seq_len, "meta")
+    cspecs = sh.cache_shardings(cfg, whole, ms, b)
+    spec = batch_spec(cfg, shape)
+    rows_axes, share = serve_rows(cfg, {k: torch.empty(shp, dtype=dt, device="meta") for k, (shp, dt) in spec.items()},
+                                  ms, cspecs)
+    rows, batch, _, _ = _local_batch(cfg, shape, ms, rows_axes)
+    seq = "model" in cspecs["k"].axes(2)
+
+    def meta_split(c):
+        params = build_model(c).init(SHAPES_ONLY)
+        return _meta_split(ms, params, sh.param_shardings(c, params, ms), rows_axes, seq, share)
+
+    shards, split = meta_split(cfg)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(shards))
+    cache_bytes = _shard_bytes(whole, cspecs)
+    logits_bytes = rows * cfg.vocab_size * torch.empty((), dtype=common.dtype_of(cfg)).element_size()
+    mem = {"param_bytes": param_bytes, "batch_bytes": _whole_bytes(batch)}
+    plan = Plan(ms)
+
+    def step(c, split):
+        """The step of ``c`` and its arguments after the shards."""
+        if shape.kind == "prefill":
+            body = shard_prefill(c) if split is not None else (lambda p, bt: build_model(c).prefill(p, bt))
+            return body, (batch,)
+        cache = {k: torch.empty(spec.shard_shape(tuple(whole[k].shape)), dtype=whole[k].dtype, device="meta")
+                 for k, spec in cspecs.items()}
+        cache["host_index"] = 0
+        body = shard_decode(c) if split is not None else build_model(c).decode_step
+        return body, (cache, batch)
+
+    body, args = step(cfg, split)
+    with fsdp.recording(plan):
+        held = memory.count(body, shards, *args, *((split,) if split is not None else ()), card=card)[1]
+    mem.update(temp_bytes=held.peak, temp_breakdown=held.breakdown)
+    if shape.kind == "prefill":
+        mem.update(argument_bytes=param_bytes + mem["batch_bytes"], output_bytes=logits_bytes + cache_bytes,
+                   alias_bytes=0)
+    else:
+        mem.update(cache_bytes=cache_bytes, argument_bytes=param_bytes + cache_bytes + mem["batch_bytes"],
+                   output_bytes=logits_bytes + cache_bytes, alias_bytes=cache_bytes)
+
+    def count(c):
+        shards_c, split_c = meta_split(c)
+        body_c, args_c = step(c, split_c)
+        return dot_flops(body_c, shards_c, *args_c, *((split_c,) if split_c is not None else ()))
+
+    return Cell(ms, rows, mem, plan, count)
 
 
 def build_cell(arch, shape, mesh, card: bool = True) -> Cell:
@@ -189,11 +274,13 @@ def build_cell(arch, shape, mesh, card: bool = True) -> Cell:
                "temp_breakdown": held.breakdown}
 
         def count(c):
-            shards, split, _ = _meta_split(c, ms, tuple(a for a in axes if ms.shape[a] > 1))
+            shards, split, _ = _meta_train(c, ms, tuple(a for a in axes if ms.shape[a] > 1))
             return dot_flops(value_and_grad, build_model(c), shards["params"], batch, split)
 
         return Cell(ms, rows, mem, plan, count)
 
+    if cfg.family not in ("ssm", "hybrid"):
+        return _serve_cell(cfg, shape, ms, card)
     fns = build_model(cfg)
     params = fns.init(SHAPES_ONLY)
     pspecs = sh.param_shardings(cfg, params, ms)

@@ -1,7 +1,8 @@
 """Step builders: the counterparts of the JAX package's ``make_train_state``,
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step``
-(``launch/steps.py``), and :func:`make_sharded_train_step`, the
-counterpart of jitting ``make_train_step`` under shardings.
+(``launch/steps.py``), and :func:`make_sharded_train_step`,
+:func:`make_sharded_prefill_step` and :func:`make_sharded_serve_step`, the
+counterparts of jitting them under shardings.
 
 Each returns a plain function over the port's params, cache and batch; the
 device is that of the tensors it is given. ``prefill_step`` also takes the
@@ -17,6 +18,7 @@ import os
 from typing import Any, Callable, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import mesh_shape
@@ -25,7 +27,7 @@ from repro_torch.models.model import build_model, loss_tokens
 from repro_torch.optim import get_optimizer, get_schedule
 from repro_torch.roofline import memory
 from repro_torch.sharding import fsdp
-from repro_torch.sharding.specs import batch_shardings, leaf_split, local
+from repro_torch.sharding.specs import batch_shardings, cache_shardings, leaf_split, local
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
@@ -65,7 +67,7 @@ def value_and_grad(fns, params, batch, split=None):
     axes = split.batch
     if axes:
         batch = split.rows(batch)
-    with fsdp.use_fsdp(fsdp.Fsdp(flat, split.leaves, axes, split.tp)):
+    with split.install(flat):
         loss, aux = fns.loss(unflatten_like(params, flat), batch)
         w = None
         if axes:
@@ -86,13 +88,23 @@ def value_and_grad(fns, params, batch, split=None):
 class _Split:
     """How the sharded step cuts one call: each param leaf's
     ``fsdp.LeafAxes`` in flatten order, the axes of size > 1 that split the
-    batch (major first), ``rows(batch)``, this rank's rows, and ``tp``,
-    the ``model`` axis where it has more than one rank (else None)."""
+    batch (major first), ``rows(batch)``, this rank's rows, ``tp``, the
+    ``model`` axis where it has more than one rank (else None), and, for
+    the serving steps, ``seq``, the axis that splits the KV cache's
+    sequence (else None), and ``share``, the batch axes along which the
+    cache is whole (:func:`serve_rows`)."""
 
     leaves: tuple
     batch: tuple
     rows: Callable
     tp: Any = None
+    seq: Any = None
+    share: tuple = ()
+
+    def install(self, shards):
+        """``fsdp.use_fsdp`` of this cut over ``shards``, the param leaves
+        in flatten order."""
+        return fsdp.use_fsdp(fsdp.Fsdp(shards, self.leaves, self.batch, self.tp, self.seq, self.share))
 
 
 def make_train_step(
@@ -330,3 +342,163 @@ def make_serve_step(cfg: ModelConfig):
     """Decode: ``serve_step(params, cache, batch) -> (logits, cache)``, one new
     token per row against the cache, which it updates in place."""
     return build_model(cfg).decode_step
+
+
+def _serving_family(cfg: ModelConfig, mesh) -> None:
+    if cfg.family in ("ssm", "hybrid") and mesh_shape(mesh).size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded serving steps split the attention families only; the {cfg.family} "
+            "blocks are not split over model yet (ROADMAP.md §1 item 16b)")
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, mesh):
+    """``prefill_step(params, batch, max_seq=None) -> (logits, cache)`` over
+    params placed on ``mesh`` (``sharding.specs.param_shardings``) and the
+    global ``batch``: the counterpart of the reference's
+    ``jit(make_prefill_step(cfg))`` over placed parameters. For the
+    attention families (dense, VLM, MoE, audio):
+
+    * each rank takes its rows of the batch along the axes that
+      ``batch_shardings`` splits it over (:func:`serve_rows`): its run of
+      the rows of its cache shard, which ``cache_shardings`` cuts over
+      ``data`` only, so the ranks along ``pod`` each compute their own run
+      of one shard and join their k / v into it;
+    * the model gathers each layer's leaves over ``data`` one layer at a
+      time and computes the rank's part of each product that ``model``
+      splits, as the sharded train step does (``sharding.fsdp``); MoE
+      routes over the dp group's tokens;
+    * ``logits`` are the last position's, (the rank's rows, 1, V), whole
+      over the vocabulary; ``cache`` the k / v as DTensors placed by
+      ``cache_shardings`` (each rank its rows and, where ``model`` splits
+      the sequence, its slots of every KV head), ``index``, and
+      ``host_index``. :func:`make_sharded_serve_step` reads it as it is.
+
+    On a one-rank mesh it is ``make_prefill_step``'s step, bit for bit. The
+    SSM and hybrid families raise NotImplementedError on a mesh of more
+    than one rank (ROADMAP.md §1 item 16b)."""
+    _serving_family(cfg, mesh)
+    fns, body = build_model(cfg), shard_prefill(cfg)
+
+    def prefill_step(params, batch, max_seq=None):
+        b = batch["frames" if "frames" in batch else "tokens"].shape[0]
+        s = sum(batch[k].shape[1] for k in ("frames", "vision_embeds", "tokens") if k in batch)
+        whole = fns.init_cache(b, max(max_seq or s, s), "meta")
+        cshard = cache_shardings(cfg, whole, mesh, b)
+        split = serve_split(cfg, mesh, params, cshard, batch)
+        shards = tree_map(local, params)
+        if split is None:
+            logits, cache = fns.prefill(shards, batch, max_seq)
+        else:
+            logits, cache = body(shards, batch, split, max_seq)
+        return logits, _placed_cache(cache, cshard, whole)
+
+    return prefill_step
+
+
+def make_sharded_serve_step(cfg: ModelConfig, mesh):
+    """``serve_step(params, cache, batch) -> (logits, cache)``: one token a
+    row against a cache placed on ``mesh`` by ``cache_shardings`` (as
+    :func:`make_sharded_prefill_step` returns it), over params placed by
+    ``param_shardings``, the counterpart of the reference's
+    ``jit(make_serve_step(cfg))``. Each rank takes its rows as the prefill
+    does, and writes the token's k / v of every rank along ``pod``;
+    where ``model`` splits the cache's sequence the token's k / v are
+    written by the rank that owns slot ``index`` only (from
+    ``host_index``: no device sync), each rank attends over its slots and
+    the parts are merged over ``model`` (``models/layers.attention_decode``);
+    where the sequence is whole on each rank, every rank attends over all
+    of it. Logits (the rank's rows, 1, V), whole over the vocabulary; the
+    cache's k / v updated in place. On a one-rank mesh,
+    ``make_serve_step``'s step, bit for bit."""
+    _serving_family(cfg, mesh)
+    fns, body = build_model(cfg), shard_decode(cfg)
+
+    def serve_step(params, cache, batch):
+        tensors = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
+        cshard = cache_shardings(cfg, tensors, mesh, cache["k"].shape[1])
+        split = serve_split(cfg, mesh, params, cshard, batch)
+        shards = tree_map(local, params)
+        local_cache = dict(tree_map(local, tensors), host_index=cache["host_index"])
+        if split is None:
+            logits, new = fns.decode_step(shards, local_cache, batch)
+        else:
+            logits, new = body(shards, local_cache, batch, split)
+        index = DTensor.from_local(new["index"], mesh, cshard["index"].placements(), run_check=False)
+        return logits, dict(cache, index=index, host_index=new["host_index"])
+
+    return serve_step
+
+
+def shard_prefill(cfg: ModelConfig):
+    """``prefill(shards, batch, split, max_seq=None) -> (logits, cache)``,
+    the body of :func:`make_sharded_prefill_step`'s step over this rank's
+    param shards, with no autograd; the cache is the rank's shard. The
+    dry-run's memory pass runs it on meta shards with the cuts of a mesh
+    that has no process group."""
+    fns = build_model(cfg)
+
+    def prefill(shards, batch, split, max_seq=None):
+        flat = leaves(shards)
+        with torch.no_grad(), split.install(flat):
+            return fns.prefill(unflatten_like(shards, flat), split.rows(batch), max_seq)
+
+    return prefill
+
+
+def shard_decode(cfg: ModelConfig):
+    """``decode(shards, cache, batch, split) -> (logits, cache)``, the body
+    of :func:`make_sharded_serve_step`'s step over this rank's param shards
+    and cache shard, with no autograd (as :func:`shard_prefill`)."""
+    fns = build_model(cfg)
+
+    def decode(shards, cache, batch, split):
+        flat = leaves(shards)
+        with torch.no_grad(), split.install(flat):
+            return fns.decode_step(unflatten_like(shards, flat), cache, split.rows(batch))
+
+    return decode
+
+
+def serve_rows(cfg: ModelConfig, batch: Dict[str, Any], mesh, cache_specs) -> tuple:
+    """(the axes a serving rank's rows of ``batch`` are cut over, major
+    first; those of them along which it shares its KV cache shard): the
+    axes of size > 1 that ``cache_specs`` (``cache_shardings``) splits the
+    cache's rows over, then those of ``batch_shardings`` that the cache is
+    whole along (``pod``). So each rank's rows are a run of its cache
+    shard's, and the ranks along ``pod`` compute distinct runs of it."""
+    ms = mesh_shape(mesh)
+    own = tuple(a for a in cache_specs["k"].axes(1) if ms.shape[a] > 1)
+    share = tuple(a for a in batch_split_axes(cfg, batch, ms) if a not in own and ms.shape[a] > 1)
+    return own + share, share
+
+
+def serve_split(cfg: ModelConfig, mesh, params, cache_specs, batch) -> "_Split | None":
+    """The :class:`_Split` of a serving call of ``batch`` over ``params``
+    placed on ``mesh`` and a cache placed by ``cache_specs``
+    (``cache_shardings``): the rows and ``share`` of :func:`serve_rows`,
+    ``seq`` the ``model`` axis where it splits the cache's sequence. None
+    where nothing splits the rows, a leaf or the sequence, and for the SSM
+    and hybrid families (one rank: :func:`make_sharded_prefill_step`)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return None
+    ms = mesh_shape(mesh)
+    coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
+    rows, share = serve_rows(cfg, batch, ms, cache_specs)
+    axes = {a.name: a for a in fsdp.mesh_axes(mesh, rows)}
+    tp = fsdp.mesh_axes(mesh, ("model",))
+    tp = tp[0] if tp else None
+    seq = tp if tp is not None and "model" in cache_specs["k"].axes(2) else None
+    split = _Split(tuple(fsdp.leaf_axes(t) for t in leaves(params)), tuple(axes[a] for a in rows),
+                   lambda b: split_batch(b, rows, ms, coords), tp, seq, tuple(axes[a] for a in share))
+    return split if split.batch or seq is not None or any(a.split for a in split.leaves) else None
+
+
+def _placed_cache(cache, cache_specs, whole):
+    """The rank's cache shard as DTensors placed by ``cache_specs``, of the
+    global shapes of ``whole`` (on meta), and its ``host_index``."""
+    def placed(t, spec, w):
+        return DTensor.from_local(t, spec.mesh, spec.placements(), run_check=False, shape=w.shape, stride=w.stride())
+
+    tensors = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    return dict(tree_map(placed, tensors, cache_specs, {k: whole[k] for k in tensors}),
+                host_index=cache["host_index"])

@@ -17,6 +17,8 @@ attention, MLP and MoE layers compute the rank's part of each product
 whose weight that axis splits, as the reference's GSPMD does with its
 placements (``sharding/specs.py``): :func:`tp_modes` says which leaves a
 rank keeps as its shard; the layers see it through ``fsdp.is_tp_shard``.
+The sharded serving steps use the same split, and decode against a cache
+whose sequence ``model`` splits (:func:`attention_decode`).
 """
 from __future__ import annotations
 
@@ -89,38 +91,28 @@ def tp_modes(dims: dict) -> dict:
     return modes
 
 
-def _position(q, k, p, cfg: ModelConfig, positions, positions3):
-    """The per-head norms and RoPE (or M-RoPE) of ``_project_qkv``."""
+def _position_one(t, norm, cfg: ModelConfig, positions, positions3):
+    """The per-head norm (``norm``: ``q_norm`` or ``k_norm``) and RoPE (or
+    M-RoPE) of one of q and k: elementwise in each head, so a subset of the
+    heads gets the same values as the whole."""
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        t = rms_norm(t, norm, cfg.norm_eps)
     if cfg.mrope_sections is not None:
         assert positions3 is not None
-        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.causal:  # encoder (hubert) backbone: no rope on bidirectional attn
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k
+        return apply_mrope(t, positions3, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.causal:  # encoder (hubert) backbone: no rope on bidirectional attn
+        return apply_rope(t, positions, cfg.rope_theta)
+    return t
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, positions3=None):
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim()
-    q = linear(x, p["wq"])
-    k = linear(x, p["wk"])
-    v = linear(x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, hd)
-    k = k.reshape(b, s, cfg.num_kv_heads, hd)
-    v = v.reshape(b, s, cfg.num_kv_heads, hd)
-    q, k = _position(q, k, p, cfg, positions, positions3)
-    return q, k, v
+def _position(q, k, p, cfg: ModelConfig, positions, positions3):
+    """The per-head norms and RoPE (or M-RoPE) of q and k."""
+    return (_position_one(q, p.get("q_norm"), cfg, positions, positions3),
+            _position_one(k, p.get("k_norm"), cfg, positions, positions3))
 
 
 def attention_apply(
-    p, x, cfg: ModelConfig, *, positions, positions3=None, window: Optional[int] = None
+    p, x, cfg: ModelConfig, *, positions, positions3=None, window: Optional[int] = None, whole_kv: bool = False
 ):
     """Full-sequence attention: RoPE (or M-RoPE, from ``positions3`` (3, B,
     S)) reads ``positions`` (B, S). On the CPU, ``attend`` masks by
@@ -138,7 +130,12 @@ def attention_apply(
     gathered (a KV head that several ranks' query heads share: every
     published config's on 16). Its columns of the attention's output times
     its rows of ``wo`` are its part of the output, summed over ``model``.
-    Unsplit, r = 0 and W = H * Dh: every head, and nothing gathered."""
+    Unsplit, r = 0 and W = H * Dh: every head, and nothing gathered.
+
+    With ``whole_kv`` (a prefill's cache) the (k, v) returned are every KV
+    head, (B, S, Hkv, Dh), k positioned: where the rank's own columns were
+    exactly the heads it reads, they are all-gathered over ``model`` for
+    it; unsplit, they are the attention's own."""
     b, s, _ = x.shape
     hd, h, hkv = cfg.resolved_head_dim(), cfg.num_heads, cfg.num_kv_heads
     group = h // hkv
@@ -157,16 +154,18 @@ def attention_apply(
     klo, khi = kv[0], kv[-1] + 1
 
     def project(w, bias):
+        """(the KV heads the rank reads, the projection they were cut from)."""
         assert fsdp.is_tp_shard(p[w]) == split, f"{w} is split over model where wq is not, or whole where it is"
         out = linear(x, p[w])
         if cfg.qkv_bias:
             out = out + p[bias]
         n = p[w].shape[-1]
-        if r * n == klo * hd and (r + 1) * n == khi * hd:  # exactly the KV heads the rank reads
-            return out
-        return fsdp.tp_all_gather(out, -1)[..., klo * hd : khi * hd]
+        if r * n == klo * hd and (r + 1) * n == khi * hd and not (whole_kv and split):  # exactly its KV heads
+            return out, out
+        whole = fsdp.tp_all_gather(out, -1)
+        return whole[..., klo * hd : khi * hd], whole
 
-    k, v = project("wk", "bk"), project("wv", "bv")
+    (k, k_all), (v, v_all) = project("wk", "bk"), project("wv", "bv")
     nq, nk = hi - lo, khi - klo
     q = q.reshape(b, s, nq, hd)
     k = k.reshape(b, s, nk, hd)
@@ -183,6 +182,9 @@ def attention_apply(
     out = linear(out.reshape(b, s, nq * hd)[..., off : off + width].contiguous(), p["wo"])
     if split:
         out = fsdp.tp_sum(out)
+    if whole_kv and split:
+        k_all = _position_one(k_all.reshape(b, s, hkv, hd), p.get("k_norm"), cfg, positions, positions3)
+        return out, (k_all, v_all.reshape(b, s, hkv, hd))
     return out, (k, v)
 
 
@@ -195,19 +197,24 @@ def kv_page_tokens(smax: int) -> int:
     return pt
 
 
-def kv_pages(index, batch: int, smax: int, ring: bool = False):
+def kv_pages(index, batch: int, smax: int, ring: bool = False, start: Optional[int] = None):
     """The page-pool view of a layer's cache of ``smax`` slots at decode
     position ``index`` (0-d int32 tensor): the write slot (a 1-element int64
     tensor), the page table (B, Smax / pt) int32, row b owning pages
     ``b * P .. b * P + P - 1`` of :func:`kv_page_tokens` slots, and the lengths
     ``index + 1`` (B,) int32. With ``ring``, the cache is a ring of ``smax``
     slots: the write slot is ``index % smax`` and the lengths
-    ``min(index + 1, smax)``. Every layer of a step shares it. Nothing here
-    waits for the device."""
+    ``min(index + 1, smax)``. With ``start``, the cache is a rank's shard of
+    a longer one, its slots [start, start + smax): the write slot is
+    ``index - start`` (meaningful on the rank that owns ``index`` only) and
+    the lengths ``index + 1 - start`` clamped to [0, smax]. Every layer of a
+    step shares it. Nothing here waits for the device."""
     n = smax // kv_page_tokens(smax)
     table = torch.arange(batch * n, dtype=torch.int32, device=index.device).reshape(batch, n)
     if ring:
         return (index % smax).reshape(1).long(), table, (index.expand(batch) + 1).clamp(max=smax)
+    if start is not None:
+        return (index - start).reshape(1).long(), table, (index.expand(batch) + 1 - start).clamp(0, smax)
     return index.reshape(1).long(), table, index.expand(batch) + 1
 
 
@@ -224,6 +231,7 @@ def attention_decode(
     window: Optional[int] = None,
     ring: bool = False,
     pages=None,
+    write: bool = True,
 ):
     """One-token decode against one layer's KV cache, updated in place.
 
@@ -251,26 +259,60 @@ def attention_decode(
     order of the slots. A ring wider than ``window``, and a window over a
     plain cache, would need slots that are not a prefix: they raise
     ValueError (no path of either package builds them).
+
+    Under the sharded serving step's ``model`` axis (``sharding.fsdp``):
+    the token's q, k and v are gathered whole over ``model`` (all H and Hkv
+    heads) from the rank's columns of ``wq`` / ``wk`` / ``wv``; the k / v are
+    written only where ``write`` (the rank that owns slot ``index`` of a
+    cache whose sequence ``model`` splits; every rank of an undivided one);
+    each rank attends over its slots with every head (``pages`` of its
+    shard, ``kv_pages(..., start=)``; of its run of the shard's rows where
+    the ranks along ``pod`` share the shard, each writing the k / v of all
+    of them) and the ranks' parts are merged over
+    ``model`` from their log-sum-exps (``fsdp.tp_merge_attention``; none
+    where the cache is whole on each rank); the rank's columns of the
+    merged output meet its rows of ``wo``, summed over ``model``.
     """
     if window is not None and not (ring and k_cache.shape[1] <= window):
         raise ValueError(
             f"attention_decode: a window of {window} needs a ring of at most that many slots "
             f"(ring={ring}, {k_cache.shape[1]} slots)"
         )
-    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
-    b, smax, hkv, hd = k_cache.shape
+    _, smax, hkv, hd = k_cache.shape
+    b = x.shape[0]
     slot, table, lengths = pages if pages is not None else kv_pages(index, b, smax, ring)
-    k_cache.index_copy_(1, slot, k)
-    v_cache.index_copy_(1, slot, v)
+    split = fsdp.is_tp_shard(p["wq"])
+    r = fsdp.tp().index if split else 0
+
+    def project(w, bias, heads):
+        """The token's projection by ``p[w]``: every head, gathered over
+        ``model`` from the rank's columns where split."""
+        assert fsdp.is_tp_shard(p[w]) == split, f"{w} is split over model where wq is not, or whole where it is"
+        out = linear(x, p[w])
+        if cfg.qkv_bias:
+            out = out + p[bias]
+        if split:
+            out = fsdp.tp_all_gather(out, -1)
+        return out.reshape(b, 1, heads, hd)
+
+    q, k = _position(project("wq", "bq", cfg.num_heads), project("wk", "bk", hkv), p, cfg, positions, positions3)
+    v = project("wv", "bv", hkv)
+    if write:  # the ranks along share hold one model coordinate, so all of them write or none
+        k_cache.index_copy_(1, slot, fsdp.share_all_gather(k))
+        v_cache.index_copy_(1, slot, fsdp.share_all_gather(v))
     pt = kv_page_tokens(smax)
-    out = paged_attention(
-        q.reshape(b, cfg.num_heads, hd),
-        k_cache.view(b * smax // pt, pt, hkv, hd),
-        v_cache.view(b * smax // pt, pt, hkv, hd),
-        table,
-        lengths,
-    )
-    return linear(out.reshape(b, 1, -1), p["wo"]), (k_cache, v_cache)
+    k_rows, v_rows = fsdp.share_rows(k_cache), fsdp.share_rows(v_cache)
+    args = (q.reshape(b, cfg.num_heads, hd), k_rows.view(b * smax // pt, pt, hkv, hd),
+            v_rows.view(b * smax // pt, pt, hkv, hd), table, lengths)
+    if fsdp.seq_axis() is not None:
+        out = fsdp.tp_merge_attention(*paged_attention(*args, return_lse=True))
+    else:
+        out = paged_attention(*args)
+    width = p["wo"].shape[0]
+    out = linear(out.reshape(b, 1, -1)[..., r * width : (r + 1) * width].contiguous(), p["wo"])
+    if split:
+        out = fsdp.tp_sum(out)
+    return out, (k_cache, v_cache)
 
 
 # --------------------------------------------------------------------------

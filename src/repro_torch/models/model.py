@@ -47,7 +47,11 @@ themselves. Under its ``model`` axis the attention families' layers
 cross-entropy compute this rank's part of each product that axis splits
 (``models/layers.tp_modes``); the SSM and RG-LRU blocks, and the hybrid's
 attention and MLP layers gathered with them, compute with whole leaves
-(ROADMAP.md §1 item 16b).
+(ROADMAP.md §1 item 16b). The attention families' ``prefill`` and
+``decode_step`` run the same split under the sharded serving steps
+(``launch/steps.make_sharded_prefill_step``), one layer's leaves gathered
+at a time, the KV cache's sequence cut over ``model`` where
+``cache_shardings`` cuts it.
 """
 from __future__ import annotations
 
@@ -141,6 +145,13 @@ def _head(p, x, cfg: ModelConfig):
 
 def _logits(p, x, cfg: ModelConfig):
     return _head(p, x, cfg)[0]
+
+
+def _serve_logits(p, x, cfg: ModelConfig):
+    """The head's logits whole over the vocabulary: each rank's slice
+    all-gathered over ``model`` where it splits them (the serving steps)."""
+    logits, axis = _head(p, x, cfg)
+    return logits if axis is None else fsdp.tp_all_gather(logits, -1)
 
 
 def _head_loss(p, x, labels, cfg: ModelConfig):
@@ -286,10 +297,12 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
             return x + out, router_logits
         return x + mlp_apply(lp["mlp"], h), None
 
-    def _layer(lp, x, positions, positions3):
-        """One layer over the sequence: (x, (k, v), router logits or None)."""
+    def _layer(lp, x, positions, positions3, whole_kv=False):
+        """One layer over the sequence: (x, (k, v), router logits or None);
+        with ``whole_kv``, (k, v) of every KV head (``attention_apply``)."""
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        attn_out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, positions3=positions3)
+        attn_out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, positions3=positions3,
+                                       whole_kv=whole_kv)
         x, router_logits = _mlp_block(lp, x + attn_out)
         return x, kv, router_logits
 
@@ -334,13 +347,21 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
 
     def _run_layers(params, x, positions, positions3, cache=None):
         """The layer stack over the embedded sequence x (B, S, d); with
-        ``cache``, each layer's k/v are written into its slots 0..S-1."""
+        ``cache``, each layer's k/v are written into its slots 0..S-1. Under
+        the sharded serving step each layer's leaves are gathered here, and
+        a cache whose sequence ``model`` splits (``fsdp.seq_axis``) is the
+        rank's shard, slots [r n, (r + 1) n): it takes the prompt's k/v
+        there, of every rank that shares its rows (``fsdp.share_all_gather``)."""
         s = x.shape[1]
+        seq = fsdp.seq_axis()
         for l, lp in enumerate(_layer_views(params["layers"], L)):
-            x, (k, v), _ = _layer(lp, x, positions, positions3)
+            x, (k, v), _ = _layer(_gather_tp(lp), x, positions, positions3, cache is not None)
             if cache is not None:
-                cache["k"][l, :, :s] = k
-                cache["v"][l, :, :s] = v
+                start = seq.index * cache["k"].shape[2] if seq is not None else 0
+                n = min(s - start, cache["k"].shape[2])
+                if n > 0:
+                    cache["k"][l, :, :n] = fsdp.share_all_gather(k[:, start : start + n])
+                    cache["v"][l, :, :n] = fsdp.share_all_gather(v[:, start : start + n])
         return x
 
     def forward(params, batch):
@@ -376,42 +397,55 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
     def prefill(params, batch, max_seq: Optional[int] = None):
         """Logits at the last position (B, 1, V) and a cache of
         ``max(max_seq, S)`` slots holding the prompt's k/v, zero past S; S is
-        the embedded length (vision plus text for the VLM family)."""
+        the embedded length (vision plus text for the VLM family). Under the
+        sharded serving step: the rank's rows, logits whole over the
+        vocabulary, and where ``model`` splits the cache's sequence the
+        rank's shard of it (the rows of every rank that shares it)."""
         x, positions, positions3 = _embed_inputs(params, batch)
         b, s = x.shape[:2]
-        cache = init_cache(b, max(max_seq or s, s), x.device)
+        smax, seq = max(max_seq or s, s), fsdp.seq_axis()
+        if seq is not None:
+            assert smax % seq.size == 0, f"{smax} slots do not split {seq.size} ways"
+            smax //= seq.size
+        cache = init_cache(b * fsdp.share_size(), smax, x.device)
         x = _run_layers(params, x, positions, positions3, cache)
         cache["index"].fill_(s)
         cache["host_index"] = s
-        return _logits(params["head"], x[:, -1:, :], cfg), cache
+        return _serve_logits(params["head"], x[:, -1:, :], cfg), cache
 
     def decode_step(params, cache, batch):
         """One token per row at position ``cache["index"]``: logits (B, 1, V)
         and the cache, whose k/v were updated in place (the returned dict
         shares them with the one passed in) and whose index is one more.
         Raises IndexError, before it writes anything, when the cache is full
-        (the reference clamps the write into the last slot)."""
+        (the reference clamps the write into the last slot). Under the
+        sharded serving step: the rank's rows, each layer's leaves gathered
+        here, the cache the rank's shard (``layers.attention_decode``)."""
         tokens = batch["tokens"]  # (B, 1)
         b = tokens.shape[0]
-        smax = cache["k"].shape[2]
-        if cache["host_index"] >= smax:
-            raise IndexError(
-                f"decode_step: index {cache['host_index']} is out of bounds for a cache of {smax} slots"
-            )
-        x = params["head"]["embed"][tokens]
+        n, seq = cache["k"].shape[2], fsdp.seq_axis()
+        smax = n * seq.size if seq is not None else n
+        host = cache["host_index"]
+        if host >= smax:
+            raise IndexError(f"decode_step: index {host} is out of bounds for a cache of {smax} slots")
+        x = _embed(params, tokens)
         index = cache["index"]
         positions = index.expand(b, 1)
         # the reference's decode takes position = index on all three M-RoPE axes
         positions3 = index.expand(3, b, 1) if cfg.family == "vlm" else None
-        pages = kv_pages(index, b, smax)
+        if seq is None:
+            pages, write = kv_pages(index, b, n), True
+        else:  # the rank's slots [r n, (r + 1) n); the token's k/v go to the rank that owns slot index
+            pages, write = kv_pages(index, b, n, start=seq.index * n), host // n == seq.index
         for l, lp in enumerate(_layer_views(params["layers"], L)):
+            lp = _gather_tp(lp)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             attn_out, _ = attention_decode(
                 lp["attn"], h, cfg, k_cache=cache["k"][l], v_cache=cache["v"][l],
-                index=index, positions=positions, positions3=positions3, pages=pages,
+                index=index, positions=positions, positions3=positions3, pages=pages, write=write,
             )
             x, _ = _mlp_block(lp, x + attn_out)
-        logits = _logits(params["head"], x, cfg)
+        logits = _serve_logits(params["head"], x, cfg)
         return logits, {"k": cache["k"], "v": cache["v"], "index": index + 1,
                         "host_index": cache["host_index"] + 1}
 

@@ -26,10 +26,17 @@ the port's own scheme, not XLA's:
   sums over a leaf's shards, the label count, loss and ``ce``. An
   all-gather moves its result less its operand, a reduce-scatter its
   operand less its result, an all-reduce twice its operand (a ring, the
-  reference's model). Serving steps gather the parameters and, for decode,
-  each rank's rows of the cache along the axes that split its sequence or
-  heads (:meth:`Plan.gather`); the port has no sharded serving step, so
-  these are the figures of a gather-before-use scheme applied to it.
+  reference's model). The attention families' serving steps are recorded
+  the same way from rank 0's sharded prefill and decode
+  (``launch/steps.make_sharded_prefill_step`` and
+  ``make_sharded_serve_step``): each layer's leaves gathered over
+  ``data``, the products' sums and gathers over ``model``, the cache heads
+  a prefill gathers, a decode token's q / k / v gathered whole and its
+  attention merged over ``model``, the logits' vocabulary gathered. The
+  SSM and hybrid serving steps, not yet split (ROADMAP.md §1 item 16b),
+  gather the parameters and, for decode, each rank's rows of the cache
+  along the axes that split its sequence or heads (:meth:`Plan.gather`):
+  the figures of a gather-before-use scheme.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Gathering one layer at a time and the tensor-parallel split: the
-sharded train step's parameters, its batch split and its ``model`` axis
-(``launch/steps.make_sharded_train_step``).
+sharded train and serving steps' parameters, their batch split and their
+``model`` axis (``launch/steps.make_sharded_train_step``,
+``make_sharded_prefill_step``, ``make_sharded_serve_step``).
 
 The reference's GSPMD never holds a whole model on a device: it gathers
 each FSDP shard where a product needs it, reduce-scatters its gradient,
@@ -51,6 +52,16 @@ the rank's part of it (a KV head two ranks share).
 With nothing installed, or where neither the batch nor a group's leaves
 are split (a one-rank mesh), :func:`gather` returns its tree itself and no
 collective runs: the unsharded step's bits.
+
+The sharded serving steps install the same split with ``seq``, the axis
+that splits the KV cache's sequence (:func:`seq_axis`): a decode rank
+attends over its slots only, and :func:`tp_merge_attention` merges the
+ranks' parts from their log-sum-exps (:func:`merge_attention`). Where
+the batch is split along an axis that the cache is whole along (``pod``:
+``cache_shardings`` splits the cache's rows over ``data`` only), the ranks
+along it (``share``) compute distinct runs of the rows of one cache shard:
+:func:`share_rows` is the rank's run and :func:`share_all_gather` joins the
+runs' new k / v into the shard.
 
 Under a batch split, :func:`batch_sum` and :func:`batch_all_gather` sum and
 gather over the dp group: MoE routes over all of its tokens with them
@@ -144,16 +155,23 @@ def mesh_axes(mesh, names: Iterable[str]) -> Tuple[Axis, ...]:
 
 class Fsdp:
     """What the sharded step installs: each local shard's :class:`LeafAxes`
-    by identity, the axes that split the batch (major first), and ``tp``,
-    the ``model`` axis where it has more than one rank (else None). The
-    gathers note here each leaf they hand over as a ``model`` shard."""
+    by identity, the axes that split the batch (major first), ``tp``, the
+    ``model`` axis where it has more than one rank (else None), and, for
+    the serving steps, ``seq``, the axis that splits the KV cache's
+    sequence (the ``model`` axis where ``cache_shardings`` splits it, else
+    None). The gathers note here each leaf they hand over as a ``model``
+    shard, and ``share``, the batch axes along which the KV cache is whole
+    (the minor end of ``batch``)."""
 
-    def __init__(self, shards, axes, batch: Tuple[Axis, ...], tp: Optional[Axis] = None):
+    def __init__(self, shards, axes, batch: Tuple[Axis, ...], tp: Optional[Axis] = None,
+                 seq: Optional[Axis] = None, share: Tuple[Axis, ...] = ()):
         self.axes = WeakIdKeyDictionary()
         for t, a in zip(shards, axes):
             self.axes[t] = a
         self.batch = tuple(batch)
         self.tp = tp
+        self.seq = seq
+        self.share = tuple(share)
         self.tp_shards = WeakIdKeyDictionary()
 
 
@@ -197,6 +215,41 @@ def tp() -> Optional[Axis]:
     where it has one or nothing is installed."""
     ctx = current()
     return None if ctx is None else ctx.tp
+
+
+def seq_axis() -> Optional[Axis]:
+    """The installed axis that splits the KV cache's sequence; None where
+    the cache is whole on each rank or nothing is installed."""
+    ctx = current()
+    return None if ctx is None else ctx.seq
+
+
+def share_size() -> int:
+    """How many ranks compute distinct runs of the rows of this rank's KV
+    cache shard (the ranks along the installed ``share`` axes); 1 where
+    none do or nothing is installed."""
+    ctx = current()
+    return 1 if ctx is None else math.prod(a.size for a in ctx.share)
+
+
+def share_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's run of the rows (dim 0) of a KV cache shard ``t``: run
+    :func:`batch_index` over the ``share`` axes of ``share_size()`` equal
+    runs; ``t`` itself where none is installed."""
+    n = share_size()
+    if n == 1:
+        return t
+    rows = t.shape[0] // n
+    return t.narrow(0, batch_index(current().share) * rows, rows)
+
+
+def share_all_gather(x: torch.Tensor) -> torch.Tensor:
+    """The rows (dim 0) of every rank along the ``share`` axes, joined in
+    :func:`batch_index` order: the cache shard's rows of which ``x`` is
+    this rank's run; ``x`` itself where none is installed. No gradient."""
+    if share_size() == 1:
+        return x
+    return batch_all_gather(x, current().share).flatten(0, 1)
 
 
 def model_dims(tree) -> dict:
@@ -496,3 +549,35 @@ def tp_max(x: torch.Tensor) -> torch.Tensor:
     x = x.detach().clone()
     _all_reduce(x, axis, dist.ReduceOp.MAX)
     return x
+
+
+def merge_attention(out: torch.Tensor, lse: torch.Tensor, max_over, sum_over) -> torch.Tensor:
+    """The attention over a whole sequence from parts over pieces of it
+    (flash-decoding's merge): ``out`` (..., H, D), each part's attention
+    over its piece, and ``lse`` (..., H) f32, the log-sum-exp of its
+    scaled scores there (-inf where it holds no valid slot). In f32: m,
+    ``max_over(lse)`` (the max over the parts), each part weighted by
+    exp(lse - m) (0 where lse is -inf), the weighted parts and the weights
+    summed by ``sum_over``, divided; in ``out``'s dtype."""
+    m = max_over(lse)
+    w = torch.where(lse == float("-inf"), 0.0, torch.exp(lse - m))
+    parts = sum_over(torch.cat([(out.float() * w[..., None]).flatten(-2), w], dim=-1))
+    h, d = out.shape[-2:]
+    return (parts[..., : h * d].unflatten(-1, (h, d)) / parts[..., h * d :, None]).to(out.dtype)
+
+
+def tp_merge_attention(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """:func:`merge_attention` over the ``model`` ranks, each holding its
+    part over its shard of the sequence (flash-decoding over ranks): the
+    max by :func:`tp_max`, the weighted parts and weights in one
+    all-reduce. ``out`` itself where no ``model`` axis is installed. No
+    gradient."""
+    axis = tp()
+    if axis is None:
+        return out
+
+    def summed(x):
+        _all_reduce(x, axis)
+        return x
+
+    return merge_attention(out, lse, tp_max, summed)

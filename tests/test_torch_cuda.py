@@ -398,6 +398,26 @@ def test_paged_attention_kernel(cuda, b, h, hkv, d, pt, mp, lengths, permuted, d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,d,pt,mp,lengths,permuted", PA_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_attention_lse(cuda, b, h, hkv, d, pt, mp, lengths, permuted, dtype):
+    """``return_lse``: the same output bits as without it, one launch, and
+    each row and head's log-sum-exp within 1e-5 (relative, 1e-4 absolute)
+    of the plain version's, -inf at a row of length 0, whether the call
+    takes one split or several (the merge kernel writes it)."""
+    args = _pa_inputs(b, h, hkv, d, pt, mp, lengths, permuted, DTYPES[dtype], cuda)
+    before = pa_ops.paged_attention.launches
+    out, lse = pa_ops.paged_attention(*args, return_lse=True)
+    assert pa_ops.paged_attention.launches == before + 1
+    assert torch.equal(out, pa_ops.paged_attention(*args))
+    _, want = paged_attention_ref(*args, return_lse=True)
+    assert lse.shape == (b, h) and lse.dtype == torch.float32
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want))
+    finite = torch.isfinite(want)
+    torch.testing.assert_close(lse[finite], want[finite], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_paged_attention_raises_on_what_the_kernel_does_not_take(cuda):
     q, pool_k, pool_v, table, lens = _pa_inputs(2, 4, 2, 32, 16, 4, (5, 9), False, torch.bfloat16, cuda)
     with pytest.raises(ValueError):

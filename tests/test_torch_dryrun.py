@@ -222,3 +222,145 @@ def test_split_products_on_1x4_beside_the_reference_gspmd():
           f"reference GSPMD 1x1 {ref['1x1']}, 1x4 {ref['1x4']}")
     assert ref["1x1"] == one > 0
     assert 4 * four == one == 4 * ref["1x4"]
+
+
+_GSPMD_SERVE = r'''
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+from repro.configs import get_config
+from repro.configs.base import ShapeSpec
+from repro.launch import steps
+from repro.launch.mesh import make_mesh
+from repro.launch.specs import batch_spec
+from repro.roofline.hlo_costs import analyze_hlo
+from repro.sharding import specs as sh
+from repro.sharding.act import use_activation_mesh
+
+
+def placed(tree, shardings):
+    return jax.tree.map(lambda l, s: jax.ShapeDtypeStruct(l.shape, l.dtype, sharding=s), tree, shardings)
+
+
+cfg = get_config(sys.argv[1]).reduced()
+s, b = int(sys.argv[2]), int(sys.argv[3])
+out = {}
+for name in sys.argv[4:]:
+    dims = tuple(int(n) for n in name.split("x"))
+    mesh = make_mesh(dims, ("data", "model") if len(dims) == 2 else ("pod", "data", "model"))
+    params = jax.eval_shape(lambda: steps.make_train_state(cfg, jax.random.PRNGKey(0)))["params"]
+    params = placed(params, sh.param_shardings(cfg, params, mesh))
+    for kind in ("prefill", "decode"):
+        bspec = batch_spec(cfg, ShapeSpec("t", s, b, kind))
+        bshard = sh.batch_shardings(cfg, bspec, mesh)
+        batch = {k: jax.ShapeDtypeStruct(v.shape, v.dtype, sharding=bshard[k]) for k, v in bspec.items()}
+        with use_activation_mesh(mesh):
+            if kind == "prefill":
+                lowered = jax.jit(steps.make_prefill_step(cfg)).lower(params, batch)
+            else:
+                cache = steps.abstract_cache(cfg, b, s)
+                cache = placed(cache, sh.cache_shardings(cfg, cache, mesh, b))
+                lowered = jax.jit(steps.make_serve_step(cfg), donate_argnums=(1,)).lower(params, cache, batch)
+            out[f"{kind} {name}"] = analyze_hlo(lowered.compile().as_text()).dot_flops
+print(json.dumps(out))
+'''
+
+# products' FLOPs a device of the reduced qwen3-1.7b's serving cells, B = 8,
+# S = 256: the reference's GSPMD and the port on 1x1 / 1x4 / 2x2 / (pod,
+# data, model) 2x1x2 / 2x2x1
+SERVE_MESHES = ("1x1", "1x4", "2x2", "2x1x2", "2x2x1")
+SERVE_GSPMD = {"prefill": (1_745_879_040, 436_469_760, 436_469_760, 436_469_760, 436_469_760),
+               "decode": (7_864_320, 1_966_080, 1_966_080, 1_966_080, 2_555_904)}
+SERVE_PORT = dict(SERVE_GSPMD, decode=(7_864_320, 1_966_080, 1_966_080, 1_966_080, 1_966_080))
+
+
+def test_serving_products_beside_the_reference_gspmd():
+    """The reduced dense config's prefill (8 x 256 tokens) and decode (8
+    rows against 256 slots): the reference's ``jit(make_prefill_step)`` and
+    ``jit(make_serve_step)`` over parameters placed by ``param_shardings``
+    and a cache by ``cache_shardings``, on 4 fake host devices (a
+    subprocess), count the products of a device at a quarter of 1x1 on
+    (1, 4), (2, 2) and the pod meshes (pod 2 splits the rows as ``data``
+    does), but for the decode on 2x2x1: there the tokens' (pod, data)
+    runs do not lie in the cache's ``data`` runs, and GSPMD moves rows
+    between them at 30% more products. The port's dry-run of its sharded
+    serving steps counts exactly the reference's on each mesh, and a
+    quarter on that one: its rank takes a run of its cache shard's rows
+    (``launch.steps.serve_rows``)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env.pop("XLA_FLAGS", None)
+    run = subprocess.run([sys.executable, "-c", _GSPMD_SERVE, "qwen3-1.7b", "256", "8", *SERVE_MESHES], env=env,
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    ref = json.loads(run.stdout.strip().splitlines()[-1])
+    cfg = get_config("qwen3-1.7b").reduced()
+    for kind, want in SERVE_GSPMD.items():
+        port = [port_flops(cfg, ShapeSpec("t", 256, 8, kind), mesh) for mesh in SERVE_MESHES]
+        gspmd = [ref[f"{kind} {mesh}"] for mesh in SERVE_MESHES]
+        print(f"{kind}: products' FLOPs a device on {' / '.join(SERVE_MESHES)}: port {port}, reference GSPMD {gspmd}")
+        assert tuple(gspmd) == want and tuple(port) == SERVE_PORT[kind]
+        assert all(4 * n == port[0] for n in port[1:])
+
+
+_SERVE_MEMORY = r'''
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import make_concrete_batch
+from repro_torch.launch.steps import serve_split, shard_decode, shard_prefill
+from repro_torch.roofline import memory
+from repro_torch.sharding.specs import cache_shardings
+
+
+def case_serve_memory(mesh, out):
+    """One rank's real sharded prefill and decode, each under
+    ``roofline.memory.count`` (the kernels' plain versions), beside the
+    dry-run's count of the same cell on meta."""
+    for arch in ("qwen3-1.7b", "grok-1-314b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        fns = build_model(cfg)
+        params = fns.init(torch.Generator().manual_seed(0))
+        placed = place(params, param_shardings(cfg, params, mesh))
+        shards = tree_map(local, placed)
+        for kind in ("prefill", "decode"):
+            shape = ShapeSpec("t", 64, 4, kind)
+            batch = make_concrete_batch(cfg, shape, seed=1, device="cpu")
+            whole = fns.init_cache(4, 64, "cpu")
+            cspecs = cache_shardings(cfg, whole, mesh, 4)
+            split = serve_split(cfg, mesh, placed, cspecs, batch)
+            if kind == "prefill":
+                _, held = memory.count(shard_prefill(cfg), shards, batch, split)
+            else:
+                cache = tree_map(local, place({k: whole[k] for k in cspecs}, cspecs))
+                _, held = memory.count(shard_decode(cfg), shards, dict(cache, host_index=0), batch, split)
+            counts = [None] * dist.get_world_size()
+            dist.all_gather_object(counts, [held.peak, held.breakdown])
+            mem = dryrun.build_cell(cfg, shape, mesh_shape(mesh), card=False).mem
+            out[f"{arch} {kind}"] = {"counts": counts, "temp": mem["temp_bytes"],
+                                     "breakdown": mem["temp_breakdown"]}
+'''
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "2x1x2"])
+def test_serving_temp_bytes_are_a_gloo_rank_s(tmp_path, mesh):
+    """(2, 2) and (pod 2, data 1, model 2) gloo ranks: each rank's count of
+    its real sharded prefill and decode (the reduced dense and grok
+    configs, f32, 4 rows, 64 slots; on the pod mesh each rank computes 2
+    rows of a 4-row cache shard) is the dry-run's ``temp_bytes`` for that
+    cell and mesh, and its bytes by kind at the peak the dry-run's
+    ``temp_breakdown``, byte for byte."""
+    from test_torch_distributed import _RANK, run_ranks
+
+    head, main = _RANK.split('\nif __name__ == "__main__":')
+    script = head + "\nfrom repro_torch.launch.mesh import mesh_shape\n" + _SERVE_MEMORY + \
+        '\nif __name__ == "__main__":' + main
+    out = run_ranks(tmp_path, "serve_memory", mesh, script_text=script)
+    assert len(out) == 4
+    for cell, rec in out.items():
+        assert rec["temp"] > 0, (cell, rec)
+        for peak, breakdown in rec["counts"]:
+            assert peak == rec["temp"] and breakdown == rec["breakdown"], (cell, rec)
