@@ -124,11 +124,12 @@
    mesh, the state placed as DTensors: the losses of the same run without a
    mesh, bit for bit (the step's split over ``model`` has one rank there and
    runs as the unsharded step), and checkpoints that cross between the two; then
-   grok-1-314b at 1 layer, published width, Adafactor, through
-   ``make_sharded_train_step`` on the same group (its per-layer gathers
-   and dp-group routing) beside ``make_train_step``, the losses bit for
-   bit; (9d) the dry-run of every applicable cell on the 16x16, 2x16x16
-   and 1x1 meshes (a subprocess an arch and mesh on the host, started
+   grok-1-314b at 1 layer, published width, Adafactor, and the recurrent
+   families (MESH_RECURRENT: mamba2-1.3b and recurrentgemma-9b at
+   published width, depth cut) through ``make_sharded_train_step`` on the
+   same group (its per-layer gathers and dp-group routing) beside
+   ``make_train_step``, the losses bit for bit; (9d) the dry-run of every
+   applicable cell on the 16x16, 2x16x16 and 1x1 meshes (a subprocess an arch and mesh on the host, started
    after phase 8's train path at the lowest priority, so that it runs
    beside phase 8's MoE path and phase 9 on the cores they leave idle, meta
    tensors only; the MoE pair's and qwen1.5-110b's train
@@ -142,23 +143,29 @@
    three train runs and of qwen3-1.7b's prefill in phase 6 against the
    peak the card's allocator reached there, within MEMORY_BAND; (9e) one
    rank of the 16x16 mesh on a fake process group of 256 (its collectives
-   return at once): qwen3-1.7b at published depth and grok-1-314b at 1
-   layer take a train_4k step through ``make_sharded_train_step``, each
-   product on the rank's ``model`` shard, the allocator's peak within
+   return at once): qwen3-1.7b at published depth, grok-1-314b at 1
+   layer and the recurrent families at RANK_CELLS' depths take a train_4k
+   step through ``make_sharded_train_step``, each product on the rank's
+   ``model`` shard (the SSM's heads, its projection exchanged over
+   ``model``; the RG-LRU's channels), the allocator's peak within
    RANK_BAND of the dry-run's count of the same rank, cell and depth, and
    every (kernel, route, shapes) the step met checked again against its
-   plain version; (9f) prefill and decode on a mesh: on a one-rank NCCL
-   group qwen3-1.7b at published depth and grok-1-314b at 1 layer prefill
-   4 x 1024 tokens and decode 16 through ``make_sharded_prefill_step`` /
+   plain version (flash at D = 256 on the hybrid's one query head a
+   rank among them); (9f) prefill and decode on a mesh: on a one-rank NCCL
+   group each model of SERVE_ONE_CELLS (qwen3-1.7b, mamba2-1.3b and
+   recurrentgemma-9b at published depth, grok-1-314b at 1 layer) prefills
+   4 x 1024 tokens and decodes 16 through ``make_sharded_prefill_step`` /
    ``make_sharded_serve_step``, the logits the meshless steps' bit for bit;
    then on 9e's fake group of 256, rank 0 of 16x16 takes a prefill_32k and
-   4 decode_32k steps of each (qwen3-1.7b at 28 layers, grok-1-314b at 1),
-   each product on its ``model`` shard and the cache's sequence cut over
-   ``model`` (the decode's ``paged_attention`` returning its log-sum-exp for
-   the merge), the allocator's peak within RANK_BAND of the dry-run's count
-   and every (kernel, route, shapes) met against its plain version
-   (``paged_attention`` with ``lse`` at a row of length 0 and at its split
-   count); every launch of 9a-9c, 9e and 9f gated exactly;
+   4 decode_32k steps of each model of SERVE_RANK_CELLS, each product on
+   its ``model`` shard and the cache's sequence cut over ``model`` (the
+   hybrid's ring of 2,048 slots too; the decode's ``paged_attention``
+   returning its log-sum-exp for the merge), the SSM's state and the
+   RG-LRU's by heads and channels, the allocator's peak within RANK_BAND of
+   the dry-run's count and every (kernel, route, shapes) met against its
+   plain version (``paged_attention`` with ``lse`` at a row of length 0 and
+   at its split count, on the hybrid's ring shard too); every launch of
+   9a-9c, 9e and 9f gated exactly;
 10. runs the simulator path (``examples/port_serve_trace.py``'s ``run`` at
    its defaults, each backend's run traced by a full telemetry hub: metrics,
    prediction audit, stall ledger) on this machine's host, with no JAX and
@@ -395,6 +402,10 @@ MESH_LAYERS, MESH_STEPS = 2, 3
 # 1 layer (bf16 parameters 13.1 GB, and as much again of gradients), through
 # make_sharded_train_step beside make_train_step
 MESH_MOE_ARCH, MESH_MOE_LAYERS = "grok-1-314b", 1
+# the recurrent families on the same group, (arch, layers): published width,
+# depth cut so that both take a few seconds; recurrentgemma-9b's 5 layers are
+# one (rec, rec, attn) group and its two trailing recurrent layers
+MESH_RECURRENT = (("mamba2-1.3b", 8), ("recurrentgemma-9b", 5))
 # the train cells the per-layer gathers bring under the card's 80 GiB on the
 # production meshes; phase 9d logs their records
 DRYRUN_FSDP_CELLS = ("grok-1-314b", "arctic-480b", "qwen1.5-110b")
@@ -408,9 +419,10 @@ MEMORY_GATED = ("train qwen3-1.7b", "train grok-1-314b", "train arctic-480b", "p
 # once, so the values are not checked): the products split over model at
 # the shard shapes the production mesh gives them. Each cell is (arch, layers;
 # None for the published depth): qwen3-1.7b's train_4k step at 28 layers
-# (the dry-run counts 17.8 GiB a device), grok-1-314b at 1 of 64.
+# (the dry-run counts 17.8 GiB a device), grok-1-314b at 1 of 64, and the
+# recurrent families split over model at MESH_RECURRENT's depths.
 RANK_MESH = (16, 16)
-RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
+RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1), *MESH_RECURRENT)
 RANK_BAND = 0.05  # the dry-run's count of the same rank, cell and depth against the allocator's peak
 # Phase 9f: prefill and decode on a mesh. On a one-rank NCCL group (as 9c's)
 # each model of SERVE_ONE_CELLS (arch, layers; None for the published depth)
@@ -419,9 +431,9 @@ RANK_BAND = 0.05  # the dry-run's count of the same rank, cell and depth against
 # on 9e's fake group of 256 rank 0 of RANK_MESH takes SERVE_RANK_CELLS'
 # prefill_32k and SERVE_RANK_STEPS decode_32k steps, each product on its
 # model shard, the cache's sequence cut over model.
-SERVE_ONE_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
+SERVE_ONE_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1), ("mamba2-1.3b", None), ("recurrentgemma-9b", None))
 SERVE_ONE_STEPS = 16
-SERVE_RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1))
+SERVE_RANK_CELLS = (("qwen3-1.7b", None), ("grok-1-314b", 1), *MESH_RECURRENT)
 SERVE_RANK_STEPS = 4
 # a flash call whose plain version would hold more than FA_CHECK_BYTES of
 # f32 scores (prefill_32k: 2 x 32,768² a head) is held against it on five
@@ -645,7 +657,7 @@ def run_phases(torch, dev) -> None:
             phase_done("9a. quickstart")
             paths["train_lm"] = train_lm_on_card(torch, dev)
             phase_done("9b. train_lm")
-            paths["mesh"], paths["mesh_moe"] = mesh_on_card(torch, dev)
+            paths["mesh"], paths["mesh_moe"], paths["mesh_recurrent"] = mesh_on_card(torch, dev)
             phase_done("9c. mesh")
             # 9e and 9f time nothing
             paths["rank"] = rank_on_card(torch, dev)
@@ -1001,15 +1013,17 @@ def step_launches(cfg, path):
 
 
 def train_launches(cfg, remat: bool):
-    """The launches of one train step of a dense model: every projection and
-    the LM head forward (the layers' twice with remat: the backward replays
-    each layer's forward), then two gradient products each (dX, and dW of
-    the weight), through stream_matmul; one flash_attention a layer (two
-    with remat) and one backward call a layer."""
-    _, n_attn = layer_counts(cfg)
+    """The launches of one train step of a model: every projection and the
+    LM head forward (the layers' twice with remat: the backward replays each
+    layer's forward, but for the hybrid's trailing recurrent layers, which
+    run outside its remat groups), then two gradient products each (dX, and
+    dW of the weight), through stream_matmul; one flash_attention an
+    attention layer (two with remat) and one backward call."""
+    n_rec, n_attn = layer_counts(cfg)
     layers = model_matmuls(cfg)
+    replayed = layers - 8 * (n_rec - 2 * n_attn) if cfg.family == "hybrid" else layers
     return {
-        "stream_matmul": layers * (1 + remat) + 1 + 2 * (layers + 1),
+        "stream_matmul": layers + remat * replayed + 1 + 2 * (layers + 1),
         "stream_matmul_int8": 0,
         "flash_attention": n_attn * (1 + remat),
         "paged_attention": 0,
@@ -1023,7 +1037,7 @@ def train_wgmma(cfg, remat: bool):
     forward (twice with remat) and every backward call, the backward reading
     the statistics its forward wrote; none at other head dims."""
     _, n_attn = layer_counts(cfg)
-    on = cfg.resolved_head_dim() in (64, 128)
+    on = bool(n_attn) and cfg.resolved_head_dim() in (64, 128)
     return {"flash_attention": n_attn * (1 + remat) * on, "flash_attention_backward": n_attn * on}
 
 
@@ -3659,9 +3673,10 @@ def mesh_on_card(torch, dev):
     one-element NCCL all-reduce on the group; the mesh run's checkpoint
     restored without a mesh, and the meshless run's restored into the placed
     state, both equal to the meshless state bit for bit. Then, on the same
-    group, :func:`moe_on_mesh`. Returns the mesh run's launches, steps and
-    tensor-core launches, and the MoE mesh run's with its expert-batched
-    launches."""
+    group, :func:`train_on_mesh` of the MoE model and of each recurrent
+    model. Returns the mesh run's launches, steps and tensor-core launches,
+    the MoE mesh run's with its expert-batched launches, and the recurrent
+    mesh runs' summed."""
     import torch.distributed as dist
 
     from repro_torch.checkpointing.checkpoint import restore
@@ -3708,7 +3723,9 @@ def mesh_on_card(torch, dev):
                             place(make_train_state(cfg, torch.Generator(dev).manual_seed(3)), shardings))
             same_into = all(torch.equal(a, gather(b)) for (_, a), (_, b) in zip(flatten(plain), flatten(other)))
             del plain, other
-            moe = moe_on_mesh(torch, dev, mesh)
+            moe = train_on_mesh(torch, dev, mesh, moe_config(MESH_MOE_ARCH, MESH_MOE_LAYERS))
+            recurrent = [train_on_mesh(torch, dev, mesh, dataclasses.replace(get_config(arch), num_layers=layers))
+                         for arch, layers in MESH_RECURRENT]
         finally:
             dist.destroy_process_group()
     (base, base_launches, _), (meshed, launches, wgmma) = runs["plain"], runs["mesh"]
@@ -3718,27 +3735,31 @@ def mesh_on_card(torch, dev):
         raise AssertionError(f"mesh path: losses {meshed.losses} vs {base.losses}, launches {launches} vs "
                              f"{base_launches}, checkpoints across {same_from} / {same_into}")
     torch.cuda.empty_cache()
-    return (launches, MESH_STEPS, wgmma), moe
+    steps = sum(r[1] for r in recurrent)
+    recurrent = ({k: sum(r[0][k] for r in recurrent) for k in KERNELS}, steps,
+                 {k: sum(r[2][k] for r in recurrent) for k in WGMMA_KERNELS})
+    return (launches, MESH_STEPS, wgmma), moe, recurrent
 
 
-def moe_on_mesh(torch, dev, mesh):
-    """Phase 9c's MoE model: MESH_MOE_ARCH at published width and
-    MESH_MOE_LAYERS layers, Adafactor and remat as published, capacity factor
-    1.25, MESH_STEPS steps of one TRAIN_B x TRAIN_S batch through
+def train_on_mesh(torch, dev, mesh, cfg):
+    """Phase 9c's other models (the MoE model at MESH_MOE_LAYERS layers,
+    Adafactor, capacity factor 1.25; the recurrent families of
+    MESH_RECURRENT, AdamW): at published width, remat as published,
+    MESH_STEPS steps of one TRAIN_B x TRAIN_S batch through
     ``make_train_step``, then through ``make_sharded_train_step`` on ``mesh``
     (the one-rank group) with the state placed as DTensors. Nothing splits
-    there, so the per-layer gathers and the dp group's routing run none of
-    their collectives. Gated: the same losses bit for bit; every step's
-    launches exactly, for both (:func:`train_launches`, :func:`train_wgmma`,
-    :func:`train_batched`). Returns the mesh run's launches, steps,
-    tensor-core and expert-batched launches."""
+    there, so the per-layer gathers, the dp group's routing and the split
+    over ``model`` run none of their collectives. Gated: the same losses bit
+    for bit; every step's launches exactly, for both
+    (:func:`train_launches`, :func:`train_wgmma`, :func:`train_batched`).
+    Returns the mesh run's launches, steps, tensor-core and expert-batched
+    launches."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import pipeline_for
     from repro_torch.kernels.streammm.ops import stream_matmul
     from repro_torch.launch.steps import make_sharded_train_step, make_train_state, make_train_step
     from repro_torch.sharding.specs import place, state_shardings
 
-    cfg = moe_config(MESH_MOE_ARCH, MESH_MOE_LAYERS)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in pipeline_for(cfg, ShapeSpec("mesh", TRAIN_S, TRAIN_B, "train"), seed=7).batch(0).items()}
     want, want_wgmma = train_launches(cfg, cfg.remat), train_wgmma(cfg, cfg.remat)
@@ -3773,7 +3794,7 @@ def moe_on_mesh(torch, dev, mesh):
                      [total[2][0] + batched[0], total[2][1] + batched[1]])
         wall = time.perf_counter() - t0
         runs[name] = (losses, total)
-        log(f"mesh path, {cfg.name} {name}: {cfg.num_layers} layer at published width, {MESH_STEPS} steps of "
+        log(f"mesh path, {cfg.name} {name}: {cfg.num_layers} layers at published width, {MESH_STEPS} steps of "
             f"{TRAIN_B} x {TRAIN_S} tokens in {wall:.2f} s; losses {losses}; launches {total[0]}, tensor-core "
             f"{total[1]}, expert-batched {total[2]}")
         del state, metrics, step
@@ -4182,9 +4203,10 @@ def serve_one_rank(torch, dev):
 
 
 def rank_cache(torch, cfg, mesh, dev, batch: int, slots: int):
-    """A zero KV cache of ``batch`` rows and ``slots`` slots as this rank's
-    shards on ``mesh`` (``cache_shardings``), made on the card shard by
-    shard, at position 0 (rank 0 owns slot 0)."""
+    """A zero decode cache of ``batch`` rows and ``slots`` slots (the
+    hybrid's ring: its window's) as this rank's shards on ``mesh``
+    (``cache_shardings``), made on the card shard by shard, at position 0
+    (rank 0 owns slot 0)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models.model import build_model
@@ -4208,8 +4230,9 @@ def serve_rank(torch, dev):
     2 rows of 32 x 32,768 tokens) through ``make_sharded_prefill_step`` on
     its param shards (:func:`rank_state`), and SERVE_RANK_STEPS decode_32k
     steps (its 8 rows of 128, a cache of 32,768 slots of which it holds
-    2,048 of every KV head, :func:`rank_cache`) through
-    ``make_sharded_serve_step``. Gated: each run's allocator peak (its
+    2,048 of every KV head, or of the hybrid's ring of 2,048 its 128, and
+    its heads and channels of the recurrent states, :func:`rank_cache`)
+    through ``make_sharded_serve_step``. Gated: each run's allocator peak (its
     arguments included) within RANK_BAND of the dry-run's count of the same
     rank, cell and depth (argument + temp + output - alias); the launches
     exactly a prefill's and SERVE_RANK_STEPS decodes' (:func:`step_launches`:
@@ -4258,13 +4281,13 @@ def serve_rank(torch, dev):
                     with torch.no_grad():
                         if shape.kind == "prefill":
                             logits, cache = make_sharded_prefill_step(cfg, mesh)(params, batch)
-                            rows, local = logits.shape[0], cache["k"].to_local().shape
                         else:
                             cache = rank_cache(torch, cfg, mesh, dev, shape.global_batch, shape.seq_len)
                             serve = make_sharded_serve_step(cfg, mesh)
                             for _ in range(steps):
                                 logits, cache = serve(params, cache, batch)
-                            rows, local = logits.shape[0], cache["k"].to_local().shape
+                        rows = logits.shape[0]
+                        local = {k: tuple(v.to_local().shape) for k, v in cache.items() if k not in ("index", "host_index")}
                     torch.cuda.synchronize(dev)
                 finally:
                     undo()
@@ -4276,7 +4299,7 @@ def serve_rank(torch, dev):
                 torch.cuda.empty_cache()
                 margin = (count - peak) / peak
                 log(f"serve rank path, {arch} at {cfg.num_layers} layers, {shape_name} on {RANK_MESH}: {steps} "
-                    f"call(s) in {wall:.2f} s, the rank's {rows} rows, cache shard {tuple(local)}; dry-run count "
+                    f"call(s) in {wall:.2f} s, the rank's {rows} rows, cache shard {local}; dry-run count "
                     f"{count} B ({count / 2**30:.3f} GiB, counted in {t_count:.1f} s), allocator's peak {peak} B "
                     f"({peak / 2**30:.3f} GiB), margin {100 * margin:+.2f}%; temp by kind at its peak (GiB): "
                     + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in mem["temp_breakdown"].items() if v)

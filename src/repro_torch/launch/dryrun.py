@@ -23,17 +23,12 @@ the single H100 the port runs on. A record keeps the reference's fields:
   lives: for training ``make_sharded_train_step``'s step on rank 0
   (gradients, the clip norm, the optimizer; ``REPRO_MICROBATCH`` as the
   step reads it), its per-layer gathers, its parts of the products split
-  over ``model`` and MoE's dispatch buffer included; for the attention
-  families' serving cells ``make_sharded_prefill_step``'s and
-  ``make_sharded_serve_step``'s bodies on rank 0 (``shard_prefill``,
-  ``shard_decode``: its param shards gathered one layer at a time, its
-  parts of the split products, its rows and its shard of the cache placed
-  by ``cache_shardings``; arguments, outputs and aliases are the shards'
-  bytes). The SSM and hybrid serving cells, which have no sharded
-  serving step yet (ROADMAP.md §1 item 16b), keep the count of
-  ``prefill`` and ``decode_step`` on the whole parameters (and, for
-  decode, the rank's rows of the whole cache), whose gathered copies the
-  ``gathers`` kind adds. The kernels count what their CUDA path allocates
+  over ``model`` and MoE's dispatch buffer included; for the serving
+  cells ``make_sharded_prefill_step``'s and ``make_sharded_serve_step``'s
+  bodies on rank 0 (``shard_prefill``, ``shard_decode``: its param shards
+  gathered one layer at a time, its parts of the split products, its rows
+  and its shard of the cache placed by ``cache_shardings``; arguments,
+  outputs and aliases are the shards' bytes). The kernels count what their CUDA path allocates
   (outputs, flash attention's saved statistics, split-K workspaces), by
   their route rules at the H100's 132 SMs, not their plain versions'
   intermediates. ``fits_h100`` is argument + temp + output - alias within
@@ -67,8 +62,6 @@ from repro_torch.launch.specs import batch_spec
 from repro_torch.launch.steps import (
     _Split,
     abstract_train_state,
-    make_prefill_step,
-    make_serve_step,
     make_train_step,
     shard_decode,
     shard_prefill,
@@ -193,7 +186,7 @@ def train_memory(cfg: ModelConfig, ms: MeshShape, batch, batch_axes=(), card: bo
 
 
 def _serve_cell(cfg: ModelConfig, shape: ShapeSpec, ms: MeshShape, card: bool) -> Cell:
-    """A prefill or decode cell of the attention families: the memory pass
+    """A prefill or decode cell: the memory pass
     of rank 0's sharded serving step (``launch.steps.shard_prefill`` /
     ``shard_decode``; the unsharded step where nothing splits) on meta over
     its param shards, its rows of the batch (``launch.steps.serve_rows``,
@@ -208,7 +201,7 @@ def _serve_cell(cfg: ModelConfig, shape: ShapeSpec, ms: MeshShape, card: bool) -
     rows_axes, share = serve_rows(cfg, {k: torch.empty(shp, dtype=dt, device="meta") for k, (shp, dt) in spec.items()},
                                   ms, cspecs)
     rows, batch, _, _ = _local_batch(cfg, shape, ms, rows_axes)
-    seq = "model" in cspecs["k"].axes(2)
+    seq = "k" in cspecs and "model" in cspecs["k"].axes(2)
 
     def meta_split(c):
         params = build_model(c).init(SHAPES_ONLY)
@@ -219,7 +212,7 @@ def _serve_cell(cfg: ModelConfig, shape: ShapeSpec, ms: MeshShape, card: bool) -
     cache_bytes = _shard_bytes(whole, cspecs)
     logits_bytes = rows * cfg.vocab_size * torch.empty((), dtype=common.dtype_of(cfg)).element_size()
     mem = {"param_bytes": param_bytes, "batch_bytes": _whole_bytes(batch)}
-    plan = Plan(ms)
+    plan = Plan()
 
     def step(c, split):
         """The step of ``c`` and its arguments after the shards."""
@@ -259,68 +252,21 @@ def build_cell(arch, shape, mesh, card: bool = True) -> Cell:
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     ms = mesh if isinstance(mesh, MeshShape) else parse_mesh(mesh)
-    rows, batch, batch_bytes, axes = _local_batch(cfg, shape, ms)
-    plan = Plan(ms)
-    itemsize = torch.empty((), dtype=common.dtype_of(cfg)).element_size()
-    logits_bytes = rows * cfg.vocab_size * itemsize  # (rows, 1, V) for prefill and decode
-
-    if shape.kind == "train":
-        state = abstract_train_state(cfg)
-        shardings = sh.state_shardings(cfg, state, ms)
-        state_bytes = _shard_bytes(state, shardings)
-        held = train_memory(cfg, ms, batch, tuple(a for a in axes if ms.shape[a] > 1), card, plan)
-        mem = {"state_bytes": state_bytes, "batch_bytes": batch_bytes, "argument_bytes": state_bytes + batch_bytes,
-               "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": held.peak,
-               "temp_breakdown": held.breakdown}
-
-        def count(c):
-            shards, split, _ = _meta_train(c, ms, tuple(a for a in axes if ms.shape[a] > 1))
-            return dot_flops(value_and_grad, build_model(c), shards["params"], batch, split)
-
-        return Cell(ms, rows, mem, plan, count)
-
-    if cfg.family not in ("ssm", "hybrid"):
+    if shape.kind != "train":
         return _serve_cell(cfg, shape, ms, card)
-    fns = build_model(cfg)
-    params = fns.init(SHAPES_ONLY)
-    pspecs = sh.param_shardings(cfg, params, ms)
-    param_bytes = _shard_bytes(params, pspecs)
-    specs = dict(flatten(pspecs))
-    gathered = sum(plan.gather(tuple(t.shape), t.dtype, specs[p]) for p, t in flatten(params))
-    mem = {"param_bytes": param_bytes, "batch_bytes": batch_bytes}
-
-    def serve_temp(step, *args):
-        """temp_bytes and temp_breakdown: the gathered copies beside the
-        memory pass of ``step`` on this rank's rows, its arguments whole."""
-        held = memory.count(step, *args, card=card)[1]
-        return {"temp_bytes": gathered + held.peak,
-                "temp_breakdown": dict(held.breakdown, gathers=held.breakdown["gathers"] + gathered)}
-
-    if shape.kind == "prefill":
-        cache_bytes = _whole_bytes(fns.init_cache(rows, shape.seq_len, device="meta"))
-        mem.update(argument_bytes=param_bytes + batch_bytes, output_bytes=logits_bytes + cache_bytes,
-                   alias_bytes=0, **serve_temp(fns.prefill, params, batch))
-
-        def count(c):
-            return dot_flops(make_prefill_step(c), build_model(c).init(SHAPES_ONLY), batch)
-
-        return Cell(ms, rows, mem, plan, count)
-
-    # decode: one token against a seq_len-sized cache
-    cache = fns.init_cache(shape.global_batch, shape.seq_len, device="meta")
-    cspecs = dict(flatten(sh.cache_shardings(cfg, cache, ms, shape.global_batch)))
-    cache_bytes = _shard_bytes(cache, sh.cache_shardings(cfg, cache, ms, shape.global_batch))
-    for p, t in flatten(cache):
-        if isinstance(t, torch.Tensor):
-            gathered += plan.gather(tuple(t.shape), t.dtype, cspecs[p], keep_dims=(1,))  # this rank's rows
-    mem.update(cache_bytes=cache_bytes, argument_bytes=param_bytes + cache_bytes + batch_bytes,
-               output_bytes=logits_bytes + cache_bytes, alias_bytes=cache_bytes,
-               **serve_temp(fns.decode_step, params, fns.init_cache(rows, shape.seq_len, "meta"), batch))
+    rows, batch, batch_bytes, axes = _local_batch(cfg, shape, ms)
+    plan = Plan()
+    state = abstract_train_state(cfg)
+    shardings = sh.state_shardings(cfg, state, ms)
+    state_bytes = _shard_bytes(state, shardings)
+    held = train_memory(cfg, ms, batch, tuple(a for a in axes if ms.shape[a] > 1), card, plan)
+    mem = {"state_bytes": state_bytes, "batch_bytes": batch_bytes, "argument_bytes": state_bytes + batch_bytes,
+           "output_bytes": state_bytes + 16, "alias_bytes": state_bytes, "temp_bytes": held.peak,
+           "temp_breakdown": held.breakdown}
 
     def count(c):
-        fns = build_model(c)
-        return dot_flops(make_serve_step(c), fns.init(SHAPES_ONLY), fns.init_cache(rows, shape.seq_len, "meta"),
-                         batch)
+        shards, split, _ = _meta_train(c, ms, tuple(a for a in axes if ms.shape[a] > 1))
+        return dot_flops(value_and_grad, build_model(c), shards["params"], batch, split)
 
     return Cell(ms, rows, mem, plan, count)
 

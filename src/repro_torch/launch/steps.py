@@ -23,7 +23,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.common import SHAPES_ONLY
-from repro_torch.models.model import build_model, loss_tokens
+from repro_torch.models.model import build_model, loss_tokens, prefill_slots
 from repro_torch.optim import get_optimizer, get_schedule
 from repro_torch.roofline import memory
 from repro_torch.sharding import fsdp
@@ -229,19 +229,18 @@ def make_sharded_train_step(
       the sums over the ranks are the global token-mean's, not a mean of the
       ranks' means. MoE routes over the dp group's tokens and takes its
       load-balance term over them (``models/layers.moe_dispatch``);
-    * the products of the attention families' layers (``models/model.py``'s
-      ``_transformer_fns``: dense, VLM, audio, MoE) and of every family's
-      head are split over ``model`` as the reference's GSPMD splits them:
-      a layer's leaves that ``model`` splits are gathered over ``data``
-      only, each rank computes its part (its attention heads, its slice of
-      the FFN hidden, its experts or its slice of each expert's hidden, its
-      slice of the vocabulary) and the parts are summed, or gathered, over
-      ``model`` (``sharding.fsdp``'s modes and conjugates,
+    * every family's products (``models/model.py``) are split over ``model``
+      as the reference's GSPMD splits them: a layer's leaves that ``model``
+      splits are gathered over ``data`` only, each rank computes its part
+      (its attention heads, its slice of the FFN hidden, its experts or its
+      slice of each expert's hidden, its SSM heads, its RG-LRU channels,
+      its slice of the vocabulary) and the parts are summed, gathered or
+      exchanged over ``model`` (``sharding.fsdp``'s modes and conjugates,
       ``models/layers.tp_modes``); the cross-entropy is taken over the
       vocabulary's slices (``models/model.cross_entropy``). A leaf that
-      ``model`` does not split (``sharding.specs``' ``tp_ok``), and the SSM
-      and RG-LRU blocks, are gathered whole and computed alike on every
-      rank of ``model``, as before;
+      ``model`` does not split (``sharding.specs``' ``tp_ok``), and a block
+      whose heads or channels it does not divide, are gathered whole and
+      computed alike on every rank of ``model``;
     * microbatches accumulate the f32 gradient on the shards; ``grad_norm``
       sums the shards' squares over the ranks that hold distinct parts of
       each leaf, and takes a leaf that ``model`` does not split once (every
@@ -344,45 +343,35 @@ def make_serve_step(cfg: ModelConfig):
     return build_model(cfg).decode_step
 
 
-def _serving_family(cfg: ModelConfig, mesh) -> None:
-    if cfg.family in ("ssm", "hybrid") and mesh_shape(mesh).size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded serving steps split the attention families only; the {cfg.family} "
-            "blocks are not split over model yet (ROADMAP.md §1 item 16b)")
-
-
 def make_sharded_prefill_step(cfg: ModelConfig, mesh):
     """``prefill_step(params, batch, max_seq=None) -> (logits, cache)`` over
     params placed on ``mesh`` (``sharding.specs.param_shardings``) and the
     global ``batch``: the counterpart of the reference's
-    ``jit(make_prefill_step(cfg))`` over placed parameters. For the
-    attention families (dense, VLM, MoE, audio):
+    ``jit(make_prefill_step(cfg))`` over placed parameters, every family:
 
     * each rank takes its rows of the batch along the axes that
       ``batch_shardings`` splits it over (:func:`serve_rows`): its run of
       the rows of its cache shard, which ``cache_shardings`` cuts over
       ``data`` only, so the ranks along ``pod`` each compute their own run
-      of one shard and join their k / v into it;
+      of one shard and join their cache rows into it;
     * the model gathers each layer's leaves over ``data`` one layer at a
       time and computes the rank's part of each product that ``model``
       splits, as the sharded train step does (``sharding.fsdp``); MoE
       routes over the dp group's tokens;
     * ``logits`` are the last position's, (the rank's rows, 1, V), whole
-      over the vocabulary; ``cache`` the k / v as DTensors placed by
-      ``cache_shardings`` (each rank its rows and, where ``model`` splits
-      the sequence, its slots of every KV head), ``index``, and
-      ``host_index``. :func:`make_sharded_serve_step` reads it as it is.
+      over the vocabulary; ``cache`` its tensors as DTensors placed by
+      ``cache_shardings`` (each rank its rows and, where ``model`` divides
+      them, its slots of every KV head (the hybrid's ring's too), its SSM
+      heads and conv channels, its RG-LRU channels), and ``host_index``.
+      :func:`make_sharded_serve_step` reads it as it is.
 
-    On a one-rank mesh it is ``make_prefill_step``'s step, bit for bit. The
-    SSM and hybrid families raise NotImplementedError on a mesh of more
-    than one rank (ROADMAP.md §1 item 16b)."""
-    _serving_family(cfg, mesh)
+    On a one-rank mesh it is ``make_prefill_step``'s step, bit for bit."""
     fns, body = build_model(cfg), shard_prefill(cfg)
 
     def prefill_step(params, batch, max_seq=None):
         b = batch["frames" if "frames" in batch else "tokens"].shape[0]
         s = sum(batch[k].shape[1] for k in ("frames", "vision_embeds", "tokens") if k in batch)
-        whole = fns.init_cache(b, max(max_seq or s, s), "meta")
+        whole = fns.init_cache(b, prefill_slots(cfg, s, max_seq), "meta")
         cshard = cache_shardings(cfg, whole, mesh, b)
         split = serve_split(cfg, mesh, params, cshard, batch)
         shards = tree_map(local, params)
@@ -400,22 +389,24 @@ def make_sharded_serve_step(cfg: ModelConfig, mesh):
     row against a cache placed on ``mesh`` by ``cache_shardings`` (as
     :func:`make_sharded_prefill_step` returns it), over params placed by
     ``param_shardings``, the counterpart of the reference's
-    ``jit(make_serve_step(cfg))``. Each rank takes its rows as the prefill
-    does, and writes the token's k / v of every rank along ``pod``;
-    where ``model`` splits the cache's sequence the token's k / v are
-    written by the rank that owns slot ``index`` only (from
-    ``host_index``: no device sync), each rank attends over its slots and
-    the parts are merged over ``model`` (``models/layers.attention_decode``);
-    where the sequence is whole on each rank, every rank attends over all
-    of it. Logits (the rank's rows, 1, V), whole over the vocabulary; the
-    cache's k / v updated in place. On a one-rank mesh,
-    ``make_serve_step``'s step, bit for bit."""
-    _serving_family(cfg, mesh)
+    ``jit(make_serve_step(cfg))``, every family. Each rank takes its rows
+    as the prefill does, and writes the new cache rows of every rank along
+    ``pod``; where ``model`` splits the cache's sequence (the hybrid's
+    ring's slots) the token's k / v are written by the rank that owns its
+    slot only (from ``host_index``: no device sync), each rank attends over
+    its slots and the parts are merged over ``model``
+    (``models/layers.attention_decode``); where the sequence is whole on
+    each rank, every rank attends over all of it. The SSM and RG-LRU
+    states and conv histories are the rank's heads and channels
+    (``models/ssm.ssm_decode``, ``models/rglru.rec_block_decode``). Logits
+    (the rank's rows, 1, V), whole over the vocabulary; the cache updated
+    in place. On a one-rank mesh, ``make_serve_step``'s step, bit for
+    bit."""
     fns, body = build_model(cfg), shard_decode(cfg)
 
     def serve_step(params, cache, batch):
         tensors = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
-        cshard = cache_shardings(cfg, tensors, mesh, cache["k"].shape[1])
+        cshard = cache_shardings(cfg, tensors, mesh, _cache_rows(tensors).shape[1])
         split = serve_split(cfg, mesh, params, cshard, batch)
         shards = tree_map(local, params)
         local_cache = dict(tree_map(local, tensors), host_index=cache["host_index"])
@@ -459,15 +450,22 @@ def shard_decode(cfg: ModelConfig):
     return decode
 
 
+def _cache_rows(cache):
+    """A leaf of ``cache`` (tensors or their placements) whose dim 1 is the
+    rows: ``k`` for the attention families and the hybrid, ``state`` for
+    the SSM (``cache_shardings`` cuts every leaf's rows alike)."""
+    return cache["k" if "k" in cache else "state"]
+
+
 def serve_rows(cfg: ModelConfig, batch: Dict[str, Any], mesh, cache_specs) -> tuple:
     """(the axes a serving rank's rows of ``batch`` are cut over, major
-    first; those of them along which it shares its KV cache shard): the
-    axes of size > 1 that ``cache_specs`` (``cache_shardings``) splits the
+    first; those of them along which it shares its cache shard): the axes
+    of size > 1 that ``cache_specs`` (``cache_shardings``) splits the
     cache's rows over, then those of ``batch_shardings`` that the cache is
     whole along (``pod``). So each rank's rows are a run of its cache
     shard's, and the ranks along ``pod`` compute distinct runs of it."""
     ms = mesh_shape(mesh)
-    own = tuple(a for a in cache_specs["k"].axes(1) if ms.shape[a] > 1)
+    own = tuple(a for a in _cache_rows(cache_specs).axes(1) if ms.shape[a] > 1)
     share = tuple(a for a in batch_split_axes(cfg, batch, ms) if a not in own and ms.shape[a] > 1)
     return own + share, share
 
@@ -476,18 +474,15 @@ def serve_split(cfg: ModelConfig, mesh, params, cache_specs, batch) -> "_Split |
     """The :class:`_Split` of a serving call of ``batch`` over ``params``
     placed on ``mesh`` and a cache placed by ``cache_specs``
     (``cache_shardings``): the rows and ``share`` of :func:`serve_rows`,
-    ``seq`` the ``model`` axis where it splits the cache's sequence. None
-    where nothing splits the rows, a leaf or the sequence, and for the SSM
-    and hybrid families (one rank: :func:`make_sharded_prefill_step`)."""
-    if cfg.family in ("ssm", "hybrid"):
-        return None
+    ``seq`` the ``model`` axis where it splits the KV cache's sequence.
+    None where nothing splits the rows, a leaf or the sequence."""
     ms = mesh_shape(mesh)
     coords = dict(zip(ms.axis_names, mesh.get_coordinate()))
     rows, share = serve_rows(cfg, batch, ms, cache_specs)
     axes = {a.name: a for a in fsdp.mesh_axes(mesh, rows)}
     tp = fsdp.mesh_axes(mesh, ("model",))
     tp = tp[0] if tp else None
-    seq = tp if tp is not None and "model" in cache_specs["k"].axes(2) else None
+    seq = tp if tp is not None and "k" in cache_specs and "model" in cache_specs["k"].axes(2) else None
     split = _Split(tuple(fsdp.leaf_axes(t) for t in leaves(params)), tuple(axes[a] for a in rows),
                    lambda b: split_batch(b, rows, ms, coords), tp, seq, tuple(axes[a] for a in share))
     return split if split.batch or seq is not None or any(a.split for a in split.leaves) else None

@@ -81,9 +81,15 @@ def embed_init(gen: torch.Generator, shape: Tuple[int, ...], dtype):
 # --------------------------------------------------------------------------
 
 
-def rms_norm(x, weight, eps: float):
+def rms_norm(x, weight, eps: float, reduce=None, total: int = 0):
+    """RMS norm over the last dim. With ``reduce``, x is a part of the
+    normed vector: its sum of squares goes through ``reduce`` (a sum over
+    the parts) and is divided by the vector's ``total`` width."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if reduce is None:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+    else:
+        var = reduce((x32 * x32).sum(dim=-1, keepdim=True)) / total
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.float())).to(x.dtype)
 

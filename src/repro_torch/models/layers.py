@@ -18,7 +18,8 @@ whose weight that axis splits, as the reference's GSPMD does with its
 placements (``sharding/specs.py``): :func:`tp_modes` says which leaves a
 rank keeps as its shard; the layers see it through ``fsdp.is_tp_shard``.
 The sharded serving steps use the same split, and decode against a cache
-whose sequence ``model`` splits (:func:`attention_decode`).
+whose sequence ``model`` splits (:func:`attention_decode`; the hybrid's
+ring too, :func:`kv_pages`).
 """
 from __future__ import annotations
 
@@ -72,6 +73,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...]
     return p
 
 
+_SSM = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm", "out_proj")
+
+
 def tp_modes(dims: dict) -> dict:
     """The gather modes (``sharding.fsdp.gather``) of a layer's leaves, or
     the head's, from ``dims`` (path -> the dim the ``model`` axis splits, or
@@ -79,7 +83,12 @@ def tp_modes(dims: dict) -> dict:
     the rank's shard (``local``), but for an expert ``w2`` that it splits
     by columns (the reference's rule when d_model = moe.d_ff): that one,
     and the per-head norms beside a split ``wq``, are gathered whole and
-    read on the rank's hidden slice or heads only (``sum``)."""
+    read on the rank's hidden slice or heads only (``sum``). An SSM block
+    (``models/ssm.py``) computes its heads where ``model`` splits both its
+    heads (``A_log``) and ``in_proj``; there its ``conv_w`` and ``conv_b``,
+    whose channel runs do not line up with heads, are read whole at the
+    rank's channels (``sum``). Elsewhere every leaf of the block is read
+    whole."""
     modes = {p: "local" for p, d in dims.items() if d is not None}
     for p, d in dims.items():
         prefix, _, leaf = p.rpartition("/")
@@ -88,6 +97,11 @@ def tp_modes(dims: dict) -> dict:
             modes[p] = "sum"
         elif leaf in ("q_norm", "k_norm") and dims.get(pre + "wq") is not None:
             modes[p] = "sum"
+        elif leaf in _SSM and pre + "A_log" in dims:
+            if dims[pre + "A_log"] is None or dims.get(pre + "in_proj") is None:
+                modes.pop(p, None)
+            elif leaf in ("conv_w", "conv_b"):
+                modes[p] = "sum"
     return modes
 
 
@@ -197,25 +211,27 @@ def kv_page_tokens(smax: int) -> int:
     return pt
 
 
-def kv_pages(index, batch: int, smax: int, ring: bool = False, start: Optional[int] = None):
+def kv_pages(index, batch: int, smax: int, ring: bool = False, start: int = 0,
+             whole: Optional[int] = None):
     """The page-pool view of a layer's cache of ``smax`` slots at decode
     position ``index`` (0-d int32 tensor): the write slot (a 1-element int64
     tensor), the page table (B, Smax / pt) int32, row b owning pages
-    ``b * P .. b * P + P - 1`` of :func:`kv_page_tokens` slots, and the lengths
-    ``index + 1`` (B,) int32. With ``ring``, the cache is a ring of ``smax``
-    slots: the write slot is ``index % smax`` and the lengths
-    ``min(index + 1, smax)``. With ``start``, the cache is a rank's shard of
-    a longer one, its slots [start, start + smax): the write slot is
-    ``index - start`` (meaningful on the rank that owns ``index`` only) and
-    the lengths ``index + 1 - start`` clamped to [0, smax]. Every layer of a
-    step shares it. Nothing here waits for the device."""
+    ``b * P .. b * P + P - 1`` of :func:`kv_page_tokens` slots, and the
+    lengths (B,) int32. The cache is a rank's shard of one of ``whole``
+    slots (``smax``, the default, where it is not cut), its slots [start,
+    start + smax): the write slot is ``index - start`` (meaningful on the
+    rank that owns ``index`` only) and the lengths ``index + 1 - start``
+    clamped to [0, smax]. With ``ring``, the whole cache is a ring: the
+    write slot is ``index % whole - start`` and the lengths ``min(index +
+    1, whole) - start``, clamped likewise. Every layer of a step shares it.
+    Nothing here waits for the device."""
     n = smax // kv_page_tokens(smax)
     table = torch.arange(batch * n, dtype=torch.int32, device=index.device).reshape(batch, n)
+    lengths = index.expand(batch) + 1
     if ring:
-        return (index % smax).reshape(1).long(), table, (index.expand(batch) + 1).clamp(max=smax)
-    if start is not None:
-        return (index - start).reshape(1).long(), table, (index.expand(batch) + 1 - start).clamp(0, smax)
-    return index.reshape(1).long(), table, index.expand(batch) + 1
+        whole = smax if whole is None else whole
+        index, lengths = index % whole, lengths.clamp(max=whole)
+    return (index - start).reshape(1).long(), table, (lengths - start).clamp(0, smax)
 
 
 def attention_decode(

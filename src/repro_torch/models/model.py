@@ -42,16 +42,17 @@ activations kept for the backward do. Under the sharded train step
 ``loss`` gets each leaf's local shard and gathers a layer's leaves (a
 group's) inside that unit and the head's where they are used
 (``sharding/fsdp.py``); with nothing installed the gathers are the leaves
-themselves. Under its ``model`` axis the attention families' layers
-(``_transformer_fns``) and every family's embedding, head and
-cross-entropy compute this rank's part of each product that axis splits
-(``models/layers.tp_modes``); the SSM and RG-LRU blocks, and the hybrid's
-attention and MLP layers gathered with them, compute with whole leaves
-(ROADMAP.md §1 item 16b). The attention families' ``prefill`` and
+themselves. Under its ``model`` axis every family's layers, embedding,
+head and cross-entropy compute this rank's part of each product that axis
+splits (``models/layers.tp_modes``): the attention families' heads, FFN
+hidden and experts, the SSM's heads (``models/ssm.py``), the RG-LRU's
+channels (``models/rglru.py``). Every family's ``prefill`` and
 ``decode_step`` run the same split under the sharded serving steps
 (``launch/steps.make_sharded_prefill_step``), one layer's leaves gathered
-at a time, the KV cache's sequence cut over ``model`` where
-``cache_shardings`` cuts it.
+at a time, the cache the rank's shard as ``cache_shardings`` places it:
+the KV cache's sequence (the hybrid's ring's slots) cut over ``model``
+where it divides, the SSM's state by heads and its conv history by
+channels, the RG-LRU's state and conv history by channels.
 """
 from __future__ import annotations
 
@@ -92,6 +93,14 @@ class ModelFns:
     init_cache: Callable
 
 
+def prefill_slots(cfg: ModelConfig, s: int, max_seq: Optional[int] = None) -> int:
+    """The ``max_seq`` of ``init_cache`` for the whole cache that ``prefill``
+    builds from S tokens: ``max(max_seq, S)`` slots for the attention
+    families; the hybrid's ring is sized by the prompt (``init_cache``
+    takes ``min(window, S)``) and the SSM's state reads neither."""
+    return s if cfg.family in ("ssm", "hybrid") else max(max_seq or s, s)
+
+
 def _init_head(gen: torch.Generator, cfg: ModelConfig):
     dt = common.dtype_of(cfg)
     d, v = cfg.d_model, cfg.vocab_size
@@ -106,6 +115,14 @@ def _gather_tp(tree):
     """``fsdp.gather`` of a layer's or the head's leaves, each ``model``
     shard kept where the layer computes its part with it (``tp_modes``)."""
     return fsdp.gather(tree, tp_modes(fsdp.model_dims(tree)))
+
+
+def _tp_cut(n: int) -> int:
+    """n / ``model`` where the installed ``model`` axis divides n, else n:
+    the heads or channels of a cache shard, as ``cache_shardings`` cuts
+    them."""
+    axis = fsdp.tp()
+    return n // axis.size if axis is not None and n % axis.size == 0 else n
 
 
 def _embed(params, ids):
@@ -403,7 +420,7 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         rank's shard of it (the rows of every rank that shares it)."""
         x, positions, positions3 = _embed_inputs(params, batch)
         b, s = x.shape[:2]
-        smax, seq = max(max_seq or s, s), fsdp.seq_axis()
+        smax, seq = prefill_slots(cfg, s, max_seq), fsdp.seq_axis()
         if seq is not None:
             assert smax % seq.size == 0, f"{smax} slots do not split {seq.size} ways"
             smax //= seq.size
@@ -433,10 +450,9 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         positions = index.expand(b, 1)
         # the reference's decode takes position = index on all three M-RoPE axes
         positions3 = index.expand(3, b, 1) if cfg.family == "vlm" else None
-        if seq is None:
-            pages, write = kv_pages(index, b, n), True
-        else:  # the rank's slots [r n, (r + 1) n); the token's k/v go to the rank that owns slot index
-            pages, write = kv_pages(index, b, n, start=seq.index * n), host // n == seq.index
+        # the rank's slots [r n, (r + 1) n); the token's k/v go to the rank that owns slot index
+        r = seq.index if seq is not None else 0
+        pages, write = kv_pages(index, b, n, start=r * n), host // n == r
         for l, lp in enumerate(_layer_views(params["layers"], L)):
             lp = _gather_tp(lp)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -470,14 +486,18 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
 
     def _run_layers(params, tokens, cache=None):
         """The layer stack over the whole sequence; with ``cache``, each
-        layer's final state and conv tail are written into it."""
-        x = params["head"]["embed"][tokens]
+        layer's final state and conv tail are written into it (under the
+        sharded serving step, the rank's heads and run of channels, of the
+        rows of every rank that shares its shard)."""
+        x = _embed(params, tokens)
         for l, lp in enumerate(_layer_views(params["layers"], L)):
+            lp = _gather_tp(lp)
             h = rms_norm(x, lp["norm"], cfg.norm_eps)
             out, st = ssm.ssm_apply_with_state(lp["mixer"], h, cfg)
             if cache is not None:
-                cache["state"][l] = st["state"]
-                cache["conv"][l] = st["conv"]
+                cache["state"][l] = fsdp.share_all_gather(st["state"])
+                cache["conv"][l] = fsdp.share_all_gather(ssm.conv_history(lp["mixer"], st["conv"], cfg,
+                                                                          cache["conv"].shape[-1]))
             x = x + out
         return x
 
@@ -485,7 +505,7 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         return _logits(params["head"], _run_layers(params, batch["tokens"]), cfg)
 
     def _loss_layer(lp, x):
-        lp = fsdp.gather(lp)
+        lp = _gather_tp(lp)
         return x + ssm.ssm_apply(lp["mixer"], rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
 
     def loss(params, batch):
@@ -496,38 +516,52 @@ def _ssm_fns(cfg: ModelConfig) -> ModelFns:
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
-        """``max_seq`` is not used: the decode state has a constant size."""
+        """``max_seq`` is not used: the decode state has a constant size.
+        Under an installed ``model`` axis, the rank's heads of the state and
+        its run of the conv channels (:func:`_tp_cut`)."""
         dev = resolve_device(device)
-        one = ssm.init_ssm_cache(cfg, batch_size, common.dtype_of(cfg), dev)
-        cache = {key: t.new_zeros((L, *t.shape)) for key, t in one.items()}
-        cache.update(index=torch.zeros((), dtype=torch.int32, device=dev), host_index=0)
-        return cache
+        _, n_heads, conv_dim = ssm.dims(cfg)
+        s = cfg.ssm
+        return {"state": torch.zeros((L, batch_size, _tp_cut(n_heads), s.head_dim, s.state_dim),
+                                     dtype=torch.float32, device=dev),
+                "conv": torch.zeros((L, batch_size, width - 1, _tp_cut(conv_dim)), dtype=common.dtype_of(cfg),
+                                    device=dev),
+                "index": torch.zeros((), dtype=torch.int32, device=dev), "host_index": 0}
 
     def prefill(params, batch, max_seq: Optional[int] = None):
         """Logits at the last position (B, 1, V) and the decode cache after the
         prompt. Raises ValueError for a prompt shorter than ``conv_width - 1``
         tokens: its conv tail would be short, and the reference's decode
-        cannot read the cache the reference builds there."""
+        cannot read the cache the reference builds there. Under the sharded
+        serving step: the rank's rows, logits whole over the vocabulary,
+        the rank's shard of the cache."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         if s < width - 1:
             raise ValueError(f"prefill: {cfg.name} needs a prompt of at least {width - 1} tokens, got {s}")
-        cache = init_cache(b, s, tokens.device)
+        cache = init_cache(b * fsdp.share_size(), s, tokens.device)
         x = _run_layers(params, tokens, cache)
         cache["index"].fill_(s)
         cache["host_index"] = s
-        return _logits(params["head"], x[:, -1:, :], cfg), cache
+        return _serve_logits(params["head"], x[:, -1:, :], cfg), cache
 
     def decode_step(params, cache, batch):
         """One token per row: logits (B, 1, V) and the cache, whose state and
         conv history were updated in place (the returned dict shares them with
-        the one passed in) and whose index is one more."""
-        x = params["head"]["embed"][batch["tokens"]]
+        the one passed in) and whose index is one more. Under the sharded
+        serving step: the rank's rows of its cache shard, each layer's leaves
+        gathered here (``ssm.ssm_decode``)."""
+        x = _embed(params, batch["tokens"])
         for l, lp in enumerate(_layer_views(params["layers"], L)):
+            lp = _gather_tp(lp)
             h = rms_norm(x, lp["norm"], cfg.norm_eps)
-            out, _ = ssm.ssm_decode(lp["mixer"], h, {"state": cache["state"][l], "conv": cache["conv"][l]}, cfg)
+            rows = {k: fsdp.share_rows(cache[k][l]) for k in ("state", "conv")}
+            out, _ = ssm.ssm_decode(lp["mixer"], h, rows, cfg)
+            if fsdp.share_size() > 1:
+                for k, t in rows.items():
+                    cache[k][l].copy_(fsdp.share_all_gather(t))
             x = x + out
-        logits = _logits(params["head"], x, cfg)
+        logits = _serve_logits(params["head"], x, cfg)
         return logits, {"state": cache["state"], "conv": cache["conv"], "index": cache["index"] + 1,
                         "host_index": cache["host_index"] + 1}
 
@@ -586,9 +620,11 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         out, h_new, xr = rglru.rec_block_with_input(lp["rec"], h, cfg)
         return _mlp(lp, x + out), h_new, xr[:, -(width - 1) :]
 
-    def _attn_apply(lp, x, positions):
+    def _attn_apply(lp, x, positions, whole_kv=False):
+        """An attention layer over the sequence: (x, (k, v)); with
+        ``whole_kv``, every KV head (``attention_apply``)."""
         h = rms_norm(x, lp["norm"], cfg.norm_eps)
-        out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, window=window)
+        out, kv = attention_apply(lp["attn"], h, cfg, positions=positions, window=window, whole_kv=whole_kv)
         return _mlp(lp, x + out), kv
 
     def _views(params):
@@ -605,24 +641,38 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
     def _run_full(params, tokens, cache=None):
         """The layer stack over the whole sequence; with ``cache``, each
         recurrent layer's state and conv tail and each attention layer's last
-        ``w`` k/v, in ring order, are written into it."""
-        x = params["head"]["embed"][tokens]
+        ``w`` k/v, in ring order, are written into it. Under the sharded
+        serving step each layer's leaves are gathered here, and the cache is
+        the rank's shard: its channels of the state and conv tail, and,
+        where ``model`` splits the ring (``fsdp.seq_axis``), its slots [r n,
+        (r + 1) n) of it, cut after the roll; of the rows of every rank that
+        shares it (``fsdp.share_all_gather``)."""
+        x = _embed(params, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         recs, attns = _views(params)
+        seq = fsdp.seq_axis()
         for kind, i in _order():
             if kind == "rec":
-                x, h, tail = _rec_apply(recs[i], x)
+                x, h, tail = _rec_apply(_gather_tp(recs[i]), x)
                 if cache is not None:
-                    cache["h"][i] = h
-                    cache["conv"][i] = tail
+                    cache["h"][i] = fsdp.share_all_gather(h)
+                    cache["conv"][i] = fsdp.share_all_gather(tail)
             else:
-                x, kv = _attn_apply(attns[i], x, positions)
+                x, kv = _attn_apply(_gather_tp(attns[i]), x, positions, cache is not None)
                 if cache is not None:
-                    w = cache["k"].shape[2]
-                    for key, t in zip(("k", "v"), kv):  # the reference's seed_ring
-                        cache[key][i] = torch.roll(t[:, -w:], (s - w) % w, dims=1)
+                    for key, t in zip(("k", "v"), kv):
+                        cache[key][i] = fsdp.share_all_gather(_seed_ring(t, cache["k"].shape[2], seq))
         return x
+
+    def _seed_ring(t, n, seq):
+        """The reference's seed_ring of the prompt's k or v ``t`` (B, S, Hkv,
+        hd): its last ``w`` positions in ring order, w = n, or n times the
+        size of ``seq`` where that axis splits the ring: then the rank's n
+        slots of it."""
+        s, w = t.shape[1], n * seq.size if seq is not None else n
+        ring = torch.roll(t[:, -w:], (s - w) % w, dims=1)
+        return ring if seq is None else ring[:, seq.index * n : (seq.index + 1) * n]
 
     def forward(params, batch):
         return _logits(params["head"], _run_full(params, batch["tokens"]), cfg)
@@ -630,7 +680,7 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
     def _loss_group(r0, r1, attn, x, positions):
         """One (rec, rec, attn) group of ``loss``, the reference's remat unit,
         its leaves gathered together under the sharded step."""
-        g = fsdp.gather({"r0": r0, "r1": r1, "attn": attn})
+        g = _gather_tp({"r0": r0, "r1": r1, "attn": attn})
         x = _rec_apply(g["r0"], x)[0]
         x = _rec_apply(g["r1"], x)[0]
         return _attn_apply(g["attn"], x, positions)[0]
@@ -644,18 +694,20 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         for g in range(n_groups):
             x = _remat(cfg, _loss_group, recs[2 * g], recs[2 * g + 1], attns[g], x, positions)
         for i in range(n_rem):  # the trailing recurrent layers, outside the reference's remat scan
-            x = _rec_apply(fsdp.gather(recs[2 * n_groups + i]), x)[0]
+            x = _rec_apply(_gather_tp(recs[2 * n_groups + i]), x)[0]
         ce = _head_loss(params["head"], x, batch["labels"], cfg)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
+        """A ring of ``min(window, max_seq)`` slots; under an installed
+        ``model`` axis, the rank's channels of the recurrent state and conv
+        history (:func:`_tp_cut`)."""
         dev = resolve_device(device)
         dt = common.dtype_of(cfg)
-        w = min(window, max_seq)
-        kv = (n_attn, batch_size, w, cfg.num_kv_heads, hd)
+        kv = (n_attn, batch_size, min(window, max_seq), cfg.num_kv_heads, hd)
         return {
-            "h": torch.zeros((n_rec, batch_size, cfg.d_model), dtype=torch.float32, device=dev),
-            "conv": torch.zeros((n_rec, batch_size, width - 1, cfg.d_model), dtype=dt, device=dev),
+            "h": torch.zeros((n_rec, batch_size, _tp_cut(cfg.d_model)), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((n_rec, batch_size, width - 1, _tp_cut(cfg.d_model)), dtype=dt, device=dev),
             "k": torch.zeros(kv, dtype=dt, device=dev),
             "v": torch.zeros(kv, dtype=dt, device=dev),
             "index": torch.zeros((), dtype=torch.int32, device=dev),
@@ -669,45 +721,61 @@ def _hybrid_fns(cfg: ModelConfig) -> ModelFns:
         of S slots, whose first decode step overwrites position 0). Raises
         ValueError for a prompt shorter than ``conv_width - 1`` tokens: its
         conv tail would be short, and the reference's decode cannot read the
-        cache the reference builds there."""
+        cache the reference builds there. Under the sharded serving step:
+        the rank's rows, logits whole over the vocabulary, the rank's shard
+        of the cache (:func:`_run_full`)."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         if s < width - 1:
             raise ValueError(f"prefill: {cfg.name} needs a prompt of at least {width - 1} tokens, got {s}")
-        cache = init_cache(b, s, tokens.device)
+        w, seq = min(window, prefill_slots(cfg, s, max_seq)), fsdp.seq_axis()
+        if seq is not None:
+            assert w % seq.size == 0, f"a ring of {w} slots does not split {seq.size} ways"
+            w //= seq.size
+        cache = init_cache(b * fsdp.share_size(), w, tokens.device)
         x = _run_full(params, tokens, cache)
         cache["index"].fill_(s)
         cache["host_index"] = s
-        return _logits(params["head"], x[:, -1:, :], cfg), cache
+        return _serve_logits(params["head"], x[:, -1:, :], cfg), cache
 
     def decode_step(params, cache, batch):
         """One token per row at position ``cache["index"]``: logits (B, 1, V)
         and the cache, whose state, conv history and k/v rings were updated in
         place (the returned dict shares them with the one passed in) and whose
-        index is one more. A ring never fills, so there is no bound to check."""
-        x = params["head"]["embed"][batch["tokens"]]
+        index is one more. A ring never fills, so there is no bound to check.
+        Under the sharded serving step: the rank's rows of its cache shard,
+        each layer's leaves gathered here; where ``model`` splits the ring
+        (``fsdp.seq_axis``), the token's k / v go to the rank that owns slot
+        ``index % w`` (from ``host_index``: no device sync), and each rank
+        attends over its slots (``layers.attention_decode``)."""
+        x = _embed(params, batch["tokens"])
         b = x.shape[0]
         index = cache["index"]
         positions = index.expand(b, 1)
-        pages = kv_pages(index, b, cache["k"].shape[2], ring=True)
+        n, seq = cache["k"].shape[2], fsdp.seq_axis()
+        # the rank's slots [r n, (r + 1) n) of a ring of w
+        r, w = (seq.index, n * seq.size) if seq is not None else (0, n)
+        pages = kv_pages(index, b, n, ring=True, start=r * n, whole=w)
+        write = cache["host_index"] % w // n == r
         recs, attns = _views(params)
         for kind, i in _order():
             if kind == "rec":
-                lp = recs[i]
+                lp = _gather_tp(recs[i])
                 h = rms_norm(x, lp["norm"], cfg.norm_eps)
-                out, h_new, conv_new = rglru.rec_block_decode(lp["rec"], h, cache["h"][i], cfg, cache["conv"][i])
-                cache["h"][i] = h_new
-                cache["conv"][i] = conv_new
+                h_prev, conv = fsdp.share_rows(cache["h"][i]), fsdp.share_rows(cache["conv"][i])
+                out, h_new, conv_new = rglru.rec_block_decode(lp["rec"], h, h_prev, cfg, conv)
+                cache["h"][i] = fsdp.share_all_gather(h_new)
+                cache["conv"][i] = fsdp.share_all_gather(conv_new)
                 x = _mlp(lp, x + out)
             else:
-                lp = attns[i]
+                lp = _gather_tp(attns[i])
                 h = rms_norm(x, lp["norm"], cfg.norm_eps)
                 out, _ = attention_decode(
                     lp["attn"], h, cfg, k_cache=cache["k"][i], v_cache=cache["v"][i],
-                    index=index, positions=positions, window=window, ring=True, pages=pages,
+                    index=index, positions=positions, window=window, ring=True, pages=pages, write=write,
                 )
                 x = _mlp(lp, x + out)
-        logits = _logits(params["head"], x, cfg)
+        logits = _serve_logits(params["head"], x, cfg)
         return logits, {"h": cache["h"], "conv": cache["conv"], "k": cache["k"], "v": cache["v"],
                         "index": index + 1, "host_index": cache["host_index"] + 1}
 

@@ -14,6 +14,14 @@ in f32, as the reference computes it outside any Pallas kernel. bf16 rounds
 where the reference rounds: after each projection, the conv's taps, and
 ``h`` before the gate branch's product. Init functions take a ``lead`` shape
 prefix for the stacked-layer layout.
+
+Under the sharded steps' ``model`` axis (``sharding/fsdp.py``), where it
+divides d_model, a rank computes its channels, as the reference's GSPMD
+does with its placements (``sharding/specs.py``): ``w_in`` and
+``w_gate_branch`` on its columns, the conv on its channels, ``w_a`` and
+``w_x`` on its columns of the whole conv output (gathered over ``model``),
+the gates and the scan on its channels (each channel's recurrence is its
+own), ``w_out`` on its rows, summed over ``model``.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 from repro_torch.models.layers import linear
+from repro_torch.sharding import fsdp
 
 RGLRU_C = 8.0
 
@@ -58,9 +67,12 @@ def _gelu(x):
 
 
 def _gates(p, xb):
-    """(a, gated input), both (B, S, D) f32, from the conv output xb."""
-    r = torch.sigmoid(linear(xb, p["w_a"]).float())
-    i = torch.sigmoid(linear(xb, p["w_x"]).float())
+    """(a, gated input), both (B, S, D) f32, from the conv output xb; on
+    the rank's channels, the gates' products read xb whole, gathered over
+    ``model``."""
+    whole = fsdp.tp_all_gather(xb, -1) if fsdp.is_tp_shard(p["w_a"]) else xb
+    r = torch.sigmoid(linear(whole, p["w_a"]).float())
+    i = torch.sigmoid(linear(whole, p["w_x"]).float())
     log_a = -RGLRU_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xb.float())
@@ -127,7 +139,11 @@ def rec_block_with_input(p, x, cfg: ModelConfig, h0=None):
     """:func:`rec_block_apply` that also returns xr = x @ w_in (B, S, D), of
     which :func:`conv_tail` is the last ``width - 1`` rows: prefill takes the
     tail from here, the same product on the same input, instead of computing
-    x @ w_in a second time as the reference does."""
+    x @ w_in a second time as the reference does. On the rank's ``model``
+    shard, h_last and xr are its channels'."""
+    split = fsdp.is_tp_shard(p["w_in"])
+    if split:
+        x = fsdp.tp_copy(x)
     xr = linear(x, p["w_in"])
     xg = _gelu(linear(x, p["w_gate_branch"]))
     xb = _causal_conv(xr, p["conv_w"], p["conv_b"])
@@ -135,7 +151,7 @@ def rec_block_with_input(p, x, cfg: ModelConfig, h0=None):
     h = rglru_scan(a, gated_in, h0)
     out = (h.to(x.dtype) * xg).to(x.dtype)
     out = linear(out, p["w_out"])
-    return out, h[:, -1, :], xr
+    return (fsdp.tp_sum(out) if split else out), h[:, -1, :], xr
 
 
 def rec_block_apply(p, x, cfg: ModelConfig, h0=None):
@@ -160,8 +176,12 @@ def rec_block_decode(p, x, h_prev, cfg: ModelConfig, conv_state=None):
     conv_state: (B, width-1, D) trailing conv inputs (or None for width-1
     zeros, e.g. at sequence start). Returns (out, h, new_conv); the caller
     writes h and new_conv into its cache. The conv's taps are summed in f32
-    and rounded once, as the reference's einsum.
+    and rounded once, as the reference's einsum. On the rank's ``model``
+    shard, h_prev, conv_state, h and new_conv are its channels'.
     """
+    split = fsdp.is_tp_shard(p["w_in"])
+    if split:
+        x = fsdp.tp_copy(x)
     xr = linear(x, p["w_in"])
     xg = _gelu(linear(x, p["w_gate_branch"]))
     width = p["conv_w"].shape[0]
@@ -175,4 +195,4 @@ def rec_block_decode(p, x, h_prev, cfg: ModelConfig, conv_state=None):
     h = a[:, 0] * h_prev + gated_in[:, 0]  # (B, D)
     out = (h[:, None, :].to(x.dtype) * xg).to(x.dtype)
     out = linear(out, p["w_out"])
-    return out, h, new_conv
+    return (fsdp.tp_sum(out) if split else out), h, new_conv

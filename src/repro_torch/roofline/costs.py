@@ -12,43 +12,38 @@ the port's own scheme, not XLA's:
   stacked tree, so each period of the layer pattern adds the same products:
   :func:`depth_flops` counts the model at one and two periods (with any
   trailing layers) and extends that line to the published depth.
-* collective bytes and counts by kind. For training, every collective
-  that one rank's sharded train step issues (``launch/steps.py``,
-  ``sharding/fsdp.py``), noted as the dry-run's memory pass runs the step
-  on meta (``fsdp.recording`` into :meth:`Plan.note`), remat's replay and
-  its early stop included: the leaves' gathers (over ``data``, and over
-  ``model`` where a layer computes with the whole leaf), their gradients'
-  reduce-scatters and all-reduces, the activations' sums and gathers over
-  ``model`` where a product is split over it (two all-reduces a
-  transformer layer forward and two backward, the K/V gathers, the
-  embedding's and the cross-entropy's sums), MoE's count tables and
-  load-balance sums over the dp group, the optimizer's and the clip norm's
-  sums over a leaf's shards, the label count, loss and ``ce``. An
+* collective bytes and counts by kind: every collective that one rank's
+  sharded step issues (``launch/steps.py``, ``sharding/fsdp.py``), noted
+  as the dry-run's memory pass runs the step on meta (``fsdp.recording``
+  into :meth:`Plan.note`). For training, remat's replay and its early stop
+  included: the leaves' gathers (over ``data``, and over ``model`` where a
+  layer computes with the whole leaf), their gradients' reduce-scatters
+  and all-reduces, the activations' sums and gathers over ``model`` where
+  a product is split over it (two all-reduces a transformer layer forward
+  and two backward, the K/V gathers, the RG-LRU's gate inputs gathered,
+  the SSM's projection exchanged and its gated norm's sums of squares,
+  the embedding's and the cross-entropy's sums), MoE's count tables and
+  load-balance sums over the dp group, the optimizer's and the clip
+  norm's sums over a leaf's shards, the label count, loss and ``ce``. For
+  serving, rank 0's sharded prefill and decode
+  (``launch/steps.make_sharded_prefill_step`` and
+  ``make_sharded_serve_step``), every family: each layer's leaves gathered
+  over ``data``, the products' sums, gathers and exchanges over ``model``,
+  the cache heads and conv channels a prefill gathers, a decode token's q
+  / k / v gathered whole and its attention merged over ``model``, the SSM
+  decode's conv history gathered, the logits' vocabulary gathered. An
   all-gather moves its result less its operand, a reduce-scatter its
   operand less its result, an all-reduce twice its operand (a ring, the
-  reference's model). The attention families' serving steps are recorded
-  the same way from rank 0's sharded prefill and decode
-  (``launch/steps.make_sharded_prefill_step`` and
-  ``make_sharded_serve_step``): each layer's leaves gathered over
-  ``data``, the products' sums and gathers over ``model``, the cache heads
-  a prefill gathers, a decode token's q / k / v gathered whole and its
-  attention merged over ``model``, the logits' vocabulary gathered. The
-  SSM and hybrid serving steps, not yet split (ROADMAP.md §1 item 16b),
-  gather the parameters and, for decode, each rank's rows of the cache
-  along the axes that split its sequence or heads (:meth:`Plan.gather`):
-  the figures of a gather-before-use scheme.
+  reference's model), an all-to-all what it sends to the other ranks.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Tuple
 
-import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import mesh_shape
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
 
@@ -92,43 +87,19 @@ def depth_flops(cfg: ModelConfig, count: Callable[[ModelConfig], int]) -> int:
     return one + (n - 1) * (two - one)
 
 
-def _bytes(shape, dtype) -> int:
-    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-
-
-def gathered_shape(shape, sharding, keep_dims: Iterable[int] = ()) -> Tuple[int, ...]:
-    """The shape a rank holds after gathering a leaf over every axis that
-    splits it, except those of ``keep_dims``."""
-    shard = sharding.shard_shape(shape)
-    return tuple(shard[d] if d in keep_dims else n for d, n in enumerate(shape))
-
-
 class Plan:
     """Collective bytes and counts a device moves in one step, by kind."""
 
-    def __init__(self, mesh):
-        self.sizes = mesh_shape(mesh).shape
+    def __init__(self):
         self.bytes = {k: 0.0 for k in COLLECTIVES}
         self.counts = {k: 0.0 for k in COLLECTIVES}
 
-    def gather(self, shape, dtype, sharding, keep_dims: Iterable[int] = ()) -> int:
-        """One all-gather per mesh axis of size > 1 that splits the leaf
-        (outside ``keep_dims``), moving the gathered size less the shard.
-        Returns the bytes the gathered copy adds on the device."""
-        keep = tuple(keep_dims)
-        axes = [a for d in range(len(shape)) if d not in keep for a in sharding.axes(d) if self.sizes[a] > 1]
-        if not axes:
-            return 0
-        moved = _bytes(gathered_shape(shape, sharding, keep), dtype) - _bytes(sharding.shard_shape(shape), dtype)
-        self.bytes["all-gather"] += moved
-        self.counts["all-gather"] += len(axes)
-        return moved
-
     def note(self, kind: str, operand: int, result: int) -> None:
         """One collective of ``kind`` over an axis of size > 1, from
-        ``operand`` bytes to ``result`` bytes on this device."""
+        ``operand`` bytes to ``result`` bytes on this device (for an
+        all-to-all, those sent to and received from the other ranks)."""
         moved = {"all-gather": result - operand, "reduce-scatter": operand - result,
-                 "all-reduce": 2 * operand}[kind]
+                 "all-reduce": 2 * operand, "all-to-all": operand}[kind]
         self.bytes[kind] += moved
         self.counts[kind] += 1
 

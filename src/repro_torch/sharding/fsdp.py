@@ -47,7 +47,11 @@ logits) carries its whole gradient on each of them. :func:`tp_copy`
 of a product, :func:`tp_sum` (all-reduce forward, identity backward)
 after it, and :func:`tp_all_gather` (all-gather forward, reduce-scatter
 backward) brings a split activation whole to an op that reads more than
-the rank's part of it (a KV head two ranks share).
+the rank's part of it (a KV head two ranks share, the RG-LRU's gates).
+:func:`tp_exchange` (an all-to-all, whose backward is the reverse one)
+hands each rank the columns it reads of an activation whose columns the
+ranks hold in runs that do not line up with what they read (the SSM's
+packed projection).
 
 With nothing installed, or where neither the batch nor a group's leaves
 are split (a one-rank mesh), :func:`gather` returns its tree itself and no
@@ -306,20 +310,27 @@ def recording(plan):
         _recorders.pop()
 
 
-def note(kind: str, operand: torch.Tensor, result: torch.Tensor) -> None:
+def _nbytes(t) -> int:
+    return t if isinstance(t, int) else t.numel() * t.element_size()
+
+
+def note(kind: str, operand, result) -> None:
+    """Notes one collective for every :func:`recording`: its operand and
+    result, tensors or byte counts."""
     for plan in _recorders:
-        plan.note(kind, operand.numel() * operand.element_size(), result.numel() * result.element_size())
+        plan.note(kind, _nbytes(operand), _nbytes(result))
 
 
-def _collective(fn, kind: str, out: torch.Tensor, src: torch.Tensor, axis: Axis, **kwargs) -> None:
+def _collective(fn, kind: str, out: torch.Tensor, src: torch.Tensor, axis: Axis, noted=None, **kwargs) -> None:
     """``fn`` over ``axis``'s group from ``src`` into ``out`` (the same
-    tensor for an all-reduce), noted for :func:`recording`; on meta nothing
-    runs. Under a count of real tensors (``roofline.memory``) it returns
-    only once the process group has let go of both: gloo's worker thread
-    drops its references after the caller has woken, so a buffer the
-    caller frees at once would otherwise die on that thread, whenever it
-    runs, and the count's peak would depend on the threads' timing."""
-    note(kind, src, out)
+    tensor for an all-reduce), noted for :func:`recording` (as ``noted``,
+    an (operand, result) pair of byte counts, where given); on meta
+    nothing runs. Under a count of real tensors (``roofline.memory``) it
+    returns only once the process group has let go of both: gloo's worker
+    thread drops its references after the caller has woken, so a buffer
+    the caller frees at once would otherwise die on that thread, whenever
+    it runs, and the count's peak would depend on the threads' timing."""
+    note(kind, *((src, out) if noted is None else noted))
     if out.is_meta:
         return
     refs = _refs(out, src) if memory.counting() is not None else None
@@ -539,6 +550,56 @@ def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     order), on each of them; its gradient is reduce-scattered back."""
     axis = tp()
     return x if axis is None else _AllGather.apply(axis, dim % x.dim(), x)
+
+
+def _all_to_all(src: torch.Tensor, sends, recvs, axis: Axis) -> torch.Tensor:
+    """Rows ``sends[q]`` of ``src`` (runs in rank order) to rank q of
+    ``axis``, and ``recvs[q]`` rows from each, joined in rank order; noted
+    as the bytes sent to and received from the other ranks."""
+    out = src.new_empty((sum(recvs), *src.shape[1:]))
+    row = src[0].numel() * src.element_size() if src.shape[0] else 0
+    noted = ((sum(sends) - sends[axis.index]) * row, (sum(recvs) - recvs[axis.index]) * row)
+    _collective(dist.all_to_all_single, "all-to-all", out, src, axis, noted,
+                output_split_sizes=list(recvs), input_split_sizes=list(sends))
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """Columns of an activation to the ranks along ``model`` that read
+    them: forward an all-to-all, backward the reverse all-to-all and each
+    rank's gradients added into the columns they came from."""
+
+    @staticmethod
+    def forward(ctx, axis, x, send, sends, recvs):
+        ctx.axis, ctx.sends, ctx.recvs, ctx.shape = axis, sends, recvs, x.shape
+        ctx.save_for_backward(send)
+        rows = x.reshape(-1, x.shape[-1]).t()  # (columns, rows): a rank's columns are rows of the buffers
+        out = _all_to_all(rows.index_select(0, send), sends, recvs, axis)
+        return out.t().reshape(*x.shape[:-1], out.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (send,) = ctx.saved_tensors
+        back = _all_to_all(g.reshape(-1, g.shape[-1]).t().contiguous(), ctx.recvs, ctx.sends, ctx.axis)
+        grad = back.new_zeros((ctx.shape[-1], back.shape[1]))
+        start = 0
+        for n in ctx.sends:  # a column goes to a rank once: each add has distinct indices, so any order gives one sum
+            grad.index_add_(0, send[start : start + n], back[start : start + n])
+            start += n
+        return None, grad.t().reshape(ctx.shape), None, None, None
+
+
+def tp_exchange(x: torch.Tensor, send: torch.Tensor, sends, recvs) -> torch.Tensor:
+    """The columns this rank reads of an activation whose columns ``model``
+    splits: ``x`` (..., n) holds the rank's own; ``send`` (int64, on x's
+    device) the indices of those each rank reads, rank 0's first,
+    ``sends[q]`` of them for rank q; ``recvs[q]`` columns come from rank
+    q. Returns (..., sum(recvs)), the columns in rank order: an all-to-all
+    over ``model`` (a column may go to several ranks), whose backward sums
+    each column's gradients from the ranks that read it. ``x`` itself
+    where no ``model`` axis is installed."""
+    axis = tp()
+    return x if axis is None else _Exchange.apply(axis, x, send, tuple(sends), tuple(recvs))
 
 
 def tp_max(x: torch.Tensor) -> torch.Tensor:

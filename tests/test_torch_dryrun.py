@@ -22,10 +22,14 @@ are those of the real state, the collective plan is the sharded step's
 all-reduced as its backward ends, the products split over ``model`` and
 their activations summed and gathered over it), the products a device
 computes on (1, 4) are a quarter of the 1x1 count as under the reference's
-GSPMD, and ``main`` writes every cell of an arch on the three meshes. ``temp_bytes`` against what the step holds on
+GSPMD (the SSM and hybrid on 1x4, 2x2 and the pod meshes too, in training,
+prefill and decode: the SSM's decode and the hybrid's differ from the
+reference's at 1x1 by the conv's taps, which XLA counts as a dot), and
+``main`` writes every cell of an arch on the three meshes. ``temp_bytes`` against what the step holds on
 gloo ranks: ``tests/test_torch_fsdp.py``."""
 import dataclasses
 import json
+import math
 
 import pytest
 
@@ -177,8 +181,8 @@ from repro.sharding.act import use_activation_mesh
 cfg = get_config(sys.argv[1]).reduced()
 shape = ShapeSpec("t", int(sys.argv[2]), int(sys.argv[3]), "train")
 out = {}
-for name, dims in (("1x1", (1, 1)), ("1x4", (1, 4))):
-    mesh = make_mesh(dims, ("data", "model"))
+for name in sys.argv[4:]:
+    mesh = make_mesh(tuple(int(n) for n in name.split("x")), ("data", "model"))
     bspec = batch_spec(cfg, shape)
     bshard = sh.batch_shardings(cfg, bspec, mesh)
     batch = {k: jax.ShapeDtypeStruct(v.shape, v.dtype, sharding=bshard[k]) for k, v in bspec.items()}
@@ -211,8 +215,8 @@ def test_split_products_on_1x4_beside_the_reference_gspmd():
     root = Path(__file__).resolve().parents[1]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     env.pop("XLA_FLAGS", None)
-    run = subprocess.run([sys.executable, "-c", _GSPMD, "qwen3-1.7b", str(S), str(2 * B)], env=env, cwd=root,
-                         capture_output=True, text=True, timeout=600)
+    run = subprocess.run([sys.executable, "-c", _GSPMD, "qwen3-1.7b", str(S), str(2 * B), "1x1", "1x4"], env=env,
+                         cwd=root, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stderr[-3000:]
     ref = json.loads(run.stdout.strip().splitlines()[-1])
     cfg = get_config("qwen3-1.7b").reduced()
@@ -308,6 +312,88 @@ def test_serving_products_beside_the_reference_gspmd():
         assert all(4 * n == port[0] for n in port[1:])
 
 
+# products' FLOPs a device of the reduced mamba2-1.3b and recurrentgemma-9b
+# under the reference's GSPMD: train 4 x 64 tokens on RECURRENT_MESHES,
+# prefill 8 x 256 and decode of 8 rows against 256 slots on SERVE_MESHES
+RECURRENT_MESHES = ("1x1", "1x4", "2x2")
+RECURRENT_GSPMD = {
+    "mamba2-1.3b": {"train": (474_480_640, 118_620_160, 118_620_160),
+                    "prefill": (995_098_624, 248_774_656, 283_377_664, 248_774_656, 283_377_664),
+                    "decode": (4_558_848, 1_139_712, 1_139_712, 1_139_712, 1_139_712)},
+    "recurrentgemma-9b": {"train": (893_386_752, 223_346_688, 223_346_688),
+                          "prefill": (2_316_304_384, 579_076_096, 679_739_392, 579_076_096, 679_739_392),
+                          "decode": (9_125_888, 2_281_472, 2_281_472, 2_281_472, 2_891_776)},
+}
+# the port's 1x1 count less the reference's: the SSM's multi-operand einsums
+# in training (module docstring); in decode, the conv's 4 taps over its
+# channels for 8 rows, 2 FLOPs each, every recurrent layer (the reference
+# contracts them in one einsum, which XLA counts as a dot; the port sums the
+# taps elementwise): mamba2 2 layers x 288 channels, the hybrid 2 x 128
+RECURRENT_1X1 = {"mamba2-1.3b": {"train": 467_140_608 - 474_480_640, "prefill": 0, "decode": -2 * 8 * 4 * 288 * 2},
+                 "recurrentgemma-9b": {"train": 0, "prefill": 0, "decode": -2 * 8 * 4 * 128 * 2}}
+
+
+def test_recurrent_products_beside_the_reference_gspmd():
+    """The reduced SSM and hybrid configs split over ``model`` as the
+    reference's GSPMD splits them (``models/ssm.py``, ``models/rglru.py``).
+    GSPMD's per-device products (``analyze_hlo`` of ``jit(make_train_step)``,
+    ``jit(make_prefill_step)`` and ``jit(make_serve_step)`` on 4 fake host
+    devices, subprocesses) are a quarter of its 1x1 count on every mesh
+    but prefill on 2x2 and 2x2x1 (13.9% and 17.4% above: it moves rows, as
+    in the dense decode on 2x2x1) and the hybrid's decode on 2x2x1. The
+    port's dry-run: the hybrid exactly a quarter of its 1x1 count on every
+    mesh and step; the SSM a quarter but for ``C Bᵀ`` (the chunked scan's
+    ``bis,bjs->bij``, B x S x Q x state_dim a layer, 2 FLOPs each, three
+    times in training: forward, dB, dC), which every rank computes whole
+    for the heads it holds, within 2%. At 1x1 the port counts the
+    reference's products but for RECURRENT_1X1."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env.pop("XLA_FLAGS", None)
+    runs = {(arch, script): subprocess.Popen(
+        [sys.executable, "-c", script, arch, *(("64", "4", *RECURRENT_MESHES) if script is _GSPMD
+                                               else ("256", "8", *SERVE_MESHES))],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch in RECURRENT_GSPMD for script in (_GSPMD, _GSPMD_SERVE)}
+    port = {}
+    for arch in RECURRENT_GSPMD:
+        cfg = get_config(arch).reduced()
+        port[arch] = {"train": [port_flops(cfg, ShapeSpec("t", 64, 4, "train"), m) for m in RECURRENT_MESHES]}
+        for kind in ("prefill", "decode"):
+            port[arch][kind] = [port_flops(cfg, ShapeSpec("t", 256, 8, kind), m) for m in SERVE_MESHES]
+    for (arch, script), run in runs.items():
+        out, err = run.communicate(timeout=600)
+        assert run.returncode == 0, err[-3000:]
+        ref = json.loads(out.strip().splitlines()[-1])
+        if script is _GSPMD:
+            assert tuple(ref[m] for m in RECURRENT_MESHES) == RECURRENT_GSPMD[arch]["train"], (arch, ref)
+        else:
+            for kind in ("prefill", "decode"):
+                assert tuple(ref[f"{kind} {m}"] for m in SERVE_MESHES) == RECURRENT_GSPMD[arch][kind], (arch, ref)
+    for arch, kinds in port.items():
+        cfg = get_config(arch).reduced()
+        for kind, counts in kinds.items():
+            meshes = RECURRENT_MESHES if kind == "train" else SERVE_MESHES
+            print(f"{arch} {kind}: products' FLOPs a device on {' / '.join(meshes)}: port {counts}, reference "
+                  f"GSPMD {list(RECURRENT_GSPMD[arch][kind])}")
+            assert counts[0] - RECURRENT_GSPMD[arch][kind][0] == RECURRENT_1X1[arch][kind], (arch, kind, counts)
+            for mesh, n in zip(meshes[1:], counts[1:]):
+                *pods, data, model = (int(x) for x in mesh.split("x"))
+                excess = 0
+                if cfg.family == "ssm" and kind != "decode":  # C B^T whole on each rank of model
+                    s = cfg.ssm
+                    b, seq = (4, 64) if kind == "train" else (8, 256)
+                    cb = (3 if kind == "train" else 1) * 2 * b * seq * s.chunk * s.state_dim * cfg.num_layers
+                    excess = cb * (model - 1) // (model * data * math.prod(pods))
+                    assert (excess > 0) == (model > 1) and excess <= 0.02 * counts[0] / 4
+                assert 4 * (n - excess) == counts[0], (arch, kind, mesh, n, counts[0], excess)
+
+
 _SERVE_MEMORY = r'''
 from repro_torch.launch import dryrun
 from repro_torch.launch.specs import make_concrete_batch
@@ -320,7 +406,7 @@ def case_serve_memory(mesh, out):
     """One rank's real sharded prefill and decode, each under
     ``roofline.memory.count`` (the kernels' plain versions), beside the
     dry-run's count of the same cell on meta."""
-    for arch in ("qwen3-1.7b", "grok-1-314b"):
+    for arch in ("qwen3-1.7b", "grok-1-314b", "mamba2-1.3b", "recurrentgemma-9b"):
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         fns = build_model(cfg)
         params = fns.init(torch.Generator().manual_seed(0))
@@ -348,18 +434,18 @@ def case_serve_memory(mesh, out):
 @pytest.mark.parametrize("mesh", ["2x2", "2x1x2"])
 def test_serving_temp_bytes_are_a_gloo_rank_s(tmp_path, mesh):
     """(2, 2) and (pod 2, data 1, model 2) gloo ranks: each rank's count of
-    its real sharded prefill and decode (the reduced dense and grok
-    configs, f32, 4 rows, 64 slots; on the pod mesh each rank computes 2
-    rows of a 4-row cache shard) is the dry-run's ``temp_bytes`` for that
-    cell and mesh, and its bytes by kind at the peak the dry-run's
-    ``temp_breakdown``, byte for byte."""
+    its real sharded prefill and decode (the reduced dense, grok, SSM and
+    hybrid configs, f32, 4 rows, 64 slots (the hybrid's ring 16); on the
+    pod mesh each rank computes 2 rows of a 4-row cache shard) is the
+    dry-run's ``temp_bytes`` for that cell and mesh, and its bytes by kind
+    at the peak the dry-run's ``temp_breakdown``, byte for byte."""
     from test_torch_distributed import _RANK, run_ranks
 
     head, main = _RANK.split('\nif __name__ == "__main__":')
     script = head + "\nfrom repro_torch.launch.mesh import mesh_shape\n" + _SERVE_MEMORY + \
         '\nif __name__ == "__main__":' + main
     out = run_ranks(tmp_path, "serve_memory", mesh, script_text=script)
-    assert len(out) == 4
+    assert len(out) == 8
     for cell, rec in out.items():
         assert rec["temp"] > 0, (cell, rec)
         for peak, breakdown in rec["counts"]:

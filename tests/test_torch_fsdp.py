@@ -151,9 +151,9 @@ def gather_groups(cfg, params, specs, ms, batch_axes, batch):
     the embedding where the inputs use it, each layer (a hybrid group of
     (rec, rec, attn), then its trailing recurrent layers outside remat),
     then the LM head's final norm with ``lm_head`` or, tied, ``embed``
-    again; each leaf's mode by ``layers.tp_modes`` where the model computes
-    its part of the products (the attention families' layers and every
-    head), ``whole`` elsewhere."""
+    again; each leaf's mode by ``layers.tp_modes`` (every family's layers
+    and head compute their part of the products), a hybrid group's leaves
+    named as the model gathers them (``r0/``, ``r1/``, ``attn/``)."""
     from repro_torch.models.layers import tp_modes
     from repro_torch.sharding import specs as sh
 
@@ -166,12 +166,12 @@ def gather_groups(cfg, params, specs, ms, batch_axes, batch):
         sharding = sh.LeafSharding(ms, spec)
         return path, shape, sharding, t.dtype
 
-    def group(remat, items, tp):
-        """``items`` (path, shape, placement, dtype); ``tp``: whether the
-        model computes its part of these leaves' products."""
-        rel = [p.split("/", 2)[-1] if p.startswith("layers/") else p.split("/")[-1] for p, _, _, _ in items]
+    def group(remat, items, rel=None):
+        """``items`` (path, shape, placement, dtype), named ``rel`` in the
+        gathered tree (by default the path's last parts)."""
+        rel = rel or [p.split("/", 2)[-1] if p.startswith("layers/") else p.split("/")[-1] for p, _, _, _ in items]
         dims = [next((d for d in range(len(shape)) if "model" in s.axes(d)), None) for _, shape, s, _ in items]
-        modes = tp_modes(dict(zip(rel, dims))) if tp and model > 1 else {}
+        modes = tp_modes(dict(zip(rel, dims))) if model > 1 else {}
         out = []
         for r, dim, (_, shape, sharding, dtype) in zip(rel, dims, items):
             shard = sharding.shard_shape(shape)
@@ -185,22 +185,27 @@ def gather_groups(cfg, params, specs, ms, batch_axes, batch):
     def stack(prefix, i):
         return [leaf(p, i) for p in names if p.startswith(prefix + "/")]
 
+    def named(name, items):
+        return [name + p.split("/", 1)[1] for p, _, _, _ in items]
+
     groups = []
     if cfg.family != "audio" or "frame_mask" in batch:
-        groups.append(group(False, [leaf("head/embed")], True))
+        groups.append(group(False, [leaf("head/embed")]))
     if cfg.family == "hybrid":
         n_groups = cfg.num_layers // len(cfg.rglru.pattern)
         n_rec = sum(1 for k in cfg.layer_kinds() if k == "rec")
         for g in range(n_groups):
-            items = stack("rec_layers", 2 * g) + stack("rec_layers", 2 * g + 1) + stack("attn_layers", g)
-            groups.append(group(cfg.remat, items, False))
+            parts = [("r0/", stack("rec_layers", 2 * g)), ("r1/", stack("rec_layers", 2 * g + 1)),
+                     ("attn/", stack("attn_layers", g))]
+            groups.append(group(cfg.remat, [i for _, items in parts for i in items],
+                                [r for name, items in parts for r in named(name, items)]))
         for i in range(2 * n_groups, n_rec):
-            groups.append(group(False, stack("rec_layers", i), False))
+            groups.append(group(False, stack("rec_layers", i), named("", stack("rec_layers", i))))
     else:
         for layer in range(cfg.num_layers):
-            groups.append(group(cfg.remat, stack("layers", layer), cfg.family != "ssm"))
+            groups.append(group(cfg.remat, stack("layers", layer)))
     head = "head/embed" if cfg.tie_embeddings else "head/lm_head"
-    groups.append(group(False, [leaf("head/final_norm"), leaf(head)], True))
+    groups.append(group(False, [leaf("head/final_norm"), leaf(head)]))
     return groups
 
 
@@ -324,7 +329,7 @@ def case_unsplit(mesh, out):
 ''' + '\nif __name__ == "__main__":' + _RANK.split('\nif __name__ == "__main__":')[1]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-9b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-9b", "grok-1-314b", "mamba2-1.3b"])
 def test_one_layer_gathered_at_a_time(tmp_path, arch):
     """(2, 4), remat on: never more than one layer's (one hybrid group's)
     gathered leaves, nor one layer's whole gradients, beside the head's; the
