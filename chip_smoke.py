@@ -22,9 +22,11 @@
    ``wgmma_launches`` and held against the route rule, its share of the
    bound, its ratio to the library call and its registers and spills from
    ``-Xptxas -v``; gates the prefill path's ``stream_matmul`` sum, each
-   prefill ``flash_attention`` call, each dense decode ``paged_attention``
-   call and the int8 kernel's M = 4096 sum at MAX_LIBRARY_RATIO times the
-   library's (for int8, ``torch.matmul`` with bf16 weights);
+   ``flash_attention`` call of FA_LIBRARY_GATED (the dense prefills,
+   hubert-xlarge's forward at D = 80 and recurrentgemma-9b's prefill at D =
+   256), each dense decode ``paged_attention`` call and the int8 kernel's M
+   = 4096 sum at MAX_LIBRARY_RATIO times the library's (for int8,
+   ``torch.matmul`` with bf16 weights);
 4. runs qwen3-1.7b and mamba2-1.3b at full width (2 layers) through the
    kernels and holds their logits against the plain versions of the same
    weights on the CPU, for ``forward`` and for prefill + decode, and holds
@@ -53,7 +55,7 @@
    bidirectional encoder, D = 80) runs ``forward`` over 4 x 1024 masked
    frames. Launches are gated exactly (the tied head on the K-major wgmma
    route in ``forward`` and on the K-major gemv at prefill and decode;
-   hubert's attention on the simt route), and first each of the three runs
+   hubert's attention on the wgmma route at D = 80), and first each of the three runs
    at 2 layers against the CPU on the same weights;
 6c. runs the MoE family at published width, its depth cut to fit the card:
    grok-1-314b at 4 of 64 layers and arctic-480b (128 experts, a dense
@@ -76,8 +78,8 @@
    bf16, ``forward`` and prefill + decode), and decode against ``forward``
    after a prefill of ``window`` tokens, where the ring of slots drops what
    the window drops; then a prefill of 4 x 1024 tokens and 64 greedy decode
-   steps, launches gated exactly per call (attention on the simt flash route
-   at prefill, ``paged_attention`` over the ring at decode), against their
+   steps, launches gated exactly per call (attention on the wgmma flash route
+   at D = 256 at prefill, ``paged_attention`` over the ring at decode), against their
    bounds with the device's idle share; then the hybrid beside the live set
    served at 150% oversubscription, oversubscribed logits bit-identical to
    all-resident ones;
@@ -87,11 +89,12 @@
    tensor-core route takes it;
 8. trains: holds ``flash_attention``'s backward kernel against the plain
    version's gradients at every family's training shape in f32 and bf16,
-   each call's route (wgmma for bf16 at head dim 64 and 128, simt
-   otherwise) logged and held against ``bwd_wgmma_launches``, the wgmma
-   route also with the row statistics its forward writes under autograd
-   (the same bits as without) and gated at qwen3-1.7b's call at
-   MAX_BWD_LIBRARY_RATIO times the backward of
+   each call's route (``fa_bwd_route``: wgmma for bf16 at head dim 64, 80,
+   128 and 256, simt otherwise) logged and held against
+   ``bwd_wgmma_launches``, the wgmma route also with the row statistics its
+   forward writes under autograd (the same bits as without) and gated at
+   the calls of FA_BWD_LIBRARY_GATED (qwen3-1.7b's, hubert-xlarge's and
+   recurrentgemma-9b's) at MAX_BWD_LIBRARY_RATIO times the backward of
    ``scaled_dot_product_attention`` (times beside its operations bound and
    that backward, a yardstick the port never calls), and
    ``stream_matmul``'s gradients (through ``stream_matmul`` itself, x read
@@ -266,12 +269,16 @@ INT8_EXACT_REL_L2 = 1e-5
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
-# The backward's tensor-core route at qwen3-1.7b's training call (4 x 1024,
-# H 16 / Hkv 8, D 128, causal, the forward's statistics given) must come
-# within this factor of SDPA's backward on the same inputs: it runs seven
-# products where SDPA's runs five (dQ has a kernel of its own, so that no
-# sum needs atomics and the bits depend on the shapes alone), so it is held
-# to a looser factor than the forward kernels.
+# the flash_attention calls of phase 3 held to MAX_LIBRARY_RATIO: the dense
+# prefills and the tensor-core calls at head dims 80 and 256 of the families
+# and hybrid paths
+FA_LIBRARY_GATED = ("qwen3 prefill", "llama3.2 prefill", "hubert forward", "hybrid prefill")
+# The backward's tensor-core route at qwen3-1.7b's, hubert-xlarge's and
+# recurrentgemma-9b's training calls (FA_BWD_LIBRARY_GATED; the forward's
+# statistics given) must come within this factor of SDPA's backward on the
+# same inputs: it runs seven products where SDPA's runs five (dQ has a
+# kernel of its own, so that no sum needs atomics and the bits depend on the
+# shapes alone), so it is held to a looser factor than the forward kernels.
 MAX_BWD_LIBRARY_RATIO = 3.0
 PATHS = ("serve", "prefill", "decode", "families", "moe", "hybrid", "kernel_bench", "train", "train_moe")
 # Phase 6b: the attention families beside the live set, at published width
@@ -365,6 +372,9 @@ FA_BWD_CASES = (
     ("arctic-480b", TRAIN_B, TRAIN_S, 56, 8, 128, True, 0, {"train_moe": TRAIN_MOE_DEPTHS["arctic-480b"]}),
     ("port_train_lm", 4, 128, 10, 2, 64, True, 0, {}),
 )
+# the rows of FA_BWD_CASES whose bf16 call is held to MAX_BWD_LIBRARY_RATIO:
+# the train path's, and the tensor-core calls at head dims 80 and 256
+FA_BWD_LIBRARY_GATED = (TRAIN_LABEL, "hubert-xlarge", "recurrentgemma-9b", "recurrentgemma-9b S=4096")
 # Card against CPU at published width: (arch, layers, dtypes); the loss and
 # every gradient leaf in f32 within this relative L2 (the same f32 function
 # with sums in another order, ~1e-6 a product), bf16 reported. llama3.2-3b
@@ -610,7 +620,7 @@ def run_phases(torch, dev) -> None:
     recs = {
         "stream_matmul": check_stream_matmul(torch, dev, bench),
         "stream_matmul_int8": check_stream_matmul_int8(torch, dev, bench, usage),
-        "flash_attention": check_flash_attention(torch, dev, bench),
+        "flash_attention": check_flash_attention(torch, dev, bench, usage),
         "paged_attention": check_paged_attention(torch, dev, bench, usage),
     }
     phase_done("3. kernels against their plain versions")
@@ -1031,33 +1041,49 @@ def train_launches(cfg, remat: bool):
     }
 
 
-def train_wgmma(cfg, remat: bool):
-    """The attention launches of one train step of a bf16 model that take
-    the tensor-core route: at head dim 64 or 128 (qwen3-1.7b's 128) every
-    forward (twice with remat) and every backward call, the backward reading
-    the statistics its forward wrote; none at other head dims."""
+def attention_on_wgmma(cfg, b, s) -> bool:
+    """Whether a model's self-attention over b x s positions takes the
+    tensor-core route: ``fa_route`` at the model's heads, head dim and
+    dtype (bf16 at head dim 64, 80, 128 or 256, at least 64 folded rows; the
+    wrappers' operands are 16-byte aligned on these paths)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import fa_route
+
+    return fa_route(b, s, s, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim(),
+                    getattr(torch, cfg.dtype)) == "wgmma"
+
+
+def train_wgmma(cfg, remat: bool, b=TRAIN_B, s=TRAIN_S):
+    """The attention launches of one train step over b x s tokens of a
+    model that take the tensor-core route (:func:`attention_on_wgmma`, so
+    every head dim the route takes: qwen3-1.7b's 128, hubert-xlarge's 80,
+    recurrentgemma-9b's 256): every forward (twice with remat) and every
+    backward call, the backward reading the statistics its forward wrote;
+    none where the rule says simt."""
     _, n_attn = layer_counts(cfg)
-    on = bool(n_attn) and cfg.resolved_head_dim() in (64, 128)
+    on = bool(n_attn) and attention_on_wgmma(cfg, b, s)
     return {"flash_attention": n_attn * (1 + remat) * on, "flash_attention_backward": n_attn * on}
 
 
-def step_wgmma(cfg, path):
+def step_wgmma(cfg, path, b=DECODE_B, s=PROMPT):
     """The launches of one call of ``path`` that take the tensor-core route:
     on prefill and on a forward over DECODE_B x PROMPT positions or more every
     bf16 projection (all but an MoE router, which is f32 on simt; the expert
     products' capacity is above 8 rows there) and, in a forward, the LM head
-    (a prefill's runs on the last position, M = 4: gemv); every attention at
-    head dim 64 or 128 (hubert-xlarge's 80 and recurrentgemma-9b's 256 take
-    simt); none on the live and decode steps (M = 1 and 4, Sq = 1 or paged;
-    an expert capacity of 2). The int8 kernel is on no model's path, the
-    backward on none of these."""
+    (a prefill's runs on the last position, M = 4: gemv); every attention
+    that ``fa_route`` sends there (:func:`attention_on_wgmma` over b x s:
+    hubert-xlarge's D = 80 and recurrentgemma-9b's D = 256 included); none
+    on the live and decode steps (M = 1 and 4, Sq = 1 or paged; an expert
+    capacity of 2). The int8 kernel is on no model's path, the backward on
+    none of these."""
     _, n_attn = layer_counts(cfg)
     if path not in ("prefill", "forward"):
         return {"stream_matmul": 0, "stream_matmul_int8": 0, "flash_attention": 0, "flash_attention_backward": 0}
     routers = cfg.num_layers if cfg.moe is not None else 0
     return {"stream_matmul": model_matmuls(cfg) - routers + (path == "forward"),
             "stream_matmul_int8": 0,
-            "flash_attention": n_attn if n_attn and cfg.resolved_head_dim() in (64, 128) else 0,
+            "flash_attention": n_attn if n_attn and attention_on_wgmma(cfg, b, s) else 0,
             "flash_attention_backward": 0}
 
 
@@ -1386,7 +1412,19 @@ def attention_pairs(sq, skv, causal, window):
     return n
 
 
-def check_flash_attention(torch, dev, bench):
+def sdpa_window_mask(torch, sq, skv, causal, window, dev):
+    """The boolean mask of the SDPA yardstick for a window, or None where
+    the window hides nothing (query position minus key position is at most
+    Sq - 1 < window), so that SDPA takes its causal or unmasked path there
+    as it would for the same attention without a window."""
+    if not 0 < window < sq:
+        return None
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(skv, device=dev)[None, :]
+    return (i - j < window) & ((i >= j) if causal else True)
+
+
+def check_flash_attention(torch, dev, bench, usage):
     import torch.nn.functional as F
 
     from repro_torch.kernels import bench as kernel_bench
@@ -1412,7 +1450,7 @@ def check_flash_attention(torch, dev, bench):
         ("S=1 f32", 1, 1, 1, 16, 8, 128, True, 0, torch.float32, {}),
         ("bench", fb, fs, fs, fh, fhkv, fd, True, 0, torch.bfloat16, {"kernel_bench": 1}),
         # phase 6b: minicpm-2b (MHA, D = 64) and qwen2-vl-7b (g = 7) prefill,
-        # hubert-xlarge's bidirectional forward at D = 80 (the simt route)
+        # hubert-xlarge's bidirectional forward at D = 80 (the wgmma route)
         ("minicpm prefill", DECODE_B, PROMPT, PROMPT, 36, 36, 64, True, 0, torch.bfloat16, {"families": 40}),
         ("qwen2-vl prefill", DECODE_B, PROMPT, PROMPT, 28, 4, 128, True, 0, torch.bfloat16, {"families": 28}),
         ("hubert forward", DECODE_B, PROMPT, PROMPT, 16, 16, 80, False, 0, torch.bfloat16, {"families": 48}),
@@ -1422,9 +1460,9 @@ def check_flash_attention(torch, dev, bench):
          {"moe": MOE_DEPTHS["grok-1-314b"], "train_moe": 2 * TRAIN_MOE_DEPTHS["grok-1-314b"]}),
         ("arctic prefill", DECODE_B, PROMPT, PROMPT, 56, 8, 128, True, 0, torch.bfloat16,
          {"moe": MOE_DEPTHS["arctic-480b"], "train_moe": 2 * TRAIN_MOE_DEPTHS["arctic-480b"]}),
-        # phase 6d: recurrentgemma-9b (MQA, g = 16, D = 256, window 2048; the
-        # simt route) at prefill and the live step, a window that the sequence
-        # outgrows, and f32
+        # phase 6d: recurrentgemma-9b (MQA, g = 16, D = 256, window 2048) at
+        # prefill (the wgmma route), the live step (16 folded rows: simt), a
+        # window that the sequence outgrows, and f32
         ("hybrid prefill", DECODE_B, PROMPT, PROMPT, 16, 1, 256, True, 2048, torch.bfloat16, {"hybrid": 12}),
         ("hybrid live", 1, 1, 1, 16, 1, 256, True, 2048, torch.bfloat16, {"hybrid": 12}),
         ("hybrid windowed", 1, 4096, 4096, 16, 1, 256, True, 2048, torch.bfloat16, {}),
@@ -1453,12 +1491,8 @@ def check_flash_attention(torch, dev, bench):
         t_plain = bench.ms(lambda: attention_ref(q, k, v, **kw))
         # yardstick: PyTorch's fused attention on (B, H, S, D) copies
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        mask = None
-        if window > 0:
-            i = torch.arange(sq, device=dev)[:, None]
-            j = torch.arange(skv, device=dev)[None, :]
-            mask = (i - j < window) & ((i >= j) if causal else True)
-        sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=h != hkv)
+        sdpa_kw = dict(attn_mask=sdpa_window_mask(torch, sq, skv, causal, window, dev), enable_gqa=h != hkv)
+        sdpa_kw["is_causal"] = causal and sdpa_kw["attn_mask"] is None
         t_lib = bench.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw))
         elem = torch.tensor([], dtype=dtype).element_size()
         nbytes = elem * (2 * q.numel() + k.numel() + v.numel())
@@ -1475,15 +1509,20 @@ def check_flash_attention(torch, dev, bench):
             f"window={window} {dtype} [{route}]: err {err:.2e} rel L2 {rel:.2e} kernel {t:.4f} ms "
             f"bound {bt:.5f} ms ({kind}, {100 * bt / t:.0f}%) plain {t_plain:.4f} ms sdpa {t_lib:.4f} ms "
             f"(kernel {t / t_lib:.2f}x)")
-        if "prefill" in calls and not t <= MAX_LIBRARY_RATIO * t_lib:
+        if label in FA_LIBRARY_GATED and not t <= MAX_LIBRARY_RATIO * t_lib:
             raise AssertionError(f"flash_attention {label}: {t:.4f} ms > {MAX_LIBRARY_RATIO} x sdpa {t_lib:.4f} ms")
+    # registers and spills of each tensor-core instance, forward and backward
+    # (the forward's kernel is compiled into both libraries)
+    regs = {f"{kernel} D={d}": kernel_usage(usage, f"{kernel}ILi{d}E")
+            for kernel in ("fa_wgmma_kernel", "fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma") for d in (64, 80, 128, 256)}
+    log("flash_attention tensor-core instances (ptxas): " + "; ".join(f"{k}: {v}" for k, v in regs.items()))
     return {
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
         "max_abs_err": max(errs),
         "bound_by": "+".join(sorted(bound_kinds)),
         "by_path": totals,
-        "extra": {"by_shape": by_shape},
+        "extra": {"by_shape": by_shape, "ptxas": regs},
     }
 
 
@@ -2230,7 +2269,7 @@ def families_slice(torch, dev):
                     raise AssertionError(f"{arch}: forward logits {tuple(logits.shape)} not finite / wrong shape")
                 log(f"  forward over {DECODE_B} x {PROMPT} frames ({int(batch['frame_mask'].sum())} masked): "
                     f"{1e3 * forward_s:.3f} ms, {DECODE_B * PROMPT / forward_s:.1f} frames/s; launches {launches}, "
-                    f"tensor-core {wgmma} (attention on the simt route)")
+                    f"tensor-core {wgmma}")
                 profile_steps(torch, dev, f"{arch} forward", lambda i: fns.forward(params, batch), forward_s)
                 del params, batch, logits
                 torch.cuda.empty_cache()
@@ -2719,7 +2758,7 @@ def hybrid_slice(torch, dev):
     weights from a seed: a prefill of DECODE_B x PROMPT tokens (a ring of
     min(window, PROMPT) slots) and DECODE_STEPS greedy decode steps, each
     call's launches gated exactly (every M = 4096 projection of the prefill
-    on the wgmma route, its 12 flash_attention calls at D = 256 on simt; 293
+    on the wgmma route, its 12 flash_attention calls at D = 256 too; 293
     stream_matmul and 12 paged_attention a decode step), logits finite.
     Reported: prefill time against its bound (operations or weight bytes,
     the larger), each decode step against the bytes it must move (weights,
@@ -2896,14 +2935,14 @@ def check_flash_backward(torch, dev):
     version's gradients, autograd through ``attention_ref`` in f32, at every
     family's training shape (FA_BWD_CASES), in f32 and bf16, the forward's
     output from the forward kernel, itself held against ``attention_ref``. Each call's route (``fa_bwd_route``:
-    wgmma for bf16 at head dim 64 and 128, simt otherwise) is logged and
+    wgmma for bf16 at head dim 64, 80, 128 and 256, simt otherwise) is logged and
     held against ``bwd_wgmma_launches``. Gated: relative L2 of dQ, dK and dV
     (FA_BWD_REL_L2; bf16 against the f32 gradients of the same inputs), the
     same bits on a second call; on the wgmma route also the forward's row
     statistics (written only when asked: O bit-equal without them, within
     1e-5 of ``attention_ref_lse``), the same gradient bits with them as
-    without, and at qwen3's call a time within MAX_BWD_LIBRARY_RATIO of
-    SDPA's backward. Timed (CUDA events, cold L2) as the train path calls
+    without, and at the calls of FA_BWD_LIBRARY_GATED a time within
+    MAX_BWD_LIBRARY_RATIO of SDPA's backward. Timed (CUDA events, cold L2) as the train path calls
     it (with the forward's statistics where its route takes them; also
     without, reported), beside the plain version on the same inputs, the
     backward of ``scaled_dot_product_attention`` on (B, H, S, D) copies (a
@@ -2973,11 +3012,7 @@ def check_flash_backward(torch, dev):
             t_none = bench.ms(lambda: flash_attention_backward(q, k, v, out, do, **kw)) if lse is not None else t
             t_plain = bench.ms(lambda: attention_ref_backward(q, k, v, do, **kw))
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-            mask = None
-            if window > 0:
-                i = torch.arange(s, device=dev)[:, None]
-                j = torch.arange(s, device=dev)[None, :]
-                mask = (i - j < window) & ((i >= j) if causal else True)
+            mask = sdpa_window_mask(torch, s, s, causal, window, dev)
             sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                                                       enable_gqa=h != hkv)
             dot = do.transpose(1, 2).contiguous()
@@ -3003,7 +3038,7 @@ def check_flash_backward(torch, dev):
                 + (f" (without statistics {t_none:.3f} ms; statistics off by {lse_err:.2e})" if lse is not None else "")
                 + f" bound {bt:.4f} ms ({kind}, {100 * bt / t:.1f}%) plain {t_plain:.3f} ms sdpa backward "
                 f"{t_lib:.3f} ms (kernel {t / t_lib:.2f}x)")
-            if label == TRAIN_LABEL and dtype == torch.bfloat16 and not t <= MAX_BWD_LIBRARY_RATIO * t_lib:
+            if label in FA_BWD_LIBRARY_GATED and dtype == torch.bfloat16 and not t <= MAX_BWD_LIBRARY_RATIO * t_lib:
                 raise AssertionError(f"flash_attention_backward {label}: {t:.3f} ms > {MAX_BWD_LIBRARY_RATIO} x sdpa "
                                      f"backward {t_lib:.3f} ms")
             del q, k, v, do, out, grads, lse
@@ -3585,11 +3620,11 @@ def example_module(name: str, folder: str = "examples"):
     return module
 
 
-def gate_train_launches(name, cfg, steps, launches, wgmma):
-    """Every launch of ``steps`` train steps of a dense ``cfg``, exactly
-    (:func:`train_launches`, :func:`train_wgmma`)."""
+def gate_train_launches(name, cfg, steps, launches, wgmma, b=TRAIN_B, s=TRAIN_S):
+    """Every launch of ``steps`` train steps over b x s tokens of a dense
+    ``cfg``, exactly (:func:`train_launches`, :func:`train_wgmma`)."""
     want = {k: steps * n for k, n in train_launches(cfg, cfg.remat).items()}
-    want_wgmma = {k: steps * n for k, n in train_wgmma(cfg, cfg.remat).items()}
+    want_wgmma = {k: steps * n for k, n in train_wgmma(cfg, cfg.remat, b, s).items()}
     if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()):
         raise AssertionError(f"{name}: launches {launches} != {want}, or tensor-core {wgmma} against {want_wgmma}")
 
@@ -3613,7 +3648,7 @@ def quickstart_on_card(torch, dev):
     launches, wgmma = read_launches(), read_wgmma()
     log(f"quickstart: {QUICKSTART_STEPS} steps in {wall:.2f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
         f"launches {launches}, tensor-core {wgmma}")
-    gate_train_launches("quickstart", cfg, QUICKSTART_STEPS, launches, wgmma)
+    gate_train_launches("quickstart", cfg, QUICKSTART_STEPS, launches, wgmma, 8, 128)
     if not (abs(losses[0] - math.log(512)) < 0.6 and losses[-1] < losses[0] - 0.5):
         raise AssertionError(f"quickstart: losses {losses} do not fall from about ln(512)")
     return launches, QUICKSTART_STEPS, wgmma
@@ -3644,7 +3679,8 @@ def train_lm_on_card(torch, dev):
                 f"checkpoints in {wall:.2f} s ({1e3 * wall / steps:.2f} ms a step, checkpoints included; "
                 f"{steps * example.SHAPE.seq_len * example.SHAPE.global_batch / wall:.0f} tokens/s); losses {report.losses[0]:.6f} -> "
                 f"{report.losses[-1]:.6f}; launches {launches}, tensor-core {wgmma}")
-            gate_train_launches(f"train_lm (kill at {kill})", cfg, steps, launches, wgmma)
+            gate_train_launches(f"train_lm (kill at {kill})", cfg, steps, launches, wgmma,
+                                example.SHAPE.global_batch, example.SHAPE.seq_len)
             total = ({k: total[0][k] + launches[k] for k in KERNELS}, total[1] + steps,
                      {k: total[2][k] + wgmma[k] for k in WGMMA_KERNELS})
             runs.append(report)

@@ -16,15 +16,16 @@
 // denominator l and the output accumulator stay in f32, so the (Sq, Skv)
 // score matrix never reaches device memory. Two routes, chosen by the wrapper
 // (ops.py, fa_route) from dtype and shape:
-//  * wgmma (bf16, D = 64 or 128, Sq <= Skv, Sq * g >= 64): a work item is
+//  * wgmma (bf16, D = 64, 80, 128 or 256, Sq <= Skv, Sq * g >= 64): a work item is
 //    128 rows of one (batch, kv head); two consumer warpgroups take 64 each.
 //    Blocks are persistent, one an SM, and walk the items heaviest first
 //    (the causal mask gives late rows the most tiles), so one item's set-up
 //    overlaps the previous item's work. The Q tile is loaded once an item
 //    with 16-byte loads into the 128-byte-swizzled layout wgmma reads. One
 //    producer thread streams K and V tiles of 64 positions through a
-//    3-stage ring with TMA (a 4-D tensor map over
-//    (D, Hkv, Skv, B), 64-element boxes, zero fill past Skv). S = Q K^T is a
+//    ring with TMA (a 4-D tensor map over (D, Hkv, Skv, B), 64-element
+//    boxes, zero fill past Skv and past D; 3 stages, 2 at D = 256, whose
+//    stage is 64 KiB). S = Q K^T is a
 //    wgmma with both operands in shared memory; the scale, the masks and the
 //    online softmax run on the f32 accumulator fragment, where a row's values
 //    live in the 4 threads of a quad (2 shuffles for its max). The softmax is
@@ -40,7 +41,8 @@
 //    of O also writes that row's lse2 = m2 + log2(l); the convention, and
 //    the route's code, which the backward shares, are in
 //    flash_attention_wgmma.cuh. Without one the launch is what it was.
-//  * simt (f32, the one-token live call, other head dims, Sq > Skv): a block
+//  * simt (f32, the one-token live call, fewer than 64 folded rows, other
+//    head dims, Sq > Skv): a block
 //    owns 64 rows and walks KV tiles of 32 positions through shared memory in
 //    plain f32 arithmetic, 16 x 16 threads. Its tiles are sized for D <= 128
 //    or D <= 256 (recurrentgemma's head dim), a template argument chosen by D.
@@ -272,8 +274,8 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int Sq, int
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o share it). D <= 256.
-// window = 0: no window. route: 0 = simt, 1 = wgmma (bfloat16, D = 64 or
-// 128, Sq <= Skv, Sq * H / Hkv >= 64, q, k, v 16-byte aligned); anything
+// window = 0: no window. route: 0 = simt, 1 = wgmma (bfloat16, D = 64, 80,
+// 128 or 256, Sq <= Skv, Sq * H / Hkv >= 64, q, k, v 16-byte aligned); anything
 // else is refused. lse: null, or (wgmma route only) (B, H, Sq) f32 that
 // receives each row's statistics (flash_attention_wgmma.cuh). `sms`: the
 // device's SM count, the wgmma route's most blocks. Returns
@@ -296,8 +298,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     float* stats = static_cast<float*>(lse);
     if (D == 64)
       return fa::launch_wgmma<64>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+    if (D == 80)
+      return fa::launch_wgmma<80>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 128)
       return fa::launch_wgmma<128>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
+                                   s);
+    if (D == 256)
+      return fa::launch_wgmma<256>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
                                    s);
     return static_cast<int>(cudaErrorInvalidValue);
   }

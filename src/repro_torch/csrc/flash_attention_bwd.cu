@@ -18,16 +18,17 @@
 // own over row blocks, and a block of KV positions sums its dK and dV over
 // every row that sees it, the g query heads of its kv head included. Two
 // routes, picked by the wrapper (ops.py, fa_bwd_route) by the forward's rule:
-//  * wgmma (bf16, D = 64 or 128, Sq <= Skv, Sq * g >= 64, every tensor
-//    16-byte aligned), three launches, each reading the rows' statistics in
+//  * wgmma (bf16, D = 64, 80, 128 or 256, Sq <= Skv, Sq * g >= 64, every
+//    tensor 16-byte aligned), three launches, each reading the rows' statistics in
 //    the convention of flash_attention_wgmma.cuh (lse2 = m2 + log2(l), log2
 //    units of the scaled scores, (B, H, Sq) f32): the forward writes them
 //    under autograd; without them a fourth launch, the forward kernel
 //    itself (flash_attention_wgmma.cuh), writes them first, with the same
 //    bits, so the gradients are the same either way.
 //     1. delta: sum_d dO * O of every row, (B, H, Sq) f32;
-//     2. dq: the forward's work items (128 rows, two consumer warpgroups)
-//        and TMA ring of K/V tiles; per tile S = Q K^T and dP = dO V^T
+//     2. dq: the forward's work items (128 rows, two consumer warpgroups;
+//        64 rows and one at D = 256) and TMA ring of K/V tiles; per tile S
+//        = Q K^T and dP = dO V^T
 //        (wgmma, shared-memory operands), P = 2^(S scale log2(e) - lse2),
 //        dS = P (dP - delta) rounded to bf16 in registers, dQ += dS K;
 //     3. dkdv: 128 KV positions of one (batch, kv head) an item, K and V
@@ -38,7 +39,10 @@
 //        dK and dV (2 x 64 f32), S^T and dP^T (2 x 32) and a bf16 operand
 //        (16): it takes 240 registers and leaves the producer warpgroup 24,
 //        which spills ~24 bytes of loop state there (ptxas) and none on the
-//        consumers; 232 / 40 spilled on the consumers.
+//        consumers; 232 / 40 spilled on the consumers. At D = 256 the two
+//        warpgroups split one 64-key item's products instead (KvLayout).
+//    D = 80 reads two 64-wide boxes whose head dims past 80 TMA fills with
+//    zeros; no product reads them (5 k16 steps, N = 80 wgmma).
 //    Blocks are persistent (one an SM) and take the heaviest items first;
 //    tiles that no mask reaches skip the mask tests; the masks give P = 0
 //    (every row sees a key when Sq <= Skv). Rounding P and dS to bf16 as
@@ -47,8 +51,8 @@
 //    2.3-2.5e-3 against attention_ref_backward at qwen3-1.7b's and
 //    minicpm-2b's training calls on an H100 (chip_smoke.py, which gates it
 //    at 2e-2).
-//  * simt (f32, hubert's D = 80, recurrentgemma's D = 256, Sq > Skv, any
-//    other head dim up to 256), f32 arithmetic throughout, three launches:
+//  * simt (f32, fewer than 64 folded rows, Sq > Skv, any other head dim up
+//    to 256), f32 arithmetic throughout, three launches:
 //     1. rows: each row's softmax statistics, kept as its own pair (the
 //        running max m and the sum l of exp(s - m), natural units; a row
 //        the mask hides entirely keeps the forward's uniform weights, which
@@ -502,20 +506,29 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 // ---- wgmma route -------------------------------------------------------------
 
 // The row pass: delta = sum_d dO * O of every row, in f32, laid out (B, H,
-// Sq) like the statistics. D / 8 lanes a row, one 16-byte piece each, summed
-// over the lanes in a fixed order. grid = ceil(B * Sq * H / rows a block).
+// Sq) like the statistics. A row takes the power of two of lanes at or above
+// its D / 8 16-byte pieces (8 at D = 64, 16 at 80 and 128, 32 at 256), one
+// piece a lane, the lanes past the pieces adding 0, summed over the lanes by
+// a butterfly in a fixed order. grid = ceil(B * Sq * H / rows a block).
+template <int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D / 8 <= 8 ? 8 : D / 8 <= 16 ? 16 : 32;
+}
+
 template <int D>
 __global__ void __launch_bounds__(256)
 fa_bwd_delta(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
              float* __restrict__ delta, int n, int Sq, int H) {
   constexpr int kChunks = D / 8;
-  constexpr int kRowsPerWarp = 32 / kChunks;
+  constexpr int kLanes = delta_lanes<D>();
+  constexpr int kRowsPerWarp = 32 / kLanes;
   const int lane = threadIdx.x % 32;
+  const int piece = lane % kLanes;
   const long row = ((long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * kRowsPerWarp +
-                   lane / kChunks;  // (b, s, h) in q's order
+                   lane / kLanes;  // (b, s, h) in q's order
   float sum = 0.f;
-  if (row < n) {
-    const size_t off = (size_t)row * D + (lane % kChunks) * 8;
+  if (row < n && piece < kChunks) {
+    const size_t off = (size_t)row * D + piece * 8;
     const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + off));
     const uint4 d = __ldg(reinterpret_cast<const uint4*>(dout + off));
     const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -528,8 +541,8 @@ fa_bwd_delta(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restric
     }
   }
 #pragma unroll
-  for (int off = kChunks / 2; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (row < n && lane % kChunks == 0) {
+  for (int off = kLanes / 2; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < n && piece == 0) {
     const long b = row / ((long)Sq * H), s = (row / H) % Sq, h = row % H;
     delta[((size_t)b * H + h) * Sq + s] = sum;
   }
@@ -549,57 +562,70 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ lse,
   }
 }
 
+// The dq kernel's block: kCons consumer warpgroups of 64 rows and a K/V
+// ring of kStages. At D = 256 Q and dO of 128 rows (2 x 64 KiB) and a
+// 3-stage ring (3 x 64 KiB) would not fit a block's 227 KB: one consumer of
+// 64 rows and 2 stages take 193 KB.
 template <int D>
 struct DqLayout {
   using F = fa::FaLayout<D>;
-  static constexpr int kSmem = 1024 + 2 * F::kQBytes + fa::kFaStages * F::kStageBytes +
-                               2 * fa::kFaStages * 8;
+  static constexpr int kCons = D > 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kCons;  // folded rows an item
+  static constexpr int kStages = F::kStages;
+  static constexpr int kThreads = 128 * (1 + kCons);
+  static constexpr int kQBytes = F::kBoxes * kRows * 128;  // Q (or dO) of an item
+  static constexpr int kSmem = 1024 + 2 * kQBytes + kStages * F::kStageBytes + 2 * kStages * 8;
 };
 
 // 2. dQ (wgmma): the forward's work items (128 folded rows of one (batch, kv
-// head), two consumer warpgroups of 64) and its K/V ring. A warpgroup loads
-// its Q and dO rows once an item; per KV tile: S = Q K^T and dP = dO V^T
-// (both operands in shared memory, K-major), P = 2^(S * scale2 - lse2)
-// with the masks, dS = P (dP - delta) rounded to bf16 in registers, dQ +=
-// dS K (K MN-major, the transpose bit). dQ is scaled once at the end.
+// head), two consumer warpgroups of 64; at D = 256 64 rows, one consumer)
+// and its K/V ring. A warpgroup loads its Q and dO rows once an item; per KV
+// tile: S = Q K^T and dP = dO V^T (both operands in shared memory,
+// K-major), P = 2^(S * scale2 - lse2) with the masks, dS = P (dP - delta)
+// rounded to bf16 in registers, dQ += dS K (K MN-major, the transpose bit).
+// dQ is scaled once at the end.
 template <int D>
-__global__ void __launch_bounds__(fa::kFaThreads, 1)
+__global__ void __launch_bounds__(DqLayout<D>::kThreads, 1)
 fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv, int H, int Hkv, float scale,
                 int causal, int window) {
   using F = fa::FaLayout<D>;
+  using L = DqLayout<D>;
+  constexpr int kStages = L::kStages, kRows = L::kRows;
   extern __shared__ uint8_t dq_smem[];
   const uint32_t pad = (1024 - (hopper::smem_u32(dq_smem) & 1023)) & 1023;
   uint8_t* q_s = dq_smem + pad;
-  uint8_t* do_s = q_s + F::kQBytes;
-  uint8_t* kv_s = do_s + F::kQBytes;  // stage s: K tile, then V tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + fa::kFaStages * F::kStageBytes);
-  uint64_t* empty = full + fa::kFaStages;
+  uint8_t* do_s = q_s + L::kQBytes;
+  uint8_t* kv_s = do_s + L::kQBytes;  // stage s: K tile, then V tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + kStages * F::kStageBytes);
+  uint64_t* empty = full + kStages;
 
   const int g = H / Hkv;
   const int n_rows = Sq * g;
-  const int n_items = B * Hkv * ((n_rows + fa::kFaRows - 1) / fa::kFaRows);
+  const int n_items = B * Hkv * ((n_rows + kRows - 1) / kRows);
   const float scale2 = scale * fa::kLog2e;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < fa::kFaStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+      hopper::mbar_init(&empty[s], 4 * L::kCons);  // lane 0 of each consumer warp
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 0) {
-    hopper::setmaxnreg_dec<40>();
+    // one consumer (256 threads a block) may keep up to 255 registers a
+    // thread without handing any over
+    if constexpr (L::kCons == 2) hopper::setmaxnreg_dec<40>();
     if (threadIdx.x == 0)
-      fa::fa_produce_kv<D>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv, causal,
-                           window);
+      fa::fa_produce_kv<D, kRows, kStages>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv,
+                                           causal, window);
   } else {
-    hopper::setmaxnreg_inc<232>();
+    if constexpr (L::kCons == 2) hopper::setmaxnreg_inc<232>();
     const int c = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const uint32_t q_addr = hopper::smem_u32(q_s) + c * 64 * 128;
@@ -609,7 +635,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa::fa_item_index(k);
       if (it >= n_items) continue;
-      const fa::FaItem w = fa::fa_item(it, B, Hkv, g, n_rows, Skv, causal, window);
+      const fa::FaItem w = fa::fa_item<kRows>(it, B, Hkv, g, n_rows, Skv, causal, window);
 
       // this warpgroup's 64 Q and dO rows; the barrier first lets every warp
       // finish the previous item's products, which read them
@@ -618,8 +644,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         fa::fa_fetch_rows<D>(qv, q, w.b, w.kvh, g, Sq, H, w.r0 + c * 64, n_rows, tid);
         fa::fa_fetch_rows<D>(dv, dout, w.b, w.kvh, g, Sq, H, w.r0 + c * 64, n_rows, tid);
         hopper::named_barrier(1 + c, 128);
-        fa::fa_store_rows<D>(q_s + c * 64 * 128, fa::kFaRows * 128, qv, tid);
-        fa::fa_store_rows<D>(do_s + c * 64 * 128, fa::kFaRows * 128, dv, tid);
+        fa::fa_store_rows<D>(q_s + c * 64 * 128, kRows * 128, qv, tid);
+        fa::fa_store_rows<D>(do_s + c * 64 * 128, kRows * 128, dv, tid);
         hopper::fence_proxy_async();
         hopper::named_barrier(1 + c, 128);
       }
@@ -636,9 +662,9 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
 
       for (int i = 0; i < w.n_tiles; ++i, ++gi) {
-        const int s = gi % fa::kFaStages;
+        const int s = gi % kStages;
         const int t0 = w.t_begin + i * fa::kFaCols;
-        hopper::mbar_wait(&full[s], (gi / fa::kFaStages) & 1);
+        hopper::mbar_wait(&full[s], (gi / kStages) & 1);
         const uint32_t k_addr = hopper::smem_u32(kv_s + s * F::kStageBytes);
         const uint32_t v_addr = k_addr + F::kKBytes;
 
@@ -651,13 +677,13 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
           hopper::wgmma_ss<fa::kFaCols, 0>(
-              sacc, hopper::desc_sw128(q_addr + (kk / 4) * (fa::kFaRows * 128) + (kk % 4) * 32, 16, 1024),
+              sacc, hopper::desc_sw128(q_addr + (kk / 4) * (kRows * 128) + (kk % 4) * 32, 16, 1024),
               hopper::desc_sw128(k_addr + (kk / 4) * fa::kKVBoxBytes + (kk % 4) * 32, 16, 1024), 1);
         hopper::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
           hopper::wgmma_ss<fa::kFaCols, 0>(
-              dpacc, hopper::desc_sw128(do_addr + (kk / 4) * (fa::kFaRows * 128) + (kk % 4) * 32, 16, 1024),
+              dpacc, hopper::desc_sw128(do_addr + (kk / 4) * (kRows * 128) + (kk % 4) * 32, 16, 1024),
               hopper::desc_sw128(v_addr + (kk / 4) * fa::kKVBoxBytes + (kk % 4) * 32, 16, 1024), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();
@@ -719,54 +745,80 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   }
 }
 
-// 3. dK and dV (wgmma). A work item is 128 KV positions of one (batch, kv
-// head), two consumer warpgroups of 64; items are numbered by KV block
-// first, so the causal mask's heaviest (the first keys, which every later
-// row sees) go first. K and V of the item stay in shared memory (two
-// buffers, so the next item's load overlaps this one's work). The producer
-// warpgroup streams row tiles through a ring: a row tile is P positions x G
-// query heads of the group (P * G <= 64 rows, folded in that order: G = g,
-// P = 64 / g when g <= 64; G = 64 heads of one position otherwise, the
-// group in ceil(g / 64) chunks), loaded by TMA as one box of a 4-D map over
-// (D, H, Sq, B) for Q and for dO, with each row's lse2 and delta beside
-// them (+inf and 0 for rows past the tile, the sequence or the group, so
-// that their P is 0). Per row tile a warpgroup computes S^T = K Q^T and
-// dP^T = V dO^T (shared-memory operands, K-major), P^T = 2^(S^T * scale2 -
-// lse2) with the masks, dV += P^T dO (P^T in bf16 registers, dO MN-major),
-// dS^T = P^T (dP^T - delta), dK += dS^T Q (dS^T in bf16 registers, Q
-// MN-major); dK is scaled once at the end.
-constexpr int kKvCols = 128;  // KV positions an item
-
+// 3. dK and dV (wgmma). A work item is kCols KV positions of one (batch, kv
+// head); items are numbered by KV block first, so the causal mask's heaviest
+// (the first keys, which every later row sees) go first. K and V of the item
+// stay in shared memory (two buffers at D <= 128, so the next item's load
+// overlaps this one's work). The producer warpgroup streams row tiles
+// through a ring: a row tile is P positions x G query heads of the group (P
+// * G <= 64 rows, folded in that order: G = g, P = 64 / g when g <= 64; G =
+// 64 heads of one position otherwise, the group in ceil(g / 64) chunks),
+// loaded by TMA as one box of a 4-D map over (D, H, Sq, B) for Q and for dO,
+// with each row's lse2 and delta beside them (+inf and 0 for rows past the
+// tile, the sequence or the group, so that their P is 0). Per row tile:
+// S^T = K Q^T and dP^T = V dO^T (shared-memory operands, K-major), P^T =
+// 2^(S^T * scale2 - lse2) with the masks, dV += P^T dO (P^T in bf16
+// registers, dO MN-major), dS^T = P^T (dP^T - delta), dK += dS^T Q (dS^T in
+// bf16 registers, Q MN-major); dK is scaled once at the end.
+//  * D <= 128: an item is 128 keys, and each consumer warpgroup runs all of
+//    that for its 64.
+//  * D = 256 (kSplit): dK and dV of 64 keys are 2 x 128 f32 a thread, more
+//    than the 255 registers a thread may have, so the two consumer
+//    warpgroups split the products of one 64-key item instead: warpgroup 0
+//    computes S^T and P^T and accumulates dV; it hands P^T (f32, 16 KiB)
+//    through shared memory to warpgroup 1, which computes dP^T, forms dS^T
+//    and accumulates dK (named barriers 1 and 2: P^T written, read). Each
+//    keeps one 128-register accumulator. K and V of the item (64 KiB) take
+//    one buffer and the ring 2 stages of 65 KiB: 211 KB. Splitting D in two
+//    halves instead would compute S^T and dP^T twice. recurrentgemma-9b has
+//    one KV head, so its 4 x 1024 call has only 64 such items for 132 SMs,
+//    the first of which sees all 1,024 x 16 rows: the rows of each key block
+//    are cut into R contiguous runs of row tiles (R = chunks, the wrapper's
+//    rule of shapes, fa_bwd_row_chunks), each an item of its own that writes
+//    f32 partial sums of dK and dV; a last pass (fa_bwd_sum_chunks) adds
+//    the R partials in order, so no atomics and the same bits every call.
 template <int D>
 struct KvLayout {
-  static constexpr int kBoxes = D / 64;
+  static constexpr bool kSplit = D > 128;
+  static constexpr int kBoxes = (D + 63) / 64;
+  static constexpr int kCols = kSplit ? 64 : 128;  // KV positions an item
+  static constexpr int kBufs = kSplit ? 1 : 2;     // K/V buffers
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kKBytes = kBoxes * kKvCols * 128;  // K (or V) of an item
-  static constexpr int kBufBytes = 2 * kKBytes;           // K, then V
-  static constexpr int kTileBytes = kBoxes * 64 * 128;    // Q (or dO) of a row tile
+  static constexpr int kKBytes = kBoxes * kCols * 128;   // K (or V) of an item
+  static constexpr int kBufBytes = 2 * kKBytes;          // K, then V
+  static constexpr int kTileBytes = kBoxes * 64 * 128;   // Q (or dO) of a row tile
   static constexpr int kStageBytes = 2 * kTileBytes + 1024;  // Q, dO, 64 lse2 and 64 delta
-  static constexpr int kSmem = 1024 + 2 * kBufBytes + kStages * kStageBytes + (2 * kStages + 4) * 8;
+  static constexpr int kPBytes = kSplit ? 32 * 128 * 4 : 0;  // P^T handed over: 32 f32 a thread
+  static constexpr int kSmem =
+      1024 + kBufs * kBufBytes + kStages * kStageBytes + kPBytes + (2 * kStages + 2 * kBufs) * 8;
 };
+
+constexpr int kBarPFull = 1, kBarPFree = 2;  // kSplit's P^T hand-over: written, read
 
 struct KvItem {
-  int b, kvh, t0, i_begin, n_tiles;
+  int b, kvh, t0, rc, i_begin, n_tiles;
 };
 
-// Item it's (batch, kv head), first key, and the row tiles that see one of
-// its keys: causal rows sit at positions >= t0, windowed ones at positions
-// < the last key + window. Row tile i is position block i / C, head chunk i % C.
+// Item it's (batch, kv head), first key, row chunk rc of R, and its run of
+// the row tiles that see one of its kCols keys: causal rows sit at
+// positions >= t0, windowed ones at positions < the last key + window. Row
+// tile i is position block i / C, head chunk i % C. Items go by key block
+// first (the causal mask's heaviest first), then row chunk.
+template <int kCols>
 __device__ __forceinline__ KvItem kv_item(int it, int B, int Hkv, int Sq, int Skv, int P, int C,
-                                          int causal, int window) {
+                                          int causal, int window, int R) {
   KvItem w;
   const int bh = it % (B * Hkv);
   w.b = bh / Hkv;
   w.kvh = bh % Hkv;
-  w.t0 = (it / (B * Hkv)) * kKvCols;
+  w.t0 = (it / (B * Hkv) / R) * kCols;
+  w.rc = it / (B * Hkv) % R;
   int pb_lo = 0, pb_hi = (Sq + P - 1) / P - 1;
   if (causal) pb_lo = w.t0 / P;
-  if (window > 0) pb_hi = min(pb_hi, (min(w.t0 + kKvCols, Skv) - 1 + window - 1) / P);
-  w.i_begin = pb_lo * C;
-  w.n_tiles = pb_hi >= pb_lo ? (pb_hi - pb_lo + 1) * C : 0;
+  if (window > 0) pb_hi = min(pb_hi, (min(w.t0 + kCols, Skv) - 1 + window - 1) / P);
+  const int n = pb_hi >= pb_lo ? (pb_hi - pb_lo + 1) * C : 0;
+  w.i_begin = pb_lo * C + n * w.rc / R;
+  w.n_tiles = n * (w.rc + 1) / R - n * w.rc / R;
   return w;
 }
 
@@ -775,22 +827,24 @@ __global__ void __launch_bounds__(fa::kFaThreads, 1)
 fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int Sq,
-                  int Skv, int H, int Hkv, float scale, int causal, int window, int P, int G) {
+                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                  float* __restrict__ part, int B, int Sq, int Skv, int H, int Hkv, float scale,
+                  int causal, int window, int P, int G, int R) {
   using L = KvLayout<D>;
-  constexpr int kStages = L::kStages;
+  constexpr int kStages = L::kStages, kCols = L::kCols, kBufs = L::kBufs;
   extern __shared__ uint8_t kv_smem[];
   const uint32_t pad = (1024 - (hopper::smem_u32(kv_smem) & 1023)) & 1023;
   uint8_t* kv_s = kv_smem + pad;                  // buffer u: K, then V
-  uint8_t* ring = kv_s + 2 * L::kBufBytes;        // stage s: Q tile, dO tile, lse2[64], delta[64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStageBytes);
+  uint8_t* ring = kv_s + kBufs * L::kBufBytes;    // stage s: Q tile, dO tile, lse2[64], delta[64]
+  float* pt_s = reinterpret_cast<float*>(ring + kStages * L::kStageBytes);  // kSplit's P^T
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStageBytes + L::kPBytes);
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
-  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* kv_empty = kv_full + kBufs;
 
   const int g = H / Hkv;
   const int C = (g + G - 1) / G;  // head chunks a position
-  const int n_items = B * Hkv * ((Skv + kKvCols - 1) / kKvCols);
+  const int n_items = B * Hkv * ((Skv + kCols - 1) / kCols) * R;
   const float scale2 = scale * fa::kLog2e;
   const int wg = threadIdx.x / 128;
   const uint32_t tile_tx = 2 * L::kBoxes * 128 * P * G;  // Q and dO boxes of a row tile
@@ -805,7 +859,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       hopper::mbar_init(&full[s], 1 + 128);  // the TMA's, and every producer thread's statistics
       hopper::mbar_init(&empty[s], 8);       // lane 0 of each consumer warp
     }
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < kBufs; ++u) {
       hopper::mbar_init(&kv_full[u], 1);
       hopper::mbar_init(&kv_empty[u], 8);
     }
@@ -814,23 +868,25 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
   __syncthreads();
 
   if (wg == 0) {
+    // 128 x 24 + 256 x 240 = 384 x 168, the registers the block launched
+    // with: setmaxnreg.inc waits for registers the block's own warps freed
     hopper::setmaxnreg_dec<24>();
     const int ptid = threadIdx.x;
     int gi = 0, ni = 0;  // row tiles and items loaded by this block so far
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa::fa_item_index(k);
       if (it >= n_items) continue;
-      const KvItem w = kv_item(it, B, Hkv, Sq, Skv, P, C, causal, window);
-      const int u = ni % 2;
+      const KvItem w = kv_item<kCols>(it, B, Hkv, Sq, Skv, P, C, causal, window, R);
+      const int u = ni % kBufs;
       if (ptid == 0) {
-        if (ni >= 2) hopper::mbar_wait(&kv_empty[u], ((ni / 2) - 1) & 1);
+        if (ni >= kBufs) hopper::mbar_wait(&kv_empty[u], ((ni / kBufs) - 1) & 1);
         hopper::mbar_arrive_expect_tx(&kv_full[u], L::kBufBytes);
         uint8_t* k_s = kv_s + u * L::kBufBytes;
 #pragma unroll
         for (int j = 0; j < L::kBoxes; ++j)
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            uint8_t* dst = k_s + j * (kKvCols * 128) + half * fa::kKVBoxBytes;
+          for (int half = 0; half < kCols / 64; ++half) {
+            uint8_t* dst = k_s + j * (kCols * 128) + half * fa::kKVBoxBytes;
             hopper::tma_load_4d(dst, &tk, &kv_full[u], 64 * j, w.kvh, w.t0 + 64 * half, w.b);
             hopper::tma_load_4d(dst + L::kKBytes, &tv, &kv_full[u], 64 * j, w.kvh, w.t0 + 64 * half,
                                 w.b);
@@ -862,26 +918,36 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       ++ni;
     }
   } else {
-    // dK and dV (2 x D / 2), S^T and dP^T (2 x 32) and a bf16 operand (16)
-    // a thread: 240 registers keep them from spilling at D = 128
+    // D <= 128: dK and dV (2 x D / 2), S^T and dP^T (2 x 32) and a bf16
+    // operand (16) a thread: 240 registers keep them from spilling at D =
+    // 128. kSplit: one accumulator (D / 2 = 128), S^T or dP^T (32) and the
+    // bf16 operand (16); warpgroup 0's path (S^T, P^T, dV) still spills
+    // there, and ptxas serialises its wgmmas (C7512).
     hopper::setmaxnreg_inc<240>();
     const int c = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     int gi = 0, ni = 0;
+    if constexpr (L::kSplit) {
+      if (c == 1) hopper::named_barrier_arrive(kBarPFree, 256);  // P^T's buffer starts free
+    }
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa::fa_item_index(k);
       if (it >= n_items) continue;
-      const KvItem w = kv_item(it, B, Hkv, Sq, Skv, P, C, causal, window);
-      const int u = ni % 2;
-      hopper::mbar_wait(&kv_full[u], (ni / 2) & 1);
-      const uint32_t k_addr = hopper::smem_u32(kv_s + u * L::kBufBytes) + c * 64 * 128;
+      const KvItem w = kv_item<kCols>(it, B, Hkv, Sq, Skv, P, C, causal, window, R);
+      const int u = ni % kBufs;
+      hopper::mbar_wait(&kv_full[u], (ni / kBufs) & 1);
+      // this warpgroup's 64 keys tw0 .. tw1: its half of the item, or (kSplit) all of it
+      const int cw = L::kSplit ? 0 : c;
+      const uint32_t k_addr = hopper::smem_u32(kv_s + u * L::kBufBytes) + cw * 64 * 128;
       const uint32_t v_addr = k_addr + L::kKBytes;
-      const int tw0 = w.t0 + 64 * c;             // this warpgroup's keys: tw0 .. tw1
+      const int tw0 = w.t0 + 64 * cw;
       const int tw1 = min(tw0 + 63, Skv - 1);
       const int T = tw0 + warp * 16 + lane / 4;  // this thread's keys: T, T + 8
-      float dkacc[D / 2], dvacc[D / 2];
+      float dkacc[L::kSplit ? 1 : D / 2], dvacc[D / 2];  // kSplit: dvacc holds dV (c = 0) or dK (c = 1)
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) dvacc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (L::kSplit ? 1 : D / 2); ++i) dkacc[i] = 0.f;
 
       for (int i = 0; i < w.n_tiles; ++i, ++gi) {
         const int s = gi % kStages;
@@ -896,81 +962,153 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
           const uint32_t do_addr = q_addr + L::kTileBytes;
           const float* lse_s = reinterpret_cast<const float*>(q_s + 2 * L::kTileBytes);
           const float* dl_s = lse_s + 64;
-
-          // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows a warpgroup
-          float st[32], dpt[32];
+          if constexpr (L::kSplit) {
+            // warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1: dP^T =
+            // V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q
+            float st[32];
 #pragma unroll
-          for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
-          hopper::fence_regs(st);
-          hopper::fence_regs(dpt);
-          hopper::wgmma_fence();
+            for (int j = 0; j < 32; ++j) st[j] = 0.f;
+            hopper::fence_regs(st);
+            hopper::wgmma_fence();
+            const uint32_t a_addr = c == 0 ? k_addr : v_addr, b_addr = c == 0 ? q_addr : do_addr;
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            hopper::wgmma_ss<64, 0>(
-                st, hopper::desc_sw128(k_addr + (kk / 4) * (kKvCols * 128) + (kk % 4) * 32, 16, 1024),
-                hopper::desc_sw128(q_addr + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024), 1);
-          hopper::wgmma_commit();
+            for (int kk = 0; kk < D / 16; ++kk)
+              hopper::wgmma_ss<64, 0>(
+                  st, hopper::desc_sw128(a_addr + (kk / 4) * (kCols * 128) + (kk % 4) * 32, 16, 1024),
+                  hopper::desc_sw128(b_addr + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024), 1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(st);
+            uint32_t af[4][4];
+            if (c == 0) {
+              // P^T: st[4j + e] is key T + 8 (e / 2), row 8j + 2 (lane % 4) + e % 2
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            hopper::wgmma_ss<64, 0>(
-                dpt, hopper::desc_sw128(v_addr + (kk / 4) * (kKvCols * 128) + (kk % 4) * 32, 16, 1024),
-                hopper::desc_sw128(do_addr + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024), 1);
-          hopper::wgmma_commit();
-          hopper::wgmma_wait<1>();
-          hopper::fence_regs(st);
-
-          // P^T: st[4j + e] is key T + 8 (e / 2), row 8j + 2 (lane % 4) + e % 2
-          // of the tile
+              for (int j = 0; j < 8; ++j) {
+                const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * (lane % 4));
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * (lane % 4));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              float p = hopper::exp2_approx(fmaf(st[4 * j + e], scale2, (e & 1) ? -l2.y : -l2.x));
-              if (masked) {
-                const int rho = 8 * j + 2 * (lane % 4) + (e & 1);
-                if (hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window)) p = 0.f;
+                for (int e = 0; e < 4; ++e) {
+                  float p = hopper::exp2_approx(fmaf(st[4 * j + e], scale2, (e & 1) ? -l2.y : -l2.x));
+                  if (masked) {
+                    const int rho = 8 * j + 2 * (lane % 4) + (e & 1);
+                    if (hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window)) p = 0.f;
+                  }
+                  st[4 * j + e] = p;
+                }
               }
-              st[4 * j + e] = p;
+              // the same fragment is warpgroup 1's dP^T: hand it over thread for thread
+              hopper::named_barrier(kBarPFree, 256);
+#pragma unroll
+              for (int j = 0; j < 32; ++j) pt_s[j * 128 + tid] = st[j];
+              hopper::named_barrier_arrive(kBarPFull, 256);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int u2 = 0; u2 < 4; ++u2)
+                  af[kk][u2] = hopper::pack_bf16x2(st[8 * kk + 2 * u2], st[8 * kk + 2 * u2 + 1]);
+            } else {
+              // P^T read as it is used, so that it never takes 32 registers
+              // beside dK (128) and dP^T (32)
+              hopper::named_barrier(kBarPFull, 256);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const float2 d0 = *reinterpret_cast<const float2*>(dl_s + 16 * kk + 2 * (lane % 4));
+                const float2 d1 = *reinterpret_cast<const float2*>(dl_s + 16 * kk + 8 + 2 * (lane % 4));
+#pragma unroll
+                for (int u2 = 0; u2 < 4; ++u2) {
+                  const int j = 8 * kk + 2 * u2;
+                  const float2 d = u2 < 2 ? d0 : d1;
+                  af[kk][u2] = hopper::pack_bf16x2(pt_s[j * 128 + tid] * (st[j] - d.x),
+                                                   pt_s[(j + 1) * 128 + tid] * (st[j + 1] - d.y));
+                }
+              }
+              hopper::named_barrier_arrive(kBarPFree, 256);
             }
-          }
-          uint32_t af[4][4];  // P^T, then dS^T, in bf16: k-step kk is rows 16kk .. 16kk + 15
+            // dV += P^T dO (c = 0) or dK += dS^T Q (c = 1): MN-major, 16 rows of 128 bytes a k-step
+            const uint32_t n_addr = c == 0 ? do_addr : q_addr;
+            hopper::fence_regs(dvacc);
+            hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+            for (int kk = 0; kk < 4; ++kk)
+              hopper::wgmma_rs<D>(dvacc, af[kk], hopper::desc_sw128(n_addr + kk * 16 * 128, 8192, 1024), 1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dvacc);
+          } else {
+            // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows a warpgroup
+            float st[32], dpt[32];
 #pragma unroll
-            for (int u2 = 0; u2 < 4; ++u2)
-              af[kk][u2] = hopper::pack_bf16x2(st[8 * kk + 2 * u2], st[8 * kk + 2 * u2 + 1]);
-          // dV += P^T dO: dO MN-major, 16 rows of 128 bytes a k-step
-          hopper::fence_regs(dvacc);
-          hopper::wgmma_fence();
+            for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+            hopper::fence_regs(st);
+            hopper::fence_regs(dpt);
+            hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            hopper::wgmma_rs<D>(dvacc, af[kk], hopper::desc_sw128(do_addr + kk * 16 * 128, 8192, 1024), 1);
-          hopper::wgmma_commit();
-          hopper::wgmma_wait<0>();
-          hopper::fence_regs(dvacc);
-          hopper::fence_regs(dpt);
+            for (int kk = 0; kk < D / 16; ++kk)
+              hopper::wgmma_ss<64, 0>(
+                  st, hopper::desc_sw128(k_addr + (kk / 4) * (kCols * 128) + (kk % 4) * 32, 16, 1024),
+                  hopper::desc_sw128(q_addr + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024), 1);
+            hopper::wgmma_commit();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              hopper::wgmma_ss<64, 0>(
+                  dpt, hopper::desc_sw128(v_addr + (kk / 4) * (kCols * 128) + (kk % 4) * 32, 16, 1024),
+                  hopper::desc_sw128(do_addr + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024), 1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<1>();
+            hopper::fence_regs(st);
 
-          // dS^T = P^T (dP^T - delta); dK += dS^T Q
+            // P^T: st[4j + e] is key T + 8 (e / 2), row 8j + 2 (lane % 4) + e % 2
+            // of the tile
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float2 d0 = *reinterpret_cast<const float2*>(dl_s + 16 * kk + 2 * (lane % 4));
-            const float2 d1 = *reinterpret_cast<const float2*>(dl_s + 16 * kk + 8 + 2 * (lane % 4));
+            for (int j = 0; j < 8; ++j) {
+              const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * (lane % 4));
 #pragma unroll
-            for (int u2 = 0; u2 < 4; ++u2) {
-              const int j = 8 * kk + 2 * u2;
-              const float2 d = u2 < 2 ? d0 : d1;
-              af[kk][u2] = hopper::pack_bf16x2(st[j] * (dpt[j] - d.x), st[j + 1] * (dpt[j + 1] - d.y));
+              for (int e = 0; e < 4; ++e) {
+                float p = hopper::exp2_approx(fmaf(st[4 * j + e], scale2, (e & 1) ? -l2.y : -l2.x));
+                if (masked) {
+                  const int rho = 8 * j + 2 * (lane % 4) + (e & 1);
+                  if (hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window)) p = 0.f;
+                }
+                st[4 * j + e] = p;
+              }
             }
-          }
-          hopper::fence_regs(dkacc);
-          hopper::wgmma_fence();
+            uint32_t af[4][4];  // P^T, then dS^T, in bf16: k-step kk is rows 16kk .. 16kk + 15
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            hopper::wgmma_rs<D>(dkacc, af[kk], hopper::desc_sw128(q_addr + kk * 16 * 128, 8192, 1024), 1);
-          hopper::wgmma_commit();
-          hopper::wgmma_wait<0>();
-          hopper::fence_regs(dkacc);
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int u2 = 0; u2 < 4; ++u2)
+                af[kk][u2] = hopper::pack_bf16x2(st[8 * kk + 2 * u2], st[8 * kk + 2 * u2 + 1]);
+            // dV += P^T dO: dO MN-major, 16 rows of 128 bytes a k-step
+            hopper::fence_regs(dvacc);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              hopper::wgmma_rs<D>(dvacc, af[kk], hopper::desc_sw128(do_addr + kk * 16 * 128, 8192, 1024), 1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dvacc);
+            hopper::fence_regs(dpt);
+
+            // dS^T = P^T (dP^T - delta); dK += dS^T Q
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float2 d0 = *reinterpret_cast<const float2*>(dl_s + 16 * kk + 2 * (lane % 4));
+              const float2 d1 = *reinterpret_cast<const float2*>(dl_s + 16 * kk + 8 + 2 * (lane % 4));
+#pragma unroll
+              for (int u2 = 0; u2 < 4; ++u2) {
+                const int j = 8 * kk + 2 * u2;
+                const float2 d = u2 < 2 ? d0 : d1;
+                af[kk][u2] = hopper::pack_bf16x2(st[j] * (dpt[j] - d.x), st[j + 1] * (dpt[j + 1] - d.y));
+              }
+            }
+            hopper::fence_regs(dkacc);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              hopper::wgmma_rs<D>(dkacc, af[kk], hopper::desc_sw128(q_addr + kk * 16 * 128, 8192, 1024), 1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dkacc);
+          }
         }
         if (lane == 0) hopper::mbar_arrive(&empty[s]);
       }
@@ -981,28 +1119,70 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
         const int t = T + 8 * rr;
         if (t >= Skv) continue;
         const size_t off = (((size_t)w.b * Skv + t) * Hkv + w.kvh) * D + 2 * (lane % 4);
+        if constexpr (L::kSplit) {
+          if (R > 1) {  // this chunk's f32 partial: part[rc][dK, dV][B][Skv][Hkv][D], dK unscaled
+            float* dst = part + (size_t)(2 * w.rc + (c == 0)) * B * Skv * Hkv * D + off;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
-              hopper::pack_bf16x2(dkacc[4 * j + 2 * rr] * scale, dkacc[4 * j + 2 * rr + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
-              hopper::pack_bf16x2(dvacc[4 * j + 2 * rr], dvacc[4 * j + 2 * rr + 1]);
+            for (int j = 0; j < D / 8; ++j)
+              *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(dvacc[4 * j + 2 * rr], dvacc[4 * j + 2 * rr + 1]);
+            continue;
+          }
+          __nv_bfloat16* dst = (c == 0 ? dv : dk) + off;
+          const float mul = c == 0 ? 1.f : scale;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+                hopper::pack_bf16x2(dvacc[4 * j + 2 * rr] * mul, dvacc[4 * j + 2 * rr + 1] * mul);
+        } else {
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+                hopper::pack_bf16x2(dkacc[4 * j + 2 * rr] * scale, dkacc[4 * j + 2 * rr + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+                hopper::pack_bf16x2(dvacc[4 * j + 2 * rr], dvacc[4 * j + 2 * rr + 1]);
+          }
         }
       }
       ++ni;
     }
+    // kSplit: warpgroup 1's last arrival on the free barrier, so that no
+    // barrier is left half arrived
+    if constexpr (L::kSplit) {
+      if (c == 0) hopper::named_barrier(kBarPFree, 256);
+    }
   }
+}
+
+// The row chunks' sum (kSplit with R > 1): dk = scale * sum_r part[r][0],
+// dv = sum_r part[r][1], r in order, in bf16; n = B * Skv * Hkv * D, 4
+// elements a thread.
+__global__ void __launch_bounds__(256)
+fa_bwd_sum_chunks(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, long n, int R, float scale) {
+  const long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int r = 0; r < R; ++r) {
+    const float4 a = *reinterpret_cast<const float4*>(part + (size_t)(2 * r) * n + i);
+    const float4 b = *reinterpret_cast<const float4*>(part + (size_t)(2 * r + 1) * n + i);
+    sk = make_float4(sk.x + a.x, sk.y + a.y, sk.z + a.z, sk.w + a.w);
+    sv = make_float4(sv.x + b.x, sv.y + b.y, sv.z + b.z, sv.w + b.w);
+  }
+  *reinterpret_cast<uint2*>(dk + i) =
+      make_uint2(hopper::pack_bf16x2(sk.x * scale, sk.y * scale), hopper::pack_bf16x2(sk.z * scale, sk.w * scale));
+  *reinterpret_cast<uint2*>(dv + i) = make_uint2(hopper::pack_bf16x2(sv.x, sv.y), hopper::pack_bf16x2(sv.z, sv.w));
 }
 
 // The wgmma route's launches: the forward with a statistics buffer when the
 // caller has none (its O goes to dq, which the dq kernel overwrites), the
-// row pass (delta), dQ, then dK and dV. work: 2 * B * H * Sq floats (lse2,
-// delta).
+// row pass (delta), dQ, then dK and dV (and at R > 1 the chunks' sum).
+// work: 2 * B * H * Sq floats (lse2, delta); part: R x 2 x B * Skv * Hkv * D
+// floats when R > 1.
 template <int D>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                     void* dq, void* dk, void* dv, float* work, const float* lse, int B, int Sq,
-                     int Skv, int H, int Hkv, float scale, int causal, int window, int sms,
-                     cudaStream_t stream) {
+                     void* dq, void* dk, void* dv, float* work, const float* lse, float* part, int R,
+                     int B, int Sq, int Skv, int H, int Hkv, float scale, int causal, int window,
+                     int sms, cudaStream_t stream) {
   const int g = H / Hkv;
   const int n = B * Sq * H;
   float* delta = work + n;
@@ -1012,7 +1192,7 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
     if (err != 0) return err;
     lse = work;
   }
-  constexpr int kRowsPerBlock = 8 * (32 / (D / 8));
+  constexpr int kRowsPerBlock = 8 * (32 / delta_lanes<D>());
   fa_bwd_delta<D><<<(n + kRowsPerBlock - 1) / kRowsPerBlock, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, n, Sq, H);
   err = static_cast<int>(cudaGetLastError());
@@ -1032,16 +1212,21 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   if (err == 0) err = hopper::allow_smem(fa_bwd_dkdv_wgmma<D>, KvLayout<D>::kSmem, set_kv);
   if (err != 0) return err;
 
-  const int dq_items = B * Hkv * ((Sq * g + fa::kFaRows - 1) / fa::kFaRows);
-  fa_bwd_dq_wgmma<D><<<min(dq_items, sms), fa::kFaThreads, DqLayout<D>::kSmem, stream>>>(
+  const int dq_items = B * Hkv * ((Sq * g + DqLayout<D>::kRows - 1) / DqLayout<D>::kRows);
+  fa_bwd_dq_wgmma<D><<<min(dq_items, sms), DqLayout<D>::kThreads, DqLayout<D>::kSmem, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout), lse,
       delta, static_cast<__nv_bfloat16*>(dq), B, Sq, Skv, H, Hkv, scale, causal, window);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const int kv_items = B * Hkv * ((Skv + kKvCols - 1) / kKvCols);
+  const int kv_items = B * Hkv * ((Skv + KvLayout<D>::kCols - 1) / KvLayout<D>::kCols) * R;
   fa_bwd_dkdv_wgmma<D><<<min(kv_items, sms), fa::kFaThreads, KvLayout<D>::kSmem, stream>>>(
-      tk, tv, tq, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B,
-      Sq, Skv, H, Hkv, scale, causal, window, P, G);
+      tk, tv, tq, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), part,
+      B, Sq, Skv, H, Hkv, scale, causal, window, P, G, R);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || R == 1) return err;
+  const long n_kv = (long)B * Skv * Hkv * D;
+  fa_bwd_sum_chunks<<<(unsigned)((n_kv / 4 + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n_kv, R, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1101,21 +1286,24 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
 // q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv: (B, Skv, Hkv, D); one dtype, 0 =
 // float32, 1 = bfloat16. D <= 256; window = 0: no window. route: 0 = simt
 // (work: 3 * B * H * Sq floats of scratch, the row statistics; lse is
-// ignored), 1 = wgmma (bfloat16, D = 64 or 128, Sq <= Skv, Sq * H / Hkv >=
-// 64, q, k, v, o and dout 16-byte aligned; work: 2 * B * H * Sq floats; lse:
+// ignored), 1 = wgmma (bfloat16, D = 64, 80, 128 or 256, Sq <= Skv, Sq * H /
+// Hkv >= 64, q, k, v, o and dout 16-byte aligned; work: 2 * B * H * Sq floats; lse:
 // the forward's statistics, (B, H, Sq) f32 in the convention of
 // flash_attention_wgmma.cuh, or null: then the forward runs first to make
-// them); anything else is refused. `sms`: the device's SM count, the wgmma
-// kernels' most blocks. Three launches on `stream` (four on the wgmma route
-// without lse); returns cudaGetLastError() after the last, or the first
-// error.
+// them); anything else is refused. chunks: the dK/dV kernel's row chunks,
+// 1 but on the wgmma route at D = 256, where up to 4 take part: chunks x 2
+// x B * Skv * Hkv * D floats of scratch for their partial sums. `sms`: the
+// device's SM count, the wgmma kernels' most blocks. Three launches on
+// `stream` (one more on the wgmma route without lse, and one at chunks > 1);
+// returns cudaGetLastError() after the last, or the first error.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, void* dq, void* dk, void* dv, void* work,
-                                   const void* lse, int B, int Sq, int Skv, int H, int Hkv, int D,
-                                   float scale, int causal, int window, int dtype, int route,
-                                   int sms, void* stream) {
+                                   const void* lse, void* part, int B, int Sq, int Skv, int H,
+                                   int Hkv, int D, float scale, int causal, int window, int dtype,
+                                   int route, int chunks, int sms, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > kMaxD ||
-      window < 0 || work == nullptr || route < 0 || route > 1 || (route == 1 && sms <= 0))
+      window < 0 || work == nullptr || route < 0 || route > 1 || (route == 1 && sms <= 0) ||
+      chunks < 1 || chunks > 4 || (chunks > 1 && (route != 1 || D != 256 || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
@@ -1127,11 +1315,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       return static_cast<int>(cudaErrorInvalidValue);
     const float* stats = static_cast<const float*>(lse);
     if (D == 64)
-      return launch_bwd_wgmma<64>(q, k, v, o, dout, dq, dk, dv, w, stats, B, Sq, Skv, H, Hkv, scale,
-                                  causal, window, sms, s);
+      return launch_bwd_wgmma<64>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
+                                  chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+    if (D == 80)
+      return launch_bwd_wgmma<80>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
+                                  chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 128)
-      return launch_bwd_wgmma<128>(q, k, v, o, dout, dq, dk, dv, w, stats, B, Sq, Skv, H, Hkv, scale,
-                                   causal, window, sms, s);
+      return launch_bwd_wgmma<128>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
+                                   chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+    if (D == 256)
+      return launch_bwd_wgmma<256>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
+                                   chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1)

@@ -6,10 +6,17 @@
 // Rows: row r of a (batch, kv head) is query position r / g and query head
 // kvh * g + r % g, g = H / Hkv. A work item is 128 rows of one (batch, kv
 // head), two consumer warpgroups of 64; one producer thread streams the K
-// and V tiles (64 positions) the item must visit through a 3-stage ring with
-// TMA: a 4-D tensor map over (D, Hkv, Skv, B), 64-element boxes, 128-byte
-// swizzle, zero fill past Skv. Blocks are persistent and walk the items
+// and V tiles (64 positions) the item must visit through a ring with TMA: a
+// 4-D tensor map over (D, Hkv, Skv, B), 64-element boxes, 128-byte swizzle,
+// zero fill past Skv and past D. Blocks are persistent and walk the items
 // heaviest first.
+//
+// Head dims 64, 80, 128 and 256 (FaLayout). D = 80 takes two 64-wide boxes,
+// of which TMA fills head dims 80..127 with zeros; the products read only
+// the first 80 (QK^T runs 5 k16 steps, PV is an N = 80 wgmma), so those
+// columns, and the same columns of Q's second box, are never read. D = 256
+// takes four boxes: a K/V stage is 64 KiB, so the ring has 2 stages (Q 64
+// KiB + 2 x 64 KiB fits the 227 KB a block may have; 3 would not).
 //
 // Row statistics (the one convention of both routes' kernels that exchange
 // them): lse2 = m2 + log2(l) of each row, in log2 units of the scaled
@@ -38,20 +45,21 @@ constexpr float kNegInf = -1e30f;  // the reference's masked-score sentinel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kFaRows = 128;    // folded rows a block: two consumer warpgroups of 64
 constexpr int kFaCols = 64;     // KV positions a tile
-constexpr int kFaStages = 3;
 constexpr int kFaThreads = 384;  // producer warpgroup + two consumers
 constexpr int kKVBoxBytes = kFaCols * 128;  // 64 positions x 64 head dims, bf16
 
 template <int D>
 struct FaLayout {
-  static constexpr int kBoxes = D / 64;                  // 64-wide head-dim boxes
+  static_assert(D == 64 || D == 80 || D == 128 || D == 256, "the wgmma route's head dims");
+  static constexpr int kBoxes = (D + 63) / 64;           // 64-wide head-dim boxes
+  static constexpr int kStages = D > 128 ? 2 : 3;        // K/V ring stages
   static constexpr int kQBytes = kBoxes * kFaRows * 128;
   static constexpr int kKBytes = kBoxes * kKVBoxBytes;   // one K (or V) tile
   static constexpr int kStageBytes = 2 * kKBytes;
-  static constexpr int kSmem = 1024 + kQBytes + kFaStages * kStageBytes + 2 * kFaStages * 8;
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 2 * kStages * 8;
 };
 
-// One work item: 128 folded rows of one (batch, kv head), and the KV tiles
+// One work item: kRows folded rows of one (batch, kv head), and the KV tiles
 // they must visit. Items are numbered heaviest first: the causal mask gives
 // late row blocks the most tiles, so item it takes row block
 // n_row_blocks - 1 - it / (B * Hkv).
@@ -59,17 +67,18 @@ struct FaItem {
   int b, kvh, r0, t_begin, n_tiles;
 };
 
+template <int kRows>
 __device__ __forceinline__ FaItem fa_item(int it, int B, int Hkv, int g, int n_rows, int Skv,
                                           int causal, int window) {
-  const int n_row_blocks = (n_rows + kFaRows - 1) / kFaRows;
+  const int n_row_blocks = (n_rows + kRows - 1) / kRows;
   FaItem w;
   const int bh = it % (B * Hkv);
   w.b = bh / Hkv;
   w.kvh = bh % Hkv;
-  w.r0 = (n_row_blocks - 1 - it / (B * Hkv)) * kFaRows;
+  w.r0 = (n_row_blocks - 1 - it / (B * Hkv)) * kRows;
   // KV range the item must visit (Sq <= Skv: every row sees a key)
   const int s_lo = w.r0 / g;
-  const int s_hi = (min(n_rows, w.r0 + kFaRows) - 1) / g;
+  const int s_hi = (min(n_rows, w.r0 + kRows) - 1) / g;
   int t_end = Skv;
   w.t_begin = 0;
   if (causal) t_end = min(Skv, s_hi + 1);
@@ -87,7 +96,9 @@ __device__ __forceinline__ int fa_item_index(int k) {
 // 16-byte pieces of one warpgroup's 64 rows [r0, r0 + 64) of a (B, S, H, D)
 // bf16 tensor, folded; thread tid takes pieces tid + 128u; rows at or past
 // n_rows are 0. Fetched into registers first, so that every load is in
-// flight before the first store (fa_store_rows).
+// flight before the first store (fa_store_rows). At D = 80 a row is 10
+// pieces: the second box gets head dims 64..79, and its columns past them
+// keep whatever they held (no product reads them).
 template <int D>
 struct FaRows {
   static constexpr int kChunks = D / 8;
@@ -129,11 +140,11 @@ __device__ __forceinline__ void fa_store_rows(uint8_t* dst, int box_stride, cons
   }
 }
 
-// The producer thread of a block that walks fa_item's items: every K and V
-// tile of every item, in order, into the ring at kv_s (stage s: K tile, then
-// V tile). The ring runs on across items, so the next item's first tiles
-// load while the consumers finish the current one.
-template <int D>
+// The producer thread of a block that walks fa_item<kRows>'s items: every K
+// and V tile of every item, in order, into the kStages-stage ring at kv_s
+// (stage s: K tile, then V tile). The ring runs on across items, so the next
+// item's first tiles load while the consumers finish the current one.
+template <int D, int kRows, int kStages>
 __device__ __forceinline__ void fa_produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                               uint8_t* kv_s, uint64_t* full, uint64_t* empty,
                                               int n_items, int B, int Hkv, int g, int n_rows,
@@ -143,10 +154,10 @@ __device__ __forceinline__ void fa_produce_kv(const CUtensorMap* tk, const CUten
   for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
     const int it = fa_item_index(k);
     if (it >= n_items) continue;
-    const FaItem w = fa_item(it, B, Hkv, g, n_rows, Skv, causal, window);
+    const FaItem w = fa_item<kRows>(it, B, Hkv, g, n_rows, Skv, causal, window);
     for (int i = 0; i < w.n_tiles; ++i, ++gi) {
-      const int s = gi % kFaStages;
-      if (gi >= kFaStages) hopper::mbar_wait(&empty[s], ((gi / kFaStages) - 1) & 1);
+      const int s = gi % kStages;
+      if (gi >= kStages) hopper::mbar_wait(&empty[s], ((gi / kStages) - 1) & 1);
       hopper::mbar_arrive_expect_tx(&full[s], L::kStageBytes);
       uint8_t* k_s = kv_s + s * L::kStageBytes;
       const int t0 = w.t_begin + i * kFaCols;
@@ -169,12 +180,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
                 float* __restrict__ lse, int B, int Sq, int Skv, int H, int Hkv, float scale,
                 int causal, int window) {
   using L = FaLayout<D>;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t fa_smem[];
   const uint32_t pad = (1024 - (hopper::smem_u32(fa_smem) & 1023)) & 1023;
   uint8_t* q_s = fa_smem + pad;
   uint8_t* kv_s = q_s + L::kQBytes;  // stage s: K tile, then V tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + kFaStages * L::kStageBytes);
-  uint64_t* empty = full + kFaStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + kStages * L::kStageBytes);
+  uint64_t* empty = full + kStages;
 
   const int g = H / Hkv;
   const int n_rows = Sq * g;
@@ -183,7 +195,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kFaStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
@@ -194,7 +206,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   if (wg == 0) {
     hopper::setmaxnreg_dec<40>();
     if (threadIdx.x == 0)
-      fa_produce_kv<D>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv, causal, window);
+      fa_produce_kv<D, kFaRows, kStages>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv,
+                                         causal, window);
   } else {
     hopper::setmaxnreg_inc<232>();
     const int c = wg - 1;
@@ -205,7 +218,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa_item_index(k);
       if (it >= n_items) continue;
-      const FaItem w = fa_item(it, B, Hkv, g, n_rows, Skv, causal, window);
+      const FaItem w = fa_item<kFaRows>(it, B, Hkv, g, n_rows, Skv, causal, window);
 
       // This warpgroup's 64 Q rows (it alone reads them); the barrier first
       // lets every warp finish the previous item's products, which read them.
@@ -227,13 +240,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 
       for (int i = 0; i < w.n_tiles; ++i, ++gi) {
-        const int s = gi % kFaStages;
+        const int s = gi % kStages;
         const int t0 = w.t_begin + i * kFaCols;
-        hopper::mbar_wait(&full[s], (gi / kFaStages) & 1);
+        hopper::mbar_wait(&full[s], (gi / kStages) & 1);
         const uint32_t k_addr = hopper::smem_u32(kv_s + s * L::kStageBytes);
         const uint32_t v_addr = k_addr + L::kKBytes;
 
-        // S = Q K^T: K tile K-major (head dim contiguous), 64 positions wide
+        // S = Q K^T: K tile K-major (head dim contiguous), 64 positions wide;
+        // D / 16 k-steps (5 at D = 80: the second box's first 16 head dims)
         float sacc[kFaCols / 2];
 #pragma unroll
         for (int j = 0; j < kFaCols / 2; ++j) sacc[j] = 0.f;
@@ -312,7 +326,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         for (int j = 0; j < D / 2; ++j) oacc[j] *= alpha[(j >> 1) & 1];
 
         // O += P V: V tile MN-major (head dim contiguous), its 64-wide boxes
-        // kKVBoxBytes apart; 16 positions = 16 rows of 128 bytes a k-step
+        // kKVBoxBytes apart; 16 positions = 16 rows of 128 bytes a k-step;
+        // N = D (at 256 a thread's O is 128 registers)
         hopper::fence_regs(oacc);
         hopper::wgmma_fence();
 #pragma unroll

@@ -19,7 +19,9 @@ backward is :func:`flash_attention_backward`, the hand-written kernels of
 ``flash_attention.bwd_wgmma_launches``. :func:`fa_bwd_route` picks the
 route by the rule of the forward's: ``wgmma`` (a row pass for delta, then
 dQ, then dK and dV, each a TMA-fed wgmma kernel reading the forward's
-statistics, P and dS rounded to bf16 as product operands) or ``simt`` (f32
+statistics, P and dS rounded to bf16 as product operands; at D = 256 the
+dK/dV kernel may cut each key block's rows into :func:`fa_bwd_row_chunks`
+runs, whose f32 partial sums a last pass adds in order) or ``simt`` (f32
 arithmetic, with its own pass for the statistics). Neither uses atomics, so
 the bits depend on the shapes alone. Without grad the forward's launch,
 route and bits are those of a call outside autograd, and it writes no
@@ -47,7 +49,7 @@ from repro_torch.roofline import memory
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # the simt route; the wgmma route takes WGMMA_HEAD_DIMS
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 WGMMA_MIN_ROWS = 64  # folded rows (Sq x group heads): one consumer warpgroup's tile
 ROUTE_CODES = {"simt": 0, "wgmma": 1}  # the C entry point's route argument
 _ARGTYPES = (
@@ -55,16 +57,20 @@ _ARGTYPES = (
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 )
+BWD_KV_COLS = 64  # keys an item of the D = 256 dK/dV kernel
+BWD_ITEMS_WANTED = 256  # its items (key blocks x row chunks) the row chunks aim at
+BWD_MAX_CHUNKS = 4
 
 
 def fa_route(b: int, sq: int, skv: int, h: int, hkv: int, d: int, dtype: torch.dtype,
              aligned: bool = True) -> str:
     """The kernel route of an attention call: "wgmma" for bf16 with head dim
-    64 or 128, Sq <= Skv (so that tile skipping holds) and at least 64 folded
-    rows (Sq x H / Hkv), with q, k and v 16-byte aligned (``aligned``: TMA and
-    16-byte loads); "simt" otherwise."""
+    64, 80, 128 or 256 (``WGMMA_HEAD_DIMS``), Sq <= Skv (so that tile
+    skipping holds) and at least 64 folded rows (Sq x H / Hkv), with q, k and
+    v 16-byte aligned (``aligned``: TMA and 16-byte loads); "simt" otherwise
+    (f32, the live call, other head dims)."""
     if (dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and sq <= skv
             and sq * (h // hkv) >= WGMMA_MIN_ROWS and aligned):
         return "wgmma"
@@ -113,9 +119,23 @@ def fa_bwd_route(b: int, sq: int, skv: int, h: int, hkv: int, d: int, dtype: tor
                  aligned: bool = True) -> str:
     """The kernel route of a backward call: the rule of :func:`fa_route`,
     with ``aligned`` covering q, k, v, the output and its gradient: "wgmma"
-    for bf16 at head dim 64 or 128, Sq <= Skv and Sq x H / Hkv >= 64;
-    "simt" otherwise."""
+    for bf16 at head dim 64, 80, 128 or 256, Sq <= Skv and Sq x H / Hkv >=
+    64; "simt" otherwise."""
     return fa_route(b, sq, skv, h, hkv, d, dtype, aligned)
+
+
+def fa_bwd_row_chunks(b: int, skv: int, hkv: int, d: int, route: str) -> int:
+    """Row chunks of the backward's dK/dV kernel: 1, but on the wgmma route
+    at D = 256, whose items are 64 keys of one (batch, kv head) and all the
+    rows that see them (recurrentgemma-9b's one KV head leaves a 4 x 1024
+    call 64 such items for 132 SMs): there the rows of each key block are
+    cut into up to BWD_MAX_CHUNKS runs, enough for BWD_ITEMS_WANTED items,
+    each writing f32 partial sums that a last pass adds in order. A rule of
+    shapes alone, so the bits do not depend on the card."""
+    if route != "wgmma" or d != 256:
+        return 1
+    blocks = b * hkv * -(-skv // BWD_KV_COLS)
+    return max(1, min(BWD_MAX_CHUNKS, BWD_ITEMS_WANTED // blocks))
 
 
 def _aligned(*tensors) -> bool:
@@ -229,15 +249,19 @@ def flash_attention_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # simt: row m, l, delta; wgmma: lse2 (unless given), delta
     work = torch.empty((3 if route == "simt" else 2, b * h * sq), dtype=torch.float32, device=q.device)
+    chunks = fa_bwd_row_chunks(b, skv, hkv, d, route)
+    # the row chunks' partial dK and dV
+    part = torch.empty((chunks, 2, b, skv, hkv, d), dtype=torch.float32, device=q.device) if chunks > 1 else None
     if work.is_meta:
-        memory.mark(work, "workspace")
+        memory.mark((work, part), "workspace")
         return dq, dk, dv
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), None if lse is None else lse.data_ptr(),
+        None if part is None else part.data_ptr(),
         b, sq, skv, h, hkv, d, scale, int(causal), int(window), DTYPE_CODES[q.dtype],
-        ROUTE_CODES[route], _build.sm_count(q.device), torch.cuda.current_stream(q.device).cuda_stream,
+        ROUTE_CODES[route], chunks, _build.sm_count(q.device), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, f"flash_attention_backward ({route})")
     flash_attention.bwd_launches += 1

@@ -337,6 +337,19 @@ WGMMA_FA_CASES = [
     # examples/port_train_lm.py's call (g = 5: 12 positions and 4 padding
     # rows a 64-row tile)
     (4, 128, 128, 10, 2, 64, True, 0),
+    # head dim 80: hubert-xlarge's whole call (MHA, bidirectional), ragged
+    # (Sq not a multiple of 64, a partial last KV tile) with a window and g =
+    # 4, and Sq < Skv
+    (4, 1024, 1024, 16, 16, 80, False, 0),
+    (2, 300, 333, 16, 4, 80, True, 100),
+    (1, 77, 200, 16, 16, 80, False, 0),
+    # head dim 256: recurrentgemma-9b's prefill (MQA, g = 16, window 2048
+    # over 1024 positions), a window that skips tiles, one query head (a
+    # 16x16 rank's shard of the hybrid), and Sq < Skv
+    (4, 1024, 1024, 16, 1, 256, True, 2048),
+    (1, 1000, 1000, 16, 1, 256, True, 128),
+    (2, 4096, 4096, 1, 1, 256, True, 2048),
+    (1, 200, 333, 8, 2, 256, True, 64),
 ]
 
 
@@ -813,12 +826,14 @@ def test_flash_attention_backward_kernel(cuda, b, sq, skv, h, hkv, d, causal, wi
         assert torch.equal(g, g2), f"d{name} is not deterministic"
 
 
-# The backward's tensor-core route (fa_bwd_route: bf16, D 64 / 128, Sq <=
-# Skv, Sq x g >= 64): g = 1, 2, 4 and 8, and 3, 6 and 7 (llama3.2-3b, grok-1-314b,
-# arctic-480b and qwen2-vl-7b), whose 64-row tiles of 64 // g positions keep
-# padding rows; causal, windowed and bidirectional;
-# Sq = Skv not a multiple of 64, and Sq < Skv. bf16 gradients against the
-# f32 plain version (P and dS rounded to bf16 as product operands, ~2e-3).
+# The backward's tensor-core route (fa_bwd_route: bf16, D 64 / 80 / 128 /
+# 256, Sq <= Skv, Sq x g >= 64): at D 64 and 128 g = 1, 2, 4 and 8, and 3, 6
+# and 7 (llama3.2-3b, grok-1-314b, arctic-480b and qwen2-vl-7b), whose 64-row
+# tiles of 64 // g positions keep padding rows; at D 80 (hubert-xlarge) and
+# 256 (recurrentgemma-9b, whose dK and dV split over the two consumer
+# warpgroups) g = 1, 4 and 16; causal, windowed and bidirectional; Sq = Skv
+# not a multiple of 64, and Sq < Skv. bf16 gradients against the f32 plain
+# version (P and dS rounded to bf16 as product operands, ~2e-3).
 WGMMA_BWD_SIZES = [(1, 77, 77), (2, 1000, 1000), (1, 200, 333)]  # (B, Sq, Skv)
 WGMMA_BWD_MASKS = {"causal": (True, 0), "window": (True, 48), "bidirectional": (False, 0)}
 
@@ -829,6 +844,22 @@ WGMMA_BWD_MASKS = {"causal": (True, 0), "window": (True, 48), "bidirectional": (
 @pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_backward_wgmma_route(cuda, b, sq, skv, mask, g, d):
+    _check_backward_wgmma_route(cuda, b, sq, skv, mask, g, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv", WGMMA_BWD_SIZES)
+@pytest.mark.parametrize("mask", sorted(WGMMA_BWD_MASKS))
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("d", [80, 256])
+def test_flash_attention_backward_wgmma_route_at_head_dims_80_and_256(cuda, b, sq, skv, mask, g, d):
+    _check_backward_wgmma_route(cuda, b, sq, skv, mask, g, d)
+
+
+def _check_backward_wgmma_route(cuda, b, sq, skv, mask, g, d):
+    """One backward call on the tensor-core route: its counts rose by one,
+    each gradient within FA_BWD_REL_L2 of the f32 plain version, and a
+    second call gives the same bits."""
     from repro_torch.kernels.flash_attention.ref import attention_ref_backward
 
     causal, window = WGMMA_BWD_MASKS[mask]

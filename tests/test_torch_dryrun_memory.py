@@ -26,7 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import fa_bwd_row_chunks, fa_route, flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import pa_splits  # noqa: E402
 from repro_torch.kernels.streammm.ops import k_splits  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -147,6 +147,43 @@ def test_cpu_tensors_take_the_plain_version_under_the_pass():
     assert not memory.count(flash_attention, *meta)[1].made["attention"]  # meta outside the card's account
     assert memory.count(flash_attention, *meta, card=True)[1].made["attention"] == {16 * 2 * 64 * 4: 1}
     assert not memory.card_shapes()
+
+
+# hubert-xlarge's head dim 80 (MHA) and recurrentgemma-9b's 256 (MQA, g =
+# 16) on the tensor-core route, and f32 at the same shapes on simt
+NEW_HEAD_DIMS = [(80, 16, 16, torch.bfloat16, "wgmma"), (256, 16, 1, torch.bfloat16, "wgmma"),
+                 (80, 16, 16, torch.float32, "simt"), (256, 16, 1, torch.float32, "simt")]
+
+
+@pytest.mark.parametrize("d,h,hkv,dtype,route", NEW_HEAD_DIMS)
+def test_flash_call_under_autograd_counts_statistics_and_workspace(d, h, hkv, dtype, route):
+    """One flash call and its backward on meta with the card's paths: the
+    wgmma route's forward makes its output and the rows' statistics (B, H,
+    Sq) f32, its backward a 2-row workspace (lse2 and delta) and, at D =
+    256, the row chunks' f32 partial dK and dV (fa_bwd_row_chunks: 4 here,
+    two key blocks); the simt route makes no statistics and a 3-row
+    workspace (m, l, delta)."""
+    b, s = 2, 64
+    q = torch.empty((b, s, h, d), dtype=dtype, device="meta", requires_grad=True)
+    k, v = (torch.empty((b, s, hkv, d), dtype=dtype, device="meta", requires_grad=True) for _ in range(2))
+    assert fa_route(b, s, s, h, hkv, d, dtype) == route
+
+    def step(q, k, v):
+        out = flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+
+    grads, got = memory.count(step, q, k, v, card=True)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    out_bytes, stats_bytes = q.numel() * q.element_size(), b * h * s * 4
+    if route == "wgmma":
+        chunks = fa_bwd_row_chunks(b, s, hkv, d, route)
+        assert chunks == (4 if d == 256 else 1)
+        assert got.made["attention"] == {out_bytes: 1, stats_bytes: 1}
+        parts = {chunks * 2 * k.numel() * 4: 1} if chunks > 1 else {}
+        assert got.made["workspace"] == {2 * stats_bytes: 1, **parts}
+    else:
+        assert got.made["attention"] == {out_bytes: 1}
+        assert got.made["workspace"] == {3 * stats_bytes: 1}
 
 
 def test_train_4k_on_one_card_does_not_fit():

@@ -2,7 +2,7 @@
 
 ``fa_bwd_route`` (``repro_torch.kernels.flash_attention.ops``) sends a
 backward call to the tensor-core kernels of ``csrc/flash_attention_bwd.cu``
-by the forward's rule: bf16, head dim 64 or 128, Sq <= Skv, Sq x H / Hkv >=
+by the forward's rule: bf16, head dim 64, 80, 128 or 256, Sq <= Skv, Sq x H / Hkv >=
 64, and q, k, v, the output and its gradient 16-byte aligned; everything
 else takes the simt route. Checked at every shape ``chip_smoke.py`` holds
 the backward to (``FA_BWD_CASES``) and at the rule's edges. The autograd
@@ -45,12 +45,13 @@ def _chip_smoke():
 
 
 SMOKE_BWD_CASES = _chip_smoke().FA_BWD_CASES
-# the route of each chip_smoke case in bf16: qwen3 (D 128, g 2), minicpm-2b
-# (D 64, MHA), llama3.2-3b (g 3), qwen2-vl-7b and arctic-480b (g 7) and
-# grok-1-314b (g 6) and examples/port_train_lm.py (D 64, g 5) on the tensor
-# cores; hubert's D = 80 and recurrentgemma's D = 256 on simt
-SMOKE_BF16_ROUTES = {"qwen3": "wgmma", "minicpm-2b": "wgmma", "hubert-xlarge": "simt",
-                     "recurrentgemma-9b": "simt", "recurrentgemma-9b S=4096": "simt", "g=4 D=80": "simt",
+# the route of each chip_smoke case in bf16: every one on the tensor cores:
+# qwen3 (D 128, g 2), minicpm-2b (D 64, MHA), hubert-xlarge (D 80, MHA),
+# recurrentgemma-9b (D 256, g 16), D 80 at g 4, llama3.2-3b (g 3), qwen2-vl-7b
+# and arctic-480b (g 7), grok-1-314b (g 6) and examples/port_train_lm.py (D
+# 64, g 5)
+SMOKE_BF16_ROUTES = {"qwen3": "wgmma", "minicpm-2b": "wgmma", "hubert-xlarge": "wgmma",
+                     "recurrentgemma-9b": "wgmma", "recurrentgemma-9b S=4096": "wgmma", "g=4 D=80": "wgmma",
                      "llama3.2-3b": "wgmma", "qwen2-vl-7b": "wgmma", "grok-1-314b": "wgmma",
                      "arctic-480b": "wgmma", "port_train_lm": "wgmma"}
 
@@ -71,8 +72,18 @@ def test_route_at_the_smoke_cases(case, dtype):
 @pytest.mark.parametrize("shape,dtype,aligned,want", [
     ((4, 1024, 1024, 16, 8, 128), torch.bfloat16, True, "wgmma"),
     ((4, 1024, 1024, 16, 8, 128), torch.float32, True, "simt"),
-    ((4, 1024, 1024, 16, 16, 80), torch.bfloat16, True, "simt"),
-    ((4, 1024, 1024, 16, 1, 256), torch.bfloat16, True, "simt"),
+    ((4, 1024, 1024, 16, 16, 80), torch.bfloat16, True, "wgmma"),  # hubert-xlarge
+    ((4, 1024, 1024, 16, 1, 256), torch.bfloat16, True, "wgmma"),  # recurrentgemma-9b
+    ((4, 1024, 1024, 16, 16, 80), torch.float32, True, "simt"),
+    ((4, 1024, 1024, 16, 1, 256), torch.float32, True, "simt"),
+    ((1, 63, 63, 1, 1, 80), torch.bfloat16, True, "simt"),  # Sq x g = 63
+    ((1, 64, 64, 1, 1, 80), torch.bfloat16, True, "wgmma"),  # Sq x g = 64
+    ((1, 21, 21, 3, 1, 256), torch.bfloat16, True, "simt"),  # 21 x 3 = 63
+    ((1, 4, 4, 16, 1, 256), torch.bfloat16, True, "wgmma"),  # 4 x 16 = 64
+    ((1, 1, 1, 16, 1, 256), torch.bfloat16, True, "simt"),  # the hybrid's live call: 16 folded rows
+    ((1, 300, 200, 16, 1, 256), torch.bfloat16, True, "simt"),  # Sq > Skv
+    ((2, 1024, 1024, 16, 4, 80), torch.bfloat16, False, "simt"),  # a tensor off 16 bytes
+    ((1, 128, 128, 4, 4, 96), torch.bfloat16, True, "simt"),  # not a wgmma head dim
     ((1, 300, 200, 8, 2, 64), torch.bfloat16, True, "simt"),  # Sq > Skv
     ((1, 200, 300, 8, 2, 64), torch.bfloat16, True, "wgmma"),  # Sq < Skv
     ((1, 63, 63, 4, 4, 64), torch.bfloat16, True, "simt"),  # Sq x g = 63
@@ -83,6 +94,20 @@ def test_route_at_the_smoke_cases(case, dtype):
 ])
 def test_route_at_the_edges(shape, dtype, aligned, want):
     assert fa_ops.fa_bwd_route(*shape, dtype, aligned) == want
+
+
+@pytest.mark.parametrize("shape,route,want", [
+    ((4, 1024, 1, 256), "wgmma", 4),  # recurrentgemma-9b's training call: 64 key blocks
+    ((1, 4096, 1, 256), "wgmma", 4),  # its 1 x 4096 call: 64
+    ((2, 4096, 1, 256), "wgmma", 2),  # 128 key blocks
+    ((4, 4096, 1, 256), "wgmma", 1),  # 256: enough items without chunks
+    ((1, 64, 1, 256), "wgmma", 4),  # at most 4 chunks
+    ((4, 1024, 1, 256), "simt", 1),
+    ((4, 1024, 16, 80), "wgmma", 1),  # only D = 256 splits its dK/dV items
+    ((1, 128, 1, 128), "wgmma", 1),
+])
+def test_row_chunks_of_the_dkdv_kernel(shape, route, want):
+    assert fa_ops.fa_bwd_row_chunks(*shape, route) == want
 
 
 def test_wrapper_reads_alignment_from_all_five_tensors():
@@ -142,8 +167,9 @@ def test_autograd_hands_the_statistics_to_the_backward_on_the_wgmma_route(monkey
             assert seen_fwd[0] is None and seen_bwd[0] is None
 
 
-# the wgmma route's shapes, cut small: D 64 / 128; g 1, 2, 4, 8; causal,
-# windowed and bidirectional; Sq = Skv not a multiple of 64, and Sq < Skv
+# the wgmma route's shapes, cut small: D 64 / 80 / 128 / 256; g 1, 2, 4, 8,
+# 16; causal, windowed and bidirectional; Sq = Skv not a multiple of 64, and
+# Sq < Skv
 PLAIN_CASES = [  # (B, Sq, Skv, H, Hkv, D, causal, window)
     (1, 37, 37, 2, 2, 64, True, 0),
     (2, 21, 21, 4, 2, 64, True, 5),
@@ -151,6 +177,11 @@ PLAIN_CASES = [  # (B, Sq, Skv, H, Hkv, D, causal, window)
     (1, 13, 13, 8, 1, 128, True, 0),
     (1, 11, 24, 8, 2, 128, True, 4),
     (2, 9, 9, 16, 2, 128, False, 0),
+    (2, 23, 23, 4, 4, 80, False, 0),  # hubert-xlarge: MHA, bidirectional
+    (1, 17, 29, 8, 2, 80, True, 6),
+    (1, 12, 12, 16, 1, 256, True, 0),  # recurrentgemma-9b: MQA, g = 16
+    (1, 15, 15, 16, 1, 256, True, 4),
+    (2, 9, 20, 1, 1, 256, False, 0),
 ]
 
 

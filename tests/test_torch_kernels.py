@@ -210,7 +210,8 @@ FA_ROUTES = [
     # (B, Sq, Skv, H, Hkv, D, dtype, aligned, route): the dense prefill calls
     # of qwen3-1.7b and llama3.2-3b, the decode-vs-forward check's, the kernel
     # bench's, the reference's test shapes in bf16; the live call (Sq = 1),
-    # f32, D = 80, Sq > Skv, too few folded rows, misaligned
+    # f32, D = 80 at 15 folded rows, D = 32, Sq > Skv, too few folded rows,
+    # misaligned
     (4, 1024, 1024, 16, 8, 128, BF16, True, "wgmma"),
     (4, 1024, 1024, 24, 8, 128, BF16, True, "wgmma"),
     (4, 1088, 1088, 24, 8, 128, BF16, True, "wgmma"),
@@ -226,11 +227,26 @@ FA_ROUTES = [
     (2, 70, 40, 4, 2, 64, BF16, True, "simt"),
     (1, 31, 31, 4, 2, 64, BF16, True, "simt"),
     (4, 1024, 1024, 16, 8, 128, BF16, False, "simt"),
-    # recurrentgemma-9b (D = 256): its prefill, a windowed forward and the
-    # live call, all on the simt route
-    (4, 1024, 1024, 16, 1, 256, BF16, True, "simt"),
-    (1, 4096, 4096, 16, 1, 256, BF16, True, "simt"),
+    # recurrentgemma-9b (D = 256): its prefill and a windowed forward on the
+    # tensor cores (D = 256 is a wgmma head dim), the live call (16 folded
+    # rows) on simt
+    (4, 1024, 1024, 16, 1, 256, BF16, True, "wgmma"),
+    (1, 4096, 4096, 16, 1, 256, BF16, True, "wgmma"),
     (1, 1, 1, 16, 1, 256, BF16, True, "simt"),
+    # hubert-xlarge's forward (D = 80, MHA) and one query head of
+    # recurrentgemma-9b (a 16x16 rank's shard) on the tensor cores; the rule's
+    # edges at D 80 and 256: 63 and 64 folded rows, f32, Sq > Skv, misaligned
+    (4, 1024, 1024, 16, 16, 80, BF16, True, "wgmma"),
+    (16, 4096, 4096, 1, 1, 256, BF16, True, "wgmma"),
+    (1, 63, 63, 1, 1, 80, BF16, True, "simt"),
+    (1, 64, 64, 1, 1, 80, BF16, True, "wgmma"),
+    (1, 21, 21, 3, 1, 256, BF16, True, "simt"),  # 21 x 3 = 63
+    (1, 4, 4, 16, 1, 256, BF16, True, "wgmma"),  # 4 x 16 = 64
+    (4, 1024, 1024, 16, 16, 80, F32, True, "simt"),
+    (4, 1024, 1024, 16, 1, 256, F32, True, "simt"),
+    (1, 300, 200, 16, 4, 80, BF16, True, "simt"),
+    (4, 1024, 1024, 16, 1, 256, BF16, False, "simt"),
+    (1, 64, 64, 2, 2, 96, BF16, True, "simt"),  # not a wgmma head dim
 ]
 
 
@@ -274,6 +290,10 @@ FA_CASES = [
     # and with a window that the sequence outgrows
     (1, 128, 128, 16, 1, 256, True, 0),
     (1, 192, 192, 16, 1, 256, True, 64),
+    # hubert-xlarge's bidirectional MHA at head dim 80, and D = 80 with GQA
+    # (g = 4) under a causal window
+    (1, 128, 128, 16, 16, 80, False, 0),
+    (1, 128, 128, 8, 2, 80, True, 48),
 ]
 
 
