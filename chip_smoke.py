@@ -333,6 +333,10 @@ HYBRID_BF16_REL_L2 = 5e-2
 # and operations/s by input type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# Bench's spin before each timed call: about half a millisecond at the
+# H100's 1.98 GHz, longer than the host takes to queue a kernel's call or
+# its library's
+LEAD_CYCLES = 1_000_000
 # paper-llama3-8b's projections (K, N), for which stream_matmul_int8 was
 # written: wq, wk/wv, w1/w3, w2, the LM head
 LLAMA3_8B_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
@@ -375,6 +379,21 @@ FA_BWD_CASES = (
 # the rows of FA_BWD_CASES whose bf16 call is held to MAX_BWD_LIBRARY_RATIO:
 # the train path's, and the tensor-core calls at head dims 80 and 256
 FA_BWD_LIBRARY_GATED = (TRAIN_LABEL, "hubert-xlarge", "recurrentgemma-9b", "recurrentgemma-9b S=4096")
+# flash_attention by positions (the reference attend's mask) at Qwen2-VL's
+# M-RoPE layout (vlm_positions: an image's patches, the prompt's first
+# eighth, share temporal position 0): (label, B, S, H, Hkv, D, dtype,
+# window, tail, forward calls a step by path). Phase 3 holds the forward
+# and phase 8 the backward against the plain version by the same
+# positions (FA_REL_L2, FA_BWD_REL_L2; rows that see no key exactly 0) and
+# times each beside the index route at the same shape and SDPA with the same
+# boolean mask. qwen2-vl-7b's prefill (the families path's calls) with row
+# 0's last `tail` slots at -1, an f32 call (the simt route) and a D = 80
+# call with a window (a second wgmma head dim).
+FA_POSITION_CASES = (
+    ("qwen2-vl prefill", DECODE_B, PROMPT, 28, 4, 128, "bfloat16", 0, 77, {"families": 28}),
+    ("positions f32", 2, 512, 28, 4, 128, "float32", 0, 77, {}),
+    ("positions D=80", 2, PROMPT, 16, 16, 80, "bfloat16", 256, 77, {}),
+)
 # Card against CPU at published width: (arch, layers, dtypes); the loss and
 # every gradient leaf in f32 within this relative L2 (the same f32 function
 # with sums in another order, ~1e-6 a product), bf16 reported. llama3.2-3b
@@ -751,7 +770,11 @@ def sum_or_none(values):
 class Bench:
     """CUDA-event timing, median of ``reps`` launches after a warm-up, with
     the 50 MB L2 flushed before each launch (the live path reads every weight
-    once a step, so it finds them cold)."""
+    once a step, so it finds them cold). After the flush the card spins for
+    LEAD_CYCLES, about half a millisecond, so that the host has queued both events
+    and the call before the card reaches the first event: the events read the
+    card's time for the call, and a host slowed by its neighbours does not
+    leave the card idle between them."""
 
     def __init__(self, torch, dev, reps: int = 15):
         self.torch = torch
@@ -766,6 +789,7 @@ class Bench:
         times = []
         for _ in range(self.reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -982,6 +1006,25 @@ def zero_launches():
         setattr(fn, count, 0)
         if wgmma_count is not None:
             setattr(fn, wgmma_count, 0)
+    for count in POSITION_COUNTS.values():
+        setattr(counters()["flash_attention"][0], count, 0)
+
+
+# the flash calls by positions (the VLM's), forward and backward, counted on
+# the forward's wrapper beside the route
+POSITION_COUNTS = {"flash_attention": "position_launches", "flash_attention_backward": "bwd_position_launches"}
+
+
+def read_positions():
+    fn = counters()["flash_attention"][0]
+    return {name: getattr(fn, count) for name, count in POSITION_COUNTS.items()}
+
+
+def step_positions(cfg, path):
+    """The flash calls of one call of ``path`` that mask by positions: every
+    one of the VLM's (its M-RoPE layout), none of another family's."""
+    n = step_launches(cfg, path)
+    return {name: n[name] if cfg.family == "vlm" else 0 for name in POSITION_COUNTS}
 
 
 def read_launches():
@@ -1424,6 +1467,134 @@ def sdpa_window_mask(torch, sq, skv, causal, window, dev):
     return (i - j < window) & ((i >= j) if causal else True)
 
 
+def vlm_positions(torch, b, s, dev, tail=0):
+    """Qwen2-VL's M-RoPE positions (3, B, S) for a prompt whose first eighth
+    is vision (``make_concrete_batch``'s split): the patches of a gh x gw
+    image (gh != gw, the squarest such grid) at temporal 0, height the
+    patch's row, width its column, then the text from max(gh, gw) on all
+    three axes (arXiv:2409.12191 section 2.1); row 0's last ``tail`` slots
+    at -1 (padding: no query sees them, and their queries see no key)."""
+    n = s // 8
+    gh = max(d for d in range(1, math.isqrt(n) + 1) if n % d == 0 and d * d != n)
+    gw = n // gh
+    patch = torch.arange(n, dtype=torch.int32)
+    text = torch.arange(s - n, dtype=torch.int32) + max(gh, gw)
+    pos = torch.stack([torch.cat([torch.zeros_like(patch), text]), torch.cat([patch // gw, text]),
+                       torch.cat([patch % gw, text])])
+    pos = pos[:, None, :].expand(3, b, s).contiguous()
+    if tail:
+        pos[:, 0, s - tail:] = -1
+    return pos.to(dev)
+
+
+def position_mask(torch, pos, causal, window):
+    """(B, S, S) bool: the reference attend's mask by ``pos`` (B, S)."""
+    qp, kp = pos[:, :, None], pos[:, None, :]
+    mask = (kp >= 0) & ((qp >= kp) if causal else True)
+    return mask & (qp - kp < window) if window > 0 else mask
+
+
+def check_flash_positions(torch, dev, bench, backward):
+    """flash_attention (phase 3) or its backward (phase 8) by positions at
+    FA_POSITION_CASES against the plain version with the same positions:
+    relative L2 within FA_REL_L2 (the forward) or FA_BWD_REL_L2 (the
+    gradients, against f32 ones), every value finite, the rows that see no
+    key (row 0's tail) exactly 0 in the output and dQ and the keys no row
+    sees exactly 0 in dK and dV, the same bits on a second call, each call
+    on the positions route (``position_launches``, ``bwd_position_launches``)
+    and the route of ``fa_route``. Timed beside the index route at the same
+    shape, the plain version and SDPA with the same boolean mask (its
+    backward for phase 8). The bound counts the visible pairs. Returns
+    (records, path totals, bound kinds, max abs errors)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_backward
+
+    fa = fa_ops.flash_attention
+    gen = torch.Generator(dev).manual_seed(9 if backward else 2)
+    totals, recs, kinds, errs = path_totals(), [], set(), []
+    for label, b, s, h, hkv, d, dtype, window, tail, calls in FA_POSITION_CASES:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dt) for _ in range(2))
+        pos = vlm_positions(torch, b, s, dev, tail)[0]
+        kw = dict(causal=True, window=window)
+        pkw = dict(kw, q_positions=pos, kv_positions=pos)
+        route = fa_ops.fa_route(b, s, s, h, hkv, d, dt)
+        mask = position_mask(torch, pos, True, window)
+        dead = pos < 0  # row 0's tail: no key for those queries, no query for those keys
+        count = "bwd_position_launches" if backward else "position_launches"
+        wgmma = "bwd_wgmma_launches" if backward else "wgmma_launches"
+        before = (getattr(fa, count), getattr(fa, wgmma))
+        if backward:
+            with torch.no_grad():
+                out = fa(q, k, v, **pkw)
+            got = fa_ops.flash_attention_backward(q, k, v, out, do, **pkw)
+            again = fa_ops.flash_attention_backward(q, k, v, out, do, **pkw)
+            want = attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **pkw)
+            zero = [got[0][dead]] + [g[dead] for g in got[1:]]
+            gate = FA_BWD_REL_L2[str(dt)]
+        else:
+            got = (fa(q, k, v, **pkw),)
+            again = (fa(q, k, v, **pkw),)
+            want = (attention_ref(q, k, v, **pkw),)
+            zero = [got[0][dead]]
+            gate = FA_REL_L2
+        took = (getattr(fa, count) - before[0], getattr(fa, wgmma) - before[1])
+        if took != (2, 2 * (route == "wgmma")):
+            raise AssertionError(f"flash_attention{' backward' if backward else ''} {label}: positions / "
+                                 f"tensor-core launches rose by {took}, want 2 and the route rule's {route}")
+        rels = [float((g.float() - w.float()).norm() / w.float().norm()) for g, w in zip(got, want)]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        zeros = all(bool((z == 0).all()) for z in zero)
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        del again, want
+        if not (finite and zeros and same and max(rels) <= gate):
+            raise AssertionError(f"flash_attention{' backward' if backward else ''} {label}: relative L2 {rels} "
+                                 f"(gate {gate}), finite {finite}, rows without a key 0 {zeros}, same bits {same}")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_kw = dict(attn_mask=mask[:, None], enable_gqa=h != hkv)
+        if backward:
+            t = bench.ms(lambda: fa_ops.flash_attention_backward(q, k, v, out, do, **pkw))
+            t_index = bench.ms(lambda: fa_ops.flash_attention_backward(q, k, v, out, do, **kw))
+            t_plain = bench.ms(lambda: attention_ref_backward(q, k, v, do, **pkw))
+            qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+            dot = do.transpose(1, 2).contiguous()
+            t_lib = bench.ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+            del sdpa_out, dot
+        else:
+            t = bench.ms(lambda: fa(q, k, v, **pkw))
+            t_index = bench.ms(lambda: fa(q, k, v, **kw))
+            t_plain = bench.ms(lambda: attention_ref(q, k, v, **pkw))
+            t_lib = bench.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw))
+        pairs = int(mask.sum()) * h
+        elem = q.element_size()
+        nbytes = elem * ((4 * q.numel() + 2 * k.numel() + 2 * v.numel()) if backward
+                         else (2 * q.numel() + k.numel() + v.numel())) + 4 * 2 * pos.numel()
+        bt, kind = bound(nbytes, (10 if backward else 4) * d * pairs, dt)
+        for path, n in ({} if backward else calls).items():
+            kinds.add(kind)
+            for key, val in (("ms", t), ("plain_ms", t_plain), ("bound_ms", bt), ("library_ms", t_lib)):
+                totals[path][key] += n * val
+        errs.append(err)
+        recs.append({"label": label, "B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "dtype": dtype, "window": window,
+                     "tail": tail, "route": route, "ms": t, "index_ms": t_index, "bound_ms": bt, "bound_by": kind,
+                     "plain_ms": t_plain, "library_ms": t_lib, "visible_pairs": pairs, "max_abs_err": err,
+                     "rel_l2": rels})
+        log(f"  by positions {label} B={b} S={s} H={h} Hkv={hkv} D={d} window={window} tail={tail} {dtype} "
+            f"[{route}]: rel L2 {', '.join(f'{r:.2e}' for r in rels)} kernel {t:.4f} ms (index route {t_index:.4f} "
+            f"ms) bound {bt:.5f} ms ({kind}, {100 * bt / t:.0f}%) plain {t_plain:.4f} ms sdpa+mask "
+            f"{'backward ' if backward else ''}{t_lib:.4f} ms")
+        del q, k, v, do, got, mask, qt, kt, vt
+        if backward:
+            del out
+        torch.cuda.empty_cache()
+    return recs, totals, kinds, errs
+
+
 def check_flash_attention(torch, dev, bench, usage):
     import torch.nn.functional as F
 
@@ -1449,10 +1620,10 @@ def check_flash_attention(torch, dev, bench, usage):
         ("test 4", 1, 128, 128, 4, 4, 32, False, 0, torch.float32, {}),
         ("S=1 f32", 1, 1, 1, 16, 8, 128, True, 0, torch.float32, {}),
         ("bench", fb, fs, fs, fh, fhkv, fd, True, 0, torch.bfloat16, {"kernel_bench": 1}),
-        # phase 6b: minicpm-2b (MHA, D = 64) and qwen2-vl-7b (g = 7) prefill,
-        # hubert-xlarge's bidirectional forward at D = 80 (the wgmma route)
+        # phase 6b: minicpm-2b (MHA, D = 64) prefill, hubert-xlarge's
+        # bidirectional forward at D = 80 (the wgmma route); qwen2-vl-7b's
+        # prefill masks by positions (FA_POSITION_CASES)
         ("minicpm prefill", DECODE_B, PROMPT, PROMPT, 36, 36, 64, True, 0, torch.bfloat16, {"families": 40}),
-        ("qwen2-vl prefill", DECODE_B, PROMPT, PROMPT, 28, 4, 128, True, 0, torch.bfloat16, {"families": 28}),
         ("hubert forward", DECODE_B, PROMPT, PROMPT, 16, 16, 80, False, 0, torch.bfloat16, {"families": 48}),
         # phase 6c: grok-1-314b (g = 6) and arctic-480b (g = 7) prefill
         # and phase 8's train step of each (the same call, twice a layer with remat)
@@ -1511,10 +1682,18 @@ def check_flash_attention(torch, dev, bench, usage):
             f"(kernel {t / t_lib:.2f}x)")
         if label in FA_LIBRARY_GATED and not t <= MAX_LIBRARY_RATIO * t_lib:
             raise AssertionError(f"flash_attention {label}: {t:.4f} ms > {MAX_LIBRARY_RATIO} x sdpa {t_lib:.4f} ms")
+    # by positions: qwen2-vl-7b's prefill calls (the families path's), f32, D = 80
+    pos_recs, pos_totals, pos_kinds, pos_errs = check_flash_positions(torch, dev, bench, backward=False)
+    errs += pos_errs
+    bound_kinds |= pos_kinds
+    for path, vals in pos_totals.items():
+        for key, val in vals.items():
+            totals[path][key] += val
     # registers and spills of each tensor-core instance, forward and backward
     # (the forward's kernel is compiled into both libraries)
-    regs = {f"{kernel} D={d}": kernel_usage(usage, f"{kernel}ILi{d}E")
-            for kernel in ("fa_wgmma_kernel", "fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma") for d in (64, 80, 128, 256)}
+    regs = {f"{kernel} D={d}{' by positions' * pos}": kernel_usage(usage, f"{kernel}ILi{d}ELb{pos}E")
+            for kernel in ("fa_wgmma_kernel", "fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma") for d in (64, 80, 128, 256)
+            for pos in (0, 1)}
     log("flash_attention tensor-core instances (ptxas): " + "; ".join(f"{k}: {v}" for k, v in regs.items()))
     return {
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1522,7 +1701,7 @@ def check_flash_attention(torch, dev, bench, usage):
         "max_abs_err": max(errs),
         "bound_by": "+".join(sorted(bound_kinds)),
         "by_path": totals,
-        "extra": {"by_shape": by_shape, "ptxas": regs},
+        "extra": {"by_shape": by_shape, "by_positions": pos_recs, "ptxas": regs},
     }
 
 
@@ -1667,12 +1846,14 @@ def tree_map(fn, tree):
 def kernel_plain_attend():
     """``attend`` on the CPU as the flash_attention kernel's plain version
     (f32 scores and probabilities) instead of the copy of the JAX package's,
-    which rounds them to bf16."""
+    which rounds them to bf16; by the positions it is given, as the kernel
+    masks the VLM's."""
     import repro_torch.models.layers as layers
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    def attend(q, k, v, *, causal, window=None, **_):
-        return attention_ref(q, k, v, causal=causal, window=window or 0)
+    def attend(q, k, v, *, causal, window=None, q_positions=None, kv_positions=None, **_):
+        return attention_ref(q, k, v, causal=causal, window=window or 0, q_positions=q_positions,
+                             kv_positions=kv_positions)
 
     saved = layers.attend
     layers.attend = attend
@@ -2128,15 +2309,22 @@ def ssm_decode_f32(torch, cfg, params, prompts, fed):
         raise AssertionError(f"{cfg.name} f32: decode vs forward relative L2 {rel:.3e} > {SSM_DECODE_REL_L2_F32}")
 
 
-def families_batch(cfg, b, s, seed, device):
+def families_batch(cfg, b, s, seed, device, kind="prefill"):
     """The reference's batch of ``b`` x ``s`` positions for the model's family
     (``make_concrete_batch``): tokens; for the VLM family 1/8 of them vision
-    embeddings ahead of the tokens, positions 0..s-1 on the three M-RoPE
-    axes; for the audio family frames with a 30% frame mask."""
+    embeddings ahead of the tokens, at Qwen2-VL's M-RoPE positions
+    (:func:`vlm_positions`: the image's patches share temporal position 0,
+    so the attention's mask is not the index's); for the audio family frames
+    with a 30% frame mask."""
+    import torch
+
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import make_concrete_batch
 
-    return make_concrete_batch(cfg, ShapeSpec(f"{cfg.name} {b}x{s}", s, b, "prefill"), seed=seed, device=device)
+    batch = make_concrete_batch(cfg, ShapeSpec(f"{cfg.name} {b}x{s}", s, b, kind), seed=seed, device=device)
+    if cfg.family == "vlm":
+        batch["positions3"] = vlm_positions(torch, b, s, device)
+    return batch
 
 
 def check_families_against_cpu(torch, dev):
@@ -2232,12 +2420,13 @@ def families_slice(torch, dev):
         nk0 = counters()["stream_matmul"][0].nk_launches
         out = run()
         torch.cuda.synchronize(dev)
-        launches, wgmma = read_launches(), read_wgmma()
+        launches, wgmma, by_pos = read_launches(), read_wgmma(), read_positions()
         nk = counters()["stream_matmul"][0].nk_launches - nk0
         want, want_wgmma = step_launches(cfg, path), step_wgmma(cfg, path)
-        if launches != want or wgmma != want_wgmma or nk != step_nk(cfg):
-            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, K-major {nk}; "
-                                 f"want {want}, {want_wgmma}, {step_nk(cfg)}")
+        if (launches != want or wgmma != want_wgmma or nk != step_nk(cfg)
+                or by_pos != step_positions(cfg, path)):
+            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, K-major {nk}, by positions "
+                                 f"{by_pos}; want {want}, {want_wgmma}, {step_nk(cfg)}, {step_positions(cfg, path)}")
         return out, launches, wgmma, nk
 
     def add(launches, wgmma, nk):
@@ -2307,9 +2496,10 @@ def families_slice(torch, dev):
             if not torch.isfinite(decoded).all():
                 raise AssertionError(f"{arch}: decode logits not finite")
             full = dict(batch, tokens=torch.cat([batch["tokens"]] + fed, dim=1))
-            if cfg.family == "vlm":
-                full["positions3"] = torch.arange(DECODE_SMAX, dtype=torch.int32, device=dev).expand(
-                    3, DECODE_B, DECODE_SMAX)
+            if cfg.family == "vlm":  # the prompt's layout, then the decoded tokens at their slots
+                decoded_at = torch.arange(PROMPT, DECODE_SMAX, dtype=torch.int32, device=dev)
+                full["positions3"] = torch.cat(
+                    [batch["positions3"], decoded_at.expand(3, DECODE_B, DECODE_STEPS)], dim=2)
             t0 = time.perf_counter()
             ref, _, fwd_wgmma, _ = gated(f"{arch} forward", cfg, "forward", lambda: fns.forward(params, full))
             forward_s = time.perf_counter() - t0
@@ -3043,13 +3233,15 @@ def check_flash_backward(torch, dev):
                                      f"backward {t_lib:.3f} ms")
             del q, k, v, do, out, grads, lse
         torch.cuda.empty_cache()
+    # by positions: qwen2-vl-7b's training shape at its layout, f32, D = 80
+    pos_recs, _, pos_kinds, pos_errs = check_flash_positions(torch, dev, bench, backward=True)
     return {
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "the gradient XLA takes of attend in the reference's loss, src/repro/models/common.py:131",
-        "max_abs_err": max(errs),
-        "bound_by": "+".join(sorted(bound_kinds)),
+        "max_abs_err": max(errs + pos_errs),
+        "bound_by": "+".join(sorted(bound_kinds | pos_kinds)),
         "by_path": totals,
-        "extra": {"by_shape": by_shape},
+        "extra": {"by_shape": by_shape, "by_positions": pos_recs},
     }
 
 
@@ -3277,15 +3469,12 @@ def check_train_against_cpu(torch, dev):
     import resource
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch.specs import make_concrete_batch
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.model import build_model
     from repro_torch.tree import flatten
 
-    def batch_of(cfg, seed):
-        return make_concrete_batch(cfg, ShapeSpec("train", TRAIN_CHECK_S, TRAIN_CHECK_B, "train"), seed=seed,
-                                   device="cpu")
+    def batch_of(cfg, seed):  # the VLM at Qwen2-VL's layout (families_batch)
+        return families_batch(cfg, TRAIN_CHECK_B, TRAIN_CHECK_S, seed, "cpu", kind="train")
 
     release_host_cache(torch)
     results = {}

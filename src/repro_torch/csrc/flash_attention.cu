@@ -53,6 +53,11 @@
 // every row sees at least one key, so tiles that the causal or window mask
 // hides from every row of the block are skipped: that changes only speed.
 // Both routes are deterministic (no atomics). Any Sq and Skv; D <= 256.
+// By positions (q_positions, kv_positions: the mask of the reference's
+// attend, flash_attention_wgmma.cuh) both routes skip tiles by the
+// pre-pass's ranges instead, mask every tile element by element, and a row
+// that sees no key writes 0 (and, on the wgmma route, the statistic -inf)
+// where the index keeps the uniform average above.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,10 +93,11 @@ constexpr size_t smem_floats() {
 // q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D); o like q. grid = (B*Hkv, ceil(Sq*g/64)).
 // MD (128 or 256) bounds D: a thread holds head dims tx + 16c, c < MD / 16. D
 // <= 128 takes MD = 128, the code and the bits it always had.
-template <typename T, int MD>
+template <typename T, int MD, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int Sq, int Skv, int H, int Hkv, int D, float scale,
+          T* __restrict__ o, const int* __restrict__ qp, const int* __restrict__ kp,
+          const int2* __restrict__ rng, int Sq, int Skv, int H, int Hkv, int D, float scale,
           int causal, int window, int skip_ok) {
   constexpr int kAcc = MD / 16;  // head dims a thread accumulates
   extern __shared__ float smem[];
@@ -131,7 +137,11 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int s_lo = r0 / g;
   const int s_hi = (min(n_rows, r0 + kRows) - 1) / g;
   int t_begin = 0, t_end = Skv;
-  if (skip_ok) {
+  if constexpr (kPos) {  // the pre-pass's tiles
+    const int2 r = rng[blockIdx.x / Hkv * gridDim.y + blockIdx.y];
+    t_begin = r.x * kCols;
+    t_end = min(Skv, r.y * kCols);
+  } else if (skip_ok) {
     if (causal) t_end = min(Skv, s_hi + 1);
     if (window > 0) t_begin = (max(0, s_lo - window + 1) / kCols) * kCols;
   }
@@ -175,6 +185,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int a = 0; a < 4; ++a) {
       const int i = ty + 16 * a;
       const int s = (r0 + i) / g;
+      const int qpos = kPos && r0 + i < n_rows ? qp[(size_t)b * Sq + s] : 0;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int j = tx + 16 * c;
@@ -182,7 +193,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         float val = sc[a][c];
         if (t >= Skv) {
           val = -INFINITY;
-        } else if ((causal && s < t) || (window > 0 && s - t >= window)) {
+        } else if (kPos ? !fa::visible(qpos, kp[(size_t)b * Skv + t], causal, window)
+                                 : (causal && s < t) || (window > 0 && s - t >= window)) {
           val = kNegInf;
         }
         ps[i * (kCols + 1) + j] = val;
@@ -238,7 +250,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int r = r0 + i;
     if (r >= n_rows) continue;
     const int s = r / g, h = kvh * g + r % g;
-    const float inv = 1.f / fmaxf(row_l[i], 1e-30f);
+    // by positions, a row that saw no key (its max still the sentinel) writes 0
+    const float inv = kPos && row_m[i] <= kNegInf ? 0.f : 1.f / fmaxf(row_l[i], 1e-30f);
     T* out = o + (((size_t)b * Sq + s) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kAcc; ++c) {
@@ -249,26 +262,31 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T, int MD>
-int run_md(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
-           int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
+int run_md(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int2* rng,
+           int B, int Sq, int Skv, int H, int Hkv, int D, float scale, int causal, int window,
+           cudaStream_t stream) {
   const size_t smem = smem_floats<MD>() * sizeof(float);
-  static std::atomic<uint32_t> smem_set{0};
-  const int err = hopper::allow_smem(fa_kernel<T, MD>, static_cast<int>(smem), smem_set);
-  if (err != 0) return err;
+  static std::atomic<uint32_t> smem_set{0}, smem_set_pos{0};
+  const bool by_pos = qp != nullptr;
+  auto kernel = by_pos ? fa_kernel<T, MD, true> : fa_kernel<T, MD, false>;
+  int err = hopper::allow_smem(kernel, static_cast<int>(smem), by_pos ? smem_set_pos : smem_set);
   const int g = H / Hkv;
+  if (err == 0 && by_pos)
+    err = fa::launch_pos_ranges(qp, kp, B, Sq, Skv, g, 1, kRows, kCols, causal, window, rng, stream);
+  if (err != 0) return err;
   dim3 grid(B * Hkv, (Sq * g + kRows - 1) / kRows);
-  fa_kernel<T, MD><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, Hkv, D, scale, causal, window, Sq <= Skv ? 1 : 0);
+      static_cast<T*>(o), qp, kp, rng, Sq, Skv, H, Hkv, D, scale, causal, window, Sq <= Skv ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
-        int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int2* rng, int B,
+        int Sq, int Skv, int H, int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
   if (D <= 128)
-    return run_md<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, D, scale, causal, window, stream);
-  return run_md<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, D, scale, causal, window, stream);
+    return run_md<T, 128>(q, k, v, o, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale, causal, window, stream);
+  return run_md<T, 256>(q, k, v, o, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale, causal, window, stream);
 }
 
 }  // namespace
@@ -277,18 +295,28 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int Sq, int
 // window = 0: no window. route: 0 = simt, 1 = wgmma (bfloat16, D = 64, 80,
 // 128 or 256, Sq <= Skv, Sq * H / Hkv >= 64, q, k, v 16-byte aligned); anything
 // else is refused. lse: null, or (wgmma route only) (B, H, Sq) f32 that
-// receives each row's statistics (flash_attention_wgmma.cuh). `sms`: the
-// device's SM count, the wgmma route's most blocks. Returns
-// cudaGetLastError() after the launch.
+// receives each row's statistics (flash_attention_wgmma.cuh). qpos, kvpos:
+// null (the index), or int32 (B, Sq) and (B, Skv) positions, with ranges
+// scratch of B * (ceil(Sq * H / Hkv / 64) + ceil(Skv / 64)) int pairs for
+// the pre-passes' tile ranges and, on the wgmma route, the tiles' positions
+// (fa_pos_ranges, fa_pos_tiles: a launch each more). `sms`: the device's SM count, the
+// wgmma route's most blocks. Returns cudaGetLastError() after the last
+// launch, or the first error.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int B, int Sq, int Skv, int H, int Hkv, int D, float scale,
-                               int causal, int window, int dtype, int route, int sms,
-                               void* stream) {
+                               const void* qpos, const void* kvpos, void* ranges, int B, int Sq,
+                               int Skv, int H, int Hkv, int D, float scale, int causal, int window,
+                               int dtype, int route, int sms, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > kMaxD ||
       window < 0 || route < 0 || route > 1 || (route == 1 && sms <= 0) ||
-      (route == 0 && lse != nullptr))
+      (route == 0 && lse != nullptr) || ((qpos == nullptr) != (kvpos == nullptr)) ||
+      (qpos != nullptr && ranges == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kvpos);
+  int2* rng = static_cast<int2*>(ranges);
+  // the wgmma route's tiles' positions after its items' ranges
+  int2* kts = rng == nullptr ? nullptr : rng + B * ((Sq * (H / Hkv) + fa::kFaRows - 1) / fa::kFaRows);
   if (route == 1) {
     const bool aligned = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -297,20 +325,20 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
       return static_cast<int>(cudaErrorInvalidValue);
     float* stats = static_cast<float*>(lse);
     if (D == 64)
-      return fa::launch_wgmma<64>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+      return fa::launch_wgmma<64>(q, k, v, o, stats, qp, kp, rng, kts, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 80)
-      return fa::launch_wgmma<80>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+      return fa::launch_wgmma<80>(q, k, v, o, stats, qp, kp, rng, kts, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 128)
-      return fa::launch_wgmma<128>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
+      return fa::launch_wgmma<128>(q, k, v, o, stats, qp, kp, rng, kts, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
                                    s);
     if (D == 256)
-      return fa::launch_wgmma<256>(q, k, v, o, stats, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
+      return fa::launch_wgmma<256>(q, k, v, o, stats, qp, kp, rng, kts, B, Sq, Skv, H, Hkv, scale, causal, window, sms,
                                    s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1)
-    return run<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, D, scale, causal, window, s);
+    return run<__nv_bfloat16>(q, k, v, o, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale, causal, window, s);
   if (dtype == 0)
-    return run<float>(q, k, v, o, B, Sq, Skv, H, Hkv, D, scale, causal, window, s);
+    return run<float>(q, k, v, o, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

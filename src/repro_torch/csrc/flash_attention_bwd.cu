@@ -72,6 +72,11 @@
 //    speed. Inputs f32 or bf16 are read into f32 shared memory; gradients
 //    accumulate in f32 and are written in the input type. Tiles come in two
 //    sizes, for D <= 128 and D <= 256, a template argument chosen by D.
+// By positions (the reference attend's mask, flash_attention_wgmma.cuh) both
+// routes walk the tiles and rows of the pre-pass's ranges (fa_pos_ranges, a
+// launch each for the row blocks and the key blocks), mask every tile
+// element by element, and a hidden key's P is 0 on both routes, so a row
+// that sees no key (the forward's 0 and -inf) adds nothing to dQ, dK or dV.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,13 +118,32 @@ __device__ __forceinline__ bool hidden(int s, int t, int causal, int window) {
   return (causal && s < t) || (window > 0 && s - t >= window);
 }
 
+// Whether key t (< Skv) is hidden from query index s of batch b: by index,
+// or by positions (kPos; a row past the last, live false, sees what position
+// 0 does: its results are never written).
+template <bool kPos>
+__device__ __forceinline__ bool masked_at(const int* __restrict__ qp, const int* __restrict__ kp, int b, int Sq,
+                                          int Skv, bool live, int s, int t, int causal, int window) {
+  if constexpr (kPos) {
+    return !fa::visible(live ? qp[(size_t)b * Sq + s] : 0, kp[(size_t)b * Skv + t], causal, window);
+  } else {
+    return hidden(s, t, causal, window);
+  }
+}
+
 // The KV tiles a block of folded rows [r0, r0 + kRows) must visit, as the
-// forward computes them: all of them unless Sq <= Skv (skip_ok).
+// forward computes them: all of them unless Sq <= Skv (skip_ok); by
+// positions (kPos) the pre-pass's range of block (blockIdx.x / Hkv, blockIdx.y).
+template <bool kPos>
 __device__ __forceinline__ void kv_range(int r0, int n_rows, int g, int Skv, int causal, int window,
-                                         int skip_ok, int* t_begin, int* t_end) {
+                                         int skip_ok, const int2* rng, int Hkv, int* t_begin, int* t_end) {
   *t_begin = 0;
   *t_end = Skv;
-  if (skip_ok) {
+  if constexpr (kPos) {
+    const int2 r = rng[blockIdx.x / Hkv * gridDim.y + blockIdx.y];
+    *t_begin = r.x * kCols;
+    *t_end = min(Skv, r.y * kCols);
+  } else if (skip_ok) {
     const int s_lo = r0 / g;
     const int s_hi = (min(n_rows, r0 + kRows) - 1) / g;
     if (causal) *t_end = min(Skv, s_hi + 1);
@@ -159,11 +183,12 @@ __device__ __forceinline__ void load_kv(float* dst, const T* __restrict__ src, i
 
 // 1. Row statistics: m, l over the keys each row sees, and delta = dO . O.
 // grid = (B * Hkv, ceil(Sq * g / 64)); stats laid out (B, Hkv, Sq * g).
-template <typename T, int MD>
+template <typename T, int MD, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ o,
             const T* __restrict__ dout, float* __restrict__ stat_m, float* __restrict__ stat_l,
-            float* __restrict__ stat_d, int Sq, int Skv, int H, int Hkv, int D, float scale,
+            float* __restrict__ stat_d, const int* __restrict__ qp, const int* __restrict__ kp,
+            const int2* __restrict__ rng, int Sq, int Skv, int H, int Hkv, int D, float scale,
             int causal, int window, int skip_ok) {
   extern __shared__ float smem[];
   float* qs = smem;
@@ -186,7 +211,7 @@ fa_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     row_l[tid] = 0.f;
   }
   int t_begin, t_end;
-  kv_range(r0, n_rows, g, Skv, causal, window, skip_ok, &t_begin, &t_end);
+  kv_range<kPos>(r0, n_rows, g, Skv, causal, window, skip_ok, rng, Hkv, &t_begin, &t_end);
 
   for (int t0 = t_begin; t0 < t_end; t0 += kCols) {
     __syncthreads();  // q tile and stats written; previous tile consumed
@@ -211,7 +236,9 @@ fa_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int j = tx + 16 * c, t = t0 + j;
-        ps[i * (kCols + 1) + j] = t >= Skv ? -INFINITY : hidden(s, t, causal, window) ? kNegInf : sc[a][c];
+        ps[i * (kCols + 1) + j] = t >= Skv ? -INFINITY
+                                  : masked_at<kPos>(qp, kp, b, Sq, Skv, r0 + i < n_rows, s, t, causal, window) ? kNegInf
+                                                                                                  : sc[a][c];
       }
     }
     __syncthreads();
@@ -255,11 +282,12 @@ fa_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
 // 2. dQ: grid = (B * Hkv, ceil(Sq * g / 64)), a block's 64 rows over the KV
 // tiles they see. A thread owns rows ty + 16a and head dims tx + 16c.
-template <typename T, int MD>
+template <typename T, int MD, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ stat_m,
           const float* __restrict__ stat_l, const float* __restrict__ stat_d, T* __restrict__ dq,
+          const int* __restrict__ qp, const int* __restrict__ kp, const int2* __restrict__ rng,
           int Sq, int Skv, int H, int Hkv, int D, float scale, int causal, int window,
           int skip_ok) {
   constexpr int kAcc = MD / 16;
@@ -289,7 +317,7 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     row_d[tid] = live ? stat_d[stat0 + r0 + tid] : 0.f;
   }
   int t_begin, t_end;
-  kv_range(r0, n_rows, g, Skv, causal, window, skip_ok, &t_begin, &t_end);
+  kv_range<kPos>(r0, n_rows, g, Skv, causal, window, skip_ok, rng, Hkv, &t_begin, &t_end);
 
   float acc[4][kAcc];
 #pragma unroll
@@ -331,7 +359,7 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int c = 0; c < 2; ++c) {
         const int j = tx + 16 * c, t = t0 + j;
         float ds = 0.f;
-        if (t < Skv && !hidden(s, t, causal, window)) {
+        if (t < Skv && !masked_at<kPos>(qp, kp, b, Sq, Skv, r0 + i < n_rows, s, t, causal, window)) {
           const float p = expf(sc[a][c] - row_m[i]) * row_il[i];
           ds = p * (dp[a][c] - row_d[i]);
         }
@@ -370,13 +398,14 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 // 3. dK and dV: grid = (B * Hkv, ceil(Skv / 32)), a block's 32 KV positions
 // over the folded rows that see them, 32 at a time. A thread owns KV
 // positions ty + 16a and head dims tx + 16c of both sums.
-template <typename T, int MD>
+template <typename T, int MD, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ stat_m,
             const float* __restrict__ stat_l, const float* __restrict__ stat_d,
-            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H, int Hkv, int D,
-            float scale, int causal, int window, int skip_ok) {
+            T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ qp,
+            const int* __restrict__ kp, const int2* __restrict__ rng, int Sq, int Skv, int H, int Hkv,
+            int D, float scale, int causal, int window, int skip_ok) {
   constexpr int kAcc = MD / 16;
   extern __shared__ float smem[];
   float* ks = smem;
@@ -401,7 +430,11 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   // the rows that see a key of this block: causal keeps s >= t0, a window
   // s < t_last + window
   int r_begin = 0, r_end = n_rows;
-  if (skip_ok) {
+  if constexpr (kPos) {  // the pre-pass's query positions, as folded rows
+    const int2 r = rng[blockIdx.x / Hkv * gridDim.y + blockIdx.y];
+    r_begin = r.x * g;
+    r_end = min(n_rows, r.y * g);
+  } else if (skip_ok) {
     const int t_last = min(t0 + kCols, Skv) - 1;
     if (causal) r_begin = t0 * g;
     if (window > 0) r_end = min(Sq, t_last + window) * g;
@@ -456,7 +489,12 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         const int j = tx + 16 * c, t = t0 + j;
         float p = 0.f, ds = 0.f;
         if (r < r_end && t < Skv) {
-          if (hidden(s, t, causal, window)) {
+          if constexpr (kPos) {  // a hidden key's P is 0, also in a row that sees none
+            if (!masked_at<kPos>(qp, kp, b, Sq, Skv, true, s, t, causal, window)) {
+              p = expf(sc[a][c] - row_m[i]) * row_il[i];
+              ds = p * (dp[a][c] - row_d[i]);
+            }
+          } else if (hidden(s, t, causal, window)) {
             p = expf(kNegInf - row_m[i]) * row_il[i];  // > 0 only in a row that sees no key
           } else {
             p = expf(sc[a][c] - row_m[i]) * row_il[i];
@@ -584,13 +622,14 @@ struct DqLayout {
 // K-major), P = 2^(S * scale2 - lse2) with the masks, dS = P (dP - delta)
 // rounded to bf16 in registers, dQ += dS K (K MN-major, the transpose bit).
 // dQ is scaled once at the end.
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(DqLayout<D>::kThreads, 1)
 fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv, int H, int Hkv, float scale,
-                int causal, int window) {
+                __nv_bfloat16* __restrict__ dq, const int* __restrict__ qp, const int* __restrict__ kp,
+                const int2* __restrict__ rng, const int2* __restrict__ kts, int B, int Sq, int Skv, int H,
+                int Hkv, float scale, int causal, int window) {
   using F = fa::FaLayout<D>;
   using L = DqLayout<D>;
   constexpr int kStages = L::kStages, kRows = L::kRows;
@@ -622,8 +661,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     // thread without handing any over
     if constexpr (L::kCons == 2) hopper::setmaxnreg_dec<40>();
     if (threadIdx.x == 0)
-      fa::fa_produce_kv<D, kRows, kStages>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv,
-                                           causal, window);
+      fa::fa_produce_kv<D, kRows, kStages, kPos>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv,
+                                                 causal, window, rng);
   } else {
     if constexpr (L::kCons == 2) hopper::setmaxnreg_inc<232>();
     const int c = wg - 1;
@@ -635,7 +674,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa::fa_item_index(k);
       if (it >= n_items) continue;
-      const fa::FaItem w = fa::fa_item<kRows>(it, B, Hkv, g, n_rows, Skv, causal, window);
+      const fa::FaItem w = fa::fa_item<kRows, kPos>(it, B, Hkv, g, n_rows, Skv, causal, window, rng);
 
       // this warpgroup's 64 Q and dO rows; the barrier first lets every warp
       // finish the previous item's products, which read them
@@ -657,6 +696,15 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       float l2[2], dl[2];
       row_stats(lse, delta, w.b, w.kvh, g, Sq, H, R0, n_rows, &l2[0], &dl[0]);
       row_stats(lse, delta, w.b, w.kvh, g, Sq, H, R0 + 8, n_rows, &l2[1], &dl[1]);
+      int qpos[2] = {0, 0};  // by positions: the rows' query positions
+      const int* krow = kp + (size_t)w.b * Skv;
+      if constexpr (kPos) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          if (R0 + 8 * rr < n_rows) qpos[rr] = __ldg(qp + (size_t)w.b * Sq + pos[rr]);
+      }
+      const int2 wq = kPos ? fa::warp_positions(qpos, R0, n_rows) : make_int2(0, 0);
+      const int2* ktiles = kts + (size_t)w.b * ((Skv + fa::kFaCols - 1) / fa::kFaCols);
       float dqacc[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
@@ -691,18 +739,37 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
 
         // P: sacc[4j + e] is row R0 + 8 (e / 2), column t0 + 8j + 2 (lane % 4)
         // + e % 2; tiles that no mask reaches for the warp's rows test nothing
-        const bool masked = t0 + fa::kFaCols > Skv || (causal && t0 + fa::kFaCols - 1 > warp_pos_lo) ||
-                            (window > 0 && warp_pos_hi - t0 >= window);
+        const bool masked =
+            kPos ? !fa::tile_visible(ktiles[t0 / fa::kFaCols], t0, Skv, wq.x, wq.y, causal, window)
+                            : t0 + fa::kFaCols > Skv || (causal && t0 + fa::kFaCols - 1 > warp_pos_lo) ||
+                                  (window > 0 && warp_pos_hi - t0 >= window);
+        if (kPos && masked) {  // by positions, element by element
 #pragma unroll
-        for (int j = 0; j < fa::kFaCols / 8; ++j) {
+          for (int j = 0; j < fa::kFaCols / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float p = hopper::exp2_approx(fmaf(sacc[4 * j + e], scale2, -l2[e >> 1]));
-            if (masked) {
-              const int t = t0 + 8 * j + 2 * (lane % 4) + (e & 1);
-              if (t >= Skv || hidden(pos[e >> 1], t, causal, window)) p = 0.f;
+            for (int cc = 0; cc < 2; ++cc) {
+              const int t = t0 + 8 * j + 2 * (lane % 4) + cc;
+              const int kpos = t < Skv ? __ldg(krow + t) : -1;
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                const int e = 2 * rr + cc;
+                const float p = hopper::exp2_approx(fmaf(sacc[4 * j + e], scale2, -l2[rr]));
+                sacc[4 * j + e] = fa::visible(qpos[rr], kpos, causal, window) ? p : 0.f;
+              }
             }
-            sacc[4 * j + e] = p;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < fa::kFaCols / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float p = hopper::exp2_approx(fmaf(sacc[4 * j + e], scale2, -l2[e >> 1]));
+              if (masked) {
+                const int t = t0 + 8 * j + 2 * (lane % 4) + (e & 1);
+                if (t >= Skv || hidden(pos[e >> 1], t, causal, window)) p = 0.f;
+              }
+              sacc[4 * j + e] = p;
+            }
           }
         }
         hopper::wgmma_wait<0>();
@@ -801,12 +868,13 @@ struct KvItem {
 
 // Item it's (batch, kv head), first key, row chunk rc of R, and its run of
 // the row tiles that see one of its kCols keys: causal rows sit at
-// positions >= t0, windowed ones at positions < the last key + window. Row
+// positions >= t0, windowed ones at positions < the last key + window (by
+// positions: the pre-pass's hull of P-position blocks, rng). Row
 // tile i is position block i / C, head chunk i % C. Items go by key block
 // first (the causal mask's heaviest first), then row chunk.
-template <int kCols>
+template <int kCols, bool kPos>
 __device__ __forceinline__ KvItem kv_item(int it, int B, int Hkv, int Sq, int Skv, int P, int C,
-                                          int causal, int window, int R) {
+                                          int causal, int window, int R, const int2* __restrict__ rng) {
   KvItem w;
   const int bh = it % (B * Hkv);
   w.b = bh / Hkv;
@@ -814,21 +882,28 @@ __device__ __forceinline__ KvItem kv_item(int it, int B, int Hkv, int Sq, int Sk
   w.t0 = (it / (B * Hkv) / R) * kCols;
   w.rc = it / (B * Hkv) % R;
   int pb_lo = 0, pb_hi = (Sq + P - 1) / P - 1;
-  if (causal) pb_lo = w.t0 / P;
-  if (window > 0) pb_hi = min(pb_hi, (min(w.t0 + kCols, Skv) - 1 + window - 1) / P);
+  if constexpr (kPos) {  // the pre-pass's position blocks for this key block
+    const int2 r = rng[w.b * ((Skv + kCols - 1) / kCols) + w.t0 / kCols];
+    pb_lo = r.x;
+    pb_hi = r.y - 1;
+  } else {
+    if (causal) pb_lo = w.t0 / P;
+    if (window > 0) pb_hi = min(pb_hi, (min(w.t0 + kCols, Skv) - 1 + window - 1) / P);
+  }
   const int n = pb_hi >= pb_lo ? (pb_hi - pb_lo + 1) * C : 0;
   w.i_begin = pb_lo * C + n * w.rc / R;
   w.n_tiles = n * (w.rc + 1) / R - n * w.rc / R;
   return w;
 }
 
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(fa::kFaThreads, 1)
 fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                  float* __restrict__ part, int B, int Sq, int Skv, int H, int Hkv, float scale,
+                  float* __restrict__ part, const int* __restrict__ qp, const int* __restrict__ kp,
+                  const int2* __restrict__ rng, int B, int Sq, int Skv, int H, int Hkv, float scale,
                   int causal, int window, int P, int G, int R) {
   using L = KvLayout<D>;
   constexpr int kStages = L::kStages, kCols = L::kCols, kBufs = L::kBufs;
@@ -876,7 +951,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa::fa_item_index(k);
       if (it >= n_items) continue;
-      const KvItem w = kv_item<kCols>(it, B, Hkv, Sq, Skv, P, C, causal, window, R);
+      const KvItem w = kv_item<kCols, kPos>(it, B, Hkv, Sq, Skv, P, C, causal, window, R, rng);
       const int u = ni % kBufs;
       if (ptid == 0) {
         if (ni >= kBufs) hopper::mbar_wait(&kv_empty[u], ((ni / kBufs) - 1) & 1);
@@ -906,13 +981,16 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
                                 w.kvh * g + hc * G, pb * P, w.b);
           }
         }
-        // thread rho < 64: lse2 of row rho; thread 64 + rho: its delta
+        // thread rho < 64: lse2 of row rho (and by positions its query
+        // position, after the deltas); thread 64 + rho: its delta
         const int rho = ptid % 64;
         const int sp = pb * P + rho / G, hg = hc * G + rho % G;
         const bool live = rho < P * G && sp < Sq && hg < g;
         const size_t idx = ((size_t)w.b * H + w.kvh * g + hg) * Sq + sp;
         float* stat = reinterpret_cast<float*>(q_s + 2 * L::kTileBytes);
         stat[ptid] = ptid < 64 ? (live ? lse[idx] : INFINITY) : (live ? delta[idx] : 0.f);
+        if (kPos && ptid < 64)
+          reinterpret_cast<int*>(stat)[128 + ptid] = live ? __ldg(qp + (size_t)w.b * Sq + sp) : 0;
         hopper::mbar_arrive(&full[s]);
       }
       ++ni;
@@ -933,7 +1011,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa::fa_item_index(k);
       if (it >= n_items) continue;
-      const KvItem w = kv_item<kCols>(it, B, Hkv, Sq, Skv, P, C, causal, window, R);
+      const KvItem w = kv_item<kCols, kPos>(it, B, Hkv, Sq, Skv, P, C, causal, window, R, rng);
       const int u = ni % kBufs;
       hopper::mbar_wait(&kv_full[u], (ni / kBufs) & 1);
       // this warpgroup's 64 keys tw0 .. tw1: its half of the item, or (kSplit) all of it
@@ -943,6 +1021,12 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       const int tw0 = w.t0 + 64 * cw;
       const int tw1 = min(tw0 + 63, Skv - 1);
       const int T = tw0 + warp * 16 + lane / 4;  // this thread's keys: T, T + 8
+      int kpos[2] = {-1, -1};  // by positions: their key positions
+      if constexpr (kPos) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          if (T + 8 * rr < Skv) kpos[rr] = __ldg(kp + (size_t)w.b * Skv + T + 8 * rr);
+      }
       float dkacc[L::kSplit ? 1 : D / 2], dvacc[D / 2];  // kSplit: dvacc holds dV (c = 0) or dK (c = 1)
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dvacc[i] = 0.f;
@@ -954,14 +1038,15 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
         hopper::mbar_wait(&full[s], (gi / kStages) & 1);
         const int tile = w.i_begin + i, pb = tile / C;
         const int p_lo = pb * P, p_hi = min(p_lo + P, Sq) - 1;  // the tile's positions
-        const bool none = tw0 >= Skv || (causal && p_hi < tw0) || (window > 0 && p_lo - tw1 >= window);
+        const bool none = tw0 >= Skv || (!kPos && ((causal && p_hi < tw0) || (window > 0 && p_lo - tw1 >= window)));
         if (!none) {
-          const bool masked = (causal && p_lo < tw1) || (window > 0 && p_hi - tw0 >= window);
+          const bool masked = kPos || (causal && p_lo < tw1) || (window > 0 && p_hi - tw0 >= window);
           uint8_t* q_s = ring + s * L::kStageBytes;
           const uint32_t q_addr = hopper::smem_u32(q_s);
           const uint32_t do_addr = q_addr + L::kTileBytes;
           const float* lse_s = reinterpret_cast<const float*>(q_s + 2 * L::kTileBytes);
           const float* dl_s = lse_s + 64;
+          const int* qpos_s = reinterpret_cast<const int*>(lse_s + 128);  // by positions
           if constexpr (L::kSplit) {
             // warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1: dP^T =
             // V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q
@@ -990,7 +1075,9 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
                   float p = hopper::exp2_approx(fmaf(st[4 * j + e], scale2, (e & 1) ? -l2.y : -l2.x));
                   if (masked) {
                     const int rho = 8 * j + 2 * (lane % 4) + (e & 1);
-                    if (hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window)) p = 0.f;
+                    if (kPos ? !fa::visible(qpos_s[rho], kpos[e >> 1], causal, window)
+                                      : hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window))
+                      p = 0.f;
                   }
                   st[4 * j + e] = p;
                 }
@@ -1066,7 +1153,9 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant_
                 float p = hopper::exp2_approx(fmaf(st[4 * j + e], scale2, (e & 1) ? -l2.y : -l2.x));
                 if (masked) {
                   const int rho = 8 * j + 2 * (lane % 4) + (e & 1);
-                  if (hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window)) p = 0.f;
+                  if (kPos ? !fa::visible(qpos_s[rho], kpos[e >> 1], causal, window)
+                                    : hidden(p_lo + rho / G, T + 8 * (e >> 1), causal, window))
+                    p = 0.f;
                 }
                 st[4 * j + e] = p;
               }
@@ -1177,20 +1266,31 @@ fa_bwd_sum_chunks(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk
 // caller has none (its O goes to dq, which the dq kernel overwrites), the
 // row pass (delta), dQ, then dK and dV (and at R > 1 the chunks' sum).
 // work: 2 * B * H * Sq floats (lse2, delta); part: R x 2 x B * Skv * Hkv * D
-// floats when R > 1.
+// floats when R > 1. By positions (qp, kp) rng takes the pre-pass's ranges
+// of the forward's items (when it runs), of dq's and of dkdv's, in turn.
 template <int D>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                      void* dq, void* dk, void* dv, float* work, const float* lse, float* part, int R,
-                     int B, int Sq, int Skv, int H, int Hkv, float scale, int causal, int window,
-                     int sms, cudaStream_t stream) {
+                     const int* qp, const int* kp, int2* rng, int B, int Sq, int Skv, int H, int Hkv,
+                     float scale, int causal, int window, int sms, cudaStream_t stream) {
   const int g = H / Hkv;
   const int n = B * Sq * H;
   float* delta = work + n;
   int err = 0;
+  int2* kts = nullptr;  // by positions: the 64-key tiles' positions, then the ranges
+  if (rng != nullptr) {
+    kts = rng;
+    rng += B * ((Skv + fa::kFaCols - 1) / fa::kFaCols);
+  }
   if (lse == nullptr) {
-    err = fa::launch_wgmma<D>(q, k, v, dq, work, B, Sq, Skv, H, Hkv, scale, causal, window, sms, stream);
+    err = fa::launch_wgmma<D>(q, k, v, dq, work, qp, kp, rng, kts, B, Sq, Skv, H, Hkv, scale, causal, window,
+                              sms, stream);
     if (err != 0) return err;
     lse = work;
+    if (rng != nullptr) rng += B * ((Sq * g + fa::kFaRows - 1) / fa::kFaRows);
+  } else if (qp != nullptr) {
+    err = fa::launch_pos_tiles(kp, B, Skv, kts, stream);
+    if (err != 0) return err;
   }
   constexpr int kRowsPerBlock = 8 * (32 / delta_lanes<D>());
   fa_bwd_delta<D><<<(n + kRowsPerBlock - 1) / kRowsPerBlock, 256, 0, stream>>>(
@@ -1207,21 +1307,32 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   const cuuint32_t box[4] = {64, (cuuint32_t)G, (cuuint32_t)P, 1};
   if (err == 0) err = hopper::encode_bf16_sw128(&tq, q, 4, dims, strides, box);
   if (err == 0) err = hopper::encode_bf16_sw128(&tdo, dout, 4, dims, strides, box);
-  static std::atomic<uint32_t> set_dq{0}, set_kv{0};
-  if (err == 0) err = hopper::allow_smem(fa_bwd_dq_wgmma<D>, DqLayout<D>::kSmem, set_dq);
-  if (err == 0) err = hopper::allow_smem(fa_bwd_dkdv_wgmma<D>, KvLayout<D>::kSmem, set_kv);
+  static std::atomic<uint32_t> set_dq{0}, set_kv{0}, set_dq_pos{0}, set_kv_pos{0};
+  const bool by_pos = qp != nullptr;
+  auto dq_kernel = by_pos ? fa_bwd_dq_wgmma<D, true> : fa_bwd_dq_wgmma<D, false>;
+  auto kv_kernel = by_pos ? fa_bwd_dkdv_wgmma<D, true> : fa_bwd_dkdv_wgmma<D, false>;
+  if (err == 0) err = hopper::allow_smem(dq_kernel, DqLayout<D>::kSmem, by_pos ? set_dq_pos : set_dq);
+  if (err == 0) err = hopper::allow_smem(kv_kernel, KvLayout<D>::kSmem, by_pos ? set_kv_pos : set_kv);
+  // by positions: dq's row blocks' tiles, then dkdv's key blocks' position blocks of P
+  int2* rng_dq = rng;
+  int2* rng_kv = rng == nullptr ? nullptr : rng + B * ((Sq * g + DqLayout<D>::kRows - 1) / DqLayout<D>::kRows);
+  if (err == 0 && qp != nullptr)
+    err = fa::launch_pos_ranges(qp, kp, B, Sq, Skv, g, 1, DqLayout<D>::kRows, fa::kFaCols, causal, window, rng_dq,
+                                stream);
+  if (err == 0 && qp != nullptr)
+    err = fa::launch_pos_ranges(qp, kp, B, Sq, Skv, g, 0, KvLayout<D>::kCols, P, causal, window, rng_kv, stream);
   if (err != 0) return err;
 
   const int dq_items = B * Hkv * ((Sq * g + DqLayout<D>::kRows - 1) / DqLayout<D>::kRows);
-  fa_bwd_dq_wgmma<D><<<min(dq_items, sms), DqLayout<D>::kThreads, DqLayout<D>::kSmem, stream>>>(
+  dq_kernel<<<min(dq_items, sms), DqLayout<D>::kThreads, DqLayout<D>::kSmem, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout), lse,
-      delta, static_cast<__nv_bfloat16*>(dq), B, Sq, Skv, H, Hkv, scale, causal, window);
+      delta, static_cast<__nv_bfloat16*>(dq), qp, kp, rng_dq, kts, B, Sq, Skv, H, Hkv, scale, causal, window);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int kv_items = B * Hkv * ((Skv + KvLayout<D>::kCols - 1) / KvLayout<D>::kCols) * R;
-  fa_bwd_dkdv_wgmma<D><<<min(kv_items, sms), fa::kFaThreads, KvLayout<D>::kSmem, stream>>>(
-      tk, tv, tq, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), part,
-      B, Sq, Skv, H, Hkv, scale, causal, window, P, G, R);
+  kv_kernel<<<min(kv_items, sms), fa::kFaThreads, KvLayout<D>::kSmem, stream>>>(
+      tk, tv, tq, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), part, qp,
+      kp, rng_kv, B, Sq, Skv, H, Hkv, scale, causal, window, P, G, R);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || R == 1) return err;
   const long n_kv = (long)B * Skv * Hkv * D;
@@ -1232,15 +1343,19 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
 
 template <typename T, int MD>
 int run_md(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-           void* dk, void* dv, float* work, int B, int Sq, int Skv, int H, int Hkv, int D,
-           float scale, int causal, int window, cudaStream_t stream) {
-  static std::atomic<uint32_t> set_rows{0}, set_dq{0}, set_dkdv{0};
+           void* dk, void* dv, float* work, const int* qp, const int* kp, int2* rng, int B, int Sq, int Skv,
+           int H, int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
+  static std::atomic<uint32_t> set_rows{0}, set_dq{0}, set_dkdv{0}, set_rows_pos{0}, set_dq_pos{0}, set_dkdv_pos{0};
   const size_t s_rows = rows_smem<MD>() * sizeof(float);
   const size_t s_dq = dq_smem<MD>() * sizeof(float);
   const size_t s_dkdv = dkdv_smem<MD>() * sizeof(float);
-  int err = hopper::allow_smem(fa_bwd_rows<T, MD>, static_cast<int>(s_rows), set_rows);
-  if (err == 0) err = hopper::allow_smem(fa_bwd_dq<T, MD>, static_cast<int>(s_dq), set_dq);
-  if (err == 0) err = hopper::allow_smem(fa_bwd_dkdv<T, MD>, static_cast<int>(s_dkdv), set_dkdv);
+  const bool by_pos = qp != nullptr;
+  auto rows_kernel = by_pos ? fa_bwd_rows<T, MD, true> : fa_bwd_rows<T, MD, false>;
+  auto dq_kernel = by_pos ? fa_bwd_dq<T, MD, true> : fa_bwd_dq<T, MD, false>;
+  auto dkdv_kernel = by_pos ? fa_bwd_dkdv<T, MD, true> : fa_bwd_dkdv<T, MD, false>;
+  int err = hopper::allow_smem(rows_kernel, static_cast<int>(s_rows), by_pos ? set_rows_pos : set_rows);
+  if (err == 0) err = hopper::allow_smem(dq_kernel, static_cast<int>(s_dq), by_pos ? set_dq_pos : set_dq);
+  if (err == 0) err = hopper::allow_smem(dkdv_kernel, static_cast<int>(s_dkdv), by_pos ? set_dkdv_pos : set_dkdv);
   if (err != 0) return err;
   const int g = H / Hkv;
   const int skip_ok = Sq <= Skv ? 1 : 0;
@@ -1253,32 +1368,42 @@ int run_md(const void* q, const void* k, const void* v, const void* o, const voi
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
   const dim3 row_grid(B * Hkv, (Sq * g + kRows - 1) / kRows);
-  fa_bwd_rows<T, MD><<<row_grid, kThreads, s_rows, stream>>>(
-      tq, tk, static_cast<const T*>(o), tdo, stat_m, stat_l, stat_d, Sq, Skv, H, Hkv, D, scale,
-      causal, window, skip_ok);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  fa_bwd_dq<T, MD><<<row_grid, kThreads, s_dq, stream>>>(
-      tq, tk, tv, tdo, stat_m, stat_l, stat_d, static_cast<T*>(dq), Sq, Skv, H, Hkv, D, scale,
-      causal, window, skip_ok);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
   const dim3 kv_grid(B * Hkv, (Skv + kCols - 1) / kCols);
-  fa_bwd_dkdv<T, MD><<<kv_grid, kThreads, s_dkdv, stream>>>(
-      tq, tk, tv, tdo, stat_m, stat_l, stat_d, static_cast<T*>(dk), static_cast<T*>(dv), Sq,
+  // by positions: the row blocks' tiles, then the key blocks' query positions
+  int2* rng_rows = nullptr;
+  int2* rng_kv = nullptr;
+  if (qp != nullptr) {
+    rng_rows = rng;
+    rng_kv = rng + B * row_grid.y;
+    err = fa::launch_pos_ranges(qp, kp, B, Sq, Skv, g, 1, kRows, kCols, causal, window, rng_rows, stream);
+    if (err == 0) err = fa::launch_pos_ranges(qp, kp, B, Sq, Skv, g, 0, kCols, 1, causal, window, rng_kv, stream);
+    if (err != 0) return err;
+  }
+  rows_kernel<<<row_grid, kThreads, s_rows, stream>>>(
+      tq, tk, static_cast<const T*>(o), tdo, stat_m, stat_l, stat_d, qp, kp, rng_rows, Sq, Skv, H, Hkv, D,
+      scale, causal, window, skip_ok);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  dq_kernel<<<row_grid, kThreads, s_dq, stream>>>(
+      tq, tk, tv, tdo, stat_m, stat_l, stat_d, static_cast<T*>(dq), qp, kp, rng_rows, Sq, Skv, H, Hkv, D,
+      scale, causal, window, skip_ok);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  dkdv_kernel<<<kv_grid, kThreads, s_dkdv, stream>>>(
+      tq, tk, tv, tdo, stat_m, stat_l, stat_d, static_cast<T*>(dk), static_cast<T*>(dv), qp, kp, rng_kv, Sq,
       Skv, H, Hkv, D, scale, causal, window, skip_ok);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-        void* dk, void* dv, float* work, int B, int Sq, int Skv, int H, int Hkv, int D,
-        float scale, int causal, int window, cudaStream_t stream) {
+        void* dk, void* dv, float* work, const int* qp, const int* kp, int2* rng, int B, int Sq, int Skv,
+        int H, int Hkv, int D, float scale, int causal, int window, cudaStream_t stream) {
   if (D <= 128)
-    return run_md<T, 128>(q, k, v, o, dout, dq, dk, dv, work, B, Sq, Skv, H, Hkv, D, scale, causal,
-                          window, stream);
-  return run_md<T, 256>(q, k, v, o, dout, dq, dk, dv, work, B, Sq, Skv, H, Hkv, D, scale, causal,
-                        window, stream);
+    return run_md<T, 128>(q, k, v, o, dout, dq, dk, dv, work, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale,
+                          causal, window, stream);
+  return run_md<T, 256>(q, k, v, o, dout, dq, dk, dv, work, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale,
+                        causal, window, stream);
 }
 
 }  // namespace
@@ -1293,20 +1418,30 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
 // them); anything else is refused. chunks: the dK/dV kernel's row chunks,
 // 1 but on the wgmma route at D = 256, where up to 4 take part: chunks x 2
 // x B * Skv * Hkv * D floats of scratch for their partial sums. `sms`: the
-// device's SM count, the wgmma kernels' most blocks. Three launches on
-// `stream` (one more on the wgmma route without lse, and one at chunks > 1);
-// returns cudaGetLastError() after the last, or the first error.
+// device's SM count, the wgmma kernels' most blocks. qpos, kvpos: null (the
+// index), or int32 (B, Sq) and (B, Skv) positions, with ranges scratch of B *
+// (2 * ceil(Sq * H / Hkv / 64) + 2 * ceil(Skv / 32)) int pairs for the
+// pre-passes' ranges and tiles' positions. Three launches on `stream` (one
+// more on the wgmma route without lse, one at chunks > 1, and by positions
+// a pre-pass for each kernel's blocks and, on the wgmma route, one for the
+// tiles' positions); returns cudaGetLastError() after the last, or the first
+// error.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, void* dq, void* dk, void* dv, void* work,
-                                   const void* lse, void* part, int B, int Sq, int Skv, int H,
-                                   int Hkv, int D, float scale, int causal, int window, int dtype,
-                                   int route, int chunks, int sms, void* stream) {
+                                   const void* lse, void* part, const void* qpos, const void* kvpos,
+                                   void* ranges, int B, int Sq, int Skv, int H, int Hkv, int D, float scale,
+                                   int causal, int window, int dtype, int route, int chunks, int sms,
+                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > kMaxD ||
       window < 0 || work == nullptr || route < 0 || route > 1 || (route == 1 && sms <= 0) ||
-      chunks < 1 || chunks > 4 || (chunks > 1 && (route != 1 || D != 256 || part == nullptr)))
+      chunks < 1 || chunks > 4 || (chunks > 1 && (route != 1 || D != 256 || part == nullptr)) ||
+      ((qpos == nullptr) != (kvpos == nullptr)) || (qpos != nullptr && ranges == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kvpos);
+  int2* rng = static_cast<int2*>(ranges);
   if (route == 1) {
     const bool aligned =
         (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
@@ -1316,23 +1451,23 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     const float* stats = static_cast<const float*>(lse);
     if (D == 64)
       return launch_bwd_wgmma<64>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
-                                  chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+                                  chunks, qp, kp, rng, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 80)
       return launch_bwd_wgmma<80>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
-                                  chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+                                  chunks, qp, kp, rng, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 128)
       return launch_bwd_wgmma<128>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
-                                   chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+                                   chunks, qp, kp, rng, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     if (D == 256)
       return launch_bwd_wgmma<256>(q, k, v, o, dout, dq, dk, dv, w, stats, static_cast<float*>(part),
-                                   chunks, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
+                                   chunks, qp, kp, rng, B, Sq, Skv, H, Hkv, scale, causal, window, sms, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1)
-    return run<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, w, B, Sq, Skv, H, Hkv, D, scale, causal,
-                              window, s);
+    return run<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, w, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale,
+                              causal, window, s);
   if (dtype == 0)
-    return run<float>(q, k, v, o, dout, dq, dk, dv, w, B, Sq, Skv, H, Hkv, D, scale, causal, window,
-                      s);
+    return run<float>(q, k, v, o, dout, dq, dk, dv, w, qp, kp, rng, B, Sq, Skv, H, Hkv, D, scale, causal,
+                      window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

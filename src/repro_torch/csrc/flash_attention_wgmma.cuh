@@ -24,6 +24,26 @@
 // sees, l = sum_t 2^(s_t * scale * log2(e) - m2), so that
 // softmax = 2^(s * scale * log2(e) - lse2) and lse2 = log2(e) * logsumexp(s *
 // scale). f32, laid out (B, H, Sq) (batch, query head, query position).
+//
+// Positions (both kernels' routes, forward and backward): with int32
+// q_positions (B, Sq) and kv_positions (B, Skv) the mask is the reference
+// attend's (src/repro/models/common.py): key t is visible to query s when
+// kv_positions[t] >= 0, causal q_positions[s] >= kv_positions[t] and, with a
+// window, q_positions[s] - kv_positions[t] < window. Each kernel has an
+// instance by positions and one by index (a template parameter, kPos), whose
+// code and bits are the index route's as they were. Tile skipping
+// by index assumes position = index; by positions a pre-pass (fa_pos_ranges)
+// gives each block of rows the hull of the tiles that hold a visible pair,
+// judged on the blocks' least and greatest positions (any positions: the
+// hull may hold tiles that add nothing, never leaves one out; positions that
+// do not decrease along a row, as Qwen2-VL's M-RoPE layout, give the index's
+// tiles). A second pre-pass (fa_pos_tiles) gives each 64-key tile its least
+// and greatest position; a tile every key of which is visible to every row
+// of a warp (the same test the index makes from indices) skips the
+// per-element mask there (the forward and dQ kernels), the rest take it. A
+// row that sees no key (possible only by positions) writes 0 and the statistic -inf, the
+// reference's masked_softmax convention; the backward reads that as "no key"
+// (its mask zeroes P wherever a key is hidden, so such a row adds nothing).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,6 +51,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
 
 #include "hopper.cuh"
 
@@ -48,6 +69,131 @@ constexpr int kFaCols = 64;     // KV positions a tile
 constexpr int kFaThreads = 384;  // producer warpgroup + two consumers
 constexpr int kKVBoxBytes = kFaCols * 128;  // 64 positions x 64 head dims, bf16
 
+// Whether a key at position kpos is visible to a query at position qpos.
+__device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
+  return kpos >= 0 && (!causal || qpos >= kpos) && (window <= 0 || (long long)qpos - kpos < window);
+}
+
+// The pre-pass of the positions route. Axis x is cut into blocks: folded
+// query rows (x_q = 1; row r at query position r / g, xrows rows a block) or
+// keys (x_q = 0, xrows keys a block); axis y, the other side's positions
+// (unfolded), into blocks of yblk. For each (block i of x, batch b) it
+// writes to out[b * nx + i] the hull [first, last + 1) of the y blocks that
+// may hold a pair the mask keeps, judged on the least and greatest position
+// of each block (keys < 0 left out), or [0, 0). grid = (nx, B), 256 threads.
+__global__ void __launch_bounds__(256)
+fa_pos_ranges(const int* __restrict__ qp, const int* __restrict__ kp, int Sq, int Skv, int g, int x_q,
+              int xrows, int yblk, int causal, int window, int2* __restrict__ out) {
+  __shared__ int s_min, s_max, s_first, s_last;
+  const int b = blockIdx.y, i = blockIdx.x;
+  const int* xp = x_q ? qp + (size_t)b * Sq : kp + (size_t)b * Skv;
+  const int* yp = x_q ? kp + (size_t)b * Skv : qp + (size_t)b * Sq;
+  const int ny = x_q ? Skv : Sq;
+  const int x_end = x_q ? Sq * g : Skv;
+  const int r0 = i * xrows, r1 = min(x_end, r0 + xrows);
+  // positions indices of the x block: [r0 / g, (r1 - 1) / g] or [r0, r1 - 1]
+  const int lo = x_q ? r0 / g : r0, hi = x_q ? (r1 - 1) / g : r1 - 1;
+  if (threadIdx.x == 0) {
+    s_min = INT_MAX;
+    s_max = INT_MIN;
+    s_first = INT_MAX;
+    s_last = -1;
+  }
+  __syncthreads();
+  int mn = INT_MAX, mx = INT_MIN;
+  for (int j = lo + threadIdx.x; j <= hi; j += blockDim.x) {
+    const int v = xp[j];
+    if (x_q || v >= 0) {
+      mn = min(mn, v);
+      mx = max(mx, v);
+    }
+  }
+  atomicMin(&s_min, mn);
+  atomicMax(&s_max, mx);
+  __syncthreads();
+  const int xmin = s_min, xmax = s_max;
+  if (xmin <= xmax) {
+    for (int jb = threadIdx.x; jb * yblk < ny; jb += blockDim.x) {
+      int ymin = INT_MAX, ymax = INT_MIN;
+      for (int j = jb * yblk; j < min(ny, (jb + 1) * yblk); ++j) {
+        const int v = yp[j];
+        if (!x_q || v >= 0) {
+          ymin = min(ymin, v);
+          ymax = max(ymax, v);
+        }
+      }
+      if (ymin > ymax) continue;
+      const long long qmin = x_q ? xmin : ymin, qmax = x_q ? xmax : ymax;
+      const long long kmin = x_q ? ymin : xmin, kmax = x_q ? ymax : xmax;
+      if ((!causal || qmax >= kmin) && (window <= 0 || qmin - kmax < window)) {
+        atomicMin(&s_first, jb);
+        atomicMax(&s_last, jb);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    out[(size_t)b * gridDim.x + i] = s_first <= s_last ? make_int2(s_first, s_last + 1) : make_int2(0, 0);
+}
+
+// The least and greatest position of each tile of kFaCols keys, invalid ones
+// (< 0) included: out[b * ceil(Skv / kFaCols) + i]. grid = (ceil(tiles /
+// 256), B), a thread a tile.
+__global__ void __launch_bounds__(256)
+fa_pos_tiles(const int* __restrict__ kp, int Skv, int2* __restrict__ out) {
+  const int n = (Skv + kFaCols - 1) / kFaCols;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x, b = blockIdx.y;
+  if (i >= n) return;
+  const int* row = kp + (size_t)b * Skv;
+  int mn = INT_MAX, mx = INT_MIN;
+  for (int t = i * kFaCols; t < min(Skv, (i + 1) * kFaCols); ++t) {
+    mn = min(mn, row[t]);
+    mx = max(mx, row[t]);
+  }
+  out[(size_t)b * n + i] = make_int2(mn, mx);
+}
+
+inline int launch_pos_tiles(const int* kp, int B, int Skv, int2* out, cudaStream_t stream) {
+  const int n = (Skv + kFaCols - 1) / kFaCols;
+  fa_pos_tiles<<<dim3((n + 255) / 256, B), 256, 0, stream>>>(kp, Skv, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// By positions, whether a tile of kFaCols keys from t0 (its least and greatest
+// position kt) is visible whole to every row of a warp whose query
+// positions lie in [qlo, qhi]: then no element needs the mask.
+__device__ __forceinline__ bool tile_visible(int2 kt, int t0, int Skv, int qlo, int qhi, int causal, int window) {
+  return t0 + kFaCols <= Skv && kt.x >= 0 && (!causal || kt.y <= qlo) &&
+         (window <= 0 || (long long)qhi - kt.x < window);
+}
+
+// The least and greatest of the query positions qpos[2] of the rows R0, R0 +
+// 8 of each thread of a warp (rows at or past n_rows left out).
+__device__ __forceinline__ int2 warp_positions(const int qpos[2], int R0, int n_rows) {
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    if (R0 + 8 * rr < n_rows) {
+      lo = min(lo, qpos[rr]);
+      hi = max(hi, qpos[rr]);
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  return make_int2(lo, hi);
+}
+
+// One launch of fa_pos_ranges over the nx = ceil(x rows / xrows) blocks of
+// x; returns cudaGetLastError().
+inline int launch_pos_ranges(const int* qp, const int* kp, int B, int Sq, int Skv, int g, int x_q, int xrows,
+                             int yblk, int causal, int window, int2* out, cudaStream_t stream) {
+  const int nx = ((x_q ? Sq * g : Skv) + xrows - 1) / xrows;
+  fa_pos_ranges<<<dim3(nx, B), 256, 0, stream>>>(qp, kp, Sq, Skv, g, x_q, xrows, yblk, causal, window, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 struct FaLayout {
   static_assert(D == 64 || D == 80 || D == 128 || D == 256, "the wgmma route's head dims");
@@ -60,22 +206,30 @@ struct FaLayout {
 };
 
 // One work item: kRows folded rows of one (batch, kv head), and the KV tiles
-// they must visit. Items are numbered heaviest first: the causal mask gives
-// late row blocks the most tiles, so item it takes row block
-// n_row_blocks - 1 - it / (B * Hkv).
+// they must visit: by index from the masks, by positions (kPos) the
+// pre-pass's hull (rng, (B, row blocks) pairs of tiles). Items are
+// numbered heaviest first: the causal mask gives late row blocks the most
+// tiles, so item it takes row block n_row_blocks - 1 - it / (B * Hkv).
 struct FaItem {
   int b, kvh, r0, t_begin, n_tiles;
 };
 
-template <int kRows>
+template <int kRows, bool kPos>
 __device__ __forceinline__ FaItem fa_item(int it, int B, int Hkv, int g, int n_rows, int Skv,
-                                          int causal, int window) {
+                                          int causal, int window, const int2* __restrict__ rng) {
   const int n_row_blocks = (n_rows + kRows - 1) / kRows;
   FaItem w;
   const int bh = it % (B * Hkv);
   w.b = bh / Hkv;
   w.kvh = bh % Hkv;
-  w.r0 = (n_row_blocks - 1 - it / (B * Hkv)) * kRows;
+  const int rb = n_row_blocks - 1 - it / (B * Hkv);
+  w.r0 = rb * kRows;
+  if constexpr (kPos) {
+    const int2 r = rng[w.b * n_row_blocks + rb];
+    w.t_begin = r.x * kFaCols;
+    w.n_tiles = r.y - r.x;
+    return w;
+  }
   // KV range the item must visit (Sq <= Skv: every row sees a key)
   const int s_lo = w.r0 / g;
   const int s_hi = (min(n_rows, w.r0 + kRows) - 1) / g;
@@ -144,17 +298,17 @@ __device__ __forceinline__ void fa_store_rows(uint8_t* dst, int box_stride, cons
 // and V tile of every item, in order, into the kStages-stage ring at kv_s
 // (stage s: K tile, then V tile). The ring runs on across items, so the next
 // item's first tiles load while the consumers finish the current one.
-template <int D, int kRows, int kStages>
+template <int D, int kRows, int kStages, bool kPos>
 __device__ __forceinline__ void fa_produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                               uint8_t* kv_s, uint64_t* full, uint64_t* empty,
                                               int n_items, int B, int Hkv, int g, int n_rows,
-                                              int Skv, int causal, int window) {
+                                              int Skv, int causal, int window, const int2* rng) {
   using L = FaLayout<D>;
   int gi = 0;  // tiles loaded by this block so far: the ring's position
   for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
     const int it = fa_item_index(k);
     if (it >= n_items) continue;
-    const FaItem w = fa_item<kRows>(it, B, Hkv, g, n_rows, Skv, causal, window);
+    const FaItem w = fa_item<kRows, kPos>(it, B, Hkv, g, n_rows, Skv, causal, window, rng);
     for (int i = 0; i < w.n_tiles; ++i, ++gi) {
       const int s = gi % kStages;
       if (gi >= kStages) hopper::mbar_wait(&empty[s], ((gi / kStages) - 1) & 1);
@@ -172,13 +326,16 @@ __device__ __forceinline__ void fa_produce_kv(const CUtensorMap* tk, const CUten
 }
 
 // Persistent: grid = min(items, SMs); each block walks its items in rounds.
-// lse: null, or (B, H, Sq) f32 that receives each row's statistics.
-template <int D>
+// lse: null, or (B, H, Sq) f32 that receives each row's statistics. qp, kp,
+// rng, kts: by positions (kPos) the positions and the pre-passes' tile
+// ranges and tile positions; by index unread, and the code is the index's.
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kFaThreads, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int B, int Sq, int Skv, int H, int Hkv, float scale,
-                int causal, int window) {
+                float* __restrict__ lse, const int* __restrict__ qp, const int* __restrict__ kp,
+                const int2* __restrict__ rng, const int2* __restrict__ kts, int B, int Sq, int Skv, int H,
+                int Hkv, float scale, int causal, int window) {
   using L = FaLayout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t fa_smem[];
@@ -206,8 +363,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   if (wg == 0) {
     hopper::setmaxnreg_dec<40>();
     if (threadIdx.x == 0)
-      fa_produce_kv<D, kFaRows, kStages>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv,
-                                         causal, window);
+      fa_produce_kv<D, kFaRows, kStages, kPos>(&tk, &tv, kv_s, full, empty, n_items, B, Hkv, g, n_rows, Skv,
+                                               causal, window, rng);
   } else {
     hopper::setmaxnreg_inc<232>();
     const int c = wg - 1;
@@ -218,7 +375,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     for (int k = 0; k * (int)gridDim.x < n_items; ++k) {
       const int it = fa_item_index(k);
       if (it >= n_items) continue;
-      const FaItem w = fa_item<kFaRows>(it, B, Hkv, g, n_rows, Skv, causal, window);
+      const FaItem w = fa_item<kFaRows, kPos>(it, B, Hkv, g, n_rows, Skv, causal, window, rng);
 
       // This warpgroup's 64 Q rows (it alone reads them); the barrier first
       // lets every warp finish the previous item's products, which read them.
@@ -233,6 +390,15 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       const int pos[2] = {R0 / g, (R0 + 8) / g};
       const int warp_pos_lo = (w.r0 + c * 64 + warp * 16) / g;  // positions of the warp's 16 rows
       const int warp_pos_hi = (w.r0 + c * 64 + warp * 16 + 15) / g;
+      int qpos[2] = {0, 0};  // by positions: the rows' query positions
+      const int* krow = kp + (size_t)w.b * Skv;
+      if constexpr (kPos) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          if (R0 + 8 * rr < n_rows) qpos[rr] = __ldg(qp + (size_t)w.b * Sq + pos[rr]);
+      }
+      const int2 wq = kPos ? warp_positions(qpos, R0, n_rows) : make_int2(0, 0);
+      const int2* ktiles = kts + (size_t)w.b * ((Skv + kFaCols - 1) / kFaCols);
       float m_run[2] = {kNegInf, kNegInf};
       float l_run[2] = {0.f, 0.f};  // this thread's columns only; summed over the quad at the end
       float oacc[D / 2];
@@ -270,10 +436,33 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         // this warp (most tiles of a causal prefill) skips the per-column
         // tests and keeps raw scores: with a positive scale their max is the
         // max of the scaled ones, and the scale rides in the exponent's FMA.
-        const bool masked = t0 + kFaCols > Skv || (causal && t0 + kFaCols - 1 > warp_pos_lo) ||
-                            (window > 0 && warp_pos_hi - t0 >= window) || !(scale2 > 0.f);
+        const bool masked =
+            (kPos ? !tile_visible(ktiles[t0 / kFaCols], t0, Skv, wq.x, wq.y, causal, window)
+                             : t0 + kFaCols > Skv || (causal && t0 + kFaCols - 1 > warp_pos_lo) ||
+                                   (window > 0 && warp_pos_hi - t0 >= window)) ||
+            !(scale2 > 0.f);
         float sf = scale2;  // the factor still to apply to sacc
-        if (masked) {
+        if (kPos && masked) {
+          sf = 1.f;
+#pragma unroll
+          for (int j = 0; j < kFaCols / 8; ++j) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int t = t0 + 8 * j + 2 * (lane % 4) + cc;
+              const int kpos = t < Skv ? __ldg(krow + t) : -1;
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                float val = sacc[4 * j + 2 * rr + cc] * scale2;
+                if (t >= Skv) {
+                  val = -INFINITY;
+                } else if (!visible(qpos[rr], kpos, causal, window)) {
+                  val = kNegInf;
+                }
+                sacc[4 * j + 2 * rr + cc] = val;
+              }
+            }
+          }
+        } else if (masked) {
           sf = 1.f;
 #pragma unroll
           for (int j = 0; j < kFaCols / 8; ++j) {
@@ -346,7 +535,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         l_run[rr] += __shfl_xor_sync(0xffffffffu, l_run[rr], 2);
         const int r = R0 + 8 * rr;
         if (r >= n_rows) continue;
-        const float inv = 1.f / fmaxf(l_run[rr], 1e-30f);
+        // by positions, a row that saw no key (its max still the sentinel) writes 0 and -inf
+        const bool none = kPos && m_run[rr] <= kNegInf;
+        const float inv = none ? 0.f : 1.f / fmaxf(l_run[rr], 1e-30f);
         const int h = w.kvh * g + r % g;
         __nv_bfloat16* out = o + (((size_t)w.b * Sq + pos[rr]) * H + h) * D + 2 * (lane % 4);
 #pragma unroll
@@ -354,7 +545,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
           *reinterpret_cast<uint32_t*>(out + 8 * j) =
               hopper::pack_bf16x2(oacc[4 * j + 2 * rr] * inv, oacc[4 * j + 2 * rr + 1] * inv);
         if (lse != nullptr && lane % 4 == 0)
-          lse[((size_t)w.b * H + h) * Sq + pos[rr]] = m_run[rr] + log2f(l_run[rr]);
+          lse[((size_t)w.b * H + h) * Sq + pos[rr]] = none ? -INFINITY : m_run[rr] + log2f(l_run[rr]);
       }
     }
   }
@@ -374,20 +565,28 @@ int encode_kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* 
   return err;
 }
 
-// One launch of the forward's wgmma kernel; lse may be null.
+// One launch of the forward's wgmma kernel; lse may be null. By positions
+// (qp, kp not null) the pre-passes first write the items' tile ranges into
+// rng, B * ceil(Sq * H / Hkv / 128) pairs, and the tiles' positions into
+// kts, B * ceil(Skv / 64) pairs.
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
-                 int Skv, int H, int Hkv, float scale, int causal, int window, int sms,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, const int* qp,
+                 const int* kp, int2* rng, int2* kts, int B, int Sq, int Skv, int H, int Hkv, float scale,
+                 int causal, int window, int sms, cudaStream_t stream) {
   using L = FaLayout<D>;
   CUtensorMap tk, tv;
   int err = encode_kv_maps<D>(&tk, &tv, k, v, B, Skv, Hkv);
-  static std::atomic<uint32_t> smem_set{0};
-  if (err == 0) err = hopper::allow_smem(fa_wgmma_kernel<D>, L::kSmem, smem_set);
+  static std::atomic<uint32_t> smem_set{0}, smem_set_pos{0};
+  const bool by_pos = qp != nullptr;
+  auto kernel = by_pos ? fa_wgmma_kernel<D, true> : fa_wgmma_kernel<D, false>;
+  if (err == 0) err = hopper::allow_smem(kernel, L::kSmem, by_pos ? smem_set_pos : smem_set);
+  if (err == 0 && by_pos)
+    err = launch_pos_ranges(qp, kp, B, Sq, Skv, H / Hkv, 1, kFaRows, kFaCols, causal, window, rng, stream);
+  if (err == 0 && by_pos) err = launch_pos_tiles(kp, B, Skv, kts, stream);
   if (err != 0) return err;
   const int items = B * Hkv * ((Sq * (H / Hkv) + kFaRows - 1) / kFaRows);
-  fa_wgmma_kernel<D><<<min(items, sms), kFaThreads, L::kSmem, stream>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, B, Sq,
+  kernel<<<min(items, sms), kFaThreads, L::kSmem, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, qp, kp, rng, kts, B, Sq,
       Skv, H, Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,19 @@ by the bf16 tensor-core rate; :func:`fa_route` sends those calls to the
 bf16) and everything else (f32, the one-token live call, other head dims
 up to MAX_HEAD_DIM, Sq > Skv) to the f32 ``simt`` route. The route is a rule
 of dtype and shape, not a fallback: a route that fails raises.
+
+``q_positions`` (B, Sq) and ``kv_positions`` (B, Skv), int32 on q's device,
+mask by positions as the reference's ``attend`` does
+(``src/repro/models/common.py``; the VLM's M-RoPE layout, where an
+image's patches share one temporal position): key t is visible to query s
+when ``kv_positions[t] >= 0``, causal ``q_positions[s] >= kv_positions[t]``
+and, with a window, ``q_positions[s] - kv_positions[t] < window``; a row
+that sees no key gives 0, a -inf statistic and zero gradients. Both kernels
+take them on either route (tiles skipped by a pre-pass over the positions,
+``csrc/flash_attention_wgmma.cuh``), counted beside the route in
+``flash_attention.position_launches`` and ``bwd_position_launches``. One of
+the two given alone stands beside 0..S-1 on the other side. Both ``None``
+is the index, whose launches and bits are what they were.
 """
 from __future__ import annotations
 
@@ -53,11 +66,11 @@ WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 WGMMA_MIN_ROWS = 64  # folded rows (Sq x group heads): one consumer warpgroup's tile
 ROUTE_CODES = {"simt": 0, "wgmma": 1}  # the C entry point's route argument
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 )
 BWD_KV_COLS = 64  # keys an item of the D = 256 dK/dV kernel
 BWD_ITEMS_WANTED = 256  # its items (key blocks x row chunks) the row chunks aim at
@@ -85,15 +98,19 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,  # 0 = unlimited
     sm_scale: Optional[float] = None,
+    q_positions: Optional[torch.Tensor] = None,  # (B, Sq) int32
+    kv_positions: Optional[torch.Tensor] = None,  # (B, Skv) int32, < 0: an invalid slot
 ) -> torch.Tensor:
-    """Attention of query i over keys j (positions 0..S-1 on both sides):
-    causal keeps j <= i, a window keeps i - j < window."""
+    """Attention of query i over keys j (positions 0..S-1 on both sides, or
+    the positions given): causal keeps j <= i, a window keeps i - j < window."""
     if takes_plain(q, k, v):
-        return attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+        return attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale, q_positions=q_positions,
+                             kv_positions=kv_positions)
     scale = _check(q, k, v, window, sm_scale)
+    pos = _check_positions(q, k, q_positions, kv_positions)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, scale)
-    return _forward(q, k, v, causal, window, scale)
+        return _FlashAttention.apply(q, k, v, causal, window, scale, pos)
+    return _forward(q, k, v, causal, window, scale, **_by_positions(pos))
 
 
 def _check(q, k, v, window, sm_scale) -> float:
@@ -113,6 +130,53 @@ def _check(q, k, v, window, sm_scale) -> float:
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     return sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+
+
+def _check_positions(q, k, q_positions, kv_positions):
+    """The (q, kv) positions the kernels read, or None (the index): raises
+    unless each given is a contiguous int32 (B, S) tensor on q's device; one
+    given alone stands beside 0..S-1 on the other side."""
+    if q_positions is None and kv_positions is None:
+        return None
+    b, sq = q.shape[:2]
+    skv = k.shape[1]
+    out = []
+    for name, t, n in (("q_positions", q_positions, sq), ("kv_positions", kv_positions, skv)):
+        if t is None:
+            t = torch.arange(n, dtype=torch.int32, device=q.device).expand(b, n).contiguous()
+        if t.dtype != torch.int32:
+            raise TypeError(f"flash_attention: {name} {t.dtype}, want torch.int32")
+        if tuple(t.shape) != (b, n) or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} {tuple(t.shape)} on {t.device} (contiguous "
+                             f"{t.is_contiguous()}), want contiguous ({b}, {n}) on {q.device}")
+        out.append(t)
+    return tuple(out)
+
+
+def _by_positions(pos) -> dict:
+    """``_forward``'s keyword for the checked positions: none by index, so
+    that a call by index is the call it was."""
+    return {} if pos is None else {"pos": pos}
+
+
+def _range_scratch(q, k, pos):
+    """By positions, the int32 scratch of the kernels' pre-passes (tile
+    ranges, tiles' positions): B * (2 * ceil(Sq * g / 64) + 2 * ceil(Skv /
+    32)) pairs, enough for the forward's and the backward's blocks (the C
+    entry points' comments); None by index."""
+    if pos is None:
+        return None
+    b, sq, h, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    pairs = b * (2 * -(-sq * (h // hkv) // 64) + 2 * -(-skv // 32))
+    return torch.empty(2 * pairs, dtype=torch.int32, device=q.device)
+
+
+def _pointers(pos, ranges):
+    """The C entry points' qpos, kvpos and ranges arguments."""
+    if pos is None:
+        return None, None, None
+    return pos[0].data_ptr(), pos[1].data_ptr(), ranges.data_ptr()
 
 
 def fa_bwd_route(b: int, sq: int, skv: int, h: int, hkv: int, d: int, dtype: torch.dtype,
@@ -151,10 +215,11 @@ def _check_lse(lse: torch.Tensor, q: torch.Tensor, what: str) -> None:
                          f"({b}, {h}, {sq}) float32 on {q.device}")
 
 
-def _forward(q, k, v, causal: bool, window: int, scale: float, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, window: int, scale: float, lse: Optional[torch.Tensor] = None,
+             pos=None) -> torch.Tensor:
     """One launch of the forward kernel on checked inputs; on the wgmma
     route, ``lse`` (a (B, H, Sq) f32 buffer) receives the rows'
-    statistics."""
+    statistics; ``pos``: the checked (q, kv) positions, or None."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     route = fa_route(b, sq, skv, h, hkv, d, q.dtype, _aligned(q, k, v))
@@ -163,13 +228,14 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, lse: Optional[tor
             raise ValueError("flash_attention: only the wgmma route writes the rows' statistics")
         _check_lse(lse, q, "flash_attention")
     out = torch.empty_like(q)
+    ranges = _range_scratch(q, k, pos)
     if out.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
-        memory.mark((out, lse), "attention")
+        memory.mark((out, lse, ranges), "attention")
         return out
     fn = _build.function("flash_attention", "flash_attention", _ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        b, sq, skv, h, hkv, d, scale, int(causal), int(window), DTYPE_CODES[q.dtype],
+        *_pointers(pos, ranges), b, sq, skv, h, hkv, d, scale, int(causal), int(window), DTYPE_CODES[q.dtype],
         ROUTE_CODES[route], _build.sm_count(q.device),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -177,6 +243,8 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, lse: Optional[tor
     flash_attention.launches += 1
     if route == "wgmma":
         flash_attention.wgmma_launches += 1
+    if pos is not None:
+        flash_attention.position_launches += 1
     return out
 
 
@@ -186,27 +254,29 @@ class _FlashAttention(torch.autograd.Function):
     statistics, which the backward reads instead of recomputing them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, pos=None):
         b, sq, h, d = q.shape
         lse = None
         if fa_route(b, sq, k.shape[1], h, k.shape[2], d, q.dtype, _aligned(q, k, v)) == "wgmma":
             lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-            out = _forward(q, k, v, causal, window, scale, lse)
+            out = _forward(q, k, v, causal, window, scale, lse, **_by_positions(pos))
         else:
-            out = _forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+            out = _forward(q, k, v, causal, window, scale, **_by_positions(pos))
+        ctx.save_for_backward(q, k, v, out, lse, *(pos or (None, None)))
         ctx.attrs = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_positions, kv_positions = ctx.saved_tensors
         causal, window, scale = ctx.attrs
         kw = dict(causal=causal, window=window, sm_scale=scale)
+        if q_positions is not None:
+            kw.update(q_positions=q_positions, kv_positions=kv_positions)
         if lse is not None:
             kw["lse"] = lse
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(), **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_backward(
@@ -220,6 +290,8 @@ def flash_attention_backward(
     causal: bool = True,
     window: int = 0,
     sm_scale: Optional[float] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ):
     """(dq, dk, dv) of :func:`flash_attention` with the same masks, each in
     its input's dtype. A CPU tensor goes to the plain version; on CUDA one
@@ -230,8 +302,10 @@ def flash_attention_backward(
     computes its own and ignores it."""
     tensors = (q, k, v, out, dout)
     if takes_plain(*tensors):
-        return attention_ref_backward(q, k, v, dout, causal=causal, window=window, sm_scale=sm_scale)
+        return attention_ref_backward(q, k, v, dout, causal=causal, window=window, sm_scale=sm_scale,
+                                      q_positions=q_positions, kv_positions=kv_positions)
     scale = _check(q, k, v, window, sm_scale)
+    pos = _check_positions(q, k, q_positions, kv_positions)
     if not all(on_card(t) and t.device == q.device for t in (out, dout)):
         raise ValueError(f"flash_attention_backward: out on {out.device}, dout on {dout.device}")
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -252,14 +326,15 @@ def flash_attention_backward(
     chunks = fa_bwd_row_chunks(b, skv, hkv, d, route)
     # the row chunks' partial dK and dV
     part = torch.empty((chunks, 2, b, skv, hkv, d), dtype=torch.float32, device=q.device) if chunks > 1 else None
+    ranges = _range_scratch(q, k, pos)
     if work.is_meta:
-        memory.mark((work, part), "workspace")
+        memory.mark((work, part, ranges), "workspace")
         return dq, dk, dv
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), None if lse is None else lse.data_ptr(),
-        None if part is None else part.data_ptr(),
+        None if part is None else part.data_ptr(), *_pointers(pos, ranges),
         b, sq, skv, h, hkv, d, scale, int(causal), int(window), DTYPE_CODES[q.dtype],
         ROUTE_CODES[route], chunks, _build.sm_count(q.device), torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -267,6 +342,8 @@ def flash_attention_backward(
     flash_attention.bwd_launches += 1
     if route == "wgmma":
         flash_attention.bwd_wgmma_launches += 1
+    if pos is not None:
+        flash_attention.bwd_position_launches += 1
     return dq, dk, dv
 
 
@@ -274,3 +351,5 @@ flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.bwd_wgmma_launches = 0
+flash_attention.position_launches = 0
+flash_attention.bwd_position_launches = 0

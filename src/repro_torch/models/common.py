@@ -188,19 +188,19 @@ def attend(
     """Exact attention. q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).
 
     q_positions: (B, Sq) int32; kv_positions: (B, Skv) int32 (-1 = invalid
-    slot); ``None`` means 0..S-1 on that side, which is what ``forward``
-    builds. On CUDA tensors this is the ``flash_attention`` kernel, which takes
-    only those positions (meta tensors too under the dry-run's memory pass:
-    ``kernels.on_card``). On the CPU it is the plain version, which loops over
-    query blocks when S_q is large so the (B, H, Sq, Skv) score tensor never
-    materializes in full.
+    slot); ``None`` means 0..S-1 on that side. On CUDA tensors this is the
+    ``flash_attention`` kernel, which masks by the positions given, or by
+    index where both are ``None`` (meta tensors too under the dry-run's
+    memory pass: ``kernels.on_card``). On the CPU it is the plain version,
+    which loops over query blocks when S_q is large so the (B, H, Sq, Skv)
+    score tensor never materializes in full.
     """
     b, sq, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if on_card(q):
-        if q_positions is not None or kv_positions is not None:
-            raise ValueError("attend on CUDA: the kernel takes positions 0..S-1 (pass None)")
-        return flash_attention(q, k, v, causal=causal, window=window or 0, sm_scale=scale)
+        pos = [None if t is None else t.to(torch.int32).contiguous() for t in (q_positions, kv_positions)]
+        return flash_attention(q, k, v, causal=causal, window=window or 0, sm_scale=scale, q_positions=pos[0],
+                               kv_positions=pos[1])
     if q_positions is None:
         q_positions = torch.arange(sq, dtype=torch.int32, device=q.device).expand(b, sq)
     if kv_positions is None:

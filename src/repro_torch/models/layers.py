@@ -129,11 +129,12 @@ def attention_apply(
     p, x, cfg: ModelConfig, *, positions, positions3=None, window: Optional[int] = None, whole_kv: bool = False
 ):
     """Full-sequence attention: RoPE (or M-RoPE, from ``positions3`` (3, B,
-    S)) reads ``positions`` (B, S). On the CPU, ``attend`` masks by
-    ``positions`` as the reference does; on CUDA the flash kernel masks by
-    index, so ``positions`` must be 0..S-1 in every row there (``forward`` and
-    ``prefill`` build or check that). Returns (out, (k, v)) of the heads the
-    rank attends with.
+    S)) reads ``positions`` (B, S). ``attend`` masks by ``positions`` as the
+    reference does: on the CPU for every family, on CUDA for the VLM (whose
+    M-RoPE layout gives an image's patches one temporal position), where the
+    flash kernel takes them; the other families' positions are 0..S-1, and
+    on CUDA the kernel masks those by index. Returns (out, (k, v)) of the
+    heads the rank attends with.
 
     On this rank's ``model`` shard, ``wq`` / ``bq`` hold columns [r W, (r +
     1) W) of the heads' (H * Dh), ``wo`` the same rows. The rank attends
@@ -189,7 +190,7 @@ def attention_apply(
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     q, k = _position(q, k, p, cfg, positions, positions3)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    mask_positions = None if on_card(q) else positions
+    mask_positions = positions if cfg.family == "vlm" or not on_card(q) else None
     out = attend(q, k, v, q_positions=mask_positions, kv_positions=mask_positions,
                  causal=cfg.causal, window=window)
     off = r * width - lo * hd

@@ -335,10 +335,8 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
     def _embed_inputs(params, batch):
         """(x, positions, positions3) as the reference's ``_embed_inputs``:
         audio frames (``embed[0]`` where ``frame_mask``), vision embeddings
-        before the token embeddings with ``positions3[0]`` as positions, or
-        token embeddings at 0..S-1. On CUDA the flash kernel masks by index,
-        so there a VLM batch whose temporal positions are not 0..S-1 in every
-        row raises ValueError (one check, one sync, a call)."""
+        before the token embeddings with ``positions3[0]`` as positions (the
+        attention's mask, on the card too), or token embeddings at 0..S-1."""
         if cfg.family == "audio":
             x = batch["frames"].to(common.dtype_of(cfg))
             if "frame_mask" in batch:
@@ -350,15 +348,7 @@ def _transformer_fns(cfg: ModelConfig) -> ModelFns:
         if cfg.family == "vlm":
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
             positions3 = batch["positions3"]
-            positions = positions3[0]
-            if x.is_cuda:
-                iota = torch.arange(x.shape[1], dtype=positions.dtype, device=x.device)
-                if not torch.equal(positions, iota.expand_as(positions)):
-                    raise ValueError(
-                        f"{cfg.name}: on CUDA the temporal positions (positions3[0]) must be "
-                        "0..S-1 in every row (ROADMAP.md §3)"
-                    )
-            return x, positions, positions3
+            return x, positions3[0], positions3
         b, s = tokens.shape
         return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s), None
 

@@ -165,6 +165,37 @@ def conv_history(p, tail, cfg: ModelConfig, channels: int):
     return tail
 
 
+def _spanning(g):
+    """For g (B, Qi, Qj, H), out[:, k] = the sum of g[:, i, j] over j < k <=
+    i: each term once, in a sum over i from the chunk's end (a reversed
+    cumsum), then over j."""
+    q = g.shape[1]
+    rev = torch.flip(torch.cumsum(torch.flip(g, (1,)), dim=1), (1,))  # rev[:, k, j]: the sum over i >= k
+    strict = torch.tril(torch.ones((q, q), dtype=torch.bool, device=g.device), -1)[None, :, :, None]
+    return torch.where(strict, rev, 0.0).sum(dim=2)
+
+
+class _Differences(torch.autograd.Function):
+    """The intra-chunk decay exponents cum_i - cum_j (B, Qi, Qj, H) of dA
+    (B, Q, H), cum its inclusive cumsum over the chunk: the reference's
+    bits. Its gradient goes to dA as the sum of the terms whose segment
+    j < k <= i holds k (:func:`_spanning`), where autograd through the cumsum
+    would take the difference of two sums over the whole chunk that cancel
+    nearly all the way (shifting every cum_i leaves the differences alone),
+    so that the last bits of the gradients that come in, which a step split
+    over ``model`` sums in another order, reached A_log's and dt_bias's
+    gradients many times over (``scripts/port_split_step_figures.py``)."""
+
+    @staticmethod
+    def forward(ctx, dac):
+        cum = torch.cumsum(dac, dim=1)
+        return cum[:, :, None, :] - cum[:, None, :, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _spanning(g) - _spanning(g.transpose(1, 2))
+
+
 def _silu(x):
     """``x * sigmoid(x)`` as the JAX package's ``jax.nn.silu`` computes it on
     the CPU: XLA expands the sigmoid into ``1 / (1 + exp(-x))`` and rounds
@@ -247,7 +278,7 @@ def _ssm_core(p, x, cfg: ModelConfig):
         # range (published widths, 256-step chunks) gives a 0, not an inf,
         # whose gradient through the mask would be 0 * inf = NaN (the
         # reference's where-after-exp; the values are the same bits)
-        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Qi,Qj,H)
+        diff = _Differences.apply(dac)  # (B,Qi,Qj,H)
         decay = torch.exp(torch.where(tri[None, :, :, None], diff, float("-inf")))
         cb = torch.einsum("bis,bjs->bij", ck, bk)  # (B,Qi,Qj)
         m = cb[..., None] * decay  # (B,Qi,Qj,H)

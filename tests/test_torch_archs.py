@@ -140,7 +140,7 @@ def _mrope_positions(b, s_vis, s_text):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_vlm_positions_that_are_not_an_index_on_the_cpu(dtype):
     """On the CPU the port masks by positions3[0] as the reference does (the
-    card's flash kernel masks by index and raises instead)."""
+    card's flash kernels mask by them too: tests/test_torch_flash_positions.py)."""
     ref_cfg = dataclasses.replace(ref_get_config("qwen2-vl-7b").reduced(), dtype=dtype)
     cfg = dataclasses.replace(get_config("qwen2-vl-7b").reduced(), dtype=dtype)
     rng = np.random.default_rng(8)

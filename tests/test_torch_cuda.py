@@ -12,7 +12,9 @@ routes, the wrappers that have no backward raising under grad, and train
 steps on the card against the CPU (the MoE pair too) without a host sync;
 the one-rank NCCL mesh's train steps equal to the meshless ones bit for bit,
 checkpoints crossing between them, and ``examples/port_train_lm.py``'s
-restart giving the uninterrupted run's losses bit for bit.
+restart giving the uninterrupted run's losses bit for bit; the flash
+kernels by positions (Qwen2-VL's M-RoPE layout, a tail of -1 slots) against
+the plain version, and qwen2-vl-7b on that layout through them.
 
 Every test here is marked ``cuda`` and skips without a card; on a machine
 with an H100:
@@ -523,27 +525,116 @@ def test_minicpm_full_width_card_against_cpu(cuda):
     torch.testing.assert_close(dec_card.float(), fwd_card[:, s - 1 :].float(), rtol=8e-2, atol=8e-2)
 
 
+def _mrope_positions(b, gh, gw, s_text, tail=0):
+    """Qwen2-VL's (3, B, S) positions: an image of gh x gw patches at
+    temporal 0, then text from max(gh, gw) on all three axes; row 0's last
+    ``tail`` slots at -1."""
+    n = gh * gw
+    text = np.arange(s_text) + max(gh, gw)
+    pos = np.stack([np.concatenate([np.zeros(n), text]), np.concatenate([np.arange(n) // gw, text]),
+                    np.concatenate([np.arange(n) % gw, text])]).astype(np.int32)
+    pos = np.broadcast_to(pos[:, None, :], (3, b, n + s_text)).copy()
+    if tail:
+        pos[:, 0, -tail:] = -1
+    return torch.from_numpy(pos)
+
+
+# chip_smoke.py's phase 3 / phase 8 positions cases: (B, gh, gw, text, H, Hkv,
+# D, dtype, window): qwen2-vl-7b's calls (the wgmma route), f32 (simt), D 80
+FA_POSITION_CASES = [
+    (4, 16, 8, 896, 28, 4, 128, "bfloat16", 0),
+    (2, 8, 4, 224, 28, 4, 128, "float32", 0),
+    (2, 6, 10, 452, 16, 16, 80, "bfloat16", 64),
+]
+FA_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-4}
+FA_BWD_REL_L2 = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
 @pytest.mark.cuda
-def test_vlm_positions_that_are_not_an_index_raise_on_the_card(cuda):
-    """The flash kernel masks by index, so on the card a VLM batch whose
-    temporal positions are not 0..S-1 raises (the CPU masks by them)."""
+@pytest.mark.parametrize("b,gh,gw,text,h,hkv,d,dtype,window", FA_POSITION_CASES)
+def test_flash_attention_by_positions(cuda, b, gh, gw, text, h, hkv, d, dtype, window):
+    """Forward and backward by Qwen2-VL's positions (one row's tail at -1)
+    against ``ref.py`` on the same inputs: relative L2 within the kernels'
+    gates, rows that see no key exactly 0 in the output and in dQ, keys no
+    row sees exactly 0 in dK and dV, every value finite; the launch counted
+    on the positions route."""
+    dt = DTYPES[dtype]
+    pos = _mrope_positions(b, gh, gw, text, tail=37)[0].to(cuda)
+    s = pos.shape[1]
+    q, do = (_randn((b, s, h, d), dt, cuda, seed) for seed in (1, 2))
+    k, v = (_randn((b, s, hkv, d), dt, cuda, seed) for seed in (3, 4))
+    kw = dict(causal=True, window=window, q_positions=pos, kv_positions=pos)
+    before = (fa_ops.flash_attention.position_launches, fa_ops.flash_attention.bwd_position_launches)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    grads = fa_ops.flash_attention_backward(q, k, v, out, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.position_launches, fa_ops.flash_attention.bwd_position_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fa_ops.attention_ref(q.float(), k.float(), v.float(), **kw)
+    want_grads = fa_ops.attention_ref_backward(q.float(), k.float(), v.float(), do.float(), **kw)
+    assert torch.isfinite(out.float()).all() and all(torch.isfinite(g.float()).all() for g in grads)
+    assert _rel(out, want) <= FA_REL_L2[dtype]
+    for g, w in zip(grads, want_grads):
+        assert _rel(g, w) <= FA_BWD_REL_L2[dtype]
+    dead = pos < 0  # row 0's tail: no key visible (causal), and no query sees those keys
+    assert torch.equal(out[dead], torch.zeros_like(out[dead])) and torch.equal(grads[0][dead], torch.zeros_like(grads[0][dead]))
+    for g in grads[1:]:
+        assert torch.equal(g[dead], torch.zeros_like(g[dead]))
+
+
+@pytest.mark.cuda
+def test_vlm_layout_on_the_card_against_the_plain_attention(cuda):
+    """qwen2-vl-7b (reduced) on Qwen2-VL's layout on the card: ``forward``,
+    ``prefill`` and the loss with its gradients through the flash kernels
+    (forward and backward by positions, counted) against the same card
+    path with ``attend`` swapped for the plain version, at relative L2 1e-2
+    (bf16) and 1e-4 (f32, the loss and every gradient leaf)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import make_concrete_batch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers
     from repro_torch.models.model import build_model
 
-    cfg = get_config("qwen2-vl-7b").reduced()
-    fns = build_model(cfg)
-    params = fns.init(torch.Generator(cuda).manual_seed(0))
-    batch = make_concrete_batch(cfg, ShapeSpec("p", 64, 2, "prefill"), device=cuda)
-    with torch.inference_mode():
-        logits = fns.forward(params, batch)
-        assert torch.isfinite(logits.float()).all()
-        batch["positions3"][0, 1, 8:] += 3
-        with pytest.raises(ValueError, match="temporal positions"):
-            fns.forward(params, batch)
-        with pytest.raises(ValueError, match="temporal positions"):
-            fns.prefill(params, batch, max_seq=80)
+    def plain_attend(q, k, v, *, causal, window=None, q_positions=None, kv_positions=None, **_):
+        return attention_ref(q, k, v, causal=causal, window=window or 0, q_positions=q_positions,
+                             kv_positions=kv_positions)
+
+    for dtype, tol in (("bfloat16", 1e-2), ("float32", 1e-4)):
+        cfg = dataclasses.replace(get_config("qwen2-vl-7b").reduced(), dtype=dtype)
+        fns = build_model(cfg)
+        params = fns.init(torch.Generator(cuda).manual_seed(0))
+        batch = make_concrete_batch(cfg, ShapeSpec("p", 64, 2, "train"), device=cuda)
+        n_vis = batch["vision_embeds"].shape[1]
+        batch["positions3"] = _mrope_positions(2, 2, n_vis // 2, 64 - n_vis).to(cuda)
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+
+        def run():
+            with torch.inference_mode():
+                logits = fns.forward(params, prompt)
+                first, _ = fns.prefill(params, prompt, max_seq=80)
+            loss, _, grads = value_and_grad(fns, params, batch)
+            return [logits, first, loss] + grads
+
+        before = (fa_ops.flash_attention.position_launches, fa_ops.flash_attention.bwd_position_launches)
+        got = run()
+        assert fa_ops.flash_attention.position_launches > before[0]
+        assert fa_ops.flash_attention.bwd_position_launches > before[1]
+        saved, layers.attend = layers.attend, plain_attend
+        try:
+            want = run()
+        finally:
+            layers.attend = saved
+        for a, w in zip(got, want):
+            assert torch.isfinite(a.float()).all()
+            if w.float().norm() > 0:
+                assert _rel(a, w) <= tol, (dtype, _rel(a, w))
 
 
 @pytest.mark.cuda
