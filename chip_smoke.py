@@ -17,9 +17,10 @@
    both attention kernels also at head dim 256, recurrentgemma-9b's), and
    times kernel, plain version and one library call (a yardstick only: the
    port never calls it), weighted by each path's calls a step; logs each
-   shape's route (``stream_matmul`` and ``stream_matmul_int8``: gemv /
-   wgmma / simt, ``flash_attention``: wgmma / simt), read from the wrapper's
-   ``wgmma_launches`` and held against the route rule, its share of the
+   shape's route (``stream_matmul``: gemv / wgmma / narrow / simt,
+   ``stream_matmul_int8``: gemv / wgmma / simt, ``flash_attention``: wgmma /
+   simt), read from the wrapper's ``wgmma_launches`` (and
+   ``stream_matmul.narrow_launches``) and held against the route rule, its share of the
    bound, its ratio to the library call and its registers and spills from
    ``-Xptxas -v``; gates the prefill path's ``stream_matmul`` sum, each
    ``flash_attention`` call of FA_LIBRARY_GATED (the dense prefills,
@@ -63,7 +64,9 @@
    at the published capacity factor 1.25 and decodes 64 greedy steps, its
    three expert products a layer through ``stream_matmul``'s expert-batched
    form (one launch each, counted in ``batched_launches``; wgmma at prefill,
-   gemv at decode), launches gated exactly per call. It prints prefill
+   gemv at decode), the f32 router on the narrow route at prefill
+   (``narrow_launches``) and on the gemv at decode, launches gated exactly
+   per call. It prints prefill
    ms and tokens/s against an operations-or-bytes bound, the median decode
    step against the bytes of the experts the step hit, tokens dropped per
    layer, and the device's idle share. First, at published width, each
@@ -657,7 +660,7 @@ def run_phases(torch, dev) -> None:
     paths["families"], nk_launches = families_slice(torch, dev)
     phase_done("6b. families")
     check_moe_against_cpu(torch, dev)
-    paths["moe"], batched_launches, _ = moe_slice(torch, dev)
+    paths["moe"], (batched_launches, narrow_launches), _ = moe_slice(torch, dev)
     phase_done("6c. moe")
     check_hybrid_against_cpu(torch, dev)
     paths["hybrid"], _ = hybrid_slice(torch, dev)
@@ -713,6 +716,8 @@ def run_phases(torch, dev) -> None:
                                                           "mesh_moe": mesh_batched[0]}
     recs["stream_matmul"]["extra"]["batched_grad_launches"] = {
         "train_moe": sum(r["batched"][1] for r in moe_runs.values()), "mesh_moe": mesh_batched[1]}
+    recs["stream_matmul"]["extra"]["narrow_launches"] = {
+        "moe": narrow_launches, "train_moe": sum(r["narrow"] for r in moe_runs.values())}
     kernels = kernels_line(recs, paths)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -1008,6 +1013,12 @@ def zero_launches():
             setattr(fn, wgmma_count, 0)
     for count in POSITION_COUNTS.values():
         setattr(counters()["flash_attention"][0], count, 0)
+    counters()["stream_matmul"][0].narrow_launches = 0
+
+
+def read_narrow() -> int:
+    """stream_matmul's launches on the f32 narrow route (the MoE routers)."""
+    return counters()["stream_matmul"][0].narrow_launches
 
 
 # the flash calls by positions (the VLM's), forward and backward, counted on
@@ -1112,8 +1123,9 @@ def train_wgmma(cfg, remat: bool, b=TRAIN_B, s=TRAIN_S):
 def step_wgmma(cfg, path, b=DECODE_B, s=PROMPT):
     """The launches of one call of ``path`` that take the tensor-core route:
     on prefill and on a forward over DECODE_B x PROMPT positions or more every
-    bf16 projection (all but an MoE router, which is f32 on simt; the expert
-    products' capacity is above 8 rows there) and, in a forward, the LM head
+    bf16 projection (all but an MoE router, which is f32 on the narrow route,
+    :func:`step_narrow`; the expert products' capacity is above 8 rows
+    there) and, in a forward, the LM head
     (a prefill's runs on the last position, M = 4: gemv); every attention
     that ``fa_route`` sends there (:func:`attention_on_wgmma` over b x s:
     hubert-xlarge's D = 80 and recurrentgemma-9b's D = 256 included); none
@@ -1130,6 +1142,21 @@ def step_wgmma(cfg, path, b=DECODE_B, s=PROMPT):
             "flash_attention_backward": 0}
 
 
+def step_narrow(cfg, path):
+    """stream_matmul's launches of one call of ``path`` on the f32 narrow
+    route: every MoE router (x (M, d) @ w (d, E) in f32, E of 8 or 128) on
+    prefill and on a forward (M = DECODE_B x PROMPT or more); none on the
+    live and decode steps (M <= 8: gemv) or in a model without experts."""
+    return cfg.num_layers if cfg.moe is not None and path in ("prefill", "forward") else 0
+
+
+def train_narrow(cfg, remat: bool):
+    """stream_matmul's launches of one train step on the f32 narrow route:
+    every MoE router forward (twice with remat), then its dX (dY (M, E) @
+    w^T, K = E) and its dW (x read as (K, M), N = E)."""
+    return cfg.num_layers * (1 + remat + 2) if cfg.moe is not None else 0
+
+
 def step_batched(cfg):
     """stream_matmul's expert-batched launches of any call of a model: 3 an
     MoE layer."""
@@ -1144,16 +1171,17 @@ def step_nk(cfg):
 
 def checked_route(fn, rule, call):
     """Calls ``call`` once and returns ``(output, route)``, the route read from
-    ``fn.wgmma_launches``: "wgmma" if it rose by one, else ``rule``'s answer
-    (gemv or simt, which the counters do not tell apart). Raises if the
-    tensor-core kernel ran where the route rule says it should not, or the
-    other way round."""
-    before = fn.wgmma_launches
+    ``fn.wgmma_launches`` and, where the wrapper has one (``stream_matmul``),
+    ``fn.narrow_launches``: "wgmma" or "narrow" if that count rose by one,
+    else ``rule``'s answer (gemv or simt, which the counters do not tell
+    apart). Raises if the tensor-core or the narrow kernel ran where the
+    route rule says it should not, or the other way round."""
+    before = fn.wgmma_launches, getattr(fn, "narrow_launches", 0)
     out = call()
-    took = fn.wgmma_launches - before
-    if took != (rule == "wgmma"):
-        raise AssertionError(f"{fn.__name__}: route rule says {rule}, wgmma launches rose by {took}")
-    return out, "wgmma" if took else rule
+    took = fn.wgmma_launches - before[0], getattr(fn, "narrow_launches", 0) - before[1]
+    if took != (rule == "wgmma", rule == "narrow"):
+        raise AssertionError(f"{fn.__name__}: route rule says {rule}, wgmma and narrow launches rose by {took}")
+    return out, "wgmma" if took[0] else "narrow" if took[1] else rule
 
 
 def check_stream_matmul(torch, dev, bench):
@@ -1245,8 +1273,9 @@ def check_stream_matmul(torch, dev, bench):
     off_path += [(m, tied_k, tied_n, torch.bfloat16, "nk") for m in (1, PREFILL_M, DECODE_B * DECODE_SMAX)]
     off_path += [(3, 300, 1001, torch.bfloat16, "nk"), (64, 300, 1001, torch.bfloat16, "nk"),
                  (64, 2048, 1001, torch.float32, "nk"), (200, 264, 137, torch.bfloat16, "nk")]
-    # x read in place as (K, M): a ragged K and N on wgmma, a K of 2, f32, an M
-    # no multiple of 8 (simt)
+    # x read in place as (K, M): a ragged K and N on wgmma, a K of 2 (wgmma:
+    # TMA zero-fills past it), f32 with N = 200 (simt), an M no multiple of 8
+    # (simt)
     off_path += [(264, 200, 136, torch.bfloat16, "km"), (2048, 2, 1024, torch.bfloat16, "km"),
                  (300, 64, 200, torch.float32, "km"), (100, 256, 512, torch.bfloat16, "km")]
     for m, k, n, dtype, layout in off_path:
@@ -2699,27 +2728,30 @@ def moe_slice(torch, dev):
 
     stream_matmul = counters()["stream_matmul"][0]
     total = ({name: 0 for name in KERNELS}, 0, {name: 0 for name in WGMMA_KERNELS})
-    batched_total = 0
+    batched_total = narrow_total = 0
     results = {}
 
     def gated(what, cfg, path, run):
-        nonlocal total, batched_total
+        nonlocal total, batched_total, narrow_total
         torch.cuda.synchronize(dev)
         zero_launches()
         b0 = stream_matmul.batched_launches
         out = run()
         torch.cuda.synchronize(dev)
-        launches, wgmma = read_launches(), read_wgmma()
+        launches, wgmma, narrow = read_launches(), read_wgmma(), read_narrow()
         batched = stream_matmul.batched_launches - b0
         want, want_wgmma = step_launches(cfg, path), step_wgmma(cfg, path)
-        if launches != want or wgmma != want_wgmma or batched != step_batched(cfg):
-            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, batched {batched}; "
-                                 f"want {want}, {want_wgmma}, {step_batched(cfg)}")
+        if launches != want or wgmma != want_wgmma or batched != step_batched(cfg) \
+                or narrow != step_narrow(cfg, path):
+            raise AssertionError(f"{what}: launches {launches}, tensor-core {wgmma}, batched {batched}, narrow "
+                                 f"{narrow}; want {want}, {want_wgmma}, {step_batched(cfg)}, "
+                                 f"{step_narrow(cfg, path)}")
         if path != "forward":
             counts, n, counts_wgmma = total
             total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
                      {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
             batched_total += batched
+            narrow_total += narrow
         return out, launches, wgmma, batched
 
     for seed, arch in enumerate(MOE_DEPTHS):
@@ -2837,8 +2869,9 @@ def moe_slice(torch, dev):
             del params, cache, state, outs, fed, logits, leaves, prompts, full, step_calls, prefill_calls
         torch.cuda.empty_cache()
     launches, steps, wgmma = total
-    log(f"moe path: launches {launches} over {steps} calls, tensor-core {wgmma}, expert-batched {batched_total}")
-    return (launches, steps, wgmma), batched_total, results
+    log(f"moe path: launches {launches} over {steps} calls, tensor-core {wgmma}, expert-batched {batched_total}, "
+        f"narrow (the f32 routers) {narrow_total}")
+    return (launches, steps, wgmma), (batched_total, narrow_total), results
 
 
 def rel_l2(a, b) -> float:
@@ -3628,6 +3661,7 @@ def train_run(torch, dev, cfg, seed):
     schedule and remat. Gated: every step's launches exactly
     (:func:`train_launches`; for MoE also :func:`train_batched`), its
     attention launches on the tensor-core routes (:func:`train_wgmma`), the
+    MoE routers' on the narrow route (:func:`train_narrow`), the
     loss finite and falling, and the loss and every gradient with remat off
     equal to those with remat on, bit for bit (remat on's gradients held on
     the host meanwhile). Reported: the median step, tokens/s, the device's
@@ -3663,9 +3697,9 @@ def train_run(torch, dev, cfg, seed):
         + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} at capacity factor {cfg.moe.capacity_factor}"
            if cfg.moe is not None else "") + f"; set-up {time.perf_counter() - t0:.1f} s")
     want, want_wgmma = train_launches(cfg, cfg.remat), train_wgmma(cfg, cfg.remat)
-    want_batched = train_batched(cfg, cfg.remat)
+    want_batched, want_narrow = train_batched(cfg, cfg.remat), train_narrow(cfg, cfg.remat)
     total = ({k: 0 for k in KERNELS}, 0, {k: 0 for k in WGMMA_KERNELS})
-    losses, step_s, kept, batched_total = [], [], [], (0, 0)
+    losses, step_s, kept, batched_total, narrow_total = [], [], [], (0, 0), 0
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize(dev)
         zero_launches()
@@ -3675,11 +3709,13 @@ def train_run(torch, dev, cfg, seed):
             state, metrics = step_fn(state, batch)
         torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t0)
-        launches, wgmma = read_launches(), read_wgmma()
+        launches, wgmma, narrow = read_launches(), read_wgmma(), read_narrow()
         batched = (stream_matmul.batched_launches, stream_matmul.batched_grad_launches)
-        if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()) or batched != want_batched:
+        if launches != want or any(wgmma[k] != n for k, n in want_wgmma.items()) or batched != want_batched \
+                or narrow != want_narrow:
             raise AssertionError(f"train {name} step {i}: launches {launches} != {want}, or tensor-core {wgmma} "
-                                 f"against {want_wgmma}, or expert-batched {batched} != {want_batched}")
+                                 f"against {want_wgmma}, or expert-batched {batched} != {want_batched}, or "
+                                 f"narrow {narrow} != {want_narrow}")
         if i == 0 and cfg.moe is not None:  # the layers' routings (remat's replay routes the same)
             kept = [int(moe_dispatch(logits, cfg.moe).rows.sum()) for logits in routed[:cfg.num_layers]]
         del routed
@@ -3687,11 +3723,12 @@ def train_run(torch, dev, cfg, seed):
         total = ({k: counts[k] + launches[k] for k in counts}, n + 1,
                  {k: counts_wgmma[k] + wgmma[k] for k in counts_wgmma})
         batched_total = (batched_total[0] + batched[0], batched_total[1] + batched[1])
+        narrow_total += narrow
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m["loss"])
         log(f"  step {i}: {1e3 * step_s[-1]:.1f} ms, loss {m['loss']:.6f} ce {m['ce']:.6f} grad_norm "
             f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; launches {launches}, tensor-core {wgmma}"
-            + (f", expert-batched {batched}" if cfg.moe is not None else ""))
+            + (f", expert-batched {batched}, narrow {narrow}" if cfg.moe is not None else ""))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train {name}: losses {losses} not finite or not falling")
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3719,13 +3756,13 @@ def train_run(torch, dev, cfg, seed):
     stream_matmul.batched_launches = stream_matmul.batched_grad_launches = 0
     loss_off, _, grads = value_and_grad(build_model(dataclasses.replace(cfg, remat=False)), params, batch)
     torch.cuda.synchronize(dev)
-    launches, wgmma = read_launches(), read_wgmma()
+    launches, wgmma, narrow = read_launches(), read_wgmma(), read_narrow()
     batched = (stream_matmul.batched_launches, stream_matmul.batched_grad_launches)
     want_off, want_off_wgmma = train_launches(cfg, False), train_wgmma(cfg, False)
     if launches != want_off or any(wgmma[k] != n for k, n in want_off_wgmma.items()) \
-            or batched != train_batched(cfg, False):
+            or batched != train_batched(cfg, False) or narrow != train_narrow(cfg, False):
         raise AssertionError(f"train {name} without remat: launches {launches} != {want_off}, or tensor-core "
-                             f"{wgmma} against {want_off_wgmma}, or expert-batched {batched}")
+                             f"{wgmma} against {want_off_wgmma}, or expert-batched {batched}, or narrow {narrow}")
     same = torch.equal(loss_on, loss_off)
     for i, g in enumerate(grads):
         same = same and torch.equal(g.cpu(), grads_on[i])
@@ -3738,7 +3775,7 @@ def train_run(torch, dev, cfg, seed):
     torch.cuda.empty_cache()
     return total, {"losses": losses, "median_step_ms": 1e3 * med, "tokens_per_s": tokens / med,
                    "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, "kept": kept, "peak_allocated_bytes": peak,
-                   "base_allocated_bytes": base, "batched": batched_total}
+                   "base_allocated_bytes": base, "batched": batched_total, "narrow": narrow_total}
 
 
 def supervisor_on_card(torch, dev):
@@ -4139,10 +4176,9 @@ def check_kernel_call(torch, dev, key) -> float:
         w = randn((*lead, *((n, k) if w_layout == "nk" else (k, n))), dtype, k ** -0.5)
         rows = torch.randint(1, m + 1, (e,), generator=gen, device=dev, dtype=torch.int32) if has_rows else None
         kw = dict(out_dtype=dtypes[out_dtype], w_layout=w_layout, rows=rows, x_layout=x_layout)
-        before = stream_matmul.wgmma_launches
-        with torch.no_grad():
-            out = stream_matmul(x, w, **kw)
-        took = stream_matmul.wgmma_launches - before
+        with torch.no_grad():  # raises where the wgmma or narrow count leaves the noted route
+            out, _ = checked_route(stream_matmul, route, lambda: stream_matmul(x, w, **kw))
+        took = route == "wgmma"
         rel = rel_l2(out, stream_matmul_ref(x.float(), w.float(), **dict(kw, out_dtype=torch.float32)))
         tol = MM_REL_L2[x_dtype]
     else:

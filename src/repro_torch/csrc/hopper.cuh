@@ -1,6 +1,6 @@
 // Shared Hopper (sm_90a) device helpers of the port's tensor-core kernels
 // (streammm.cu, streammm_int8.cu, flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile
-// loads, ldmatrix, wgmma shared-memory descriptors and instructions, register
+// loads and stores, ldmatrix, wgmma shared-memory descriptors and instructions, register
 // hand-over between warpgroups, and the host-side encoding of TMA tensor maps.
 //
 // Conventions both kernels rely on:
@@ -98,8 +98,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A tile from shared memory to global memory (the box of `map` at the given
+// coordinates; TMA clips what falls past the tensor's bounds), in this
+// thread's current bulk group. The tile must be written by the async proxy
+// or behind fence_proxy_async and a barrier.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes this thread's current bulk group of TMA stores.
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their shared
+// memory (the buffers of the older ones may be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete (their
+// writes to global memory done).
+template <int N>
+__device__ __forceinline__ void bulk_wait_group() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Orders this thread's plain shared-memory stores before later reads by the
-// async proxy (wgmma operands written with st.shared).
+// async proxy (wgmma operands written with st.shared, TMA stores' tiles).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -438,6 +470,14 @@ static inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank
                                     const cuuint64_t* dims, const cuuint64_t* strides,
                                     const cuuint32_t* box) {
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An f32 tensor map with 128B swizzle (32 floats to a swizzled row).
+static inline int encode_f32_sw128(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box,
                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

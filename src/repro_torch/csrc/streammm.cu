@@ -12,7 +12,7 @@
 // prefill (M = 4096) the same product does 2 * 4096 flops a weight and is
 // bound by the bf16 tensor-core rate (989 TFLOP/s).
 //
-// Three routes, chosen by the wrapper (ops.py, mm_route) from dtype and shape:
+// Four routes, chosen by the wrapper (ops.py, mm_route) from dtype and shape:
 //  * gemv (M <= 8): a block owns a slab of 256 output columns and a chunk
 //    of K rows. Its threads read the slab row by row with 16-byte loads
 //    (neighbouring threads on neighbouring columns), keep one f32 partial sum
@@ -22,7 +22,8 @@
 //    blocks; each split writes its partial sums to a workspace and a second
 //    kernel adds them in split order. No atomics: the result is the same bits
 //    on every run, which the live runtime's transparency check relies on.
-//  * wgmma (bf16, M > 8, K and N multiples of 8, 16-byte aligned operands):
+//  * wgmma (bf16, M > 8, K and N multiples of 8, or with x given as (K, M)
+//    M and N and any K, 16-byte aligned operands):
 //    tensor cores fed by TMA. A block owns a 128 x kWgmmaBN output tile. One
 //    producer thread streams 128 x 64 tiles of x (K-major) and 64 x kWgmmaBN
 //    tiles of w, as 64-column boxes of its (K, N) row-major layout (MN-major,
@@ -32,10 +33,26 @@
 //    moves registers to them) each run wgmma m64nNk16 over 64 rows into f32
 //    registers, keeping one k-tile's wgmma group in flight, and store their
 //    rows with masks. TMA zero-fills past M, N and K, so a K tail adds 0 and
-//    ragged M and N are masked at the store. No split-K, no atomics.
-//  * simt (f32, or shapes TMA cannot describe): plain 64x64 shared-memory
-//    tiles with a 4x4 register micro-tile per thread, f32 throughout: f32
-//    products stay exact f32 (never TF32).
+//    ragged M and N are masked at the store. No split-K, no atomics. With x
+//    given as (K, M) (every dW) a persistent kernel of its own,
+//    wgmma_km_kernel, below.
+//  * narrow (f32, M > 8, a narrow side: N <= 128 of a (K, N) weight, or K <=
+//    128 of an (N, K) one; rows of 16-byte multiples, aligned bases): the MoE
+//    router x @ w_router (N = E of 8 or 128, K = d), its dW x^T @ dY (x read
+//    in place as (K, M), N = E) and its dX dY @ w_router^T (K = E). Output
+//    tiles shaped to the narrow side: 256 x 8 where N <= 8, else 128 x 128
+//    with an 8 x 8 register micro-tile a thread; K tiles staged in two
+//    shared-memory buffers behind 16-byte loads along each operand's
+//    contiguous axis; 16-byte stores. Where the output's tiles are too few to
+//    fill the SMs (the router at M = 4096 makes 16 or 32 of them, its dW 24
+//    or 56), the wrapper cuts K across blocks, and each writes its partial
+//    sums to a workspace that split_reduce_kernel adds in split order, as the
+//    gemv's splits. Exact f32 FFMA, no atomics: the same bits on every run.
+//    Bound: the bytes of x at E = 8 (8 products a 4-byte element), the f32
+//    operations at E = 128; the dX at E = 8 by the bytes of its output.
+//  * simt (other f32 shapes, or shapes TMA cannot describe): plain 64x64
+//    shared-memory tiles with a 4x4 register micro-tile per thread, f32
+//    throughout: f32 products stay exact f32 (never TF32).
 // Any M, N, K on the gemv and simt routes: ragged edges are masked; 16-byte
 // loads are used only when the weight rows are 16-byte aligned.
 //
@@ -90,20 +107,19 @@
 //    grid's y axis; wgmma and simt on z, as above. Bound: the weight bytes
 //    of the experts that hold a row, or the filled rows' operations.
 //  * dW[e] = x[e]^T @ dY[e] (x_layout = 1: x given as (K', M') = (M, K), out
-//    (K, N)), the sum over the filled slots only. On the wgmma route x is an
-//    MN-major A (the transpose bit of wgmma's A; two 64 x 64 TMA boxes of x
-//    as (K, M, E) a stage), dY an MN-major B as the forward's (K, N)
-//    weight; the k-loop of expert e ends at ceil(rows[e] / 64) stages, and
-//    in the last one the consumers zero the rows at or past rows[e] of both
-//    tiles in shared memory (fence.proxy.async, then a barrier of the two
-//    consumer warpgroups) before the products, so slots past the count add
-//    nothing whatever they hold; an expert with rows[e] = 0 writes zeros
-//    and reads nothing. The simt route loads those terms as 0. Bound: the
-//    filled rows' operations, or the bytes of dW written plus x and dY read.
+//    (K, N)), the sum over the filled slots only. On the wgmma route
+//    (wgmma_km_kernel, persistent, its epilogue through shared memory and TMA
+//    stores) x is an MN-major A (the transpose bit of wgmma's A; two 64 x 64
+//    TMA boxes of x as (K, M, E) a stage), dY an MN-major B as the forward's
+//    (K, N) weight; the k-loop of expert e ends at ceil(rows[e] / 64) stages,
+//    and in the last one the consumers zero the rows at or past rows[e] of
+//    both tiles in shared memory before the products, so slots past the count
+//    add nothing whatever they hold; an expert with rows[e] = 0 reads nothing
+//    and writes zeros. The narrow and simt routes load those terms as 0.
+//    Bound: the filled rows' operations, or the bytes of dW written plus x
+//    and dY read (arctic-480b's 8.9 GB of bf16 dW at 80 slots an expert).
 // The 2-D form's dW uses the same x_layout = 1 (E = 1, no rows), so x is
 // read in place there too.
-// Tuning (persistent tiles across experts, splits sized to the experts hit)
-// is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -425,6 +441,218 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ o
   }
 }
 
+// ---- narrow route (f32 with a narrow side: the MoE routers) ----------------------
+
+constexpr int kNarrowPad = 4;  // floats of padding on each shared-memory row
+
+template <typename O>
+__device__ __forceinline__ void store4(O* p, const float (&v)[4]);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(hopper::pack_bf16x2(v[0], v[1]), hopper::pack_bf16x2(v[2], v[3]));
+}
+
+// f32 in, exact f32 FFMA (never TF32). grid = (ceil(N / BN), ceil(M / BM), E
+// * splits); block = (BM / TM) * (BN / TN) threads, each a TM x TN
+// micro-tile: rows ty * 4 + i (and BM / 2 on where TM = 8), columns tx * 4 +
+// j (and BN / 2 on where TN = 8), so that each thread's shared-memory reads
+// are 16-byte vectors that neighbouring threads take from neighbouring banks.
+// Block z = e * splits + split sums K rows [split * k_chunk, + k_chunk) of
+// expert e (with kTA also bounded by rows[e]); with splits > 1 it writes its
+// partial sums to work[split, e] of the (splits, E, M, N) workspace, which
+// split_reduce_kernel adds in split order. K tiles of BK are staged in two
+// shared-memory buffers, transposed to [k][m] and [k][n]: a thread loads the
+// next tile into registers (16-byte loads along each operand's contiguous
+// axis) while the block computes on the current one. The wrapper takes the
+// route only where every contiguous row is a multiple of 16 bytes and the
+// bases are aligned, so a 4-float vector is wholly inside or outside a bound.
+// kNK: w is (N, K); kTA: x is (K, M) (out = x^T @ w), as in tiled_kernel.
+template <int BM, int BN, int BK, int TM, int TN, bool kNK, bool kTA, typename O>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), 2)
+narrow_kernel(const float* __restrict__ x, const float* __restrict__ w, O* __restrict__ out,
+              float* __restrict__ work, const int* __restrict__ rows, int E, int M, int N, int K,
+              int splits, int k_chunk) {
+  static_assert(TM == 4 || TM == 8, "TM is 4 or 8");
+  static_assert(TN == 4 || TN == 8, "TN is 4 or 8");
+  constexpr int kThr = (BM / TM) * (BN / TN);
+  constexpr int TX = BN / TN;                          // threads across the columns
+  constexpr int XF4 = BM * BK / 4, WF4 = BK * BN / 4;  // 16-byte vectors of a k-tile
+  constexpr int XL = (XF4 + kThr - 1) / kThr, WL = (WF4 + kThr - 1) / kThr;
+  __shared__ __align__(16) float xs[2][BK][BM + kNarrowPad];
+  __shared__ __align__(16) float ws[2][BK][BN + kNarrowPad];
+
+  const int e = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int me = expert_rows(rows, e, kTA ? K : M);
+  const int m_end = kTA ? M : me;  // rows of x that are read
+  const int k_begin = split * k_chunk;
+  const int k_stop = min(kTA ? me : K, k_begin + k_chunk);  // terms of the sum
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  x += (size_t)e * M * K;
+  w += (size_t)e * K * N;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  // a tile at or past the expert's filled rows, or an empty K range, loads
+  // nothing and stores zeros
+  const int ktiles = (m0 < m_end && k_begin < k_stop) ? (k_stop - k_begin + BK - 1) / BK : 0;
+
+  float4 xr[XL], wr[WL];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < XL; ++i) {
+      const int f = threadIdx.x + i * kThr;
+      if (f >= XF4) break;
+      if constexpr (kTA) {  // x[k][m..m+3]
+        const int gk = k0 + f / (BM / 4), gm = m0 + (f % (BM / 4)) * 4;
+        xr[i] = (gk < k_stop && gm < M) ? __ldg(reinterpret_cast<const float4*>(x + (size_t)gk * M + gm)) : zero;
+      } else {  // x[m][k..k+3]
+        const int gm = m0 + f / (BK / 4), gk = k0 + (f % (BK / 4)) * 4;
+        xr[i] = (gm < m_end && gk < k_stop) ? __ldg(reinterpret_cast<const float4*>(x + (size_t)gm * K + gk)) : zero;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WL; ++i) {
+      const int f = threadIdx.x + i * kThr;
+      if (f >= WF4) break;
+      if constexpr (kNK) {  // w[n][k..k+3]
+        const int gn = n0 + f / (BK / 4), gk = k0 + (f % (BK / 4)) * 4;
+        wr[i] = (gn < N && gk < k_stop) ? __ldg(reinterpret_cast<const float4*>(w + (size_t)gn * K + gk)) : zero;
+      } else {  // w[k][n..n+3]
+        const int gk = k0 + f / (BN / 4), gn = n0 + (f % (BN / 4)) * 4;
+        wr[i] = (gk < k_stop && gn < N) ? __ldg(reinterpret_cast<const float4*>(w + (size_t)gk * N + gn)) : zero;
+      }
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < XL; ++i) {
+      const int f = threadIdx.x + i * kThr;
+      if (f >= XF4) break;
+      if constexpr (kTA) {
+        *reinterpret_cast<float4*>(&xs[buf][f / (BM / 4)][(f % (BM / 4)) * 4]) = xr[i];
+      } else {
+        const int m = f / (BK / 4), k = (f % (BK / 4)) * 4;
+        xs[buf][k][m] = xr[i].x; xs[buf][k + 1][m] = xr[i].y;
+        xs[buf][k + 2][m] = xr[i].z; xs[buf][k + 3][m] = xr[i].w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WL; ++i) {
+      const int f = threadIdx.x + i * kThr;
+      if (f >= WF4) break;
+      if constexpr (kNK) {
+        const int n = f / (BK / 4), k = (f % (BK / 4)) * 4;
+        ws[buf][k][n] = wr[i].x; ws[buf][k + 1][n] = wr[i].y;
+        ws[buf][k + 2][n] = wr[i].z; ws[buf][k + 3][n] = wr[i].w;
+      } else {
+        *reinterpret_cast<float4*>(&ws[buf][f / (BN / 4)][(f % (BN / 4)) * 4]) = wr[i];
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  if (ktiles > 0) {
+    load(k_begin);
+    stash(0);
+    __syncthreads();
+  }
+  for (int t = 0; t < ktiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ktiles) load(k_begin + (t + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4 + h * (BM / 2)]);
+        a[4 * h] = v.x; a[4 * h + 1] = v.y; a[4 * h + 2] = v.z; a[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(&ws[buf][kk][tx * 4 + h * (BN / 2)]);
+        b[4 * h] = v.x; b[4 * h + 1] = v.y; b[4 * h + 2] = v.z; b[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (t + 1 < ktiles) stash(buf ^ 1);
+    __syncthreads();
+  }
+
+  // 16-byte stores along the output's rows where N allows (a row of 4 floats
+  // inside the row and aligned), else one element at a time
+  O* o = out + (size_t)e * M * N;
+  float* wk = work != nullptr ? work + ((size_t)split * E + e) * M * N : nullptr;
+  const bool vec = (N & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * 4 + (i / 4) * (BM / 2) + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int gn = n0 + tx * 4 + h * (BN / 2);
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      if (wk != nullptr) {
+        if (vec && gn + 3 < N) {
+          store4<float>(wk + (size_t)gm * N + gn, v);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (gn + c < N) wk[(size_t)gm * N + gn + c] = v[c];
+        }
+      } else if (vec && gn + 3 < N) {
+        store4<O>(o + (size_t)gm * N + gn, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (gn + c < N) o[(size_t)gm * N + gn + c] = from_float<O>(v[c]);
+      }
+    }
+  }
+}
+
+// The two shapes of the narrow route's tiles: "thin" for a (K, N) weight of
+// N <= 8 columns (a 256 x 8 output tile, 128 threads, K tiles of 16), "wide"
+// otherwise (128 x 128, 256 threads of 8 x 8, K tiles of 8). The wrapper's
+// narrow_tile and narrow_splits mirror them.
+constexpr int kThinMaxN = 8;
+
+template <int BM, int BN, int BK, int TM, int TN, bool kNK, bool kTA, typename O>
+int launch_narrow_tiles(const float* x, const float* w, O* out, float* work, const int* rows, int E,
+                        int M, int N, int K, int splits, cudaStream_t stream) {
+  const int k_chunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E * splits);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  narrow_kernel<BM, BN, BK, TM, TN, kNK, kTA, O><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+      x, w, out, splits > 1 ? work : nullptr, rows, E, M, N, K, splits, k_chunk);
+  if (splits > 1) {
+    const int mn = E * M * N;
+    split_reduce_kernel<O><<<(mn + kThreads - 1) / kThreads, kThreads, 0, stream>>>(work, out, mn, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename O>
+int launch_narrow(const float* x, const float* w, O* out, float* work, const int* rows, int E, int M,
+                  int N, int K, int splits, int nk, int ta, cudaStream_t stream) {
+  if (nk) return launch_narrow_tiles<128, 128, 8, 8, 8, true, false, O>(x, w, out, work, rows, E, M, N, K, splits, stream);
+  if (N <= kThinMaxN)
+    return ta ? launch_narrow_tiles<256, 8, 16, 4, 4, false, true, O>(x, w, out, work, rows, E, M, N, K, splits, stream)
+              : launch_narrow_tiles<256, 8, 16, 4, 4, false, false, O>(x, w, out, work, rows, E, M, N, K, splits, stream);
+  return ta ? launch_narrow_tiles<128, 128, 8, 8, 8, false, true, O>(x, w, out, work, rows, E, M, N, K, splits, stream)
+            : launch_narrow_tiles<128, 128, 8, 8, 8, false, false, O>(x, w, out, work, rows, E, M, N, K, splits, stream);
+}
+
 // ---- wgmma route ---------------------------------------------------------------
 
 constexpr int kWgmmaBM = 128;  // rows of a block: two consumer warpgroups of 64
@@ -463,23 +691,20 @@ __device__ __forceinline__ void store_cols(O* row, int col, int N, float a, floa
 
 // grid = (ceil(M / 128), ceil(N / kWgmmaBN), E): consecutive blocks share a
 // column of weight tiles; blockIdx.z is the expert. tx: x as (K, M, E)
-// innermost first, boxes 64 x 128 x 1, or with kTA x as (M, K, E), boxes 64 x
-// 64 x 1 (MN-major A, two boxes a stage); tw: w as (N, K, E) innermost first,
+// innermost first, boxes 64 x 128 x 1; tw: w as (N, K, E) innermost first,
 // boxes 64 x 64 x 1 (MN-major B), or with kNK w as (K, N, E), boxes 64 x
-// kWgmmaBN x 1 (K-major B). With kTA the expert's filled rows bound the sum
-// over K: its k-loop ends at ceil(rows[e] / 64) stages, and in the last one
-// the rows of both tiles at or past rows[e] are zeroed before the products.
-template <typename O, bool kNK, bool kTA>
+// kWgmmaBN x 1 (K-major B). The forward's products (x as (K', M') is
+// wgmma_km_kernel's).
+template <typename O, bool kNK>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
              O* __restrict__ out, const int* __restrict__ rows, int M, int N, int K) {
-  static_assert(!(kNK && kTA), "an MN-major x takes (K, N) weights only");
   const int m0 = blockIdx.x * kWgmmaBM;
   const int n0 = blockIdx.y * kWgmmaBN;
   const int e = blockIdx.z;
-  const int me = expert_rows(rows, e, kTA ? K : M);
+  const int me = expert_rows(rows, e, M);
   out += (size_t)e * M * N;
-  if (kTA ? me == 0 : m0 >= me) {  // a tile past the expert's filled rows: zeros, no loads
+  if (m0 >= me) {  // a tile past the expert's filled rows: zeros, no loads
     for (int i = threadIdx.x; i < kWgmmaBM * kWgmmaBN; i += kWgmmaThreads) {
       const int r = m0 + i / kWgmmaBN, c = n0 + i % kWgmmaBN;
       if (r < M && c < N) out[(size_t)r * N + c] = from_float<O>(0.f);
@@ -493,9 +718,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
   uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kWgmmaStages * kBBytes);
   uint64_t* empty = full + kWgmmaStages;
 
-  const int ktiles = ((kTA ? me : K) + kWgmmaBK - 1) / kWgmmaBK;
-  // rows of the last stage at or past the filled ones (TMA zero-fills past K)
-  const int tail = kTA && me < K ? me % kWgmmaBK : 0;
+  const int ktiles = (K + kWgmmaBK - 1) / kWgmmaBK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -514,14 +737,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
         const int s = kt % kWgmmaStages;
         if (kt >= kWgmmaStages) hopper::mbar_wait(&empty[s], ((kt / kWgmmaStages) - 1) & 1);
         hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
-        if constexpr (kTA) {
-#pragma unroll
-          for (int j = 0; j < kWgmmaBM / 64; ++j)
-            hopper::tma_load_3d(a_s + s * kABytes + j * kBoxBytes, &tx, &full[s], m0 + 64 * j,
-                                kt * kWgmmaBK, e);
-        } else {
-          hopper::tma_load_3d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0, e);
-        }
+        hopper::tma_load_3d(a_s + s * kABytes, &tx, &full[s], kt * kWgmmaBK, m0, e);
         if constexpr (kNK) {
           hopper::tma_load_3d(b_s + s * kBBytes, &tw, &full[s], kt * kWgmmaBK, n0, e);
         } else {
@@ -543,38 +759,15 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
     for (int kt = 0; kt < ktiles; ++kt) {
       const int s = kt % kWgmmaStages;
       hopper::mbar_wait(&full[s], (kt / kWgmmaStages) & 1);
-      if (tail != 0 && kt == ktiles - 1) {
-        // Rows tail..63 of every box of both tiles (x's two, w's four) hold
-        // slots past the filled ones: zero them (a whole 128-byte row each,
-        // whatever the swizzle), then order the stores before the async
-        // proxy's reads and wait for both consumer warpgroups.
-        constexpr int kBoxes = (kABytes + kBBytes) / kBoxBytes;
-        const int chunks = (kWgmmaBK - tail) * 8;  // 16-byte chunks a box
-        for (int i = threadIdx.x - 128; i < kBoxes * chunks; i += 256) {
-          const int box = i / chunks, r = tail + (i % chunks) / 8, q = i % 8;
-          uint8_t* base = box < kABytes / kBoxBytes ? a_s + s * kABytes + box * kBoxBytes
-                                                    : b_s + s * kBBytes + (box - kABytes / kBoxBytes) * kBoxBytes;
-          *reinterpret_cast<uint4*>(base + r * 128 + q * 16) = make_uint4(0, 0, 0, 0);
-        }
-        hopper::fence_proxy_async();
-        hopper::named_barrier(1, 256);
-      }
-      const uint32_t a_addr =
-          hopper::smem_u32(a_s + s * kABytes) + c * (kTA ? kBoxBytes : 64 * 128);
+      const uint32_t a_addr = hopper::smem_u32(a_s + s * kABytes) + c * 64 * 128;
       const uint32_t b_addr = hopper::smem_u32(b_s + s * kBBytes);
       hopper::fence_regs(acc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgmmaBK / 16; ++kk) {
-        // x: K-major, 16 columns = 32 bytes on, or with kTA MN-major, 16 K
-        // rows on in its own 64-row box; w: MN-major, 16 K rows on, its
-        // 64-column boxes kBoxBytes apart, or K-major like x
-        if constexpr (kTA) {
-          hopper::wgmma_ss<kWgmmaBN, 1, 1>(acc,
-                                           hopper::desc_sw128(a_addr + kk * 16 * 128, kBoxBytes, 1024),
-                                           hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024),
-                                           1);
-        } else if constexpr (kNK) {
+        // x: K-major, 16 columns = 32 bytes on; w: MN-major, 16 K rows on,
+        // its 64-column boxes kBoxBytes apart, or K-major like x
+        if constexpr (kNK) {
           hopper::wgmma_ss<kWgmmaBN, 0>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
                                         hopper::desc_sw128(b_addr + kk * 32, 16, 1024), 1);
         } else {
@@ -592,9 +785,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
     hopper::fence_regs(acc);
 
     // rows at or past `me` (loaded, but they reach only their own output
-    // rows) are stored as zeros; with kTA every output row is live
+    // rows) are stored as zeros
     const int row = m0 + c * 64 + warp * 16 + lane / 4;
-    const bool live0 = kTA || row < me, live8 = kTA || row + 8 < me;
+    const bool live0 = row < me, live8 = row + 8 < me;
 #pragma unroll
     for (int j = 0; j < kWgmmaBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
@@ -610,15 +803,196 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
   }
 }
 
-template <typename O, bool kNK, bool kTA>
+// x given as (K, M) (x_layout = 1, every dW): out[e] = x[e]^T @ w[e], x
+// (E, K, M), w (E, K, N), out (E, M, N), the sum over the K = C slots of
+// each expert, bounded by rows[e]. Designed for short sums (arctic-480b's
+// capacity of 80 slots: two k-tiles against a 128 x 256 output tile of 64
+// KB), where a block that loads, multiplies and stores one tile in turn
+// leaves the card idle between the phases. Persistent: one block an SM
+// walks the tiles (expert, column tile, row tile), row tiles fastest, block
+// b taking tiles b, b + grid, ...: the blocks in flight share one expert's
+// x and a few of its dY column tiles, which L2 holds. Where the sum is two
+// k-tiles or fewer (cols_fastest: a tile's time is its store), column tiles
+// go fastest instead, so that the blocks in flight write a few whole rows
+// of dW (on an H100 faster for arctic-480b's 80-slot dW, slower for
+// grok-1-314b's 1280-slot sums). The producer thread
+// runs through the k-tiles of its block's tiles without stopping at a
+// tile's end, so a ring of kKmStages stages (two tiles ahead at arctic's
+// shape) keeps the next tiles' loads in flight during a tile's epilogue.
+// The epilogue goes through shared memory and TMA stores: each consumer
+// warpgroup writes its 64 rows as 64 x 128-byte chunks (swizzled like the
+// operands: no bank conflicts), two buffers a warpgroup, and one thread
+// issues cp.async.bulk.tensor for each chunk and waits only for the chunk
+// before last to have left the buffer, so stores stream out while the next
+// tile's products run. TMA clips what falls past M and N. The k-loop of
+// expert e ends at ceil(rows[e] / 64) k-tiles, and in the last one the
+// consumers zero the rows at or past rows[e] of both tiles in shared memory
+// (fence.proxy.async, then a barrier of the two consumer warpgroups) before
+// the products, so slots past the count add nothing whatever they hold; an
+// expert with rows[e] = 0 loads nothing and its zeros leave by the same TMA
+// stores. One block sums each output in a fixed order: no split-K, no
+// atomics, the same bits on every run.
+constexpr int kKmStages = kWgmmaStages;
+constexpr int kKmBufs = 2;           // epilogue buffers of a consumer warpgroup
+constexpr int kEpiBytes = 64 * 128;  // one 64-row chunk of the output, 128 bytes a row
+constexpr int kKmSmem = 1024 + kKmStages * kStageBytes + 2 * kKmBufs * kEpiBytes + 2 * kKmStages * 8;
+
+// Tile t of the persistent walk: expert, then row tiles within column tiles,
+// or with cols_fastest column tiles within row tiles.
+__device__ __forceinline__ void km_tile(int t, int tiles_m, int tiles_n, bool cols_fastest, int& e,
+                                        int& m0, int& n0) {
+  e = t / (tiles_n * tiles_m);
+  const int r = t % (tiles_n * tiles_m);
+  n0 = (cols_fastest ? r % tiles_n : r / tiles_m) * kWgmmaBN;
+  m0 = (cols_fastest ? r / tiles_n : r % tiles_m) * kWgmmaBM;
+}
+
+template <typename O>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+wgmma_km_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                const __grid_constant__ CUtensorMap to, const int* __restrict__ rows, int E, int M,
+                int N, int K, int cols_fastest) {
+  constexpr int kChunkCols = 128 / sizeof(O);      // output columns of one epilogue chunk
+  constexpr int kChunks = kWgmmaBN / kChunkCols;   // 4 (bf16) or 8 (f32) a warpgroup's tile
+  const int tiles_m = (M + kWgmmaBM - 1) / kWgmmaBM, tiles_n = (N + kWgmmaBN - 1) / kWgmmaBN;
+  const int tiles = E * tiles_n * tiles_m;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  uint8_t* a_s = smem_raw + pad;
+  uint8_t* b_s = a_s + kKmStages * kABytes;
+  uint8_t* epi = b_s + kKmStages * kBBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 2 * kKmBufs * kEpiBytes);
+  uint64_t* empty = full + kKmStages;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kKmStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // k-tiles issued by this block, over all its tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int e, m0, n0;
+        km_tile(t, tiles_m, tiles_n, cols_fastest, e, m0, n0);
+        const int ktiles = (expert_rows(rows, e, K) + kWgmmaBK - 1) / kWgmmaBK;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % kKmStages;
+          if (it >= kKmStages) hopper::mbar_wait(&empty[s], ((it / kKmStages) - 1) & 1);
+          hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+#pragma unroll
+          for (int j = 0; j < kWgmmaBM / 64; ++j)
+            hopper::tma_load_3d(a_s + s * kABytes + j * kBoxBytes, &tx, &full[s], m0 + 64 * j,
+                                kt * kWgmmaBK, e);
+#pragma unroll
+          for (int j = 0; j < kWgmmaBN / 64; ++j)
+            hopper::tma_load_3d(b_s + s * kBBytes + j * kBoxBytes, &tw, &full[s], n0 + 64 * j,
+                                kt * kWgmmaBK, e);
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const bool leader = threadIdx.x % 128 == 0;  // issues and waits for this warpgroup's stores
+    const int row = warp * 16 + lane / 4;         // and row + 8, of the warpgroup's 64
+    int it = 0, chunk_no = 0;
+    float acc[kWgmmaBN / 2];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int e, m0, n0;
+      km_tile(t, tiles_m, tiles_n, cols_fastest, e, m0, n0);
+      const int me = expert_rows(rows, e, K);
+      const int ktiles = (me + kWgmmaBK - 1) / kWgmmaBK;
+      // rows of the last stage at or past the filled ones (TMA zero-fills past K)
+      const int tail = me < K ? me % kWgmmaBK : 0;
+#pragma unroll
+      for (int i = 0; i < kWgmmaBN / 2; ++i) acc[i] = 0.f;
+
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % kKmStages;
+        hopper::mbar_wait(&full[s], (it / kKmStages) & 1);
+        if (tail != 0 && kt == ktiles - 1) {
+          // Rows tail..63 of every box of both tiles (x's two, w's four) hold
+          // slots past the filled ones: zero them (a whole 128-byte row each,
+          // whatever the swizzle), then order the stores before the async
+          // proxy's reads and wait for both consumer warpgroups.
+          constexpr int kBoxes = (kABytes + kBBytes) / kBoxBytes;
+          const int chunks = (kWgmmaBK - tail) * 8;  // 16-byte chunks a box
+          for (int i = threadIdx.x - 128; i < kBoxes * chunks; i += 256) {
+            const int box = i / chunks, rr = tail + (i % chunks) / 8, q = i % 8;
+            uint8_t* base = box < kABytes / kBoxBytes ? a_s + s * kABytes + box * kBoxBytes
+                                                      : b_s + s * kBBytes + (box - kABytes / kBoxBytes) * kBoxBytes;
+            *reinterpret_cast<uint4*>(base + rr * 128 + q * 16) = make_uint4(0, 0, 0, 0);
+          }
+          hopper::fence_proxy_async();
+          hopper::named_barrier(1, 256);
+        }
+        // x: MN-major, 16 K rows on in its own 64-row box; w: MN-major, 16 K
+        // rows on, its 64-column boxes kBoxBytes apart
+        const uint32_t a_addr = hopper::smem_u32(a_s + s * kABytes) + c * kBoxBytes;
+        const uint32_t b_addr = hopper::smem_u32(b_s + s * kBBytes);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgmmaBK / 16; ++kk)
+          hopper::wgmma_ss<kWgmmaBN, 1, 1>(acc, hopper::desc_sw128(a_addr + kk * 16 * 128, kBoxBytes, 1024),
+                                           hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous k-tile's products are done
+        hopper::fence_regs(acc);
+        if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kKmStages]);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (ktiles > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kKmStages]);
+
+      // Epilogue: kChunks chunks of kChunkCols columns, in turn through the
+      // warpgroup's kKmBufs buffers. Byte b of a row sits in 16-byte chunk
+      // (b / 16) ^ (row % 8), the 128-byte swizzle the output's map names.
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q, ++chunk_no) {
+        uint8_t* buf = epi + (kKmBufs * c + chunk_no % kKmBufs) * kEpiBytes;
+        if (leader) hopper::bulk_wait_group_read<kKmBufs - 1>();  // the buffer's last store has left it
+        hopper::named_barrier(2 + c, 128);
+#pragma unroll
+        for (int jj = 0; jj < kChunkCols / 8; ++jj) {
+          const int j = q * (kChunkCols / 8) + jj;
+          const int byte = (8 * jj + 2 * (lane % 4)) * (int)sizeof(O);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int rr = row + 8 * h;
+            store2<O>(reinterpret_cast<O*>(buf + rr * 128 + (((byte / 16) ^ (rr % 8)) * 16) + byte % 16),
+                      acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        }
+        hopper::fence_proxy_async();
+        hopper::named_barrier(2 + c, 128);
+        if (leader) {
+          hopper::tma_store_3d(&to, buf, n0 + q * kChunkCols, m0 + c * 64, e);
+          hopper::bulk_commit_group();
+        }
+      }
+    }
+    if (leader) hopper::bulk_wait_group<0>();
+  }
+}
+
+template <typename O, bool kNK>
 int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, const int* rows, int E,
                  int M, int N, int K, cudaStream_t stream) {
   CUtensorMap tx, tw;
   // each expert's matrix is one slice of the outermost dim, so boxes stay
-  // inside it and zero-fill past its own M and K; (K, M) row-major with kTA
-  const cuuint64_t x_dims[3] = {(cuuint64_t)(kTA ? M : K), (cuuint64_t)(kTA ? K : M), (cuuint64_t)E};
-  const cuuint64_t x_strides[2] = {(cuuint64_t)(kTA ? M : K) * 2, (cuuint64_t)M * K * 2};
-  const cuuint32_t x_box[3] = {64, (cuuint32_t)(kTA ? kWgmmaBK : kWgmmaBM), 1};
+  // inside it and zero-fill past its own M and K
+  const cuuint64_t x_dims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)M * K * 2};
+  const cuuint32_t x_box[3] = {64, (cuuint32_t)kWgmmaBM, 1};
   // (N, K) row-major: K innermost, rows of K * 2 bytes; (K, N): N innermost
   const cuuint64_t w_dims[3] = {(cuuint64_t)(kNK ? K : N), (cuuint64_t)(kNK ? N : K), (cuuint64_t)E};
   const cuuint64_t w_strides[2] = {(cuuint64_t)(kNK ? K : N) * 2, (cuuint64_t)K * N * 2};
@@ -626,10 +1000,44 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, const i
   int err = hopper::encode_bf16_sw128(&tx, x, 3, x_dims, x_strides, x_box);
   if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 3, w_dims, w_strides, w_box);
   static std::atomic<uint32_t> smem_set{0};
-  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O, kNK, kTA>, kWgmmaSmem, smem_set);
+  if (err == 0) err = hopper::allow_smem(wgmma_kernel<O, kNK>, kWgmmaSmem, smem_set);
   if (err != 0) return err;
   dim3 grid((M + kWgmmaBM - 1) / kWgmmaBM, (N + kWgmmaBN - 1) / kWgmmaBN, E);
-  wgmma_kernel<O, kNK, kTA><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, rows, M, N, K);
+  wgmma_kernel<O, kNK><<<grid, kWgmmaThreads, kWgmmaSmem, stream>>>(tx, tw, out, rows, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename O>
+int launch_wgmma_km(const __nv_bfloat16* x, const __nv_bfloat16* w, O* out, const int* rows, int E,
+                    int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap tx, tw, to;
+  // x (E, K, M), w (E, K, N), out (E, M, N), innermost first; each expert one
+  // slice of the outermost dim, so boxes zero-fill (loads) or clip (stores)
+  // at its own bounds
+  const cuuint64_t x_dims[3] = {(cuuint64_t)M, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)M * 2, (cuuint64_t)M * K * 2};
+  const cuuint64_t w_dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)K * N * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)kWgmmaBK, 1};
+  const cuuint64_t o_dims[3] = {(cuuint64_t)N, (cuuint64_t)M, (cuuint64_t)E};
+  const cuuint64_t o_strides[2] = {(cuuint64_t)N * sizeof(O), (cuuint64_t)M * N * sizeof(O)};
+  const cuuint32_t o_box[3] = {128 / sizeof(O), 64, 1};
+  int err = hopper::encode_bf16_sw128(&tx, x, 3, x_dims, x_strides, box);
+  if (err == 0) err = hopper::encode_bf16_sw128(&tw, w, 3, w_dims, w_strides, box);
+  if (err == 0)
+    err = sizeof(O) == 2 ? hopper::encode_bf16_sw128(&to, out, 3, o_dims, o_strides, o_box)
+                         : hopper::encode_f32_sw128(&to, out, 3, o_dims, o_strides, o_box);
+  static std::atomic<uint32_t> smem_set{0};
+  if (err == 0) err = hopper::allow_smem(wgmma_km_kernel<O>, kKmSmem, smem_set);
+  int dev = 0, sms = 0;
+  if (err == 0) err = static_cast<int>(cudaGetDevice(&dev));
+  if (err == 0) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err != 0) return err;
+  const long long tiles = (long long)E * ((M + kWgmmaBM - 1) / kWgmmaBM) * ((N + kWgmmaBN - 1) / kWgmmaBN);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  wgmma_km_kernel<O><<<grid, kWgmmaThreads, kKmSmem, stream>>>(tx, tw, to, rows, E, M, N, K,
+                                                                 K <= 2 * kWgmmaBK);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -659,7 +1067,7 @@ void launch_gemv(const T* x, const T* w, O* out, float* work, const int* rows, i
   }
 }
 
-enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2 };
+enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2, kRouteNarrow = 3 };
 
 template <typename T, typename O>
 int run(const void* x_, const void* w_, void* out_, void* work, const int* rows, int E, int M,
@@ -670,10 +1078,14 @@ int run(const void* x_, const void* w_, void* out_, void* work, const int* rows,
   float* ws = static_cast<float*>(work);
   if (route == kRouteWgmma) {
     if constexpr (sizeof(T) == 2) {
-      if (ta) return launch_wgmma<O, false, true>(x, w, out, rows, E, M, N, K, stream);
-      return nk ? launch_wgmma<O, true, false>(x, w, out, rows, E, M, N, K, stream)
-                : launch_wgmma<O, false, false>(x, w, out, rows, E, M, N, K, stream);
+      if (ta) return launch_wgmma_km<O>(x, w, out, rows, E, M, N, K, stream);
+      return nk ? launch_wgmma<O, true>(x, w, out, rows, E, M, N, K, stream)
+                : launch_wgmma<O, false>(x, w, out, rows, E, M, N, K, stream);
     }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == kRouteNarrow) {
+    if constexpr (sizeof(T) == 4) return launch_narrow<O>(x, w, out, ws, rows, E, M, N, K, splits, nk, ta, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kRouteSimt) {
@@ -716,9 +1128,13 @@ int run(const void* x_, const void* w_, void* out_, void* work, const int* rows,
 // x_layout 0; for (K, N) weights K cut into `splits` >= 1 chunks, which
 // needs a float32 workspace of splits * E * M * N when splits > 1; for
 // (N, K) weights splits = 1), 1 = simt tiles, 2 = wgmma (bfloat16 in, M >
-// 8, K a multiple of 8 and, for (K, N) weights, N too, and M with x_layout
-// 1; x and w 16-byte aligned); anything else is refused. Returns
-// cudaGetLastError() after the launches.
+// 8, K a multiple of 8 with x_layout 0, N with (K, N) weights, M with
+// x_layout 1; x and w 16-byte aligned, and out too with x_layout 1), 3 = narrow
+// (float32 in, M > 8, every operand's contiguous rows a multiple of 16
+// bytes: K with x_layout 0 or w_layout 1, N with w_layout 0, M with
+// x_layout 1; x and w 16-byte aligned; K cut into `splits` >= 1 chunks, E *
+// splits <= 65535, with the same workspace when splits > 1); anything else
+// is refused. Returns cudaGetLastError() after the launches.
 extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work,
                              const int* rows, int E, int M, int N, int K, int route, int splits,
                              int in_dtype, int out_dtype, int w_layout, int x_layout, void* stream) {
@@ -728,11 +1144,19 @@ extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work
   if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM || (w_layout == 1 && splits != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma &&
-      (in_dtype != 1 || M <= kGemvMaxM || K % 8 || (w_layout == 0 && N % 8) ||
+      (in_dtype != 1 || M <= kGemvMaxM || (x_layout == 0 && K % 8) || (w_layout == 0 && N % 8) ||
        (x_layout == 1 && M % 8) || reinterpret_cast<uintptr_t>(x) % 16 ||
        reinterpret_cast<uintptr_t>(w) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route < kRouteGemv || route > kRouteWgmma) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteWgmma && x_layout == 1 && reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteNarrow &&
+      (in_dtype != 0 || M <= kGemvMaxM || splits < 1 || (splits > 1 && work == nullptr) ||
+       ((x_layout == 0 || w_layout == 1) && K % 4) || (w_layout == 0 && N % 4) ||
+       (x_layout == 1 && M % 4) || reinterpret_cast<uintptr_t>(x) % 16 ||
+       reinterpret_cast<uintptr_t>(w) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route < kRouteGemv || route > kRouteNarrow) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = w_layout, ta = x_layout;
   if (in_dtype == 1 && out_dtype == 1)

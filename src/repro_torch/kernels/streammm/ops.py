@@ -11,19 +11,27 @@ and launches nothing. ``stream_matmul.launches`` and
 count those of them that took the tensor-core route.
 
 ``stream_matmul`` replaces the JAX package's ``stream_matmul``
-(``src/repro/kernels/streammm/kernel.py:50``) and has three routes, which
+(``src/repro/kernels/streammm/kernel.py:50``) and has four routes, which
 :func:`mm_route` picks from dtype and shape alone (a rule, not a fallback: a
 route that fails raises): ``gemv`` for M <= 8, bound by the weight bytes over
 HBM (the live and decode steps); ``wgmma`` for bf16 with M > 8 where TMA can
 describe both operands, bound by the bf16 tensor-core rate at prefill, which
-it approaches with TMA-fed wgmma tiles; ``simt`` for the rest (f32, which
-stays exact f32, and ragged K or N). With ``w_layout="nk"`` it computes
+it approaches with TMA-fed wgmma tiles (with x given as (K, M), every dW, a
+persistent kernel that stores through TMA); ``narrow`` for f32 with M > 8
+and a narrow side (N <= 128 of a (K, N) weight, K <= 128 of an (N, K) one,
+rows of 16-byte multiples): the MoE routers' x @ w_router, their dW and
+their dX, in exact f32 FFMA on tiles shaped to the narrow side, K cut across
+blocks where the output's tiles are too few to fill the SMs
+(:func:`narrow_splits`; ``stream_matmul.narrow_launches`` counts the
+route's launches); ``simt`` for the rest (other f32, which stays exact f32,
+and ragged K or N). With ``w_layout="nk"`` it computes
 ``x @ w.T`` for a K-major w of shape (N, K), the tied LM head ``x @
-embed^T``, on the same three routes without copying w (``stream_matmul.
+embed^T``, on the same routes without copying w (``stream_matmul.
 nk_launches`` counts those launches). ``stream_matmul_int8`` replaces
-``stream_matmul_int8`` (``kernel.py:101``) with the same three routes, picked
-by :func:`int8_route`; its ``wgmma`` route keeps the int8 products exact (bf16
-x times the unscaled weight, the scale applied to each group's f32 sum).
+``stream_matmul_int8`` (``kernel.py:101``) with the gemv, wgmma and simt
+routes, picked by :func:`int8_route`; its ``wgmma`` route keeps the int8
+products exact (bf16 x times the unscaled weight, the scale applied to each
+group's f32 sum).
 
 With x (E, C, K) and w (E, K, N), ``stream_matmul`` is the expert-batched
 form that the MoE layer's expert products take (the reference's
@@ -73,7 +81,9 @@ from repro_torch.roofline import memory
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMV_MAX_M = 8  # rows of x the kernel's gemv path takes (kGemvMaxM)
 GEMV_COLS = 256  # output columns per gemv block (kGemvCols of both kernels)
-ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2}  # the C entry points' route argument
+ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2, "narrow": 3}  # the C entry points' route argument
+NARROW_MAX = 128  # the narrow side the f32 narrow route takes: the routers' E of 8 and 128
+NARROW_THIN_N = 8  # N of a (K, N) weight at or under which it takes the 256 x 8 tiles (kThinMaxN)
 INT8_TILE_K = 64  # K rows of a stage of the int8 wgmma route (kI8BK)
 INT8_TILE_M, INT8_TILE_N = 192, 128  # rows and columns of an int8 wgmma output tile (kI8BM, kI8BN)
 W_LAYOUT_CODES = {"kn": 0, "nk": 1}  # the C entry point's w_layout argument
@@ -88,16 +98,24 @@ def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, w_layout
     (an x given as (K, M), ``x_layout="km"``, never: its rows are the sum's
     terms); "wgmma" for bf16 at m > 8 where TMA can describe both operands
     (16-byte aligned base pointers, ``aligned``, and rows that each start 16
-    bytes on: k a multiple of 8, n too for a (K, N) weight, m too for a (K,
-    M) x; a K-major (N, K) weight, ``w_layout="nk"``, takes any n, which TMA
-    zero-fill and the masked store handle); "simt" otherwise, which keeps
-    f32 in exact f32."""
+    bytes on: k a multiple of 8, n too for a (K, N) weight; for a (K, M) x m
+    and n, and any k, the rows TMA zero-fills past it; a K-major (N, K)
+    weight, ``w_layout="nk"``, takes any n, which TMA zero-fill and the
+    masked store handle); "narrow" for f32 at m > 8 with a
+    narrow side, n <= NARROW_MAX for a (K, N) weight or k <= NARROW_MAX for
+    an (N, K) one (the MoE routers' product, dW and dX), where every
+    operand's rows are multiples of 16 bytes (k for an (M, K) x or an (N, K)
+    weight, n for a (K, N) weight, m for a (K, M) x) and ``aligned``;
+    "simt" otherwise, which keeps f32 in exact f32."""
     km = x_layout == "km"
     if m <= GEMV_MAX_M:
         return "simt" if km else "gemv"
-    if dtype == torch.bfloat16 and k % 8 == 0 and (n % 8 == 0 or w_layout == "nk") \
+    if dtype == torch.bfloat16 and (k % 8 == 0 or km) and (n % 8 == 0 or w_layout == "nk") \
             and (m % 8 == 0 or not km) and aligned:
         return "wgmma"
+    if dtype == torch.float32 and aligned and (n <= NARROW_MAX if w_layout == "kn" else k <= NARROW_MAX) \
+            and (k % 4 == 0 or km) and (n % 4 == 0 or w_layout == "nk") and (m % 4 == 0 or not km):
+        return "narrow"
     return "simt"
 
 
@@ -111,6 +129,27 @@ def k_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1) -> int:
         return 0
     col_blocks = -(-n // GEMV_COLS) * experts
     return max(1, min(-(-4 * sm_count // col_blocks), k // 64))
+
+
+def narrow_tile(n: int, w_layout: str = "kn") -> tuple:
+    """(rows, columns, K depth) of the narrow route's output tile and K tile:
+    256 x 8 by 16 for a (K, N) weight of n <= 8 columns, else 128 x 128 by 8
+    (the kernel's "thin" and "wide" tiles)."""
+    return (256, 8, 16) if w_layout == "kn" and n <= NARROW_THIN_N else (128, 128, 8)
+
+
+def narrow_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1, w_layout: str = "kn") -> int:
+    """How many K chunks the narrow route cuts a product into: 1 where the
+    output's tiles (every expert's) fill the SMs; else about two blocks an
+    SM (the kernel's occupancy), each chunk at least 8 K tiles deep. A rule
+    of shapes: the router at M = 4096 makes 16 (grok-1-314b, E = 8) or 32
+    (arctic-480b, E = 128) tiles, so 16 or 8 chunks; its dW's d x E output
+    24 or 56, so 11 or 4."""
+    bm, bn, bk = narrow_tile(n, w_layout)
+    tiles = -(-m // bm) * -(-n // bn) * experts
+    if tiles >= sm_count:
+        return 1
+    return max(1, min(2 * sm_count // tiles, k // (8 * bk)))
 
 
 def stream_matmul(
@@ -264,10 +303,13 @@ def _batched_launch(x, w, out_dtype, w_layout, rows, x_layout, grad=False):
 
 
 def _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, e, m, n, k):
-    """The route of each expert's (m, k) @ (k, n), the gemv route's K splits,
-    and one launch into a new output of x's rank: (m, n), or (e, m, n)."""
+    """The route of each expert's (m, k) @ (k, n), the gemv and narrow
+    routes' K splits, and one launch into a new output of x's rank: (m, n),
+    or (e, m, n)."""
     route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, w_layout, x_layout)
-    if route != "gemv":
+    if route == "narrow":
+        splits = narrow_splits(m, n, k, _build.sm_count(x.device), experts=e, w_layout=w_layout)
+    elif route != "gemv":
         splits = 0
     else:  # a K-major row is one warp's dot product: no split-K
         splits = 1 if w_layout == "nk" else k_splits(m, n, k, _build.sm_count(x.device), experts=e)
@@ -278,7 +320,7 @@ def _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, e, m, n, k):
 
 def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
     """One call of the C entry point, with a split-K workspace where the gemv
-    route cuts K; raises on a CUDA error; counts the launch."""
+    or narrow route cuts K; raises on a CUDA error; counts the launch."""
     work = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     if x.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
         memory.mark(work, "workspace")
@@ -295,12 +337,15 @@ def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
     stream_matmul.launches += 1
     if route == "wgmma":
         stream_matmul.wgmma_launches += 1
+    elif route == "narrow":
+        stream_matmul.narrow_launches += 1
     if w_layout == "nk":
         stream_matmul.nk_launches += 1
 
 
 stream_matmul.launches = 0
 stream_matmul.wgmma_launches = 0
+stream_matmul.narrow_launches = 0
 stream_matmul.nk_launches = 0
 stream_matmul.batched_launches = 0
 stream_matmul.batched_grad_launches = 0

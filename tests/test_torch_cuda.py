@@ -1059,18 +1059,19 @@ def test_stream_matmul_gradients_on_the_card(cuda, m, k, n, layout, dtype):
 # = dY @ W^T (the K-major form over the stack, rows past rows[e] written as
 # 0) and dW = X^T @ dY over the filled slots only (x read in place as an
 # MN-major operand). (E, C, K, N, dtype, dX route, dW route): a capacity of
-# 2 (dX on the K-major gemv, dW's C = 2 on simt), arctic's capacity of 80
-# over 16 experts and grok's 1280 over 2, cut in K and N (wgmma, several
-# k-stages), ragged C, K and N on wgmma, a C no multiple of 8 (dW on simt),
-# f32 on simt and on the gemv, and shapes TMA cannot describe (simt in bf16).
+# 2 (dX on the K-major gemv, dW's C = 2 on wgmma: TMA zero-fills past it),
+# arctic's capacity of 80 over 16 experts and grok's 1280 over 2, cut in K
+# and N (wgmma, several k-stages), ragged C, K and N on wgmma, a C no
+# multiple of 8 (dW on wgmma), f32 on simt, on the gemv and (dW, N = 100)
+# on the narrow route, and shapes TMA cannot describe (simt in bf16).
 BATCHED_GRAD_CASES = [
-    (8, 2, 1024, 768, torch.bfloat16, "gemv", "simt"),
+    (8, 2, 1024, 768, torch.bfloat16, "gemv", "wgmma"),
     (16, 80, 512, 768, torch.bfloat16, "wgmma", "wgmma"),
     (2, 1280, 512, 1024, torch.bfloat16, "wgmma", "wgmma"),
     (3, 200, 264, 136, torch.bfloat16, "wgmma", "wgmma"),
-    (4, 60, 128, 256, torch.bfloat16, "wgmma", "simt"),
+    (4, 60, 128, 256, torch.bfloat16, "wgmma", "wgmma"),
     (4, 80, 300, 200, torch.float32, "simt", "simt"),
-    (4, 3, 96, 100, torch.float32, "gemv", "simt"),
+    (4, 3, 96, 100, torch.float32, "gemv", "narrow"),
     (3, 20, 30, 50, torch.bfloat16, "simt", "simt"),
 ]
 
@@ -1119,6 +1120,130 @@ def test_stream_matmul_batched_gradients_on_the_card(cuda, e, c, k, n, dt, dx_ro
                 assert not gw[i].any()
     again = torch.autograd.grad(fn(xg, wg, out_dtype=dt, rows=rows), (xg, wg), dy)
     assert torch.equal(gx, again[0]) and torch.equal(gw, again[1])
+
+
+# The f32 narrow route (the MoE routers): (M, K, N, layout) of x @ w ("kn"),
+# x.T @ w for x given as (K, M) ("km") and x @ w.T for w (N, K) ("nk"):
+# grok-1-314b's router, its dW and its dX at 4 x 1024 tokens (E = 8, the
+# 256 x 8 tiles, K split 16 and 11 ways), arctic-480b's (E = 128, the 128 x
+# 128 tiles, split 8 and 4 ways), ragged M and N = 60, and small shapes at
+# each tile's edges (no split).
+NARROW_CASES = [
+    (4096, 6144, 8, "kn"), (6144, 4096, 8, "km"), (4096, 8, 6144, "nk"),
+    (4096, 7168, 128, "kn"), (7168, 4096, 128, "km"), (4096, 128, 7168, "nk"),
+    (4095, 6144, 60, "kn"), (100, 64, 60, "kn"), (36, 72, 8, "km"), (12, 8, 100, "nk"), (260, 4096, 12, "km"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,layout", NARROW_CASES)
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+def test_stream_matmul_narrow_route(cuda, m, k, n, layout, out_dtype):
+    """Against the plain version on the same inputs: in f32 at relative L2
+    1e-5 (exact f32 sums in another order, ~1e-7; TF32 would give ~1e-4),
+    in bf16 out at 1e-2 (one rounding); one launch of the wrapper, counted
+    in ``narrow_launches`` and not ``wgmma_launches``; the same bits twice
+    (K splits summed in a fixed order, no atomics)."""
+    x = _randn((k, m) if layout == "km" else (m, k), torch.float32, cuda, 80)
+    w = _randn((n, k) if layout == "nk" else (k, n), torch.float32, cuda, 81, scale=k ** -0.5)
+    odt = DTYPES[out_dtype]
+    kw = dict(out_dtype=odt, w_layout="nk" if layout == "nk" else "kn", x_layout="km" if layout == "km" else "mk")
+    assert mm_ops.mm_route(m, n, k, torch.float32, True, kw["w_layout"], kw["x_layout"]) == "narrow"
+    fn = mm_ops.stream_matmul
+    before = (fn.launches, fn.narrow_launches, fn.wgmma_launches)
+    out = fn(x, w, **kw)
+    assert (fn.launches, fn.narrow_launches, fn.wgmma_launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert out.shape == (m, n) and out.dtype == odt
+    assert _rel_l2(out, stream_matmul_ref(x, w, **kw)) <= (1e-5 if odt == torch.float32 else 1e-2)
+    assert torch.equal(out, fn(x, w, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_layout", ["mk", "km"])
+def test_stream_matmul_narrow_route_with_rows(cuda, x_layout):
+    """The expert-batched narrow route (K split 2 ways) with empty, partly
+    filled, full and over-full experts, NaN past each count: rows past it
+    come out exactly 0 ("mk"), or its slots add nothing and an empty
+    expert's output is exactly 0 ("km"); against the plain version."""
+    e, c, k, n = 4, 300, 256, 8
+    counts = [0, 101, 300, 305]
+    rows = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    x = _randn((e, c, k), torch.float32, cuda, 82)
+    w = _randn((e, c, n) if x_layout == "km" else (e, k, n), torch.float32, cuda, 83, scale=k ** -0.5)
+    for i, r in enumerate(counts):
+        x[i, r:] = float("nan")
+        if x_layout == "km":
+            w[i, r:] = float("nan")
+    m = k if x_layout == "km" else c
+    kk = c if x_layout == "km" else k
+    assert mm_ops.mm_route(m, n, kk, torch.float32, True, "kn", x_layout) == "narrow"
+    assert mm_ops.narrow_splits(m, n, kk, 132, experts=e) == 2
+    out = mm_ops.stream_matmul(x, w, out_dtype=torch.float32, rows=rows, x_layout=x_layout)
+    ref = stream_matmul_ref(x, w, torch.float32, "kn", rows, x_layout)
+    assert torch.isfinite(out).all() and _rel_l2(out, ref) <= 1e-5
+    assert not out[0].any()
+    if x_layout == "mk":
+        assert not out[1, 101:].any()
+
+
+# The persistent wgmma kernel for an x given as (K, M), every dW of a bf16
+# product: the expert-batched dW through autograd at capacities C of 1, 16,
+# 64, 80 (arctic-480b's, two k-tiles) and 130 (three, a tail of 2), with
+# empty, full and partly filled experts; M = 200 and N = 136 cut the last
+# row and column tiles.
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 16, 64, 80, 130])
+def test_stream_matmul_km_wgmma_route(cuda, c):
+    """Against f32 products of the same operands at relative L2 1e-2 (one
+    bf16 rounding); x and dY NaN past each count reach nothing; an empty
+    expert's dW exactly 0; the same bits on a second backward; the dW launch
+    on the tensor-core route, as the rule says."""
+    from repro_torch.kernels.streammm.ref import stream_matmul_batched_grads_ref
+
+    e, k, n, dt = 6, 200, 136, torch.bfloat16
+    counts = [0, c, c // 3 + 1, max(c - 1, 1), 1, c]
+    rows = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    x = _randn((e, c, k), dt, cuda, 84)
+    w = _randn((e, k, n), dt, cuda, 85, scale=k ** -0.5)
+    dy = _randn((e, c, n), dt, cuda, 86)
+    for i, r in enumerate(counts):
+        x[i, r:] = float("nan")
+        dy[i, r:] = float("nan")
+    assert mm_ops.mm_route(k, n, c, dt, True, "kn", "km") == "wgmma"
+    fn = mm_ops.stream_matmul
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = fn.wgmma_launches
+    y = fn(xg, wg, out_dtype=dt, rows=rows)
+    gx, gw = torch.autograd.grad(y, (xg, wg), dy)
+    rules = (mm_ops.mm_route(c, n, k, dt, True), mm_ops.mm_route(c, k, n, dt, True, "nk"), "wgmma")
+    assert fn.wgmma_launches - before == sum(r == "wgmma" for r in rules)
+    _, want_w = stream_matmul_batched_grads_ref(x.float(), w.float(), dy.float(), rows)
+    assert torch.isfinite(gw.float()).all() and _rel_l2(gw, want_w) <= 1e-2
+    assert not gw[0].any()
+    again = torch.autograd.grad(fn(xg, wg, out_dtype=dt, rows=rows), (xg, wg), dy)
+    assert torch.equal(gw, again[1]) and torch.equal(gx, again[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,out_dtype", [
+    (4096, 2048, 1024, "bfloat16"), (4096, 7168, 4864, "bfloat16"), (130, 72, 8, "bfloat16"),
+    (200, 264, 136, "float32"),
+])
+def test_stream_matmul_km_wgmma_route_2d(cuda, m, k, n, out_dtype):
+    """The 2-D dW, x (M, K) read in place as (K', M') = (M, K): qwen3-1.7b's
+    and arctic-480b's dense shapes at 4 x 1024 tokens, a sum of 130 terms
+    into an 8-column output, and an f32 output (its own TMA store map)."""
+    dt, odt = torch.bfloat16, DTYPES[out_dtype]
+    x = _randn((m, k), dt, cuda, 87)
+    dy = _randn((m, n), dt, cuda, 88)
+    assert mm_ops.mm_route(k, n, m, dt, True, "kn", "km") == "wgmma"
+    fn = mm_ops.stream_matmul
+    before = fn.wgmma_launches
+    gw = fn(x, dy, out_dtype=odt, x_layout="km")
+    assert fn.wgmma_launches == before + 1 and gw.shape == (k, n) and gw.dtype == odt
+    want = x.float().T @ dy.float()
+    assert _rel_l2(gw, want) <= (1e-5 if odt == torch.float32 else 1e-2)
+    assert torch.equal(gw, fn(x, dy, out_dtype=odt, x_layout="km"))
 
 
 @pytest.mark.cuda

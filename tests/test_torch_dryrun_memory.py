@@ -10,6 +10,8 @@ on the CPU.
   wrappers allocate: each flash call's output and ``lse2``, each flash
   backward's work buffer, the paged decode's split buffer; and the remat
   residuals and f32 logits are the hand-computed sizes.
+* An MoE router in f32 under autograd (the narrow route) makes the split-K
+  workspace of its product and of its dW, and none for its dX.
 * Under the pass a CPU tensor still takes the plain version, and the pass
   selects the CUDA path's account only for meta tensors.
 * qwen3-1.7b's ``train_4k`` on one card does not fit: its f32 logits alone
@@ -28,7 +30,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import fa_bwd_row_chunks, fa_route, flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import pa_splits  # noqa: E402
-from repro_torch.kernels.streammm.ops import k_splits  # noqa: E402
+from repro_torch.kernels.streammm.ops import k_splits, mm_route, narrow_splits, stream_matmul  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import parse_mesh  # noqa: E402
 from repro_torch.launch.specs import make_concrete_batch  # noqa: E402
@@ -184,6 +186,35 @@ def test_flash_call_under_autograd_counts_statistics_and_workspace(d, h, hkv, dt
     else:
         assert got.made["attention"] == {out_bytes: 1}
         assert got.made["workspace"] == {3 * stats_bytes: 1}
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_f32_router_under_autograd_counts_its_split_workspace(arch):
+    """The router's x (4096, d) @ w (d, E) in f32 and its backward on meta
+    with the card's paths: the product and its dW (x read as (K, M), a d x E
+    output) take the narrow route with K cut across blocks, each making a
+    (splits, M, N) f32 workspace, marked as such; the dX (K = E) fills the
+    card with its own tiles and makes none."""
+    cfg = get_config(arch)
+    m, d, e = 4096, cfg.d_model, cfg.moe.num_experts
+    x = torch.empty((m, d), device="meta", requires_grad=True)
+    w = torch.empty((d, e), device="meta", requires_grad=True)
+    assert mm_route(m, e, d, torch.float32, True) == "narrow"
+    assert mm_route(d, e, m, torch.float32, True, "kn", "km") == "narrow"
+    assert mm_route(m, d, e, torch.float32, True, "nk") == "narrow"
+
+    def step(x, w):
+        y = stream_matmul(x, w, out_dtype=torch.float32)
+        return torch.autograd.grad(y, (x, w), torch.ones_like(y))
+
+    grads, got = memory.count(step, x, w, card=True)
+    assert [g.shape for g in grads] == [x.shape, w.shape]
+    fwd, dw = narrow_splits(m, e, d, 132), narrow_splits(d, e, m, 132)
+    assert fwd > 1 and dw > 1 and narrow_splits(m, d, e, 132, w_layout="nk") == 1
+    want = {}
+    for parts, rows in ((fwd, m), (dw, d)):
+        want[parts * rows * e * 4] = want.get(parts * rows * e * 4, 0) + 1
+    assert got.made["workspace"] == want
 
 
 def test_train_4k_on_one_card_does_not_fit():

@@ -146,6 +146,28 @@ def test_k_splits(m, k, n, splits):
     assert (got - 1) * chunk < k  # no split is empty
 
 
+@pytest.mark.parametrize(
+    "m,k,n,w_layout,experts,splits",
+    [
+        (4096, 6144, 8, "kn", 1, 16),  # grok-1-314b's router at 4 x 1024 tokens: 16 tiles of 256 x 8
+        (6144, 4096, 8, "kn", 1, 11),  # its dW (x read as (K, M)): a 6144 x 8 output, 24 tiles
+        (4096, 7168, 128, "kn", 1, 8),  # arctic-480b's router: 32 tiles of 128 x 128
+        (7168, 4096, 128, "kn", 1, 4),  # its dW: 56 tiles
+        (4096, 8, 6144, "nk", 1, 1),  # grok's dX (K = E): 1536 tiles fill the card
+        (4096, 128, 7168, "nk", 1, 1),  # arctic's dX
+        (256, 4096, 8, "kn", 8, 32),  # expert-batched: every expert's tiles count
+        (64, 64, 8, "kn", 1, 1),  # too shallow to cut
+    ],
+)
+def test_narrow_splits(m, k, n, w_layout, experts, splits):
+    got = mm_ops.narrow_splits(m, n, k, 132, experts=experts, w_layout=w_layout)
+    assert got == splits
+    bk = mm_ops.narrow_tile(n, w_layout)[2]
+    chunk = -(-(-(-k // got)) // bk) * bk  # the kernel's K rows per split, whole K tiles
+    assert (got - 1) * chunk < k  # no split is empty
+    assert experts * got <= 65535  # the grid's z axis
+
+
 # The routes: a pure rule of dtype and shape, decided in the wrapper.
 BF16, F32 = torch.bfloat16, torch.float32
 MM_ROUTES = [
@@ -172,6 +194,20 @@ MM_ROUTES = [
     (4096, 2048, 2048, F32, True, "simt"),
     (9, 300, 1001, BF16, True, "simt"),
     (64, 2048, 6144, F32, True, "simt"),
+    # the MoE routers in f32 at prefill (E = 8 and 128 columns) take the
+    # narrow route, ragged M and N = 60 too; at decode (M = 4) the gemv; a
+    # router in bf16 stays on wgmma; more than 128 columns, rows no multiple
+    # of 16 bytes (N or K not a multiple of 4) and misaligned operands on simt
+    (4096, 6144, 8, F32, True, "narrow"),
+    (4096, 7168, 128, F32, True, "narrow"),
+    (4095, 6144, 60, F32, True, "narrow"),
+    (9, 64, 8, F32, True, "narrow"),
+    (4, 6144, 8, F32, True, "gemv"),
+    (4096, 6144, 8, BF16, True, "wgmma"),
+    (4096, 6144, 132, F32, True, "simt"),
+    (4096, 6144, 6, F32, True, "simt"),
+    (4096, 6142, 8, F32, True, "simt"),
+    (4096, 6144, 8, F32, False, "simt"),
     (4096, 2048, 2048, BF16, False, "simt"),
     (16, 2048, 1004, BF16, True, "simt"),
     (16, 1004, 2048, BF16, True, "simt"),
@@ -198,6 +234,16 @@ NK_ROUTES = [
     (64, 300, 1001, BF16, True, "simt"),
     (64, 2048, 1001, F32, True, "simt"),
     (16, 2048, 1001, BF16, False, "simt"),
+    # the routers' dX in f32 (dY (M, E) @ w_router^T, K = E = 8 or 128) on
+    # the narrow route, any N; more than 128 terms, K no multiple of 4 and
+    # misaligned operands on simt; bf16 on wgmma
+    (4096, 8, 6144, F32, True, "narrow"),
+    (4096, 128, 7168, F32, True, "narrow"),
+    (100, 8, 1001, F32, True, "narrow"),
+    (4096, 8, 6144, BF16, True, "wgmma"),
+    (4096, 132, 7168, F32, True, "simt"),
+    (4096, 6, 7168, F32, True, "simt"),
+    (4096, 8, 6144, F32, False, "simt"),
 ]
 
 

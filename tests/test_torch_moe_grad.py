@@ -122,10 +122,16 @@ def test_x_given_as_k_by_m(batched):
 @pytest.mark.parametrize("m,n,k,dtype,route", [
     (7168, 4864, 80, "bfloat16", "wgmma"),  # arctic's dW at 4 x 1024 tokens
     (6144, 32768, 1280, "bfloat16", "wgmma"),  # grok's
-    (7168, 4864, 2, "bfloat16", "simt"),  # a capacity of 2: k % 8
+    (7168, 4864, 2, "bfloat16", "wgmma"),  # a capacity of 2: TMA zero-fills the k-tile past it
     (7168, 4864, 80, "float32", "simt"),
     (4, 64, 64, "bfloat16", "simt"),  # never gemv: its rows are the sum's terms
     (100, 64, 64, "bfloat16", "simt"),  # rows of x TMA cannot stride
+    (6144, 8, 4096, "float32", "narrow"),  # grok's router dW at 4 x 1024 tokens (N = E = 8)
+    (7168, 128, 4096, "float32", "narrow"),  # arctic's (E = 128)
+    (6144, 8, 4096, "bfloat16", "wgmma"),  # a router in bf16
+    (6146, 8, 4096, "float32", "simt"),  # rows of x no multiple of 16 bytes
+    (7168, 136, 4096, "float32", "simt"),  # more than 128 columns
+    (4, 8, 4096, "float32", "simt"),  # never gemv
 ])
 def test_mm_route_of_an_x_given_as_k_by_m(m, n, k, dtype, route):
     assert mm_ops.mm_route(m, n, k, getattr(torch, dtype), True, x_layout="km") == route
