@@ -22,7 +22,10 @@
    simt), read from the wrapper's ``wgmma_launches`` (and
    ``stream_matmul.narrow_launches``) and held against the route rule, its share of the
    bound, its ratio to the library call and its registers and spills from
-   ``-Xptxas -v``; gates the prefill path's ``stream_matmul`` sum, each
+   ``-Xptxas -v``; profiles one gemv call whose K is split and one decode
+   expert call (one kernel each, the expert grid spanning the bound on the
+   experts hit, not E); gates the prefill, live and decode paths'
+   ``stream_matmul`` sums, each
    ``flash_attention`` call of FA_LIBRARY_GATED (the dense prefills,
    hubert-xlarge's forward at D = 80 and recurrentgemma-9b's prefill at D =
    256), each dense decode ``paged_attention`` call and the int8 kernel's M
@@ -266,12 +269,16 @@ FA_REL_L2 = 1e-2
 INT8_EXACT_REL_L2 = 1e-5
 # The tensor-core routes and the redesigned decode attention must come within
 # this factor of the library call on the same inputs: the stream_matmul sum
-# over a prefill of each model against torch.matmul's, each prefill
+# over a prefill of each model against torch.matmul's, the gemv's sums over a
+# live step and a decode step of each model against torch.matmul's, each prefill
 # flash_attention call against scaled_dot_product_attention, each dense
 # decode paged_attention call against SDPA over the contiguous cache, and the
 # stream_matmul_int8 sum over paper-llama3-8b's projections at M = 4096
 # against torch.matmul of x with bf16 weights of the same (K, N).
 MAX_LIBRARY_RATIO = 2.0
+# a gemv shape that reads more than this times torch.matmul is profiled: both
+# calls' kernels and their own device times (phase 3)
+GEMV_PROFILED = 1.1
 # the flash_attention calls of phase 3 held to MAX_LIBRARY_RATIO: the dense
 # prefills and the tensor-core calls at head dims 80 and 256 of the families
 # and hybrid paths
@@ -640,7 +647,7 @@ def run_phases(torch, dev) -> None:
             f"{torch.cuda.memory_reserved(dev)} B reserved on the card, {host_rss()} B resident on the host")
 
     recs = {
-        "stream_matmul": check_stream_matmul(torch, dev, bench),
+        "stream_matmul": check_stream_matmul(torch, dev, bench, usage),
         "stream_matmul_int8": check_stream_matmul_int8(torch, dev, bench, usage),
         "flash_attention": check_flash_attention(torch, dev, bench, usage),
         "paged_attention": check_paged_attention(torch, dev, bench, usage),
@@ -1184,7 +1191,56 @@ def checked_route(fn, rule, call):
     return out, "wgmma" if took[0] else "narrow" if took[1] else rule
 
 
-def check_stream_matmul(torch, dev, bench):
+def traced_kernels(torch, fn):
+    """[(name, grid, µs)] of the kernels one call of ``fn`` ran on the card,
+    from torch.profiler's trace (CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    return [(e["name"], tuple(e.get("args", {}).get("grid", ())), e.get("dur")) for e in events
+            if e.get("cat") == "kernel"]
+
+
+def check_gemv_launches(torch, dev):
+    """The gemv route's launches as the profiler sees them: a product whose
+    K is split (qwen3-1.7b's wk at the live step, 8 splits) runs one kernel,
+    and a decode step's expert call (arctic-480b's w1 shape, E = 128, 4
+    tokens x top-2 hitting at most 8 experts) one kernel whose grid spans the
+    bound's 8 slots, not E. Gated."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.streammm.ops import GEMV_ROW_BYTES, k_splits, stream_matmul
+
+    gen = torch.Generator(dev).manual_seed(5)
+    x = torch.randn((1, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((2048, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    splits = k_splits(1, 1024, 2048, sm_count(dev))
+    ran = traced_kernels(torch, lambda: stream_matmul(x, w))
+    log(f"  profiler, qwen3 wk at M=1 ({splits} K splits): {ran}")
+    if splits < 2 or len(ran) != 1 or ran[0][1] != (1024 // (GEMV_ROW_BYTES // 2), splits, 1):
+        raise AssertionError(f"stream_matmul gemv with {splits} K splits ran {ran}, want one kernel")
+    c = moe_config("arctic-480b")
+    e, d, f, hit = c.moe.num_experts, c.d_model, c.moe.d_ff, min(c.moe.num_experts, c.moe.top_k * DECODE_B)
+    xe = torch.randn((e, 2, d), generator=gen, device=dev).to(torch.bfloat16)
+    we = torch.empty((e, d, f), device=dev, dtype=torch.bfloat16).normal_(generator=gen)
+    rows = torch.zeros(e, dtype=torch.int32, device=dev)
+    rows[torch.randperm(e, generator=gen, device=dev)[:hit]] = 1
+    ran = traced_kernels(torch, lambda: stream_matmul(xe, we, rows=rows, experts_hit=hit))
+    log(f"  profiler, arctic-480b w1 at decode (E={e}, bound {hit}): {ran}")
+    slabs = -(-f // (GEMV_ROW_BYTES // 2))
+    want = (slabs, k_splits(2, f, d, sm_count(dev), experts=hit), hit)
+    if len(ran) != 1 or ran[0][1] != want:
+        raise AssertionError(f"stream_matmul expert gemv ran {ran}, want one kernel of grid {want}")
+    del xe, we
+    torch.cuda.empty_cache()
+
+
+def check_stream_matmul(torch, dev, bench, usage):
     from repro_torch.kernels.streammm.ops import mm_route, stream_matmul
     from repro_torch.kernels.streammm.ref import stream_matmul_ref
 
@@ -1206,6 +1262,9 @@ def check_stream_matmul(torch, dev, bench):
         return mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, kw["w_layout"],
                         kw.get("x_layout", "mk"))
 
+    log("stream_matmul's streaming gemv (M rows of x: ptxas registers, spills): " + "; ".join(
+        f"M<={mm} {kernel_usage(usage, 'gemv_stream_kernel', f'Li{mm}E')}" for mm in (1, 2, 4, 8)))
+    check_gemv_launches(torch, dev)
     log("stream_matmul against stream_matmul_ref at every shape of each path (ms: CUDA events, cold L2; "
         "layout nk: x @ w.T for w (N, K), the library call torch.matmul(x, w.T); km: x.T @ w for x (K, M), "
         "x read in place, torch.matmul(x.T, w)):")
@@ -1234,6 +1293,14 @@ def check_stream_matmul(torch, dev, bench):
                     by_shape.append({"M": m, "K": k, "N": n, "w_layout": layout, "dtype": dt, "route": route,
                                      "ms": t, "bound_ms": b, "bound_by": kind, "plain_ms": t_plain,
                                      "library_ms": t_lib, "max_abs_err": err})
+                    if route == "gemv" and t > GEMV_PROFILED * t_lib:  # the kernels' own times, cold L2
+                        by_shape[-1]["profile"] = {
+                            name: [(k_name[:60], us) for k_name, _, us in traced_kernels(
+                                torch, lambda: (bench.flush_buf.zero_(), call()))[1:]]
+                            for name, call in (("stream_matmul", lambda: stream_matmul(x, w, **kw)),
+                                               ("torch.matmul", lambda: library(x, w, layout)))}
+                        log(f"  profile M={m} K={k} N={n} {dt} (kernel µs after an L2 flush): "
+                            f"{by_shape[-1]['profile']}")
                     errs.append(err)
                     bound_kinds.add(kind)
                     del x, w, out
@@ -1263,6 +1330,14 @@ def check_stream_matmul(torch, dev, bench):
         f"({100 * prefill['bound_ms'] / prefill['ms']:.0f}%)")
     if not ratio <= MAX_LIBRARY_RATIO:
         raise AssertionError(f"stream_matmul prefill sum {ratio:.2f}x torch.matmul > {MAX_LIBRARY_RATIO}x")
+    for path, name in (("serve", "live"), ("decode", "decode")):  # every product on the gemv route
+        sums = totals[path]
+        ratio = sums["ms"] / sums["library_ms"]
+        log(f"  {name} path (one step of {', '.join(ARCHS)}): kernel {sums['ms']:.3f} ms, torch.matmul "
+            f"{sums['library_ms']:.3f} ms ({ratio:.2f}x, gate {MAX_LIBRARY_RATIO}x), bound {sums['bound_ms']:.3f} ms "
+            f"({100 * sums['bound_ms'] / sums['ms']:.0f}%)")
+        if not ratio <= MAX_LIBRARY_RATIO:
+            raise AssertionError(f"stream_matmul {name} sum {ratio:.2f}x torch.matmul > {MAX_LIBRARY_RATIO}x")
     tied_n, tied_k = TIED_NK
     off_path = [(256, 2048, 2048, torch.bfloat16, "kn"), (1, 2048, 2048, torch.float32, "kn"),
                 (64, 2048, 6144, torch.float32, "kn"), (3, 1000, 999, torch.bfloat16, "kn"),
@@ -1315,7 +1390,8 @@ def check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds
     products at the capacity of a prefill (4 x 1024 tokens) and of a decode
     step (4 tokens), with the ``rows`` of a dispatch of that many tokens
     (router logits from a seed) and zeros past them, as ``moe_apply`` builds
-    its buffer. Gated: the tolerance, exact zeros past ``rows``, the same
+    its buffer, and its bound on the experts hit, min(E, top_k x tokens).
+    Gated: the tolerance, exact zeros past ``rows``, the same
     bits on a second call, the route. Timed beside the plain version and
     ``torch.bmm`` on the same (E, C, K) @ (E, K, N); the bound counts the
     filled rows' operations, the weights of the experts that hold a row and
@@ -1345,17 +1421,17 @@ def check_batched_experts(torch, dev, bench, totals, by_shape, errs, bound_kinds
                 live = torch.arange(cap, device=dev) < route_rows[:, None].long()
                 x = torch.randn((e, cap, k), generator=gen, device=dev).to(torch.bfloat16) * live[..., None]
                 w = dense_init(gen, (e, k, n), torch.bfloat16, fan_in=k)  # in pieces: arctic's is 8.9 GB
-                kw = dict(rows=route_rows)
+                kw = dict(rows=route_rows, experts_hit=min(e, c.moe.top_k * n_tokens))  # as moe_apply
                 rule = mm_route(cap, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
                 out, route = checked_route(stream_matmul, rule, lambda: stream_matmul(x, w, **kw))
-                err = max_err(torch, out, stream_matmul_ref(x, w, **kw))
+                err = max_err(torch, out, stream_matmul_ref(x, w, rows=route_rows))
                 if out[~live].any():
                     raise AssertionError(f"stream_matmul batched {arch} {what}: rows past the count are not 0")
                 if not torch.equal(out, stream_matmul(x, w, **kw)):
                     raise AssertionError(f"stream_matmul batched {arch} {what} ({e},{cap},{k},{n}) "
                                          "is not deterministic")
                 t = bench.ms(lambda: stream_matmul(x, w, **kw))
-                t_plain = bench.ms(lambda: stream_matmul_ref(x, w, **kw))
+                t_plain = bench.ms(lambda: stream_matmul_ref(x, w, rows=route_rows))
                 t_lib = bench.ms(lambda: torch.bmm(x, w))
                 filled, hit = sum(counts), sum(r > 0 for r in counts)
                 b, kind = bound(2 * (filled * k + hit * k * n + e * cap * n), 2 * filled * k * n, torch.bfloat16)
@@ -4115,11 +4191,11 @@ def kernel_calls(calls):
         calls[key] = calls.get(key, 0) + 1
         return paged(q, pool_k, pool_v, table, lengths, **kw)
 
-    def launch_(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
+    def launch_(x, w, out, rows, e, slots, m, n, k, route, splits, w_layout, x_layout):
         key = ("stream_matmul", route, x.dim() == 3, e, m, n, k, w_layout, x_layout, str(x.dtype), str(out.dtype),
                rows is not None, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
         calls[key] = calls.get(key, 0) + 1
-        return launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout)
+        return launch(x, w, out, rows, e, slots, m, n, k, route, splits, w_layout, x_layout)
 
     def forward_(q, k, v, causal, window, scale, lse=None):
         b, sq, h, d = q.shape

@@ -13,15 +13,18 @@
 // bound by the bf16 tensor-core rate (989 TFLOP/s).
 //
 // Four routes, chosen by the wrapper (ops.py, mm_route) from dtype and shape:
-//  * gemv (M <= 8): a block owns a slab of 256 output columns and a chunk
-//    of K rows. Its threads read the slab row by row with 16-byte loads
-//    (neighbouring threads on neighbouring columns), keep one f32 partial sum
-//    per (row of x, column) in registers, and reduce the row groups through
-//    shared memory in a fixed order. Narrow projections (N = 1024..8192) have
-//    too few column slabs to fill 132 SMs, so the wrapper splits K across
-//    blocks; each split writes its partial sums to a workspace and a second
-//    kernel adds them in split order. No atomics: the result is the same bits
-//    on every run, which the live runtime's transparency check relies on.
+//  * gemv (M <= 8): one launch, gemv_stream_kernel below. A block owns a
+//    slab of 256 bytes of every weight row (128 bf16 or 64 f32 columns) and a
+//    chunk of K; its threads stream the slab with 16-byte evict-first loads,
+//    the next eight rows a thread in flight while the FMAs of the last eight
+//    run, against x staged once in shared memory as f32. The K splits of a
+//    slab (1, 2, 4 or 8, the wrapper's k_splits, the fewest that give
+//    nearly every SM a block) are one thread-block cluster, whose ranks add their partial sums
+//    in rank order through distributed shared memory: no workspace, no
+//    second kernel, no atomics, the same bits on every run, which the live
+//    runtime's transparency check relies on. Weights whose rows 16-byte
+//    loads cannot walk (N not a multiple of 16 bytes, an unaligned base)
+//    take the scalar kernel, gemv_kernel, K whole: a rule of shape.
 //  * wgmma (bf16, M > 8, K and N multiples of 8, or with x given as (K, M)
 //    M and N and any K, 16-byte aligned operands):
 //    tensor cores fed by TMA. A block owns a 128 x kWgmmaBN output tile. One
@@ -46,8 +49,8 @@
 //    contiguous axis; 16-byte stores. Where the output's tiles are too few to
 //    fill the SMs (the router at M = 4096 makes 16 or 32 of them, its dW 24
 //    or 56), the wrapper cuts K across blocks, and each writes its partial
-//    sums to a workspace that split_reduce_kernel adds in split order, as the
-//    gemv's splits. Exact f32 FFMA, no atomics: the same bits on every run.
+//    sums to a workspace that split_reduce_kernel adds in split order.
+//    Exact f32 FFMA, no atomics: the same bits on every run.
 //    Bound: the bytes of x at E = 8 (8 products a 4-byte element), the f32
 //    operations at E = 128; the dX at E = 8 by the bytes of its output.
 //  * simt (other f32 shapes, or shapes TMA cannot describe): plain 64x64
@@ -87,8 +90,12 @@
 // that hold a row; at prefill the operations over the filled rows, or, where
 // the capacity is small beside K and N (arctic's 80 rows against 7168 x
 // 4864 weights), again the weight bytes. The same three routes:
-//  * gemv: grid (column slabs, K splits, E); the split-K workspace is
-//    (splits, E, M, N), added in split order as before;
+//  * gemv: grid (column slabs, K splits, slots), slots <= E the wrapper's
+//    bound on the experts a call hits (min(E, top_k x tokens) from the MoE
+//    layer): each slot walks the experts that hold a row, found by a prefix
+//    count over `rows` on the device, and the empty ones' zeros are written
+//    by the same launch; the K splits, counted over the slots' slabs, are
+//    summed in the cluster as in the 2-D form;
 //  * wgmma: 3-D tensor maps, x as (K, M, E) and w as (N, K, E), so that a
 //    64-deep K tile never straddles two experts and TMA zero-fills rows past
 //    M and K inside each expert; a 128-row tile at or past rows[e] loads
@@ -124,7 +131,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -165,16 +176,17 @@ __device__ __forceinline__ int expert_rows(const int* rows, int e, int M) {
   return rows == nullptr ? M : max(0, min(__ldg(rows + e), M));
 }
 
-// grid = (ceil(N / 256), splits, E); block = 256 threads. Expert e =
-// blockIdx.z reads x[e] (M, K) and w[e] (K, N) and writes out[e] (M, N), or
-// with splits its slice work[split, e] of the (splits, E, M, N) workspace.
-// MM is M rounded up to 1, 2, 4 or 8 (register arrays need a fixed size).
+// The scalar gemv, kept for weights whose rows 16-byte loads cannot walk (N
+// not a multiple of 16 bytes, or an unaligned base): grid = (ceil(N / 256),
+// 1, E); block = 256 threads, each walking one column of its slab for every
+// RPI-th row of K with scalar loads. Expert e = blockIdx.z reads x[e] (M, K)
+// and w[e] (K, N) and writes out[e] (M, N). MM is M rounded up to 1, 2, 4 or
+// 8 (register arrays need a fixed size).
 template <typename T, typename O, int MM>
 __global__ void __launch_bounds__(kThreads)
 gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
-            float* __restrict__ work, const int* __restrict__ rows, int M, int N, int K,
-            int k_chunk, int vec_ok) {
-  constexpr int V = 16 / sizeof(T);         // elements in one 16-byte load
+            const int* __restrict__ rows, int M, int N, int K) {
+  constexpr int V = 16 / sizeof(T);         // columns a thread owns
   constexpr int TPR = kGemvCols / V;        // threads across one row of the slab
   constexpr int RPI = kThreads / TPR;       // rows read per iteration
   __shared__ float red[RPI][kGemvCols];
@@ -184,25 +196,16 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
   x += (size_t)e * M * K;
   w += (size_t)e * K * N;
   out += (size_t)e * M * N;
-  if (work != nullptr) work += ((size_t)blockIdx.y * gridDim.z + e) * M * N;
   const int col = blockIdx.x * kGemvCols + threadIdx.x;
   if (me == 0) {  // an empty expert: zeros, and none of its weight is read
-    if (col < N) {
-      for (int m = 0; m < M; ++m) {
-        if (work != nullptr)
-          work[(size_t)m * N + col] = 0.f;
-        else
-          out[(size_t)m * N + col] = from_float<O>(0.f);
-      }
-    }
+    if (col < N)
+      for (int m = 0; m < M; ++m) out[(size_t)m * N + col] = from_float<O>(0.f);
     return;
   }
 
   const int c = threadIdx.x % TPR;
   const int r = threadIdx.x / TPR;
   const int col0 = blockIdx.x * kGemvCols + c * V;
-  const int k_begin = blockIdx.y * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
 
   float acc[MM][V];
 #pragma unroll
@@ -211,20 +214,11 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
     for (int v = 0; v < V; ++v) acc[m][v] = 0.f;
 
 #pragma unroll 4
-  for (int k = k_begin + r; k < k_end; k += RPI) {
+  for (int k = r; k < K; k += RPI) {
     float wv[V];
     const T* row = w + (size_t)k * N;
-    if (vec_ok) {
-      if (col0 < N) {
-        load_vec(row + col0, wv);
-      } else {
 #pragma unroll
-        for (int v = 0; v < V; ++v) wv[v] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) wv[v] = (col0 + v < N) ? to_float(row[col0 + v]) : 0.f;
-    }
+    for (int v = 0; v < V; ++v) wv[v] = (col0 + v < N) ? to_float(row[col0 + v]) : 0.f;
 #pragma unroll
     for (int m = 0; m < MM; ++m) {
       if (m < me) {
@@ -246,18 +240,13 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ ou
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < RPI; ++i) s += red[i][threadIdx.x];
-    if (col < N) {
-      if (work != nullptr)
-        work[(size_t)m * N + col] = s;
-      else
-        out[(size_t)m * N + col] = from_float<O>(s);
-    }
+    if (col < N) out[(size_t)m * N + col] = from_float<O>(s);
     __syncthreads();
   }
 }
 
 // out[i] = sum over splits s, in order, of work[s, i], i over the E * M * N
-// outputs.
+// outputs (the narrow route's K splits).
 template <typename O>
 __global__ void split_reduce_kernel(const float* __restrict__ work, O* __restrict__ out,
                                     int MN, int splits) {
@@ -266,6 +255,237 @@ __global__ void split_reduce_kernel(const float* __restrict__ work, O* __restric
   float s = 0.f;
   for (int j = 0; j < splits; ++j) s += work[(size_t)j * MN + i];
   out[i] = from_float<O>(s);
+}
+
+// -- the streaming gemv (M <= 8, (K, N) weights whose rows 16-byte loads walk) --
+//
+// A block owns a slab of kGemvRowBytes (256) bytes of every weight row, 128
+// bf16 or 64 f32 columns: 16 threads across a row, 16 rows at a time, each
+// thread's 16-byte loads streamed past L1 with the evict-first hint (every
+// weight byte is read once). A thread keeps kGemvUnroll loads of the next
+// rows in flight while it does the FMAs of the rows that have arrived, 32 KB
+// to 64 KB of weights in flight a block, the first of them issued before x
+// is staged. x is staged once in shared memory as f32, 16 KB at a time (4096
+// / M rows of K), laid out (k, m) so that a row's M values are one or two
+// vector reads that the 16 threads of a row share.
+// The K splits of a slab are the blocks of one thread-block cluster along
+// grid y (1, 2, 4 or 8 blocks, the wrapper's k_splits): each block reduces
+// its row groups (a shuffle between the two groups of a warp, then the eight
+// warps in order through shared memory), and the cluster's ranks add the
+// splits' sums in rank order through distributed shared memory, each rank a
+// share of the slab's outputs. One launch, no workspace, no atomics: the
+// same bits on every run.
+//
+// Experts: grid z is `slots` <= E (the wrapper's bound on the experts a
+// call hits). Slot s computes the experts whose index among those with
+// rows[e] > 0 is s, s + slots, ...: a prefix count over `rows` that every
+// block of a cluster takes alike, read on the device. An expert with no rows
+// reads none of its weight; the blocks of split 0 write its zeros, slot e %
+// slots taking expert e. Any number of non-empty experts is walked in turn,
+// so the result does not depend on `slots`, only the speed does.
+constexpr int kGemvRowBytes = 256;                    // bytes of a weight row a block owns
+constexpr int kGemvTpr = kGemvRowBytes / 16;          // threads across a row
+constexpr int kGemvRpi = kThreads / kGemvTpr;         // rows a block reads at a time
+constexpr int kGemvUnroll = 8;                        // rows a thread loads ahead
+constexpr int kGemvXFloats = 4096;                    // x staged at a time: 16 KB of f32
+constexpr int kGemvMaxSplits = 8;                     // the portable cluster size
+
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  return __ldcs(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[8]) {  // 8 bf16
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[4]) {  // 4 f32
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// The M values of x at staged row kk: MM floats, 16-byte aligned for MM >= 4.
+template <int MM>
+__device__ __forceinline__ void x_row(const float* xs, int kk, float (&xv)[MM]) {
+  if constexpr (MM >= 4) {
+#pragma unroll
+    for (int q = 0; q < MM / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(xs + kk * MM)[q];
+      xv[4 * q] = v.x; xv[4 * q + 1] = v.y; xv[4 * q + 2] = v.z; xv[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < MM; ++m) xv[m] = xs[kk * MM + m];
+  }
+}
+
+// grid = (ceil(N / cols), splits, slots), clusters of (1, splits, 1); block =
+// kThreads. k_chunk = ceil(K / splits) rows a split.
+template <typename T, typename O, int MM>
+__global__ void __launch_bounds__(kThreads, MM <= 4 ? 2 : 1)
+gemv_stream_kernel(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ out,
+                   const int* __restrict__ rows, int E, int M, int N, int K, int k_chunk) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int COLS = kGemvTpr * V;
+  constexpr int WARPS = kThreads / 32;
+  constexpr int RED = WARPS * MM * COLS;
+  constexpr int XR = kGemvXFloats / MM;  // rows of x staged at a time
+  constexpr int XS = kGemvXFloats;
+  constexpr int U = kGemvUnroll;
+  __shared__ __align__(16) float buf[RED > XS ? RED : XS];  // staged x, then the warps' sums
+  __shared__ __align__(16) float part[MM * COLS];           // this split's sums, read by the cluster
+  __shared__ int list[kThreads], list_rows[kThreads], zlist[kThreads];
+  __shared__ int warp_counts[WARPS], n_zero;
+
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int slot = blockIdx.z, slots = gridDim.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = threadIdx.x % kGemvTpr, r = threadIdx.x / kGemvTpr;
+  const int col0 = blockIdx.x * COLS + c * V;
+  const bool col_ok = col0 < N;
+  const int k_begin = split * k_chunk, k_end = min(K, k_begin + k_chunk);
+
+  int nz_before = 0;  // experts with rows in earlier chunks of kThreads experts
+  for (int base = 0; base < E; base += kThreads) {
+    const int e = base + threadIdx.x;
+    const int me = e < E ? expert_rows(rows, e, M) : 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, me > 0);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    if (threadIdx.x == 0) n_zero = 0;
+    __syncthreads();
+    int idx = nz_before + __popc(ballot & ((1u << lane) - 1)), total = 0;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) {
+      idx += i < warp ? warp_counts[i] : 0;
+      total += warp_counts[i];
+    }
+    // this slot's experts among idx in [nz_before, nz_before + total): slot + j * slots
+    const int j0 = nz_before <= slot ? 0 : (nz_before - slot + slots - 1) / slots;
+    const int j1 = nz_before + total <= slot ? 0 : (nz_before + total - slot + slots - 1) / slots;
+    if (me > 0 && idx >= slot && (idx - slot) % slots == 0) {
+      list[(idx - slot) / slots - j0] = e;
+      list_rows[(idx - slot) / slots - j0] = me;
+    }
+    if (e < E && me == 0 && split == 0 && e % slots == slot) zlist[atomicAdd(&n_zero, 1)] = e;
+    __syncthreads();
+    nz_before += total;
+
+    // empty experts: zeros over this slab (the order of the writes is immaterial)
+    for (int z = 0; z < n_zero; ++z) {
+      O* oz = out + (size_t)zlist[z] * M * N;
+      for (int i = threadIdx.x; i < M * COLS; i += kThreads) {
+        const int col = blockIdx.x * COLS + i % COLS;
+        if (col < N) oz[(size_t)(i / COLS) * N + col] = from_float<O>(0.f);
+      }
+    }
+
+    for (int j = 0; j < j1 - j0; ++j) {
+      const int ex = list[j], mex = list_rows[j];
+      const T* xe = x + (size_t)ex * M * K;
+      const T* we = w + (size_t)ex * K * N + col0;
+      O* oe = out + (size_t)ex * M * N;
+
+      float acc[MM][V];
+#pragma unroll
+      for (int m = 0; m < MM; ++m)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[m][v] = 0.f;
+
+      for (int kc = k_begin; kc < k_end; kc += XR) {
+        const int kn = min(XR, k_end - kc);
+        // this thread's rows r, r + RPI, ... of the next kn, U at a time: the
+        // first U loads fly while x is staged, and each next U before the
+        // FMAs of these
+        const int nrows = kn > r ? (kn - r + kGemvRpi - 1) / kGemvRpi : 0;
+        const T* wr = we + (size_t)(kc + r) * N;
+        uint4 cur[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          cur[u] = col_ok && u < nrows ? ld_stream(wr + (size_t)u * kGemvRpi * N) : make_uint4(0, 0, 0, 0);
+        __syncthreads();  // the previous rows' reads of buf are done
+        for (int i = threadIdx.x; i < MM * kn; i += kThreads) {
+          const int m = i / kn, kk = i % kn;  // coalesced reads of x's rows
+          buf[kk * MM + m] = m < mex ? to_float(xe[(size_t)m * K + kc + kk]) : 0.f;
+        }
+        __syncthreads();
+        for (int j0r = 0; j0r < nrows; j0r += U) {
+          uint4 nxt[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int jr = j0r + U + u;
+            nxt[u] = col_ok && jr < nrows ? ld_stream(wr + (size_t)jr * kGemvRpi * N) : make_uint4(0, 0, 0, 0);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (j0r + u < nrows) {
+              float wf[V], xv[MM];
+              unpack(cur[u], wf);
+              x_row<MM>(buf, r + (j0r + u) * kGemvRpi, xv);
+#pragma unroll
+              for (int m = 0; m < MM; ++m)
+#pragma unroll
+                for (int v = 0; v < V; ++v) acc[m][v] = fmaf(xv[m], wf[v], acc[m][v]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) cur[u] = nxt[u];
+        }
+      }
+
+      // the two row groups of a warp (lanes l and l ^ 16), then the warps in order
+#pragma unroll
+      for (int m = 0; m < MM; ++m)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[m][v] += __shfl_xor_sync(0xffffffffu, acc[m][v], 16);
+      __syncthreads();  // every read of the staged x is done
+      if (lane < kGemvTpr) {
+#pragma unroll
+        for (int m = 0; m < MM; ++m)
+#pragma unroll
+          for (int v = 0; v < V; v += 4)
+            *reinterpret_cast<float4*>(buf + (warp * MM + m) * COLS + c * V + v) =
+                make_float4(acc[m][v], acc[m][v + 1], acc[m][v + 2], acc[m][v + 3]);
+      }
+      __syncthreads();
+      const int first = min(M, MM) * COLS;  // outputs of the rows of x that exist
+      for (int i = threadIdx.x; i < first; i += kThreads) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < WARPS; ++q) s += buf[q * MM * COLS + i];
+        if (splits > 1) {
+          part[i] = s;
+        } else {
+          const int m = i / COLS, col = blockIdx.x * COLS + i % COLS;
+          if (col < N) oe[(size_t)m * N + col] = from_float<O>(m < mex ? s : 0.f);
+        }
+      }
+      if (splits > 1) {  // the splits' sums in rank order, each rank a share of the outputs
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();
+        const int per = (first + splits - 1) / splits;
+        const int end = min(first, (split + 1) * per);
+        for (int i = split * per + threadIdx.x; i < end; i += kThreads) {
+          float p[kGemvMaxSplits];  // every rank's load in flight at once
+#pragma unroll
+          for (int q = 0; q < kGemvMaxSplits; ++q) p[q] = q < splits ? cluster.map_shared_rank(part, q)[i] : 0.f;
+          float s = 0.f;
+#pragma unroll
+          for (int q = 0; q < kGemvMaxSplits; ++q)
+            if (q < splits) s += p[q];
+          const int m = i / COLS, col = blockIdx.x * COLS + i % COLS;
+          if (col < N) oe[(size_t)m * N + col] = from_float<O>(m < mex ? s : 0.f);
+        }
+        cluster.sync();  // no block leaves, or refills part, while another reads it
+      }
+    }
+    __syncthreads();  // list and zlist are read before the next chunk writes them
+  }
 }
 
 constexpr int kNkRowsPerWarp = 4;  // rows of a K-major weight a gemv warp owns
@@ -1051,27 +1271,42 @@ void launch_gemv_nk(const T* x, const T* w, O* out, const int* rows, int E, int 
   gemv_nk_kernel<T, O, MM><<<grid, kThreads, 0, stream>>>(x, w, out, rows, M, N, K, vec_ok);
 }
 
+// The gemv of (K, N) weights: the streaming kernel where 16-byte loads walk
+// w's rows (N a multiple of 16 bytes, w 16-byte aligned: every expert's
+// slice then is too), as one launch whose K splits form a cluster; the
+// scalar kernel otherwise, one block a 256-column slab, K whole, every
+// expert on grid z.
 template <typename T, typename O, int MM>
-void launch_gemv(const T* x, const T* w, O* out, float* work, const int* rows, int E, int M,
-                 int N, int K, int splits, cudaStream_t stream) {
-  const int k_chunk = (K + splits - 1) / splits;
-  // an expert's (K, N) slice starts K * N elements on: 16-byte aligned with w when N is
-  const int vec_ok = (N % (16 / sizeof(T)) == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, splits, E);
-  gemv_kernel<T, O, MM><<<grid, kThreads, 0, stream>>>(
-      x, w, out, splits > 1 ? work : nullptr, rows, M, N, K, k_chunk, vec_ok);
-  if (splits > 1) {
-    const int mn = E * M * N;
-    split_reduce_kernel<O><<<(mn + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        work, out, mn, splits);
+int launch_gemv(const T* x, const T* w, O* out, const int* rows, int E, int M, int N, int K,
+                int splits, int slots, cudaStream_t stream) {
+  const bool vec_ok = (N % (16 / sizeof(T)) == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  if (!vec_ok) {
+    gemv_kernel<T, O, MM><<<dim3((N + kGemvCols - 1) / kGemvCols, 1, E), kThreads, 0, stream>>>(
+        x, w, out, rows, M, N, K);
+    return static_cast<int>(cudaGetLastError());
   }
+  const int cols = kGemvRowBytes / static_cast<int>(sizeof(T));
+  const int k_chunk = (K + splits - 1) / splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + cols - 1) / cols, splits, slots);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = splits;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, gemv_stream_kernel<T, O, MM>, x, w, out, rows, E, M, N, K, k_chunk));
 }
 
 enum Route { kRouteGemv = 0, kRouteSimt = 1, kRouteWgmma = 2, kRouteNarrow = 3 };
 
 template <typename T, typename O>
 int run(const void* x_, const void* w_, void* out_, void* work, const int* rows, int E, int M,
-        int N, int K, int route, int splits, int nk, int ta, cudaStream_t stream) {
+        int N, int K, int route, int splits, int slots, int nk, int ta, cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   const T* w = static_cast<const T*>(w_);
   O* out = static_cast<O*>(out_);
@@ -1106,13 +1341,13 @@ int run(const void* x_, const void* w_, void* out_, void* work, const int* rows,
     else
       launch_gemv_nk<T, O, kGemvMaxM>(x, w, out, rows, E, M, N, K, stream);
   } else if (M == 1) {
-    launch_gemv<T, O, 1>(x, w, out, ws, rows, E, M, N, K, splits, stream);
+    return launch_gemv<T, O, 1>(x, w, out, rows, E, M, N, K, splits, slots, stream);
   } else if (M <= 2) {
-    launch_gemv<T, O, 2>(x, w, out, ws, rows, E, M, N, K, splits, stream);
+    return launch_gemv<T, O, 2>(x, w, out, rows, E, M, N, K, splits, slots, stream);
   } else if (M <= 4) {
-    launch_gemv<T, O, 4>(x, w, out, ws, rows, E, M, N, K, splits, stream);
+    return launch_gemv<T, O, 4>(x, w, out, rows, E, M, N, K, splits, slots, stream);
   } else {
-    launch_gemv<T, O, kGemvMaxM>(x, w, out, ws, rows, E, M, N, K, splits, stream);
+    return launch_gemv<T, O, kGemvMaxM>(x, w, out, rows, E, M, N, K, splits, slots, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1125,23 +1360,28 @@ int run(const void* x_, const void* w_, void* out_, void* work, const int* rows,
 // leading E, contiguous; `rows` (int32 (E,) on the device, or null) bounds
 // each expert's rows of x and out with x_layout 0 (rows past it are 0) and
 // its terms of the sum over K with x_layout 1. route: 0 = gemv (M <= 8,
-// x_layout 0; for (K, N) weights K cut into `splits` >= 1 chunks, which
-// needs a float32 workspace of splits * E * M * N when splits > 1; for
-// (N, K) weights splits = 1), 1 = simt tiles, 2 = wgmma (bfloat16 in, M >
+// x_layout 0; for (K, N) weights K cut into `splits` of 1, 2, 4 or 8 chunks,
+// the blocks of a cluster, and the experts walked by `slots` in [1, E]
+// blocks along grid z, no workspace; for (N, K) weights splits = 1), 1 =
+// simt tiles, 2 = wgmma (bfloat16 in, M >
 // 8, K a multiple of 8 with x_layout 0, N with (K, N) weights, M with
 // x_layout 1; x and w 16-byte aligned, and out too with x_layout 1), 3 = narrow
 // (float32 in, M > 8, every operand's contiguous rows a multiple of 16
 // bytes: K with x_layout 0 or w_layout 1, N with w_layout 0, M with
 // x_layout 1; x and w 16-byte aligned; K cut into `splits` >= 1 chunks, E *
-// splits <= 65535, with the same workspace when splits > 1); anything else
-// is refused. Returns cudaGetLastError() after the launches.
+// splits <= 65535, with a float32 workspace of splits * E * M * N when
+// splits > 1); `slots` is read by the gemv route of (K, N) weights only.
+// Anything else is refused. Returns cudaGetLastError() after the launches.
 extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work,
                              const int* rows, int E, int M, int N, int K, int route, int splits,
-                             int in_dtype, int out_dtype, int w_layout, int x_layout, void* stream) {
+                             int slots, int in_dtype, int out_dtype, int w_layout, int x_layout,
+                             void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || E <= 0 || E > 65535 || w_layout < 0 || w_layout > 1 ||
       x_layout < 0 || x_layout > 1 || (x_layout == 1 && (w_layout != 0 || route == kRouteGemv)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM || (w_layout == 1 && splits != 1)))
+  if (route == kRouteGemv && (splits < 1 || M > kGemvMaxM || (w_layout == 1 && splits != 1) ||
+                              (w_layout == 0 && (splits > kGemvMaxSplits || (splits & (splits - 1)) ||
+                                                 slots < 1 || slots > E))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma &&
       (in_dtype != 1 || M <= kGemvMaxM || (x_layout == 0 && K % 8) || (w_layout == 0 && N % 8) ||
@@ -1160,12 +1400,12 @@ extern "C" int stream_matmul(const void* x, const void* w, void* out, void* work
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nk = w_layout, ta = x_layout;
   if (in_dtype == 1 && out_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
+    return run<__nv_bfloat16, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, slots, nk, ta, s);
   if (in_dtype == 1 && out_dtype == 0)
-    return run<__nv_bfloat16, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
+    return run<__nv_bfloat16, float>(x, w, out, work, rows, E, M, N, K, route, splits, slots, nk, ta, s);
   if (in_dtype == 0 && out_dtype == 1)
-    return run<float, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
+    return run<float, __nv_bfloat16>(x, w, out, work, rows, E, M, N, K, route, splits, slots, nk, ta, s);
   if (in_dtype == 0 && out_dtype == 0)
-    return run<float, float>(x, w, out, work, rows, E, M, N, K, route, splits, nk, ta, s);
+    return run<float, float>(x, w, out, work, rows, E, M, N, K, route, splits, slots, nk, ta, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,7 +14,11 @@ count those of them that took the tensor-core route.
 (``src/repro/kernels/streammm/kernel.py:50``) and has four routes, which
 :func:`mm_route` picks from dtype and shape alone (a rule, not a fallback: a
 route that fails raises): ``gemv`` for M <= 8, bound by the weight bytes over
-HBM (the live and decode steps); ``wgmma`` for bf16 with M > 8 where TMA can
+HBM (the live and decode steps), one launch that streams each weight row's
+slabs and, where :func:`k_splits` cuts K, adds the splits' sums in a
+thread-block cluster in rank order (no workspace; weights whose rows
+16-byte loads cannot walk take the older scalar kernel, K whole, by the same
+rule of shape); ``wgmma`` for bf16 with M > 8 where TMA can
 describe both operands, bound by the bf16 tensor-core rate at prefill, which
 it approaches with TMA-fed wgmma tiles (with x given as (K, M), every dW, a
 persistent kernel that stores through TMA); ``narrow`` for f32 with M > 8
@@ -39,8 +43,12 @@ form that the MoE layer's expert products take (the reference's
 launch, the experts on the grid's z axis, the route picked by
 :func:`mm_route` from each expert's (C, K, N). An optional int32 ``rows``
 (E,) gives each expert's filled slots: rows at or past ``rows[e]`` come out
-0, and an expert with none reads no weight. ``stream_matmul.
-batched_launches`` counts those launches; their checks run on both devices.
+0, and an expert with none reads no weight. An optional ``experts_hit``
+bounds the experts that hold a row (the MoE layer passes min(E, top_k x
+tokens)): on the gemv route the grid's z axis is that many slots, each
+walking the non-empty experts in turn, found on the device, so the bound
+moves the speed and never the result. ``stream_matmul.batched_launches``
+counts those launches; their checks run on both devices.
 
 With ``x_layout="km"``, x is given as (K, M), or (E, K, M), and the product
 is ``x.T @ w`` for a (K, N) weight: x is read in place as an MN-major
@@ -80,7 +88,10 @@ from repro_torch.roofline import memory
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMV_MAX_M = 8  # rows of x the kernel's gemv path takes (kGemvMaxM)
-GEMV_COLS = 256  # output columns per gemv block (kGemvCols of both kernels)
+GEMV_COLS = 256  # output columns per block of the int8 gemv (kGemvCols)
+GEMV_ROW_BYTES = 256  # bytes of each weight row a streaming gemv block owns (kGemvRowBytes)
+GEMV_MAX_SPLITS = 8  # K splits of a gemv slab: one thread-block cluster (kGemvMaxSplits)
+GEMV_EXPERT_ROWS = 4096  # K rows a split of an expert-batched gemv streams at most: 1 MB of a slab
 ROUTE_CODES = {"gemv": 0, "simt": 1, "wgmma": 2, "narrow": 3}  # the C entry points' route argument
 NARROW_MAX = 128  # the narrow side the f32 narrow route takes: the routers' E of 8 and 128
 NARROW_THIN_N = 8  # N of a (K, N) weight at or under which it takes the 256 x 8 tiles (kThinMaxN)
@@ -88,7 +99,7 @@ INT8_TILE_K = 64  # K rows of a stage of the int8 wgmma route (kI8BK)
 INT8_TILE_M, INT8_TILE_N = 192, 128  # rows and columns of an int8 wgmma output tile (kI8BM, kI8BN)
 W_LAYOUT_CODES = {"kn": 0, "nk": 1}  # the C entry point's w_layout argument
 X_LAYOUT_CODES = {"mk": 0, "km": 1}  # and its x_layout argument
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
@@ -119,16 +130,32 @@ def mm_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, w_layout
     return "simt"
 
 
-def k_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1) -> int:
-    """How many K chunks the gemv path cuts a product into: enough blocks for
-    about four per SM, counting every expert's column slabs, each chunk at
-    least 64 rows deep; 0 where m > GEMV_MAX_M, which is not the gemv
-    route's. A rule of shapes: the experts a call finds empty exit at once,
-    so a batched call that hits few of many experts fills fewer SMs."""
+def k_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1, elem: int = 2) -> int:
+    """How many K chunks the gemv path cuts a (K, N) weight's product into:
+    the fewest of 1, 2, 4 or 8 (one thread-block cluster) that give a block
+    to all but a sixteenth of the SMs, counting a slab of GEMV_ROW_BYTES of
+    each weight row (128 bf16 or 64 f32 columns, ``elem`` bytes an element)
+    for each of ``experts`` experts, and, for more than one expert, chunks of
+    at most GEMV_EXPERT_ROWS rows; each chunk at least 64 rows deep; 0 where
+    m > GEMV_MAX_M, which is not the gemv route's. More splits than that
+    read slower on the H100 at every 2-D live and decode shape (each block
+    then streams less and adds a cluster barrier and x's staging). An
+    expert-batched call's working blocks are known only on the device (the
+    experts that hold a row), so a block there streams at most 1 MB: a
+    block that waits for a second wave then costs little (grok-1-314b's w2
+    at decode, 8 MB blocks unsplit, read 1.24x slower with 6 experts hit
+    than with 4 splits). A rule of shapes: for the expert-batched form
+    ``experts`` is the bound on the experts a call hits (its grid's slots),
+    never a count read from ``rows``."""
     if m > GEMV_MAX_M:
         return 0
-    col_blocks = -(-n // GEMV_COLS) * experts
-    return max(1, min(-(-4 * sm_count // col_blocks), k // 64))
+    slabs = -(-n // (GEMV_ROW_BYTES // elem)) * experts
+    rows_cap = GEMV_EXPERT_ROWS if experts > 1 else k
+    splits = 1
+    while splits < GEMV_MAX_SPLITS and 128 * splits <= k and (
+            slabs * splits < sm_count - sm_count // 16 or -(-k // splits) > rows_cap):
+        splits *= 2
+    return splits
 
 
 def narrow_tile(n: int, w_layout: str = "kn") -> tuple:
@@ -154,20 +181,20 @@ def narrow_splits(m: int, n: int, k: int, sm_count: int, experts: int = 1, w_lay
 
 def stream_matmul(
     x: torch.Tensor, w: torch.Tensor, out_dtype=torch.bfloat16, w_layout: str = "kn",
-    rows: Optional[torch.Tensor] = None, x_layout: str = "mk",
+    rows: Optional[torch.Tensor] = None, x_layout: str = "mk", experts_hit: Optional[int] = None,
 ) -> torch.Tensor:
     """``x @ w`` for x (M, K) and w (K, N) of one dtype, ``x @ w.T`` for w
     (N, K) with ``w_layout="nk"``, or ``x.T @ w`` for x (K, M) with
     ``x_layout="km"``; f32 accumulation, result in ``out_dtype`` (bfloat16
     or float32). For x and w stacked on a leading E, the expert-batched form
-    (module docstring), with ``rows`` optional."""
+    (module docstring), with ``rows`` and ``experts_hit`` optional."""
     if w_layout not in W_LAYOUT_CODES or x_layout not in X_LAYOUT_CODES:
         raise ValueError(f"stream_matmul: w_layout {w_layout!r}, x_layout {x_layout!r}; need 'kn' or 'nk', "
                          "'mk' or 'km'")
     if x_layout == "km" and w_layout != "kn":
         raise ValueError("stream_matmul: an x given as (K, M) takes (K, N) weights only")
-    if x.dim() == 3 or w.dim() == 3 or rows is not None:
-        return _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout)
+    if x.dim() == 3 or w.dim() == 3 or rows is not None or experts_hit is not None:
+        return _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout, experts_hit)
     if takes_plain(x, w):
         return stream_matmul_ref(x, w, out_dtype, w_layout, x_layout=x_layout)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -195,7 +222,7 @@ def _stream_matmul_2d(x, w, out_dtype, w_layout, x_layout="mk"):
         raise TypeError(f"stream_matmul: dtypes {x.dtype} @ {w.dtype} -> {out_dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("stream_matmul: x and w must be contiguous")
-    return _route_and_launch(x, w, out_dtype, w_layout, None, x_layout, 1, m, n, k)
+    return _route_and_launch(x, w, out_dtype, w_layout, None, x_layout, 1, 1, m, n, k)
 
 
 class _StreamMatmul(torch.autograd.Function):
@@ -235,9 +262,9 @@ class _StreamMatmulBatched(torch.autograd.Function):
     the output are 0 whatever x holds, so they pass no gradient back."""
 
     @staticmethod
-    def forward(ctx, x, w, rows, out_dtype):
+    def forward(ctx, x, w, rows, out_dtype, slots):
         ctx.save_for_backward(x, w, rows)
-        return _batched_launch(x, w, out_dtype, "kn", rows, "mk")
+        return _batched_launch(x, w, out_dtype, "kn", rows, "mk", slots)
 
     @staticmethod
     def backward(ctx, dy):
@@ -245,10 +272,10 @@ class _StreamMatmulBatched(torch.autograd.Function):
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:  # dY[e] @ W[e]^T: W[e] (K, N) read as the K-major weight
-            dx = _batched_launch(dy, w, x.dtype, "nk", rows, "mk", grad=True)
+            dx = _batched_launch(dy, w, x.dtype, "nk", rows, "mk", x.shape[0], grad=True)
         if ctx.needs_input_grad[1]:  # X[e]^T @ dY[e] over the filled slots
-            dw = _batched_launch(x, dy, w.dtype, "kn", rows, "km", grad=True)
-        return dx, dw, None, None
+            dw = _batched_launch(x, dy, w.dtype, "kn", rows, "km", x.shape[0], grad=True)
+        return dx, dw, None, None, None
 
 
 def _no_grad_on_cuda(what: str, tensors) -> None:
@@ -259,10 +286,14 @@ def _no_grad_on_cuda(what: str, tensors) -> None:
                            "call it under torch.no_grad() or on the CPU")
 
 
-def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout):
+def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout, experts_hit):
     """The expert-batched form: checks on both devices, the plain version on
     the CPU, on CUDA one launch, under autograd for the (E, C, K) @ (E, K,
-    N) form."""
+    N) form. ``experts_hit`` (default E) bounds the experts that hold a row,
+    a rule of shapes from the caller (the MoE layer's min(E, top_k x
+    tokens)): the gemv route's grid walks them in that many slots and its K
+    splits count their slabs. It never changes the result: more experts
+    with rows than slots are walked in turn."""
     tensors = (x, w) if rows is None else (x, w, rows)
     plain = takes_plain(*tensors)
     if not plain and not all(on_card(t) and t.device == x.device for t in tensors):
@@ -281,20 +312,23 @@ def _stream_matmul_batched(x, w, out_dtype, w_layout, rows, x_layout):
             raise TypeError(f"stream_matmul: rows {rows.dtype}, need int32")
         if tuple(rows.shape) != (e,) or not rows.is_contiguous():
             raise ValueError(f"stream_matmul: rows {tuple(rows.shape)}, need a contiguous ({e},)")
+    if experts_hit is not None and not (isinstance(experts_hit, int) and experts_hit >= 1):
+        raise ValueError(f"stream_matmul: experts_hit {experts_hit!r}, need an int >= 1")
+    slots = e if experts_hit is None else min(e, experts_hit)
     if plain:
         return stream_matmul_ref(x, w, out_dtype, w_layout, rows, x_layout)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         if (w_layout, x_layout) != ("kn", "mk"):
             raise RuntimeError("stream_matmul: gradients are taken of the (E, C, K) @ (E, K, N) form")
-        return _StreamMatmulBatched.apply(x, w, rows, out_dtype)
-    return _batched_launch(x, w, out_dtype, w_layout, rows, x_layout)
+        return _StreamMatmulBatched.apply(x, w, rows, out_dtype, slots)
+    return _batched_launch(x, w, out_dtype, w_layout, rows, x_layout, slots)
 
 
-def _batched_launch(x, w, out_dtype, w_layout, rows, x_layout, grad=False):
+def _batched_launch(x, w, out_dtype, w_layout, rows, x_layout, slots, grad=False):
     """One launch of the expert-batched form on checked operands, counted in
     ``batched_launches``, or in ``batched_grad_launches`` for a gradient."""
     m, k, n, _ = _mkn(x, w, w_layout, x_layout)
-    out = _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, x.shape[0], m, n, k)
+    out = _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, x.shape[0], slots, m, n, k)
     if grad:
         stream_matmul.batched_grad_launches += 1
     else:
@@ -302,26 +336,29 @@ def _batched_launch(x, w, out_dtype, w_layout, rows, x_layout, grad=False):
     return out
 
 
-def _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, e, m, n, k):
+def _route_and_launch(x, w, out_dtype, w_layout, rows, x_layout, e, slots, m, n, k):
     """The route of each expert's (m, k) @ (k, n), the gemv and narrow
-    routes' K splits, and one launch into a new output of x's rank: (m, n),
-    or (e, m, n)."""
+    routes' K splits (the gemv's over ``slots`` experts' slabs), and one
+    launch into a new output of x's rank: (m, n), or (e, m, n)."""
     route = mm_route(m, n, k, x.dtype, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, w_layout, x_layout)
     if route == "narrow":
         splits = narrow_splits(m, n, k, _build.sm_count(x.device), experts=e, w_layout=w_layout)
     elif route != "gemv":
         splits = 0
     else:  # a K-major row is one warp's dot product: no split-K
-        splits = 1 if w_layout == "nk" else k_splits(m, n, k, _build.sm_count(x.device), experts=e)
+        splits = 1 if w_layout == "nk" else k_splits(m, n, k, _build.sm_count(x.device), slots, x.element_size())
     out = torch.empty((e, m, n) if x.dim() == 3 else (m, n), dtype=out_dtype, device=x.device)
-    _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout)
+    _launch(x, w, out, rows, e, slots, m, n, k, route, splits, w_layout, x_layout)
     return out
 
 
-def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
-    """One call of the C entry point, with a split-K workspace where the gemv
-    or narrow route cuts K; raises on a CUDA error; counts the launch."""
-    work = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+def _launch(x, w, out, rows, e, slots, m, n, k, route, splits, w_layout, x_layout):
+    """One call of the C entry point, with a split-K workspace where the
+    narrow route cuts K (the gemv's splits meet in a cluster and need none);
+    raises on a CUDA error; counts the launch."""
+    work = None
+    if route == "narrow" and splits > 1:
+        work = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device)
     if x.is_meta:  # the dry-run's memory pass: the launch's allocations, no launch
         memory.mark(work, "workspace")
         return
@@ -330,7 +367,7 @@ def _launch(x, w, out, rows, e, m, n, k, route, splits, w_layout, x_layout):
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
         rows.data_ptr() if rows is not None else None,
-        e, m, n, k, ROUTE_CODES[route], splits, DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype],
+        e, m, n, k, ROUTE_CODES[route], splits, slots, DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype],
         W_LAYOUT_CODES[w_layout], X_LAYOUT_CODES[x_layout], torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, f"stream_matmul ({route}, {x_layout}, {w_layout}, {e} experts)")

@@ -517,9 +517,12 @@ def moe_apply(p, x, cfg: ModelConfig):
     buf.index_add_(0, slot, torch.where(keep[:, None], token_rep, 0))
     expert_in = buf.view(e, cap, d)
 
-    h = F.silu(stream_matmul(expert_in, p["w1"], out_dtype=x.dtype, rows=rows))
-    h = h * stream_matmul(expert_in, p["w3"], out_dtype=x.dtype, rows=rows)
-    expert_out = stream_matmul(h, w2, out_dtype=x.dtype, rows=rows)  # (E, cap, d)
+    # at most top_k x n of the experts hold a row: a decode step's few tokens
+    # hit few of arctic-480b's 128, and the kernel's grid spans only that many
+    hit = min(e, m.top_k * n)
+    h = F.silu(stream_matmul(expert_in, p["w1"], out_dtype=x.dtype, rows=rows, experts_hit=hit))
+    h = h * stream_matmul(expert_in, p["w3"], out_dtype=x.dtype, rows=rows, experts_hit=hit)
+    expert_out = stream_matmul(h, w2, out_dtype=x.dtype, rows=rows, experts_hit=hit)  # (E, cap, d)
 
     # Under grad, index_select's backward is an index_add_ (atomics on CUDA)
     # into the (E * cap, d) gradient: a kept slot receives its one row, and a

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(``stream_matmul``'s expert-batched form too; both attention kernels up to
-head dim 256), the MoE layer on the card against the CPU and without a host
+(``stream_matmul``'s gemv at the live set's shapes at every M from 1 to 8,
+its K split over a cluster, and its ragged and unaligned edges; its
+expert-batched form too, at a decode step under its bound on the experts
+hit; both attention kernels up to head dim 256), the MoE layer on the card against the CPU and without a host
 sync, mamba2 and minicpm-2b at full width on the card against the CPU, the
 hybrid's ring decode on the card against the CPU and without a host sync;
 and the training path's kernels: ``flash_attention``'s backward against the
@@ -148,6 +150,102 @@ def test_stream_matmul_kernel(cuda, m, k, n, dtype):
     assert mm_ops.stream_matmul.launches == before + 1
     _close(out, stream_matmul_ref(x, w, out_dtype=dt))
     assert torch.equal(out, mm_ops.stream_matmul(x, w, out_dtype=dt))  # no atomics
+
+
+# the live set's (K, N) weights at M <= 8 (qwen3-1.7b, llama3.2-3b,
+# mamba2-1.3b, the hybrid's 4096 x 4096), every one on the streaming gemv
+LIVE_KN = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048), (3072, 3072), (3072, 1024),
+           (3072, 8192), (8192, 3072), (2048, 8512), (4096, 2048), (4096, 4096)]
+_WEIGHTS = {}
+
+
+def _live_weight(k, n, dt, dev):
+    """One weight of the live set a (K, N, dtype), made on the card once for
+    every M and output type."""
+    key = (k, n, dt)
+    if key not in _WEIGHTS:
+        _WEIGHTS.clear()
+        gen = torch.Generator(dev).manual_seed(k * 7 + n)
+        _WEIGHTS[key] = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
+    return _WEIGHTS[key]
+
+
+def _gemv_call(x, w, odt):
+    """One stream_matmul call on the gemv route: one launch, the same bits on
+    a second call, within the tolerance of the plain version."""
+    fn = mm_ops.stream_matmul
+    assert mm_ops.mm_route(x.shape[0], w.shape[1], x.shape[1], x.dtype, True) == "gemv"
+    before = (fn.launches, fn.wgmma_launches, fn.narrow_launches)
+    out = fn(x, w, out_dtype=odt)
+    assert (fn.launches, fn.wgmma_launches, fn.narrow_launches) == (before[0] + 1, before[1], before[2])
+    assert out.shape == (x.shape[0], w.shape[1]) and out.dtype == odt
+    ref = stream_matmul_ref(x, w, out_dtype=odt)
+    _close(out, ref)
+    assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
+    assert torch.equal(out, fn(x, w, out_dtype=odt))  # splits summed in rank order, no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", LIVE_KN)
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("in_dtype", sorted(DTYPES))
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+def test_stream_matmul_gemv_at_the_live_shapes(cuda, k, n, m, in_dtype, out_dtype):
+    """The streaming gemv at every M from 1 to 8, bf16 and f32 in and out,
+    its K split over a cluster of 1-8 blocks by ``k_splits`` (1 only for
+    mamba2's in_proj and llama3.2's w1 / w3 in f32, whose slabs fill the
+    card)."""
+    dt = DTYPES[in_dtype]
+    w = _live_weight(k, n, dt, cuda)
+    x = torch.randn((m, k), generator=torch.Generator(cuda).manual_seed(m), device=cuda).to(dt)
+    splits = mm_ops.k_splits(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count,
+                             elem=w.element_size())
+    assert splits > 1 or (dt == torch.float32 and (k, n) in ((2048, 8512), (3072, 8192)))
+    _gemv_call(x, w, DTYPES[out_dtype])
+
+
+GEMV_EDGE_CASES = {
+    # (M, K, N): K that no split of 8 divides, K under 64 (one split), the
+    # live set's LM heads (no split), the old kernel's ragged N
+    "K 2047 over 8 splits": (4, 2047, 2048),
+    "K 1001 over 4-8 splits": (3, 1001, 4096),
+    "K 40": (8, 40, 1024),
+    "qwen3 head": (1, 2048, 151936),
+    "llama3.2 head at decode": (4, 3072, 128256),
+    "ragged N 999": (5, 1000, 999),
+    "ragged N 1001": (1, 2048, 1001),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GEMV_EDGE_CASES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stream_matmul_gemv_edges(cuda, case, dtype):
+    m, k, n = GEMV_EDGE_CASES[case]
+    dt = DTYPES[dtype]
+    x = _randn((m, k), dt, cuda, 2)
+    w = _randn((k, n), dt, cuda, 3, scale=k ** -0.5)
+    _gemv_call(x, w, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_stream_matmul_gemv_unaligned_weight(cuda, dtype, m):
+    """A contiguous w one element past a 16-byte boundary: the scalar gemv
+    kernel by the rule of shape, one launch, the same bits twice."""
+    dt = DTYPES[dtype]
+    k, n = 1024, 2048
+    x = _randn((m, k), dt, cuda, 4)
+    flat = _randn((k * n + 1,), dt, cuda, 5, scale=k ** -0.5)
+    w = flat[1:].view(k, n)
+    assert w.is_contiguous() and w.data_ptr() % 16
+    fn = mm_ops.stream_matmul
+    before = fn.launches
+    out = fn(x, w, out_dtype=dt)
+    assert fn.launches == before + 1
+    _close(out, stream_matmul_ref(x, w, out_dtype=dt))
+    assert torch.equal(out, fn(x, w, out_dtype=dt))
 
 
 WGMMA_MM_CASES = [
@@ -734,6 +832,49 @@ def test_stream_matmul_batched_kernel(cuda, e, c, k, n, dt, route, rows_case):
     rel = float((out.float() - ref.float()).norm() / ref.float().norm())
     assert rel <= 1e-2
     assert torch.equal(out, fn(x, w, out_dtype=dt, rows=rows))
+
+
+DECODE_HIT_CASES = {
+    # (E, C, K, N, rows of the experts that hold any): a decode step's
+    # capacity of 2; arctic-480b's 128 experts of which 4 tokens x top-2 hit
+    # 8, grok-1-314b's 8 all hit, and every expert empty
+    "128 experts, 8 hit": (128, 2, 1024, 1024, {3: 2, 17: 1, 40: 2, 41: 1, 77: 2, 90: 1, 100: 1, 127: 2}),
+    "8 experts, all hit": (8, 2, 2048, 1024, {e: 1 + e % 2 for e in range(8)}),
+    "every expert empty": (16, 2, 512, 768, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_HIT_CASES))
+@pytest.mark.parametrize("bound", ["exact", "larger", "one"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stream_matmul_batched_decode_experts_hit(cuda, case, bound, dtype):
+    """The expert-batched gemv with the bound on the experts hit: its grid
+    spans that many slots, each walking the experts that hold a row (more
+    than the bound in turn), the empty ones written as zeros by the same
+    launch; rows past a count come out 0 though x holds NaN there; the same
+    bits on a second call; one launch."""
+    e, c, k, n, filled = DECODE_HIT_CASES[case]
+    dt = DTYPES[dtype]
+    counts = [filled.get(i, 0) for i in range(e)]
+    rows = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    x = _randn((e, c, k), dt, cuda, 26)
+    w = _randn((e, k, n), dt, cuda, 27, scale=k ** -0.5)
+    for i, r in enumerate(counts):
+        x[i, r:] = float("nan")
+    hit = {"exact": max(1, len(filled)), "larger": 2 * max(1, len(filled)), "one": 1}[bound]
+    assert mm_ops.mm_route(c, n, k, dt, True) == "gemv"
+    fn = mm_ops.stream_matmul
+    before = (fn.launches, fn.batched_launches)
+    out = fn(x, w, out_dtype=dt, rows=rows, experts_hit=hit)
+    assert (fn.launches, fn.batched_launches) == (before[0] + 1, before[1] + 1)
+    live = torch.arange(c, device=cuda) < rows[:, None].long()
+    assert not out[~live].any() and torch.isfinite(out.float()).all()
+    if filled:
+        ref = stream_matmul_ref(x, w, out_dtype=dt, rows=rows)
+        _close(out, ref)
+        assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
+    assert torch.equal(out, fn(x, w, out_dtype=dt, rows=rows, experts_hit=hit))
 
 
 @pytest.mark.cuda

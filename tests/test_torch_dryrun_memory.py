@@ -8,8 +8,10 @@ on the CPU.
 * With the kernels' CUDA paths (``card=True``) a reduced dense model at the
   flash kernel's tensor-core shapes makes exactly the storages the card's
   wrappers allocate: each flash call's output and ``lse2``, each flash
-  backward's work buffer, the paged decode's split buffer; and the remat
-  residuals and f32 logits are the hand-computed sizes.
+  backward's work buffer, the paged decode's split buffer, and nothing for
+  the gemv products, whose K splits meet in a cluster (a MoE decode step's
+  router and expert products too); and the remat residuals and f32 logits
+  are the hand-computed sizes.
 * An MoE router in f32 under autograd (the narrow route) makes the split-K
   workspace of its product and of its dW, and none for its dX.
 * Under the pass a CPU tensor still takes the plain version, and the pass
@@ -36,7 +38,7 @@ from repro_torch.launch.mesh import parse_mesh  # noqa: E402
 from repro_torch.launch.specs import make_concrete_batch  # noqa: E402
 from repro_torch.launch.steps import make_train_state, make_train_step  # noqa: E402
 from repro_torch.models.common import SHAPES_ONLY  # noqa: E402
-from repro_torch.models.layers import kv_page_tokens  # noqa: E402
+from repro_torch.models.layers import kv_page_tokens, moe_capacity  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.roofline import memory  # noqa: E402
 
@@ -127,15 +129,39 @@ def test_paged_decode_counts_its_split_buffer():
                           cache, {"tokens": torch.zeros((b, 1), dtype=torch.int32, device="meta")}, card=True)
     splits = pa_splits(b, cfg.num_kv_heads, smax // kv_page_tokens(smax), 132)
     assert splits > 1
-    # and each gemv product's split-K partial sums (M = b rows), the layers'
-    # seven projections and the LM head
+    # and nothing for the gemv products (M = b rows), the layers' seven
+    # projections and the LM head, though their K is split: the splits meet
+    # in a thread-block cluster, with no workspace
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    want = {b * 4 * splits * (64 + 2) * 4: cfg.num_layers}
-    products = [(d, 4 * 64), (d, 2 * 64), (d, 2 * 64), (4 * 64, d), (d, f), (d, f), (f, d)] * cfg.num_layers
-    for k, n in products + [(d, v)]:
-        parts = k_splits(b, n, k, 132)
-        if parts > 1:
-            want[parts * b * n * 4] = want.get(parts * b * n * 4, 0) + 1
+    products = [(d, 4 * 64), (d, 2 * 64), (d, 2 * 64), (4 * 64, d), (d, f), (d, f), (f, d)]
+    assert all(mm_route(b, n, k, torch.bfloat16, True) == "gemv" for k, n in products + [(d, v)])
+    assert max(k_splits(b, n, k, 132) for k, n in products + [(d, v)]) > 1
+    assert got.made["workspace"] == {b * 4 * splits * (64 + 2) * 4: cfg.num_layers}
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_moe_decode_expert_gemv_makes_no_workspace(arch):
+    """A MoE decode step on meta with the card's paths: the f32 router at M =
+    b and the three expert products at the decode's capacity take the gemv
+    route (the experts' K splits counted over min(E, top_k x b) experts) and
+    allocate nothing beside their outputs; the step's only work buffer is
+    the paged decode's split buffer."""
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, **DENSE, moe=dataclasses.replace(cfg.moe, num_experts=16))
+    fns = build_model(cfg)
+    b, smax = 2, 4096
+    cache = fns.init_cache(b, smax, "meta")
+    cache["host_index"] = 100
+    _, got = memory.count(fns.decode_step, fns.init(SHAPES_ONLY),
+                          cache, {"tokens": torch.zeros((b, 1), dtype=torch.int32, device="meta")}, card=True)
+    m, d = cfg.moe, cfg.d_model
+    cap = moe_capacity(m, b)
+    assert cap <= 8 and mm_route(cap, m.d_ff, d, torch.bfloat16, True) == "gemv"
+    assert mm_route(b, m.num_experts, d, torch.float32, True) == "gemv"
+    assert k_splits(cap, d, m.d_ff, 132, experts=min(m.num_experts, m.top_k * b)) > 1
+    splits = pa_splits(b, cfg.num_kv_heads, smax // kv_page_tokens(smax), 132)
+    attn_layers = sum(kind == "attn" for kind in cfg.layer_kinds()) if cfg.family == "hybrid" else cfg.num_layers
+    want = {b * cfg.num_heads * splits * (64 + 2) * 4: attn_layers} if splits > 1 else {}
     assert got.made["workspace"] == want
 
 

@@ -130,20 +130,31 @@ def test_stream_matmul_off_cpu_never_falls_back():
 
 
 @pytest.mark.parametrize(
-    "m,k,n,splits",
+    "m,k,n,elem,splits",
     [
-        (9, 2048, 2048, 0),  # tiled path
-        (1, 2048, 151936, 1),  # qwen3 lm_head: 594 column blocks fill the card
-        (1, 2048, 2048, 32),  # qwen3 wq: 8 column blocks, K cut 32 ways
-        (1, 8192, 3072, 44),  # llama3.2 w2: 12 column blocks
-        (1, 40, 64, 1),  # too shallow to cut
+        (9, 2048, 2048, 2, 0),  # tiled path
+        (1, 2048, 151936, 2, 1),  # qwen3 lm_head: 1187 slabs of 128 columns fill the card
+        (1, 2048, 2048, 2, 8),  # qwen3 wq: 16 slabs, K cut into a cluster of 8
+        (1, 2048, 1024, 2, 8),  # qwen3 wk / wv: 8 slabs, 256 rows a split
+        (1, 8192, 3072, 2, 8),  # llama3.2 w2: 24 slabs
+        (1, 3072, 8192, 2, 2),  # llama3.2 w1 / w3: 64 slabs, 128 blocks
+        (4, 2048, 8512, 2, 2),  # mamba2 in_proj at decode: 67 slabs, 134 blocks
+        (4, 2048, 8512, 4, 1),  # its f32 check path: 133 slabs of 64 columns
+        (1, 3072, 128256, 2, 1),  # llama3.2 lm_head: 1002 slabs
+        (1, 4096, 4096, 2, 4),  # the hybrid's 4096 x 4096: 32 slabs, 128 blocks
+        (1, 40, 64, 2, 1),  # too shallow to cut
+        (1, 127, 64, 2, 1),  # two chunks of at least 64 rows need K >= 128
+        (1, 128, 64, 2, 2),
     ],
 )
-def test_k_splits(m, k, n, splits):
-    got = mm_ops.k_splits(m, k=k, n=n, sm_count=132)
+def test_k_splits(m, k, n, elem, splits):
+    got = mm_ops.k_splits(m, k=k, n=n, sm_count=132, elem=elem)
     assert got == splits
+    if m <= mm_ops.GEMV_MAX_M:  # a power of two, at most one cluster
+        assert got & (got - 1) == 0 and 1 <= got <= mm_ops.GEMV_MAX_SPLITS
     chunk = -(-k // max(got, 1))  # the kernel's K rows per split
     assert (got - 1) * chunk < k  # no split is empty
+    assert got <= 1 or chunk >= 64
 
 
 @pytest.mark.parametrize(

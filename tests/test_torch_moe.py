@@ -299,11 +299,56 @@ def test_stream_matmul_batched_raises(case):
         mm_ops.stream_matmul(*args, **kw)
 
 
-@pytest.mark.parametrize("experts,n,want", [(1, 2048, 66), (8, 6144, 3), (8, 32768, 1), (128, 4864, 1)])
-def test_k_splits_counts_every_expert(experts, n, want):
-    """The gemv split rule over all of a batched call's column slabs, at 132
-    SMs: grok's w2 (N = 6144) still splits K, its w1/w3 and arctic's do not."""
-    assert mm_ops.k_splits(2, n, 6144, 132, experts=experts) == want
+@pytest.mark.parametrize("experts,hit,k,n,want", [
+    (1, None, 6144, 2048, 8), (2, None, 6144, 1024, 8), (4, None, 6144, 1024, 4),
+    # experts' chunks of at most 4096 rows: grok's w1 / w3 (6144 x 32768) and
+    # w2 (32768 x 6144), arctic's w1 / w3 and w2, with or without a bound
+    (8, None, 6144, 32768, 2), (8, None, 32768, 6144, 8), (128, None, 7168, 4864, 2), (128, None, 4864, 7168, 2),
+    (8, 8, 6144, 32768, 2), (8, 8, 32768, 6144, 8), (128, 8, 7168, 4864, 2), (128, 8, 4864, 7168, 2),
+    # a decode step's bound, min(E, top_k x tokens) = min(E, 2 x 4): 128
+    # experts of 8 slabs fill the card unsplit, 8 of them do not
+    (128, None, 2048, 1024, 1), (128, 8, 2048, 1024, 2),
+])
+def test_k_splits_counts_every_expert(experts, hit, k, n, want):
+    """The gemv split rule over the column slabs of the experts a batched
+    call can hit (all E without a bound), at 132 SMs: K splits where those
+    slabs leave SMs without a block, and until an expert's chunk is at most
+    GEMV_EXPERT_ROWS deep."""
+    slots = experts if hit is None else min(experts, hit)
+    got = mm_ops.k_splits(2, n, k, 132, experts=slots)
+    assert got == want
+    assert experts == 1 or -(-k // got) <= mm_ops.GEMV_EXPERT_ROWS
+
+
+@pytest.mark.parametrize("n_tokens", [4, 64])
+def test_moe_apply_bounds_the_experts_hit(n_tokens, monkeypatch):
+    """moe_apply gives each expert product the bound min(E, top_k x tokens)
+    (8 of 16 experts at a decode step's 4 tokens, all 16 at 64), and the
+    plain expert-batched product does not depend on it."""
+    cfg = get_config("grok-1-314b").reduced()
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(cfg.moe, num_experts=16))
+    p = layers.init_moe(torch.Generator().manual_seed(5), cfg)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, n_tokens // 2, cfg.d_model),
+                                                                  np.float32))
+    seen = []
+    inner = layers.stream_matmul
+
+    def spy(x, w, **kw):
+        if x.dim() == 3:
+            seen.append(kw.get("experts_hit"))
+        return inner(x, w, **kw)
+
+    monkeypatch.setattr(layers, "stream_matmul", spy)
+    layers.moe_apply(p, x, cfg)
+    assert seen == [min(16, cfg.moe.top_k * n_tokens)] * 3
+    xe = torch.from_numpy(np.random.default_rng(7).standard_normal((16, 3, 24), np.float32))
+    we = torch.from_numpy(np.random.default_rng(8).standard_normal((16, 24, 40), np.float32))
+    rows = torch.tensor([i % 4 for i in range(16)], dtype=torch.int32)
+    want = mm_ops.stream_matmul(xe, we, out_dtype=torch.float32, rows=rows)
+    for hit in (1, 3, 16, 100):
+        assert torch.equal(mm_ops.stream_matmul(xe, we, out_dtype=torch.float32, rows=rows, experts_hit=hit), want)
+    with pytest.raises(ValueError):
+        mm_ops.stream_matmul(xe, we, rows=rows, experts_hit=0)
 
 
 # -- the bf16 model path, up to near-tied routings ------------------------------
